@@ -1,0 +1,52 @@
+"""Parameters from the JAX package (or a checkpoint) into the port.
+
+The two packages name and lay out their GPT parameters the same way
+(``serving/model.py:init_params``): ``gpt.wte`` is ``[V, D]``,
+``gpt.wpe`` is ``[T, D]``, every linear weight such as
+``gpt.h<i>.attn.q.w`` is ``[d_in, d_out]`` (applied as ``x @ w + b``),
+and layer norms carry ``.scale`` / ``.bias``. So a dict of numpy arrays
+moves over unchanged, and both packages compute the same function.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+__all__ = ["params_from_numpy", "torch_dtype"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name) -> torch.dtype:
+    """A dtype name of the JAX package's configs ('float32', ...) as a
+    torch dtype; a torch dtype passes through."""
+    if isinstance(name, torch.dtype):
+        return name
+    try:
+        return _DTYPES[str(name)]
+    except KeyError:
+        raise ValueError(f"unsupported dtype {name!r}") from None
+
+
+def params_from_numpy(params: Dict[str, np.ndarray], device,
+                      dtype: Optional[object] = None
+                      ) -> Dict[str, torch.Tensor]:
+    """``{name: np.ndarray}`` -> ``{name: torch.Tensor}`` on ``device``,
+    same names and layouts, cast to ``dtype`` when given (a torch dtype
+    or a name like 'float32'), else kept. Arrays of the ml_dtypes
+    bfloat16 type that JAX hands out become torch bfloat16 exactly."""
+    device = torch.device(device)
+    want = None if dtype is None else torch_dtype(dtype)
+    out: Dict[str, torch.Tensor] = {}
+    for name, arr in params.items():
+        a = np.asarray(arr)
+        bf16 = a.dtype.name == "bfloat16"
+        if bf16:  # numpy cannot hand torch this dtype: widen exactly
+            a = a.astype(np.float32)
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if bf16 and want is None:
+            t = t.to(torch.bfloat16)
+        out[name] = t.to(device=device, dtype=want).contiguous()
+    return out

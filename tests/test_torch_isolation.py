@@ -1,0 +1,89 @@
+"""The port stands alone: it imports neither jax nor paddle_tpu, and it
+never falls back to the CPU on its own."""
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+
+
+def _port_files():
+    out = [os.path.join(_REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(_REPO, "paddle_tpu_torch")):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", getattr(node.func, "attr", "")) in (
+                    "import_module", "__import__"):
+            for arg in node.args[:1]:
+                if isinstance(arg, ast.Constant):
+                    yield str(arg.value)
+
+
+def test_no_jax_or_paddle_tpu_import_anywhere_in_the_port():
+    files = _port_files()
+    assert len(files) > 10 and os.path.exists(files[0])
+    bad = [(os.path.relpath(f, _REPO), name) for f in files
+           for name in _imported_roots(f)
+           if name.split(".")[0] in _FORBIDDEN]
+    assert bad == []
+
+
+def test_port_serves_where_jax_cannot_be_imported():
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "paddle_tpu"):
+            sys.modules[name] = None  # any import of them now fails
+        import numpy as np
+        import paddle_tpu_torch
+        from paddle_tpu_torch import serving
+        cfg = serving.GPTConfig(vocab_size=64, n_layer=1, n_head=2,
+                                d_model=16, max_seq_len=32)
+        m = serving.DecodeModel(cfg, max_batch=2, n_blocks=8, block_size=4,
+                                prefill_buckets=[8, 16], device="cpu")
+        eng = serving.ServingEngine(m)
+        h = eng.submit([3, 1, 4, 1, 5], max_new_tokens=3)
+        eng.run_until_idle()
+        nll, total = m.score([3, 1, 4, 1, 5])
+        assert len(h.result(timeout=5)) == 3 and np.isfinite(total)
+        assert not any(k.split(".")[0] in ("jax", "paddle_tpu")
+                       for k, v in sys.modules.items() if v is not None)
+        print("ISOLATED_OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "ISOLATED_OK" in out.stdout
+
+
+def test_no_device_and_no_card_raises(monkeypatch):
+    """With no device named and no CUDA card the model refuses to start
+    instead of quietly running on the CPU."""
+    from paddle_tpu_torch import errors, serving
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = serving.GPTConfig(vocab_size=32, n_layer=1, n_head=2, d_model=8,
+                            max_seq_len=16)
+    with pytest.raises(errors.Unavailable, match="device='cpu'"):
+        serving.DecodeModel(cfg, max_batch=1, n_blocks=4, block_size=4,
+                            prefill_buckets=[8])
+    with pytest.raises(errors.Unavailable):
+        serving.DecodeModel(cfg, max_batch=1, n_blocks=4, block_size=4,
+                            prefill_buckets=[8], device="cuda")
