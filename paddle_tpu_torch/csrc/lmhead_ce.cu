@@ -1,27 +1,37 @@
-// Fused lm-head + softmax cross-entropy, forward, for Hopper (sm_90a).
+// Fused lm-head + softmax cross-entropy, forward and backward, for Hopper
+// (sm_90a).
 //
-// Replaces the TPU kernel paddle_tpu/ops/pallas/fused_lmhead_ce.py:
-// _stats_kernel (run through pl.pallas_call by _stats_call). For each token
-// row n it computes, without writing the [N, V] logits to device memory,
-//     lse[n] = logsumexp_v (x[n] . w[v])
-//     nll[n] = lse[n] - (x[n] . w[label[n]])      (0 picked if the label
-//                                                  lies outside [0, V))
-// with fp32 inputs multiplied in full fp32 (no TF32) and bf16 inputs
+// Replaces the three TPU kernels of paddle_tpu/ops/pallas/fused_lmhead_ce.py
+// (each run through pl.pallas_call):
+//   _stats_kernel (forward, by _stats_call): for each token row n, without
+//     writing the [N, V] logits to device memory,
+//         lse[n] = logsumexp_v (x[n] . w[v])
+//         nll[n] = lse[n] - (x[n] . w[label[n]])   (0 picked if the label
+//                                                 lies outside [0, V))
+//   _dx_kernel (backward, by _dx_call) and _dw_kernel (by _dw_call), from
+//     the saved lse and a per-row cotangent g, again without an [N, V]
+//     buffer of logits or of d-logits:
+//         dl[n, v] = (exp(x[n] . w[v] - lse[n]) - [v == label[n]]) * g[n],
+//                    rounded to W's dtype (fused_lmhead_ce.py:211, :244)
+//         dx = dl . W   (N x D)        dW = dl^T . x   (V x D)
+//     with fp32 accumulators cast once at the end.
+// fp32 inputs are multiplied in full fp32 (no TF32) and bf16 inputs are
 // widened to fp32; every sum accumulates in fp32.
 //
-// Bound on this card (H100 SXM): operations. The products take 2*N*V*D
-// FLOPs; at the serving score shape N=511, D=768, V=32000 that is about
-// 25.1 GFLOP: about 0.375 ms at the 67 TFLOP/s of fp32 outside the tensor
-// cores, or about 25 us at the 989 TFLOP/s of bf16 tensor cores, against
-// about 15 us to read a bf16 W once at 3.35 TB/s. The logits never reach
-// device memory, so only x, W and 3 fp32 row stats per (row, vocab chunk)
-// move.
+// Bound on this card (H100 SXM): operations. The forward takes 2*N*V*D
+// FLOPs, each backward product 4*N*V*D (the score tile is rebuilt, then
+// multiplied again). At the training shape N=4096, D=768, V=32768 in bf16
+// that is 206.2 GFLOP (forward) and 412.3 GFLOP (dx, and again dW): 0.208
+// and 0.417 ms at the 989 TFLOP/s of bf16 tensor cores, against 0.02 ms to
+// read x and W once at 3.35 TB/s. These kernels run on the fp32 FMA units
+// (67 TFLOP/s), so they sit far above that bound; the tensor-core
+// versions (wgmma fed by TMA) are the work of making them fast.
 //
-// Design. The TPU grid walks the vocab tiles of one token block in order
-// on one core and carries (max, sum-exp, picked) in VMEM from tile to tile.
-// Blocks on Hopper run in parallel and in no order, and at serving's N=31
-// a grid over token blocks alone would fill one of the 132 SMs. So the
-// work is split two ways, in two launches:
+// Design, forward. The TPU grid walks the vocab tiles of one token block
+// in order on one core and carries (max, sum-exp, picked) in VMEM from
+// tile to tile. Blocks on Hopper run in parallel and in no order, and at
+// serving's N=31 a grid over token blocks alone would fill one of the 132
+// SMs. So the work is split two ways, in two launches:
 //   1. lmhead_ce_partial: grid (token blocks x vocab chunks), sized by the
 //      wrapper to about 4 blocks per SM. A block stages a 64-row x tile and
 //      a 64-column W tile in shared memory BK=32 deep at a time (widened to
@@ -36,9 +46,26 @@
 //      as the cross-shard combine of fused_lmhead_ce.py:344-348 does:
 //      mg = max m, l = sum l*exp(m - mg), picked = sum picked; then
 //      lse = mg + log(l > 0 ? l : 1) and nll = lse - picked.
-// Ragged N, V and D edges are masked inside the kernel; nothing is padded.
-// What this simple kernel leaves out (wgmma, TMA, bf16 tensor-core MMA,
-// a pipelined shared-memory ring) is the work of making it fast.
+//
+// Design, backward. dx and dW are one kernel (bwd_partial_kernel) with
+// the roles of x and W swapped: a block owns 64 "rows" (tokens for dx,
+// vocab entries for dW) and sweeps 64-wide tiles of "columns" (the
+// other side). For each column tile it rebuilds the 64x64 score tile as
+// the forward does, turns it into d-logits in registers (lse, g and the
+// label belong to the token side), parks them in shared memory, and adds
+// d-logits . (the column tile's D-wide rows) into a 64 x D fp32
+// accumulator that lives in shared memory (196,608 bytes at D=768; with
+// the staging tiles 231,424 of the 232,448 bytes a block may use; a wider
+// D is swept in slabs of 768, rebuilding the scores once per slab).
+// Parallelism: dW has V/64 = 512 row blocks, enough for the card. dx has
+// only N/64 = 64 at N=4096 against 132 SMs, so its column (vocab) sweep is
+// split into chunks, the TPU's sequential grid axis turned parallel: each
+// (row block, chunk) writes an fp32 partial [chunks, N, D] and a second
+// launch (lmhead_ce_bwd_reduce) sums the chunks and casts once. With one
+// chunk a block writes its output directly.
+// Ragged N, V and D edges are masked inside the kernels; nothing is padded.
+// What these simple kernels leave out (wgmma, TMA, bf16 tensor-core MMA,
+// a pipelined shared-memory ring) is the work of making them fast.
 //
 // Plain C interface, loaded with ctypes: each entry point launches one
 // kernel on the given stream and returns cudaGetLastError().
@@ -208,6 +235,216 @@ __global__ void combine_kernel(const float* __restrict__ m_part,
   nll[r] = out - picked;
 }
 
+
+// ---------------------------------------------------------------- backward
+
+constexpr int BC = 64;           // column tile of the backward
+constexpr int DSLAB_MAX = 768;   // widest D slab the accumulator holds
+constexpr int ROW = BN + PAD;    // row stride of the staging tiles
+
+__device__ __forceinline__ float round_to(float v, float) { return v; }
+__device__ __forceinline__ float round_to(float v, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// Stage rows [c0, c0 + 64) x columns [d1, d1 + 64) of a row-major
+// [rows, d] matrix into dst[k][c] (not transposed), zero outside
+// [0, rows) x [0, dend). Neighbouring threads read neighbouring columns.
+template <typename T>
+__device__ __forceinline__ void stage_rows(float (*dst)[ROW],
+                                           const T* __restrict__ src, int c0,
+                                           int rows, int d1, int dend, int d,
+                                           int tid) {
+#pragma unroll 4
+  for (int e = tid; e < BC * 64; e += THREADS) {
+    const int k = e >> 6, c = e & 63;
+    const int gr = c0 + k, gd = d1 + c;
+    dst[k][c] = (gr < rows && gd < dend) ? widen(src[(size_t)gr * d + gd])
+                                         : 0.f;
+  }
+}
+
+// out[r, :] = sum over columns c of dl[r, c] * b[c, :], for the 64 rows of
+// this block and the columns of its chunk. TOKEN_ROWS: rows are tokens
+// (dx: a = x, b = W); else rows are vocab entries (dW: a = W, b = x).
+// Shared memory (dynamic): acc [BN][dslab] fp32, then two [BK][ROW]
+// staging tiles (aliased by a [BC][ROW] tile of b's rows), then the
+// d-logits tile dlt [BC][ROW], stored column-major for float4 row reads.
+template <typename T, bool TOKEN_ROWS>
+__global__ void __launch_bounds__(THREADS)
+bwd_partial_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                   const long long* __restrict__ labels,
+                   const float* __restrict__ g, const float* __restrict__ lse,
+                   float* __restrict__ part, T* __restrict__ out, int n_rows,
+                   int n_cols, int d, int tiles_per_chunk, int dslab) {
+  extern __shared__ __align__(16) float smem[];
+  float* acc = smem;
+  float(*as)[ROW] = reinterpret_cast<float(*)[ROW]>(smem + BN * dslab);
+  float(*bs)[ROW] = as + BK;
+  float(*brows)[ROW] = as;  // [BC][ROW] over as and bs
+  float(*dlt)[ROW] = as + 2 * BK;
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;  // tile columns 4*tx .. 4*tx + 3
+  const int ty = tid / 16;  // tile rows 4*ty .. 4*ty + 3
+  const int row0 = blockIdx.x * BN;
+  const int chunk = blockIdx.y;
+  const int col_begin = chunk * tiles_per_chunk * BC;
+  const int col_end = min(n_cols, col_begin + tiles_per_chunk * BC);
+
+  float row_lse[TM], row_g[TM];
+  long long row_lbl[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = row0 + 4 * ty + i;
+    const bool ok = TOKEN_ROWS && r < n_rows;
+    row_lse[i] = ok ? lse[r] : 0.f;
+    row_g[i] = ok ? g[r] : 0.f;
+    row_lbl[i] = ok ? labels[r] : -1;
+  }
+
+  for (int d0 = 0; d0 < d; d0 += dslab) {
+    const int dend = min(d, d0 + dslab);
+    for (int e = tid; e < BN * dslab; e += THREADS) acc[e] = 0.f;
+
+    for (int c0 = col_begin; c0 < col_end; c0 += BC) {
+      // 1. the 64x64 score tile, as in the forward
+      float s[TM][TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
+      for (int k0 = 0; k0 < d; k0 += BK) {
+        stage(as, a, row0, n_rows, k0, d, tid);
+        stage(bs, b, c0, col_end, k0, d, tid);
+        __syncthreads();
+#pragma unroll
+        for (int k = 0; k < BK; ++k) {
+          const float4 av = *reinterpret_cast<const float4*>(&as[k][4 * ty]);
+          const float4 bv = *reinterpret_cast<const float4*>(&bs[k][4 * tx]);
+          const float ar[TM] = {av.x, av.y, av.z, av.w};
+          const float br[TN] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+#pragma unroll
+            for (int j = 0; j < TN; ++j) s[i][j] = fmaf(ar[i], br[j], s[i][j]);
+        }
+        __syncthreads();
+      }
+
+      // 2. d-logits, rounded to the inputs' dtype, into dlt[column][row]
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int c = c0 + 4 * tx + j;
+        float col_lse = 0.f, col_g = 0.f;
+        long long col_lbl = -1;
+        if (!TOKEN_ROWS && c < col_end) {
+          col_lse = lse[c];
+          col_g = g[c];
+          col_lbl = labels[c];
+        }
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const int r = row0 + 4 * ty + i;
+          float dl = 0.f;
+          if (r < n_rows && c < col_end) {
+            const float l = TOKEN_ROWS ? row_lse[i] : col_lse;
+            const float gg = TOKEN_ROWS ? row_g[i] : col_g;
+            const bool hit = TOKEN_ROWS ? ((long long)c == row_lbl[i])
+                                        : ((long long)r == col_lbl);
+            dl = round_to((expf(s[i][j] - l) - (hit ? 1.f : 0.f)) * gg, T());
+          }
+          dlt[4 * tx + j][4 * ty + i] = dl;
+        }
+      }
+
+      // 3. acc[rows, slab] += dl (64 x 64) . b[columns, slab] (64 x slab)
+      for (int d1 = d0; d1 < dend; d1 += 64) {
+        stage_rows(brows, b, c0, col_end, d1, dend, d, tid);
+        __syncthreads();
+        float o[TM][TN];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) o[i][j] = 0.f;
+#pragma unroll 8
+        for (int k = 0; k < BC; ++k) {
+          const float4 lv = *reinterpret_cast<const float4*>(&dlt[k][4 * ty]);
+          const float4 bv =
+              *reinterpret_cast<const float4*>(&brows[k][4 * tx]);
+          const float lr[TM] = {lv.x, lv.y, lv.z, lv.w};
+          const float br[TN] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+#pragma unroll
+            for (int j = 0; j < TN; ++j) o[i][j] = fmaf(lr[i], br[j], o[i][j]);
+        }
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          float4* p = reinterpret_cast<float4*>(
+              &acc[(4 * ty + i) * dslab + (d1 - d0) + 4 * tx]);
+          float4 cur = *p;
+          cur.x += o[i][0];
+          cur.y += o[i][1];
+          cur.z += o[i][2];
+          cur.w += o[i][3];
+          *p = cur;
+        }
+        __syncthreads();
+      }
+    }
+
+    // 4. the slab's rows: an fp32 partial per chunk, or the output itself
+    for (int e = tid; e < BN * dslab; e += THREADS) {
+      const int r = row0 + e / dslab, gd = d0 + e % dslab;
+      if (r < n_rows && gd < dend) {
+        const size_t at = (size_t)r * d + gd;
+        if (part != nullptr)
+          part[(size_t)chunk * n_rows * d + at] = acc[e];
+        else
+          store(&out[at], acc[e]);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T>
+__global__ void bwd_reduce_kernel(const float* __restrict__ part,
+                                  T* __restrict__ out, long long total,
+                                  int n_chunks) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    float sum = 0.f;
+    for (int c = 0; c < n_chunks; ++c) sum += part[(size_t)c * total + i];
+    store(&out[i], sum);
+  }
+}
+
+template <typename T, bool TOKEN_ROWS>
+int launch_bwd(const void* a, const void* b, const void* labels,
+               const void* g, const void* lse, void* part, void* out,
+               int n_rows, int n_cols, int d, int tiles_per_chunk,
+               int n_chunks, int dslab, cudaStream_t s) {
+  const size_t smem =
+      (size_t)BN * dslab * sizeof(float) + (size_t)(2 * BK + BC) * ROW * 4;
+  auto kernel = bwd_partial_kernel<T, TOKEN_ROWS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n_rows + BN - 1) / BN, n_chunks);
+  kernel<<<grid, THREADS, smem, s>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b),
+      static_cast<const long long*>(labels), static_cast<const float*>(g),
+      static_cast<const float*>(lse), static_cast<float*>(part),
+      static_cast<T*>(out), n_rows, n_cols, d, tiles_per_chunk, dslab);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -254,5 +491,62 @@ int lmhead_ce_combine(const void* m_part, const void* l_part,
 // Geometry the wrapper sizes the grid and the partials with.
 int lmhead_ce_tile_n() { return BN; }
 int lmhead_ce_tile_v() { return BV; }
+
+
+// Backward partials: token_rows = 1 computes dx (a = x [n_rows = N, d],
+// b = W [n_cols = V, d]); token_rows = 0 computes dW (a = W, b = x).
+// labels, g and lse belong to the tokens. Column chunk s covers column
+// tiles [s * tiles_per_chunk, (s + 1) * tiles_per_chunk) of 64. With
+// part != NULL each chunk writes part[s] ([n_chunks, n_rows, d] fp32);
+// with part == NULL (one chunk) the block writes out ([n_rows, d], the
+// inputs' dtype). dslab: a multiple of 64, at most lmhead_ce_bwd_max_slab().
+int lmhead_ce_bwd_partial(const void* a, const void* b, const void* labels,
+                          const void* g, const void* lse, void* part,
+                          void* out, int n_rows, int n_cols, int d,
+                          int tiles_per_chunk, int n_chunks, int dslab,
+                          int token_rows, int is_bf16, void* stream) {
+  if (dslab <= 0 || dslab % 64 || dslab > DSLAB_MAX) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    return token_rows
+               ? launch_bwd<__nv_bfloat16, true>(a, b, labels, g, lse, part,
+                                                 out, n_rows, n_cols, d,
+                                                 tiles_per_chunk, n_chunks,
+                                                 dslab, s)
+               : launch_bwd<__nv_bfloat16, false>(a, b, labels, g, lse, part,
+                                                  out, n_rows, n_cols, d,
+                                                  tiles_per_chunk, n_chunks,
+                                                  dslab, s);
+  }
+  return token_rows
+             ? launch_bwd<float, true>(a, b, labels, g, lse, part, out,
+                                       n_rows, n_cols, d, tiles_per_chunk,
+                                       n_chunks, dslab, s)
+             : launch_bwd<float, false>(a, b, labels, g, lse, part, out,
+                                        n_rows, n_cols, d, tiles_per_chunk,
+                                        n_chunks, dslab, s);
+}
+
+// out = sum over the n_chunks partials ([n_chunks, total] fp32), cast once.
+int lmhead_ce_bwd_reduce(const void* part, void* out, long long total,
+                         int n_chunks, int is_bf16, void* stream) {
+  constexpr int kThreads = 256;
+  const long long want = (total + kThreads - 1) / kThreads;
+  const int blocks = (int)(want < 4096 ? want : 4096);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (blocks == 0) return 0;
+  if (is_bf16) {
+    bwd_reduce_kernel<<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(part), static_cast<__nv_bfloat16*>(out),
+        total, n_chunks);
+  } else {
+    bwd_reduce_kernel<<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(part), static_cast<float*>(out), total,
+        n_chunks);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int lmhead_ce_bwd_max_slab() { return DSLAB_MAX; }
 
 }  // extern "C"

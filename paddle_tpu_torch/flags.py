@@ -166,3 +166,21 @@ define_env_flag(
     "seed of the chaos injector's deterministic per-site decision "
     "stream: the same spec + seed reproduces the same faults at the "
     "same checks")
+
+# -- static-graph training ---------------------------------------------------
+define_env_flag(
+    "PADDLE_TPU_OP_CALLSTACK", True,
+    "record the Python build-site callstack on every Operator (op "
+    "provenance on errors); 0 skips the capture")
+define_env_flag(
+    "PADDLE_TPU_FUSED_LMHEAD", "auto",
+    "GPT training loss path (models/gpt.py): 'auto' (default) and "
+    "'pallas' lower the tied lm-head + cross-entropy as the fused kernels "
+    "that never write the [tokens, vocab] logits (on the card: "
+    "csrc/lmhead_ce.cu); 'off' the materialized-logits "
+    "softmax_with_cross_entropy path; 'on'/'chunked' (the JAX package's "
+    "lax-loop path) is not ported and raises at run time")
+define_env_flag(
+    "PADDLE_TPU_CHECK_NUMERICS", False,
+    "numerics sentinel of the JAX executor; not ported: a run with it "
+    "set raises errors.Unimplemented")

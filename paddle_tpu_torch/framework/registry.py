@@ -1,0 +1,331 @@
+"""Op registry and lowering rules.
+
+Port of ``paddle_tpu/framework/registry.py``. An op registers one
+*lowering rule*: a function ``fn(ctx, ins, attrs) -> {slot: tensor}``
+on torch tensors. The executor runs the rules of a block in program
+order, eagerly.
+
+Two subsystems of the JAX package change shape here:
+
+* **Shape inference.** ``jax.eval_shape`` over the rule becomes a run of
+  the rule on ``device="meta"`` tensors (shapes and dtypes, no data). An
+  op whose rule launches a kernel (``fused_lm_head_ce``) registers an
+  ``infer=`` rule instead, so a kernel wrapper never sees a meta tensor.
+* **Generic ``<op>_grad``.** The contract is the JAX package's: the grad
+  op's inputs are the forward inputs, the forward outputs under
+  ``__out__<slot>`` and the ``<slot>@GRAD`` cotangents; its outputs are
+  ``<slot>@GRAD`` of the differentiable forward inputs. The JAX rule is
+  ``jax.vjp`` of the forward rule, which recomputes the forward inside
+  the fused program. The port does not recompute: the executor runs
+  every forward op that a later grad op needs on the autograd tape (its
+  differentiable inputs as fresh leaves that require grad, see
+  :meth:`LoweringContext.record`), keeps that record for the step, and
+  the generic ``<op>_grad`` rule takes it back and calls
+  ``torch.autograd.grad`` on it. The executor pairs each grad op with its
+  forward op through the ``__out__<slot>`` wiring that
+  ``backward.py`` emits. A kernel with its own backward enters the tape
+  as a ``torch.autograd.Function`` (``ops/lmhead_ce.py``), written with a
+  ``setup_context`` staticmethod so that ``torch.func`` can also
+  transform it.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import torch
+
+from . import errors as _errs
+
+# stands in for a dynamic (-1) dim during builder-time inference; an
+# inferred dim >= _DYN maps back to -1
+_DYN = 1 << 22
+
+GRAD_SUFFIX = "@GRAD"
+OUT_PREFIX = "__out__"
+
+
+class _Record:
+    """One forward op's autograd record for the step: its leaf inputs
+    per slot (``None`` where a slot is not differentiated) and its
+    graph-attached outputs per slot."""
+
+    __slots__ = ("leaves", "outs")
+
+    def __init__(self, leaves, outs):
+        self.leaves = leaves
+        self.outs = outs
+
+
+class LoweringContext:
+    """Per-run state handed to lowering rules: the device, the step's
+    seed and step number (random ops draw from a ``torch.Generator``
+    seeded from them and the op's ``_rng_id``), and the step's autograd
+    plan and records: ``tape`` maps a forward op's index to the input
+    slots to differentiate, ``grad_of`` a generic grad op's index to its
+    forward op's (both built by the executor)."""
+
+    def __init__(self, device: Any = "cpu", seed: int = 0, step: int = 0,
+                 tape: Optional[Dict[int, Sequence[str]]] = None,
+                 grad_of: Optional[Dict[int, int]] = None):
+        self.device = torch.device(device)
+        self.seed = int(seed)
+        self.step = int(step)
+        self.tape = tape or {}
+        self.grad_of = grad_of or {}
+        self._records: Dict[int, _Record] = {}
+        self._pending: Optional[_Record] = None
+
+    def generator(self, rng_id: int) -> Optional[torch.Generator]:
+        """A generator seeded from (program seed, step, op rng id): the
+        same op draws the same numbers at the same step of a seeded
+        program. None on the meta device (shape inference draws
+        nothing)."""
+        if self.device.type == "meta":
+            return None
+        g = torch.Generator(device=self.device)
+        mixed = (self.seed * 1_000_003 + self.step) * 1_000_033 + int(rng_id)
+        g.manual_seed(mixed & 0x7FFF_FFFF_FFFF_FFFF)
+        return g
+
+    # -- autograd records (the generic grad's tape) ---------------------
+    def record(self, fwd_idx: int, opdef: "OpDef", ins, attrs,
+               diff_slots: Sequence[str]):
+        """Run a forward rule on the tape: each differentiable input of
+        ``diff_slots`` enters as a detached leaf that requires grad, the
+        rule runs with grad enabled, and the record is kept under
+        ``fwd_idx`` until its grad op takes it. Returns the outputs,
+        detached, for the rest of the program."""
+        leaves: Dict[str, List[Optional[torch.Tensor]]] = {}
+        run_ins = dict(ins)
+        for slot in diff_slots:
+            vals = ins.get(slot)
+            if not vals:
+                continue
+            lv = [v.detach().requires_grad_(True)
+                  if v.dtype.is_floating_point else None for v in vals]
+            leaves[slot] = lv
+            run_ins[slot] = [l if l is not None else v
+                             for l, v in zip(lv, vals)]
+        with torch.enable_grad():
+            outs = run_lowering(opdef, self, run_ins, attrs)
+        self._records[fwd_idx] = _Record(leaves, outs)
+        return {k: [o.detach() if isinstance(o, torch.Tensor) else o
+                    for o in vs] for k, vs in outs.items()}
+
+    def use_record(self, grad_idx: int) -> None:
+        """Hand the generic grad op ``grad_idx`` its forward op's record
+        (taken out of the step's records: each is differentiated once)."""
+        self._pending = self._records.pop(self.grad_of.get(grad_idx), None)
+
+
+InsDict = Dict[str, List[Any]]
+LowerFn = Callable[[LoweringContext, InsDict, Dict[str, Any]], Dict[str, Any]]
+
+
+@dataclass
+class OpDef:
+    type: str
+    lower: LowerFn
+    # custom builder-time inference: fn(op) -> None, sets output var shapes
+    infer: Optional[Callable] = None
+    # input slots that never receive gradient (e.g. integer indices)
+    no_grad_inputs: frozenset = field(default_factory=frozenset)
+    # ops with no gradient at all (optimizers, initializers)
+    stop_gradient: bool = False
+    # does the rule draw random numbers? (needs a stable _rng_id attr)
+    uses_rng: bool = False
+    # skip inference entirely
+    skip_infer: bool = False
+    # the generic <op>_grad: its rule consumes the forward's record
+    is_generic_grad: bool = False
+
+
+_REGISTRY: Dict[str, OpDef] = {}
+
+
+def register_op(type: str, *, infer: Optional[Callable] = None,
+                no_grad_inputs: Sequence[str] = (),
+                stop_gradient: bool = False, uses_rng: bool = False,
+                skip_infer: bool = False):
+    """Decorator: register ``fn(ctx, ins, attrs) -> {slot: tensor|list}``
+    as the lowering rule of op ``type``."""
+
+    def deco(fn: LowerFn):
+        _REGISTRY[type] = OpDef(
+            type=type, lower=fn, infer=infer,
+            no_grad_inputs=frozenset(no_grad_inputs),
+            stop_gradient=stop_gradient, uses_rng=uses_rng,
+            skip_infer=skip_infer)
+        return fn
+
+    return deco
+
+
+def get_op_def(type: str) -> OpDef:
+    _ensure_ops_loaded()
+    if type in _REGISTRY:
+        return _REGISTRY[type]
+    if type.endswith("_grad"):
+        fwd = _REGISTRY.get(type[: -len("_grad")])
+        if fwd is not None:
+            gdef = _make_generic_grad_def(fwd)
+            _REGISTRY[type] = gdef
+            return gdef
+    raise _errs.errors.Unimplemented(
+        f"no lowering registered for op {type!r} in paddle_tpu_torch (the "
+        f"port registers the ops of the GPT training program; the rest "
+        f"wait in ROADMAP queue A)")
+
+
+_ops_loaded = False
+
+
+def _ensure_ops_loaded():
+    global _ops_loaded
+    if not _ops_loaded:
+        _ops_loaded = True
+        from .. import ops as _ops  # noqa: F401  (registers everything)
+
+
+def normalize_outs(out) -> Dict[str, List[Any]]:
+    """A rule may return {slot: tensor} or {slot: [tensors]}."""
+    norm = {}
+    for k, v in out.items():
+        if v is None:
+            norm[k] = []
+        elif isinstance(v, (list, tuple)):
+            norm[k] = list(v)
+        else:
+            norm[k] = [v]
+    return norm
+
+
+def run_lowering(opdef: OpDef, ctx: LoweringContext, ins: InsDict,
+                 attrs) -> Dict[str, List[Any]]:
+    return normalize_outs(opdef.lower(ctx, ins, attrs))
+
+
+# ---------------------------------------------------------------------------
+# builder-time shape/dtype inference
+# ---------------------------------------------------------------------------
+
+
+def _meta(var) -> torch.Tensor:
+    shape = tuple(_DYN if d == -1 else int(d) for d in var.shape)
+    return torch.empty(shape, dtype=var.dtype, device="meta")
+
+
+def _apply_meta(var, t: torch.Tensor) -> None:
+    var.shape = tuple(-1 if d >= _DYN else int(d) for d in t.shape)
+    var.dtype = t.dtype
+
+
+def assign_rng_id(op) -> None:
+    """Give random ops a stable per-program id (set once at op creation,
+    as in the JAX package, so that the op attrs of both packages agree)."""
+    try:
+        opdef = get_op_def(op.type)
+    except NotImplementedError:
+        return
+    if opdef.uses_rng and not op.has_attr("_rng_id"):
+        prog = op.block.program
+        op._set_attr("_rng_id", prog._rng_op_count)
+        prog._rng_op_count += 1
+
+
+def infer_op(op) -> None:
+    """Infer output shapes/dtypes of a freshly built Operator by running
+    its rule on meta tensors."""
+    if op.type in ("feed", "fetch"):
+        return
+    try:
+        opdef = get_op_def(op.type)
+    except NotImplementedError as e:
+        raise _errs.attach_op_provenance(e, op)
+    if opdef.skip_infer:
+        return
+    if opdef.infer is not None:
+        opdef.infer(op)
+        return
+    ins = {slot: [_meta(v) for v in vs]
+           for slot, vs in op._input_vars.items() if vs}
+    attrs = op.all_attrs()
+    try:
+        with torch.no_grad():
+            outs = run_lowering(opdef, LoweringContext(device="meta"), ins,
+                                attrs)
+    except NotImplementedError as e:
+        raise _errs.attach_op_provenance(e, op)
+    except Exception as e:
+        shown = {k: v for k, v in attrs.items() if k != "op_callstack"}
+        shapes = {k: [tuple(v.shape) for v in vs]
+                  for k, vs in op._input_vars.items()}
+        err = _errs.errors.InvalidArgument(
+            f"shape inference failed for op {op.type!r} (inputs={shapes}, "
+            f"attrs={shown}): {e}")
+        err.__cause__ = e
+        raise _errs.attach_op_provenance(err, op)
+    for slot, out_vars in op._output_vars.items():
+        for var, t in zip(out_vars, outs.get(slot, [])):
+            _apply_meta(var, t)
+
+
+# ---------------------------------------------------------------------------
+# generic gradient
+# ---------------------------------------------------------------------------
+
+
+def grad_var_name(name: str) -> str:
+    return name + GRAD_SUFFIX
+
+
+def _make_generic_grad_def(fwd: OpDef) -> OpDef:
+    """``<op>_grad`` whose rule is the VJP of the forward op's taped run
+    (see the module docstring). Cotangents missing for an output are
+    zeros; an input the outputs do not depend on gets a zero gradient."""
+
+    def glower(ctx: LoweringContext, ins: InsDict, attrs) -> Dict[str, Any]:
+        rec = ctx._pending
+        ctx._pending = None
+        if rec is None:
+            raise _errs.errors.PreconditionNotMet(
+                f"{fwd.type}_grad ran without its forward op's record: a "
+                f"generic grad op runs inside Executor.run, after the "
+                f"forward op it differentiates")
+        outs, cots = [], []
+        for slot, vals in rec.outs.items():
+            gs = ins.get(slot + GRAD_SUFFIX)
+            if gs is None:
+                continue
+            for o, g in zip(vals, gs):
+                if (isinstance(o, torch.Tensor) and o.requires_grad
+                        and g is not None):
+                    outs.append(o)
+                    cots.append(g.to(o.dtype))
+        flat = [(slot, i, leaf) for slot, lv in rec.leaves.items()
+                for i, leaf in enumerate(lv) if leaf is not None]
+        leaves = [leaf for _, _, leaf in flat]
+        grads = (torch.autograd.grad(outs, leaves, cots, allow_unused=True)
+                 if outs and leaves else [None] * len(leaves))
+        res: Dict[str, List[torch.Tensor]] = {}
+        for (slot, i, leaf), g in zip(flat, grads):
+            lst = res.setdefault(slot + GRAD_SUFFIX,
+                                 [None] * len(rec.leaves[slot]))
+            lst[i] = torch.zeros_like(leaf) if g is None else g
+        return res
+
+    def ginfer(op) -> None:
+        # d(input) has the shape and dtype of the input itself
+        for slot, out_vars in op._output_vars.items():
+            if not slot.endswith(GRAD_SUFFIX):
+                continue
+            src = op._input_vars.get(slot[: -len(GRAD_SUFFIX)], [])
+            for var, s in zip(out_vars, src):
+                if s is not None:
+                    var.shape = s.shape
+                    var.dtype = s.dtype
+
+    return OpDef(type=fwd.type + "_grad", lower=glower, infer=ginfer,
+                 stop_gradient=True, uses_rng=fwd.uses_rng,
+                 is_generic_grad=True)

@@ -1,2 +1,17 @@
-"""Operators of the port: the hand-written CUDA kernels' wrappers and the
-build that compiles them (``_build.py``)."""
+"""Operator library of the port.
+
+Importing this package registers every op lowering the port has (the
+GPT training program's; mirrors ``paddle_tpu/ops``). Beside the
+lowerings sit the hand-written CUDA kernels' wrappers
+(``lmhead_ce.py``, ``fused_adam.py``) and the build that compiles them
+(``_build.py``).
+"""
+from . import (  # noqa: F401
+    attention,
+    fused_ops,
+    math_ops,
+    nn_ops,
+    optimizer_ops,
+    random_ops,
+    tensor_ops,
+)

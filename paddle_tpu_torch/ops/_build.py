@@ -1,11 +1,14 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
 Every ``*.cu`` file under ``paddle_tpu_torch/csrc/`` exposes a plain C
-interface. At first use they are compiled together into one shared
-library for Hopper (``sm_90a``)::
+interface. At first use each source is compiled for Hopper (``sm_90a``)
+by its own ``nvcc``, all of them started together, and the objects are
+linked into one shared library::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/torch_kernels/<hash>/libpaddle_tpu_torch_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -Xptxas=-v -c -o <hash>/<name>.o csrc/<name>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o build/torch_kernels/<hash>/libpaddle_tpu_torch_kernels.so <hash>/*.o
 
 The build directory sits at the root of the checkout, is keyed on a hash
 of the sources and the flags (a changed source rebuilds, an unchanged one
@@ -33,7 +36,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _LIB_NAME = "libpaddle_tpu_torch_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -80,10 +83,51 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lmhead_ce_partial.restype = i
     lib.lmhead_ce_combine.argtypes = [p, p, p, p, p, i, i, p]
     lib.lmhead_ce_combine.restype = i
-    for tile in (lib.lmhead_ce_tile_n, lib.lmhead_ce_tile_v):
+    lib.lmhead_ce_bwd_partial.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
+                                          i, i, i, i, p]
+    lib.lmhead_ce_bwd_partial.restype = i
+    lib.lmhead_ce_bwd_reduce.argtypes = [p, p, ctypes.c_longlong, i, i, p]
+    lib.lmhead_ce_bwd_reduce.restype = i
+    for tile in (lib.lmhead_ce_tile_n, lib.lmhead_ce_tile_v,
+                 lib.lmhead_ce_bwd_max_slab):
         tile.argtypes = []
         tile.restype = i
+    f = ctypes.c_float
+    lib.fused_adam_step.argtypes = [p, p, p, p, p, p, p, ctypes.c_longlong,
+                                    f, f, f, f, f, f, i, i, p]
+    lib.fused_adam_step.restype = i
     return lib
+
+
+def _run(cmds: List[List[str]]) -> str:
+    """Run the commands in parallel; their output, or raise on the first
+    that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {proc.returncode}): "
+                               f"{' '.join(cmd)}\n{log}")
+    return "".join(logs)
+
+
+def _compile(srcs: List[str], out_dir: str, out: str) -> str:
+    """One nvcc per source, started together, then one link; the library
+    appears atomically, so a concurrent loader sees all of it or none."""
+    nvcc = _nvcc()
+    pid = os.getpid()
+    objs = [os.path.join(out_dir, f"{os.path.basename(s)[:-3]}.{pid}.o")
+            for s in srcs]
+    log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+                for s, o in zip(srcs, objs)])
+    tmp = f"{out}.tmp.{pid}"
+    log += _run([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]])
+    os.replace(tmp, out)
+    for o in objs:
+        os.remove(o)
+    return log
 
 
 def load() -> ctypes.CDLL:
@@ -99,17 +143,9 @@ def load() -> ctypes.CDLL:
         out = os.path.join(out_dir, _LIB_NAME)
         if not os.path.exists(out):
             os.makedirs(out_dir, exist_ok=True)
-            tmp = f"{out}.tmp.{os.getpid()}"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            _log = _compile(srcs, out_dir, out)
             _seconds = time.perf_counter() - t0
-            _log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed (exit {proc.returncode}): "
-                    f"{' '.join(cmd)}\n{_log}")
-            os.replace(tmp, out)  # atomic: a concurrent loader sees all
         _lib = _declare(ctypes.CDLL(out))
         return _lib
 

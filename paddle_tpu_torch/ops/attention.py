@@ -1,0 +1,105 @@
+"""``fused_attention_tpu``: attention as the JAX package's einsum path.
+
+Port of ``paddle_tpu/ops/attention.py``. At the training slice's
+sequence lengths the JAX op takes ``_sdpa_xla``: two einsums around an
+fp32 softmax, the causal mask ``tril(ones(tq, tk), tk - tq)`` applied as
+``-inf``, in either layout (BTHD = (B, T, H, D), BHTD = (B, H, T, D)).
+The port computes exactly that in plain PyTorch. It is not
+``F.scaled_dot_product_attention``: the reference computes it with
+einsums, and the flash kernels of a later slice replace it where the JAX
+package takes flash.
+
+Where the JAX op would take its pallas flash kernels (no mask, sequence
+length >= ``PADDLE_TPU_FLASH_MIN_SEQ`` (1024), head_dim in {64, 128,
+256}, sequence divisible into blocks) the port raises
+``errors.Unimplemented``: those kernels (``PERF.md`` rows 4-6) are not
+ported yet, and the einsum path never runs in their place.
+``PADDLE_TPU_DISABLE_FLASH`` keeps its meaning: take the einsum path.
+Ring attention (a ``sequence_parallel_axis``) raises as well: the port
+has no device mesh yet.
+"""
+from __future__ import annotations
+
+import math
+import os
+
+import torch
+
+from ..framework import errors as _errs
+from ..framework.registry import register_op
+from .common import maybe
+
+
+def _sdpa_einsum(q, k, v, mask=None, is_causal=False, scale=None,
+                 layout="BHTD"):
+    """Einsum attention with an fp32 softmax (``_sdpa_xla`` of the JAX
+    package)."""
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qk = "bqhd,bkhd->bhqk" if layout == "BTHD" else "bhqd,bhkd->bhqk"
+    pv = "bhqk,bkhd->bqhd" if layout == "BTHD" else "bhqk,bhkd->bhqd"
+    logits = torch.einsum(qk, q, k).float() * scale
+    if is_causal:
+        tq, tk = logits.shape[-2], logits.shape[-1]
+        causal = torch.ones((tq, tk), dtype=torch.bool,
+                            device=q.device).tril(tk - tq)
+        logits = logits.masked_fill(~causal, float("-inf"))
+    if mask is not None:
+        if mask.dtype == torch.bool:
+            logits = logits.masked_fill(~mask, float("-inf"))
+        else:
+            logits = logits + mask.float()
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum(pv, probs, v)
+
+
+def _flash_would_run(q, k, layout: str) -> bool:
+    """The JAX op's condition for its pallas flash path."""
+    min_seq = int(os.environ.get("PADDLE_TPU_FLASH_MIN_SEQ", 1024))
+    seq_ax = 1 if layout == "BTHD" else 2
+    tq, tk = q.shape[seq_ax], k.shape[seq_ax]
+    if tq < min_seq or q.shape[-1] not in (64, 128, 256):
+        return False
+    blocks = os.environ.get("PADDLE_TPU_FLASH_BLOCKS")
+    if blocks:
+        qs, _, ks = blocks.partition(";")
+        cand_q = tuple(int(b) for b in qs.split(","))
+        cand_k = tuple(int(b) for b in (ks or qs).split(","))
+    else:
+        cand_q = (256, 128) if layout == "BTHD" else (512, 256, 128)
+        cand_k = (512, 256, 128) if layout == "BTHD" else (1024, 512, 256,
+                                                           128)
+    return (any(tq % b == 0 for b in cand_q)
+            and any(tk % b == 0 for b in cand_k))
+
+
+@register_op("fused_attention_tpu", no_grad_inputs=("Mask",), uses_rng=True)
+def _fused_attention_tpu(ctx, ins, attrs):
+    q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
+    mask = maybe(ins, "Mask")
+    is_causal = attrs.get("is_causal", False)
+    layout = attrs.get("layout", "BHTD")
+    if attrs.get("sequence_parallel_axis", ""):
+        raise _errs.errors.Unimplemented(
+            "ring attention (a sequence_parallel_axis) needs a device mesh, "
+            "which paddle_tpu_torch does not have yet (ROADMAP.md queue A, "
+            "item A10)")
+    use_flash = (attrs.get("use_flash", True)
+                 and not os.environ.get("PADDLE_TPU_DISABLE_FLASH"))
+    if use_flash and mask is None and _flash_would_run(q, k, layout):
+        raise _errs.errors.Unimplemented(
+            f"fused_attention_tpu at sequence length "
+            f"{q.shape[1 if layout == 'BTHD' else 2]} takes the flash "
+            f"kernels in paddle_tpu (PERF.md kernel rows 4-6: _fwd_kernel, "
+            f"_bwd_dq_kernel, _bwd_dkv_kernel), which are not ported yet "
+            f"(ROADMAP.md queue B, items B4-B6); set "
+            f"PADDLE_TPU_DISABLE_FLASH=1 to take the einsum path in both "
+            f"packages")
+    out = _sdpa_einsum(q, k, v, mask, is_causal, layout=layout)
+    p = attrs.get("dropout_p", 0.0)
+    if p and not attrs.get("is_test", False):
+        keep = torch.rand(out.shape, generator=ctx.generator(
+            attrs.get("_rng_id", 0)), device=out.device) < (1.0 - p)
+        out = torch.where(keep, out / (1.0 - p),
+                          torch.zeros_like(out)).to(out.dtype)
+    return {"Out": out}

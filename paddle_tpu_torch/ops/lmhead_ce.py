@@ -1,25 +1,37 @@
-"""Fused lm-head + softmax cross-entropy forward: the Hopper kernel's wrapper.
+"""Fused lm-head + softmax cross-entropy: the Hopper kernels' wrappers.
 
-Port of the forward of ``paddle_tpu/ops/pallas/fused_lmhead_ce.py``
-(``lmhead_ce`` -> ``_run_fwd`` -> ``_stats_kernel``). The kernel itself is
-``paddle_tpu_torch/csrc/lmhead_ce.cu``: a split-vocab partial-stats launch
-and a combine launch, counted as one kernel. Its source header states
-what bounds it on the card and how the design answers that.
+Port of ``paddle_tpu/ops/pallas/fused_lmhead_ce.py`` (``lmhead_ce`` and
+its custom VJP: ``_stats_kernel`` forward, ``_dx_kernel`` and
+``_dw_kernel`` backward). The kernels are in
+``paddle_tpu_torch/csrc/lmhead_ce.cu``, whose header states what bounds
+them on the card and how the design answers that:
+
+- forward: a split-vocab partial-stats launch and a combine launch,
+  counted as one kernel (``launches``);
+- dx: a split-vocab partial launch and a reduce launch, counted as one
+  kernel (``dx_launches``);
+- dW: one launch over vocab tiles (``dw_launches``).
+
+Entry points:
 
 - :func:`lmhead_ce` -- per-token NLL of ``softmax(x2d @ w.T)`` at the
-  labels, never materializing the [tokens, vocab] logits on the card;
-- :func:`lmhead_ce_fwd` -- the same, also returning the per-row
-  logsumexp the backward of a later training slice rebuilds from;
-- :func:`lmhead_ce_plain` -- the plain PyTorch version (fp32 logits,
-  ``logsumexp - picked``). The wrapper runs it for tensors on the CPU,
-  and only there: a CUDA tensor launches the kernel or raises.
+  labels, differentiable in ``x2d`` and ``w`` through
+  :class:`LmheadCE`, never materializing the [tokens, vocab] logits (or
+  their gradient) on the card;
+- :func:`lmhead_ce_fwd` -- the forward, also returning the per-row
+  logsumexp the backward rebuilds the score tiles from;
+- :func:`lmhead_ce_dx` / :func:`lmhead_ce_dw` -- dx and dW of
+  ``sum(g * nll)`` from (x2d, w, labels, lse, g), one kernel each;
+  :func:`lmhead_ce_bwd` returns both;
+- :func:`lmhead_ce_plain`, :func:`lmhead_ce_dx_plain`,
+  :func:`lmhead_ce_dw_plain` -- the plain PyTorch versions (materialized
+  fp32 logits). A wrapper runs them for tensors on the CPU, and only
+  there: a CUDA tensor launches the kernel or raises.
 
-Labels outside ``[0, V)`` (negative ones included) pick nothing, so their
-NLL is the logsumexp, as on the TPU. Inputs are fp32 or bf16; sums are
-fp32 and fp32 inputs are multiplied in full fp32.
-
-Forward only: the wrapper refuses inputs that require grad. The
-autograd Function with the dx/dW kernels comes with training.
+Labels outside ``[0, V)`` (negative ones included) pick nothing and hit
+no column, as on the TPU. Inputs are fp32 or bf16; sums are fp32; the
+backward rounds the d-logits to the inputs' dtype before the second
+product, as the TPU kernels do.
 """
 from __future__ import annotations
 
@@ -27,23 +39,30 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["lmhead_ce", "lmhead_ce_fwd", "lmhead_ce_plain", "launches",
-           "reset_launches"]
+__all__ = ["lmhead_ce", "lmhead_ce_fwd", "lmhead_ce_dx", "lmhead_ce_dw",
+           "lmhead_ce_bwd", "lmhead_ce_plain", "lmhead_ce_dx_plain",
+           "lmhead_ce_dw_plain", "LmheadCE", "launches", "dx_launches",
+           "dw_launches", "reset_launches"]
 
-# kernel launches made through the wrapper (the partial + combine pair
-# counts once): the proof that a run went through the kernel
-launches = 0
+# kernel launches made through the wrappers (a partial + combine/reduce
+# pair counts once): the proof that a run went through the kernels
+launches = 0      # forward (stats)
+dx_launches = 0   # backward dx
+dw_launches = 0   # backward dW
 
 # vocab chunks per token block are sized for about this many blocks per
 # SM, so that a 31-token score still spreads over the whole card
 _BLOCKS_PER_SM = 4
+# the backward's 64 x D shared-memory accumulator leaves room for one
+# block per SM: two waves of blocks
+_BWD_BLOCKS_PER_SM = 2
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, dx_launches, dw_launches
+    launches = dx_launches = dw_launches = 0
 
 
 def _check(x2d: torch.Tensor, w: torch.Tensor, labels: torch.Tensor) -> None:
@@ -72,10 +91,27 @@ def _check(x2d: torch.Tensor, w: torch.Tensor, labels: torch.Tensor) -> None:
     if not (x2d.is_contiguous() and w.is_contiguous()
             and labels.is_contiguous()):
         raise ValueError("lmhead_ce takes contiguous tensors")
-    if x2d.requires_grad or w.requires_grad:
-        raise RuntimeError(
-            "lmhead_ce is forward-only: its backward kernels come with "
-            "training; call it on tensors that do not require grad")
+
+
+def _check_bwd(x2d, w, labels, lse, g) -> None:
+    _check(x2d, w, labels)
+    n = x2d.shape[0]
+    for name, t in (("lse", lse), ("g", g)):
+        if t.shape != (n,) or t.dtype != torch.float32:
+            raise ValueError(f"lmhead_ce_bwd takes {name} as ({n},) fp32, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+        if t.device != x2d.device or not t.is_contiguous():
+            raise ValueError(f"lmhead_ce_bwd: {name} must be contiguous on "
+                             f"{x2d.device}")
+
+
+def _device_route(x2d: torch.Tensor) -> str:
+    if x2d.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lmhead_ce runs on cuda or cpu, not {x2d.device}")
+    return x2d.device.type
+
+
+# ---------------------------------------------------------------- plain
 
 
 def lmhead_ce_plain(x2d: torch.Tensor, w: torch.Tensor,
@@ -90,17 +126,45 @@ def lmhead_ce_plain(x2d: torch.Tensor, w: torch.Tensor,
     return lse - picked, lse
 
 
-def split_vocab(n: int, v: int, tile_n: int, tile_v: int,
-                sms: int) -> Tuple[int, int]:
-    """(tiles_per_chunk, chunks): the vocab split of the partial launch,
-    whose blocks cover ``tile_n`` rows and ``tile_v`` columns a step.
-    Enough chunks that the (token blocks x chunks) grid gives each SM
-    about ``_BLOCKS_PER_SM`` blocks, and no chunk starting past V."""
+def _dlogits_plain(x2d, w, labels, lse, g) -> torch.Tensor:
+    """fp32 d-logits ``(exp(s - lse) - onehot) * g``, rounded to W's
+    dtype, from materialized fp32 logits."""
+    logits = x2d.float() @ w.float().t()
+    cols = torch.arange(w.shape[0], device=x2d.device)
+    hit = (cols[None, :] == labels.long()[:, None]).float()
+    dl = (torch.exp(logits - lse[:, None]) - hit) * g.float()[:, None]
+    return dl.to(w.dtype).float()
+
+
+def lmhead_ce_dx_plain(x2d, w, labels, lse, g) -> torch.Tensor:
+    """dx (N, D) in x2d's dtype: d-logits . W in fp32, cast once."""
+    return (_dlogits_plain(x2d, w, labels, lse, g) @ w.float()).to(x2d.dtype)
+
+
+def lmhead_ce_dw_plain(x2d, w, labels, lse, g) -> torch.Tensor:
+    """dW (V, D) in w's dtype: d-logits^T . x in fp32, cast once."""
+    dl = _dlogits_plain(x2d, w, labels, lse, g)
+    return (dl.t() @ x2d.float()).to(w.dtype)
+
+
+# ---------------------------------------------------------------- kernels
+
+
+def split_vocab(n: int, v: int, tile_n: int, tile_v: int, sms: int,
+                blocks_per_sm: int = _BLOCKS_PER_SM) -> Tuple[int, int]:
+    """(tiles_per_chunk, chunks): the column split of a launch whose
+    blocks cover ``tile_n`` rows and sweep ``tile_v`` columns a step.
+    Enough chunks that the (row blocks x chunks) grid gives each SM about
+    ``blocks_per_sm`` blocks, and no chunk starting past the last column."""
     tiles = -(-v // tile_v)
-    token_blocks = -(-n // tile_n)
-    chunks = max(1, min(tiles, -(-_BLOCKS_PER_SM * sms // token_blocks)))
+    row_blocks = -(-n // tile_n)
+    chunks = max(1, min(tiles, -(-blocks_per_sm * sms // row_blocks)))
     tiles_per_chunk = -(-tiles // chunks)
     return tiles_per_chunk, -(-tiles // tiles_per_chunk)
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _launch(x2d: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
@@ -117,9 +181,8 @@ def _launch(x2d: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
     if n == 0:
         return nll, lse
     lbl = labels.to(torch.int64).contiguous()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     tiles_per_chunk, chunks = split_vocab(
-        n, v, lib.lmhead_ce_tile_n(), lib.lmhead_ce_tile_v(), sms)
+        n, v, lib.lmhead_ce_tile_n(), lib.lmhead_ce_tile_v(), _sms(dev))
     part = torch.empty((3, chunks, n), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.lmhead_ce_partial(
@@ -139,22 +202,139 @@ def _launch(x2d: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
     return nll, lse
 
 
+def _launch_bwd_side(lib, a, b, lbl, g, lse, out, n_rows, n_cols,
+                     token_rows: bool, stream) -> None:
+    """One backward product (dx when the rows are tokens, dW when they
+    are vocab entries) into ``out``."""
+    d = a.shape[1]
+    tile = lib.lmhead_ce_tile_n()
+    dslab = min(-(-d // 64) * 64, lib.lmhead_ce_bwd_max_slab())
+    tiles_per_chunk, chunks = split_vocab(
+        n_rows, n_cols, tile, tile, _sms(a.device), _BWD_BLOCKS_PER_SM)
+    part = (torch.empty((chunks, n_rows, d), dtype=torch.float32,
+                        device=a.device) if chunks > 1 else None)
+    is_bf16 = int(a.dtype == torch.bfloat16)
+    name = "dx" if token_rows else "dW"
+    err = lib.lmhead_ce_bwd_partial(
+        a.data_ptr(), b.data_ptr(), lbl.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), None if part is None else part.data_ptr(),
+        out.data_ptr(), n_rows, n_cols, d, tiles_per_chunk, chunks, dslab,
+        int(token_rows), is_bf16, stream)
+    if err:
+        raise RuntimeError(
+            f"lmhead_ce {name} launch failed: CUDA error {err} "
+            f"(rows={n_rows}, cols={n_cols}, d={d}, chunks={chunks})")
+    if part is not None:
+        err = lib.lmhead_ce_bwd_reduce(part.data_ptr(), out.data_ptr(),
+                                       n_rows * d, chunks, is_bf16, stream)
+        if err:
+            raise RuntimeError(f"lmhead_ce {name} reduce launch failed: "
+                               f"CUDA error {err}")
+
+
+def _launch_dx(x2d, w, labels, lse, g) -> torch.Tensor:
+    global dx_launches
+    from . import _build
+
+    dx = torch.empty_like(x2d)
+    if x2d.shape[0]:
+        _launch_bwd_side(_build.load(), x2d, w, labels.to(torch.int64)
+                         .contiguous(), g, lse, dx, x2d.shape[0], w.shape[0],
+                         True, torch.cuda.current_stream(x2d.device)
+                         .cuda_stream)
+        dx_launches += 1
+    return dx
+
+
+def _launch_dw(x2d, w, labels, lse, g) -> torch.Tensor:
+    global dw_launches
+    from . import _build
+
+    if not x2d.shape[0]:
+        return torch.zeros_like(w)
+    dw = torch.empty_like(w)
+    _launch_bwd_side(_build.load(), w, x2d, labels.to(torch.int64)
+                     .contiguous(), g, lse, dw, w.shape[0], x2d.shape[0],
+                     False, torch.cuda.current_stream(x2d.device).cuda_stream)
+    dw_launches += 1
+    return dw
+
+
+# ---------------------------------------------------------------- wrappers
+
+
 @torch.no_grad()
 def lmhead_ce_fwd(x2d: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(nll, lse), both (N,) fp32. CPU tensors take the plain version;
     CUDA tensors launch the kernel (or raise); other devices raise."""
     _check(x2d, w, labels)
-    if x2d.device.type == "cpu":
+    if _device_route(x2d) == "cpu":
         return lmhead_ce_plain(x2d, w, labels)
-    if x2d.device.type != "cuda":
-        raise ValueError(f"lmhead_ce runs on cuda or cpu, not {x2d.device}")
     with torch.cuda.device(x2d.device):
         return _launch(x2d, w, labels)
+
+
+def _bwd_wrapper(plain, kernel, x2d, w, labels, lse, g) -> torch.Tensor:
+    _check_bwd(x2d, w, labels, lse, g)
+    if _device_route(x2d) == "cpu":
+        return plain(x2d, w, labels, lse, g)
+    with torch.cuda.device(x2d.device):
+        return kernel(x2d, w, labels, lse, g)
+
+
+@torch.no_grad()
+def lmhead_ce_dx(x2d: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                 lse: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dx (N, D) of ``sum(g * nll)`` in x2d's dtype. CPU tensors take the
+    plain version; CUDA tensors launch the kernel (or raise)."""
+    return _bwd_wrapper(lmhead_ce_dx_plain, _launch_dx, x2d, w, labels, lse,
+                        g)
+
+
+@torch.no_grad()
+def lmhead_ce_dw(x2d: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                 lse: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dW (V, D) of ``sum(g * nll)`` in w's dtype. CPU tensors take the
+    plain version; CUDA tensors launch the kernel (or raise)."""
+    return _bwd_wrapper(lmhead_ce_dw_plain, _launch_dw, x2d, w, labels, lse,
+                        g)
+
+
+def lmhead_ce_bwd(x2d, w, labels, lse, g) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dW) of ``sum(g * nll)``."""
+    return (lmhead_ce_dx(x2d, w, labels, lse, g),
+            lmhead_ce_dw(x2d, w, labels, lse, g))
+
+
+class LmheadCE(torch.autograd.Function):
+    """``(nll, lse) = LmheadCE.apply(x2d, w, labels)``: the forward kernel,
+    saving (x2d, w, labels, lse); the backward launches the dx and dW
+    kernels with the incoming per-row cotangent of ``nll``. ``lse`` is
+    not differentiable. Written with ``setup_context`` so that
+    ``torch.func`` transforms can run it too."""
+
+    @staticmethod
+    def forward(x2d, w, labels):
+        return lmhead_ce_fwd(x2d, w, labels)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x2d, w, labels = inputs
+        ctx.save_for_backward(x2d, w, labels, output[1])
+        ctx.mark_non_differentiable(output[1])
+
+    @staticmethod
+    def backward(ctx, g_nll, g_lse):
+        x2d, w, labels, lse = ctx.saved_tensors
+        dx, dw = lmhead_ce_bwd(x2d, w, labels, lse,
+                               g_nll.float().contiguous())
+        return dx, dw, None
 
 
 def lmhead_ce(x2d: torch.Tensor, w: torch.Tensor,
               labels: torch.Tensor) -> torch.Tensor:
     """Per-token NLL (N,) fp32 of ``softmax(x2d @ w.T)`` at ``labels``.
-    x2d: (N, D); w: (V, D), the tied-embedding layout; labels: (N,)."""
-    return lmhead_ce_fwd(x2d, w, labels)[0]
+    x2d: (N, D); w: (V, D), the tied-embedding layout; labels: (N,).
+    Differentiable in x2d and w."""
+    return LmheadCE.apply(x2d, w, labels)[0]

@@ -6,6 +6,12 @@ The two packages name and lay out their GPT parameters the same way
 ``gpt.h<i>.attn.q.w`` is ``[d_in, d_out]`` (applied as ``x @ w + b``),
 and layer norms carry ``.scale`` / ``.bias``. So a dict of numpy arrays
 moves over unchanged, and both packages compute the same function.
+
+For static-graph training, :func:`scope_from_numpy` places the JAX
+scope's parameters and optimizer state (names unchanged: ``gpt.wte``,
+``gpt.wte_moment1_0``, ``adam_0``'s beta powers ...) in the port's
+``Scope``, so that both packages start a step from the same values.
+Random streams are never matched: the values are copied.
 """
 from __future__ import annotations
 
@@ -14,7 +20,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-__all__ = ["params_from_numpy", "torch_dtype"]
+__all__ = ["params_from_numpy", "scope_from_numpy", "torch_dtype"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -45,8 +51,17 @@ def params_from_numpy(params: Dict[str, np.ndarray], device,
         bf16 = a.dtype.name == "bfloat16"
         if bf16:  # numpy cannot hand torch this dtype: widen exactly
             a = a.astype(np.float32)
-        t = torch.from_numpy(np.ascontiguousarray(a))
+        t = torch.from_numpy(np.array(a, order="C"))  # a writable copy
         if bf16 and want is None:
             t = t.to(torch.bfloat16)
         out[name] = t.to(device=device, dtype=want).contiguous()
     return out
+
+
+def scope_from_numpy(values: Dict[str, np.ndarray], scope, device):
+    """Put ``{name: np.ndarray}`` into ``scope`` as tensors on ``device``,
+    names and dtypes unchanged (ml_dtypes bfloat16 becomes torch bfloat16
+    exactly). Returns the scope."""
+    for name, t in params_from_numpy(values, device).items():
+        scope.set(name, t)
+    return scope

@@ -87,3 +87,98 @@ def test_no_device_and_no_card_raises(monkeypatch):
     with pytest.raises(errors.Unavailable):
         serving.DecodeModel(cfg, max_batch=1, n_blocks=4, block_size=4,
                             prefill_buckets=[8], device="cuda")
+
+
+def test_port_trains_where_jax_cannot_be_imported():
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "paddle_tpu"):
+            sys.modules[name] = None  # any import of them now fails
+        import numpy as np
+        from paddle_tpu_torch.framework import (CPUPlace, Executor, Scope,
+                                                program_guard)
+        from paddle_tpu_torch.models.gpt import (GPTConfig,
+                                                 build_train_program)
+        from paddle_tpu_torch.optimizer import Adam
+        cfg = GPTConfig(vocab_size=64, n_layer=1, n_head=2, d_model=16,
+                        max_seq_len=8)
+        main, startup, io = build_train_program(cfg, batch=2, seq=8)
+        with program_guard(main, startup):
+            Adam(learning_rate=1e-3).minimize(io["loss"])
+        scope, exe = Scope(), Executor(CPUPlace())
+        exe.run(startup, scope=scope)
+        toks = np.arange(16, dtype=np.int64).reshape(2, 8) % 64
+        loss, = exe.run(main, feed={"tokens": toks, "labels": toks},
+                        fetch_list=[io["loss"]], scope=scope)
+        assert np.isfinite(loss) and io["lm_head_impl"] == "pallas"
+        assert not any(k.split(".")[0] in ("jax", "paddle_tpu")
+                       for k, v in sys.modules.items() if v is not None)
+        print("TRAIN_ISOLATED_OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "TRAIN_ISOLATED_OK" in out.stdout
+
+
+def test_executor_without_a_card_raises(monkeypatch):
+    """Executor() means the card; with none it refuses instead of quietly
+    running on the CPU."""
+    from paddle_tpu_torch import errors
+    from paddle_tpu_torch.framework import CPUPlace, CUDAPlace, Executor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(errors.Unavailable, match="CPUPlace"):
+        Executor()
+    with pytest.raises(errors.Unavailable):
+        Executor(CUDAPlace(0))
+    assert Executor(CPUPlace()).device == torch.device("cpu")
+
+
+def _attention(t, monkeypatch, **env):
+    from paddle_tpu_torch.framework import registry
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    q = torch.zeros((1, t, 1, 64))
+    rule = registry.get_op_def("fused_attention_tpu").lower
+    return rule(registry.LoweringContext("cpu"), {"Q": [q], "K": [q],
+                                                  "V": [q]},
+                {"is_causal": True, "layout": "BTHD"})["Out"]
+
+
+def test_attention_raises_where_the_reference_takes_flash(monkeypatch):
+    """At T >= 1024 (head_dim 64, no mask) the JAX op takes its flash
+    kernels, which are not ported: the port raises instead of running the
+    einsum path in their place; PADDLE_TPU_DISABLE_FLASH=1 (the
+    reference's switch to the einsum path) runs it, and below 1024 the
+    einsum path is the reference's own choice."""
+    from paddle_tpu_torch import errors
+
+    monkeypatch.delenv("PADDLE_TPU_DISABLE_FLASH", raising=False)
+    monkeypatch.delenv("PADDLE_TPU_FLASH_MIN_SEQ", raising=False)
+    with pytest.raises(errors.Unimplemented, match="flash"):
+        _attention(1024, monkeypatch)
+    assert _attention(512, monkeypatch).shape == (1, 512, 1, 64)
+    out = _attention(1024, monkeypatch, PADDLE_TPU_DISABLE_FLASH="1")
+    assert out.shape == (1, 1024, 1, 64)
+
+
+def test_unported_paths_raise():
+    """The JAX package's chunked lm-head CE, recompute and serialization
+    wait for later slices and say so."""
+    from paddle_tpu_torch import errors
+    from paddle_tpu_torch.framework import registry
+    from paddle_tpu_torch.framework.backward import (
+        append_backward_with_checkpoints)
+
+    x = torch.zeros((1, 2, 4))
+    with pytest.raises(errors.Unimplemented, match="chunked"):
+        registry.get_op_def("fused_lm_head_ce").lower(
+            registry.LoweringContext("cpu"),
+            {"X": [x], "W": [torch.zeros((8, 4))],
+             "Label": [torch.zeros((1, 2), dtype=torch.int64)]},
+            {"impl": "chunked"})
+    with pytest.raises(errors.Unimplemented, match="recompute"):
+        append_backward_with_checkpoints(None, [])

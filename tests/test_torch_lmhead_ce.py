@@ -1,19 +1,23 @@
-"""The port's fused lm-head + CE forward against the JAX package's.
+"""The port's fused lm-head + CE (forward, dx, dW) against the JAX
+package's.
 
-The same numpy inputs go to ``paddle_tpu``'s pallas kernel (interpret
-mode on the CPU, as its own tests run it) and to ``paddle_tpu_torch``'s
-wrapper, which on CPU tensors runs its plain PyTorch version. The CUDA
-kernel itself is held against that plain version on the card by
-``chip_smoke.py``.
+The same numpy inputs go to ``paddle_tpu``'s pallas kernels (interpret
+mode on the CPU, as its own tests run them; gradients by ``jax.grad``
+through its custom VJP) and to ``paddle_tpu_torch``'s wrappers, which on
+CPU tensors run their plain PyTorch versions (gradients through the
+``LmheadCE`` autograd Function). The CUDA kernels themselves are held
+against those plain versions on the card by ``chip_smoke.py``.
 
 Tolerances: fp32 at rtol = atol = 1e-5, the JAX kernel's own bound
 against materialized logits (only the summation order differs); bf16 at
-2e-3, the floor of tests/test_fused_lmhead_ce.py (both sides multiply
-bf16 inputs with fp32 accumulation).
+2e-3 for the loss and 5e-2 for dx and dW, the floors of
+tests/test_fused_lmhead_ce.py:89 and :97-100 (both sides multiply bf16
+inputs with fp32 accumulation and round the d-logits to bf16).
 """
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -86,8 +90,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         torch_ce.lmhead_ce(x.double(), w.double(), lbl)
     with pytest.raises(TypeError):
         torch_ce.lmhead_ce(x, w, lbl.float())
-    with pytest.raises(RuntimeError, match="forward-only"):
-        torch_ce.lmhead_ce(x.requires_grad_(), w, lbl)
+    lse = torch.zeros(8)
+    with pytest.raises(ValueError, match="lse"):
+        torch_ce.lmhead_ce_dx(x, w, lbl, lse[:4], lse)
+    with pytest.raises(ValueError, match="g as"):
+        torch_ce.lmhead_ce_dw(x, w, lbl, lse, lse.double())
 
 
 def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
@@ -125,3 +132,68 @@ def test_vocab_split_covers_every_tile(n, v):
     assert (chunks - 1) * per < tiles <= chunks * per
     token_blocks = -(-n // 64)
     assert token_blocks * chunks >= min(132, token_blocks * tiles)
+
+
+def _jax_grads(x, w, lbl, g, dtype):
+    """(nll, dx, dW) of sum(g * nll) through the JAX package's kernels."""
+    xj, wj = jnp.asarray(x, dtype), jnp.asarray(w, dtype)
+    f = lambda a, b: jnp.vdot(jax_lmhead_ce(a, b, jnp.asarray(lbl),
+                                            block_n=16, block_v=128),
+                              jnp.asarray(g))
+    nll = jax_lmhead_ce(xj, wj, jnp.asarray(lbl), block_n=16, block_v=128)
+    dx, dw = jax.grad(f, argnums=(0, 1))(xj, wj)
+    return (np.asarray(nll), np.asarray(dx, np.float32),
+            np.asarray(dw, np.float32))
+
+
+def _torch_grads(x, w, lbl, g, dtype):
+    xt = torch.from_numpy(x).to(dtype).requires_grad_(True)
+    wt = torch.from_numpy(w).to(dtype).requires_grad_(True)
+    nll = torch_ce.lmhead_ce(xt, wt, torch.from_numpy(lbl))
+    dx, dw = torch.autograd.grad(nll, (xt, wt), torch.from_numpy(g))
+    assert dx.dtype == dtype and dw.dtype == dtype
+    return (nll.detach().numpy(), dx.float().numpy(), dw.float().numpy())
+
+
+@pytest.mark.parametrize("n,d,v,dtype,tol", [
+    (64, 64, 512, "f32", 1e-5),
+    (48, 64, 300, "f32", 1e-5),   # ragged N and V
+    (33, 32, 130, "f32", 1e-5),   # ragged, labels V and -1 (below)
+    (64, 64, 512, "bf16", 5e-2),
+    (33, 32, 130, "bf16", 5e-2),
+])
+def test_backward_matches_jax(n, d, v, dtype, tol):
+    """dx and dW with a non-uniform per-row g, labels V and -1 included:
+    an out-of-range label hits no column."""
+    x, w, lbl = _data(n, d, v, seed=5)
+    lbl[3], lbl[7] = v, -1
+    g = np.random.RandomState(6).uniform(0.5, 1.5, n).astype(np.float32)
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    want = _jax_grads(x, w, lbl, g, jdt)
+    got = _torch_grads(x, w, lbl, g, tdt)
+    ftol = tol if dtype == "f32" else 2e-3
+    np.testing.assert_allclose(got[0], want[0], rtol=ftol, atol=ftol)
+    for i, what in ((1, "dx"), (2, "dW")):
+        np.testing.assert_allclose(got[i], want[i], rtol=tol, atol=tol,
+                                   err_msg=what)
+
+
+def test_backward_wrappers_are_the_autograd_function_s():
+    """lmhead_ce_dx / lmhead_ce_dw (the kernels' wrappers) give what the
+    autograd Function's backward gives, and g is taken per row."""
+    x, w, lbl = (torch.from_numpy(a) for a in _data(20, 16, 70, seed=8))
+    lbl[0] = -1
+    g = torch.linspace(0.1, 2.0, 20)
+    nll, lse = torch_ce.lmhead_ce_fwd(x, w, lbl)
+    xt, wt = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    dx, dw = torch.autograd.grad(torch_ce.lmhead_ce(xt, wt, lbl), (xt, wt),
+                                 g)
+    torch.testing.assert_close(torch_ce.lmhead_ce_dx(x, w, lbl, lse, g), dx)
+    torch.testing.assert_close(torch_ce.lmhead_ce_dw(x, w, lbl, lse, g), dw)
+    # doubling one row's g doubles that row's dx and nothing else
+    g2 = g.clone()
+    g2[5] *= 2
+    dx2 = torch_ce.lmhead_ce_dx(x, w, lbl, lse, g2)
+    torch.testing.assert_close(dx2[5], 2 * dx[5])
+    torch.testing.assert_close(dx2[6:], dx[6:])
