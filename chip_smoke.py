@@ -15,15 +15,22 @@ Phases (any failure raises, and the script exits non-zero with no result):
    shared-memory report is printed);
 3. every kernel against its plain PyTorch version on the card: the
    lm-head + CE forward at the serving shapes (fp32), in bf16 and at the
-   training shape; its dx and dW at the training shape in bf16, at N=511
-   in fp32, at a ragged edge with labels V and -1 and a non-uniform g,
-   and at D=1000 (the backward's accumulator sweeps D in two slabs); the
-   CE kernels' peak added memory at the training shape (no [N, V]
-   buffer); fused Adam(W) on bf16, fp32, 1-D and odd shapes;
+   training shapes (N = 4096 and 16384); its dx and dW at both training
+   shapes in bf16 (dx splits the vocabulary into 5 and 2 chunks there),
+   at N=511 in fp32, at a ragged edge with labels V and -1 and a
+   non-uniform g, and at D=1000 (the backward's accumulator sweeps D in
+   two slabs); the CE kernels' peak added memory at the training shape
+   (no [N, V] buffer); fused Adam(W) on bf16, fp32, 1-D and odd shapes;
+   the flash attention forward (out, lse), dq and dk/dv at the seq-2048
+   training shape (bf16, causal, BTHD), in fp32 in both layouts causal
+   and not, at D = 128 and 256, at Tq != Tk (causal, bottom-right) and at
+   a sequence length that is not a multiple of the kernels' tile; the
+   flash kernels' peak added memory at the training shape (no
+   [B, H, T, T] buffer);
 4. timing with CUDA events (median of 30 after warm-up): each kernel, its
    plain version, one PyTorch library call computing the same function,
    and the card's bound for the same work, at the serving score shapes
-   and at the training shape;
+   and at the training shapes;
 5. serving at full GPT width (12 x 768, vocab 32000, random weights from
    seed 0): 8 prompts covering every prefill bucket through
    ServingEngine.submit + run_until_idle, two of them again one after the
@@ -32,17 +39,24 @@ Phases (any failure raises, and the script exits non-zero with no result):
    scoring through the fused lm-head + CE kernel (its launch counter
    must rise), and a traced window of decode ticks;
 6. training at full width: bench.py's gpt2s config (vocab 32768,
-   12 x 768, seq 512, batch 8, bf16) through build_train_program,
-   Adam.minimize and Executor.run: 3 warm-up and 10 timed steps on one
-   fixed batch; the loss must be finite and fall, and each path kernel
-   must launch every step (forward, dx and dW once, Adam 196 times);
-   then one traced step (device time by kernel);
-7. CPU against card: a tiny fp32 config trains 2 steps from the same
-   numpy values on the CPU (plain versions) and on the card (kernels);
-   loss and every persistable must agree at 1e-4;
+   12 x 768, bf16, batch 8) through build_train_program, Adam.minimize
+   and Executor.run, at seq 512 (phase ``train``: attention takes the
+   einsum path, no flash launch) and at seq 2048 (phase ``train_long``:
+   attention takes the flash kernels, FLASH_DISPATCH_COUNT rises by 12 a
+   step): 3 warm-up and 10 timed steps on one fixed batch each; the loss
+   must be finite and fall, and each path kernel must launch every step
+   (CE forward, dx and dW once, Adam 196 times, flash forward, dq and
+   dk/dv 12 times at seq 2048); then one traced step each (device time
+   by kernel);
+7. CPU against card: tiny fp32 configs train 2 steps from the same numpy
+   values on the CPU (plain versions) and on the card (kernels): one at
+   seq 16 (einsum attention), one at seq 128 with
+   PADDLE_TPU_FLASH_MIN_SEQ=128 (flash attention); loss and every
+   persistable must agree at 1e-4, and each Adam moment within 1e-4 of
+   the largest moment of its kind;
 8. a ``{"kernels": [...]}`` line: per ported kernel, its launches on the
-   training path (the forward also on the serving path), its largest
-   error against the plain version and its times at the training shape;
+   main paths, its largest error against the plain version and its
+   times at the training shape;
 9. the card's name and power limit again, and the last line:
    ``{"ok": true, "device": {...}}``.
 """
@@ -65,6 +79,12 @@ _TRAIN = dict(vocab_size=32768, n_layer=12, n_head=12, d_model=768,
               max_seq_len=512, dtype="bfloat16")
 _TRAIN_B, _TRAIN_T = 8, 512
 _TRAIN_N = _TRAIN_B * _TRAIN_T  # tokens per step: the CE kernels' N
+# bench.py's long-sequence training config (gpt2s @ seq 2048), which
+# takes the flash attention kernels
+_LONG = dict(_TRAIN, max_seq_len=2048)
+_LONG_B, _LONG_T = 8, 2048
+_LONG_N = _LONG_B * _LONG_T
+_LAYERS = _LONG["n_layer"]
 _WARM_STEPS, _TIMED_STEPS = 3, 10
 _ADAM_PER_STEP = 196  # wte, wpe, 16 per layer x 12, lnf scale and bias
 _SCORE_NS = (31, 127, 511)  # score's N = bucket - 1 at buckets 32/128/512
@@ -211,40 +231,41 @@ def _beyond(got, ref, rtol, atol) -> int:
     return int(((got - ref).abs() > atol + rtol * ref.abs()).sum())
 
 
-def _no_logits_buffer(torch, name, fn) -> None:
-    """The fused CE kernels allocate no [N, V] buffer, of logits or of
-    d-logits: the peak device memory a call adds above what was allocated
-    before it (its outputs and scratch) stays below N*V*2 bytes, the size
-    of the smallest such buffer (bf16 logits)."""
+def _no_big_buffer(torch, name, fn, limit, buffer, **shape) -> None:
+    """A kernel allocates no buffer as large as ``buffer`` (the fused CE
+    kernels no [N, V] buffer of logits or d-logits, the flash kernels no
+    [B, H, T, T] buffer of scores): the peak device memory a call adds
+    above what was allocated before it (its outputs and scratch) stays
+    below ``limit`` bytes, the size of the smallest such buffer (bf16)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     out = fn()
     torch.cuda.synchronize()
     added = torch.cuda.max_memory_allocated() - base
-    limit = _TRAIN_N * _TRAIN["vocab_size"] * 2
-    _say(phase="kernel_memory", kernel=name, n=_TRAIN_N,
-         v=_TRAIN["vocab_size"], peak_added_bytes=added,
-         nv_bf16_bytes=limit)
+    _say(phase="kernel_memory", kernel=name, **shape, peak_added_bytes=added,
+         limit_bytes=limit, limit=f"one bf16 {buffer} buffer")
     if added >= limit:
         raise AssertionError(f"{name} allocated {added} bytes at its peak, "
-                             f"as much as an [N, V] buffer ({limit})")
+                             f"as much as a {buffer} buffer ({limit})")
     del out
 
 
 def _check_training_kernels(torch):
     """The training path's kernels against their plain versions on the
-    card. Forward at the training shape in bf16 at 2e-3 (the floor of
-    tests/test_fused_lmhead_ce.py:89). dx and dW with a non-uniform
-    per-row g in [0.5, 1.5]: bf16 at the training shape at 5e-2 (that
-    test's :97-100; both sides round the d-logits to bf16, and may round
-    one of them the other way), fp32 at N=511, at the ragged N=33, D=64,
-    V=130 (labels V and -1) and at D=1000 at 1e-4 (exact fp32 products
-    summed in another order). Adam, with and without weight decay, at an
-    lr whose update spans several ulps of p: m and v at rtol 1e-5, p
-    through its update in fp32 and bit for bit in bf16 (``_adam_agrees``).
-    The CE kernels must also allocate no [N, V] buffer at the training
-    shape. Returns {kernel: max abs err}."""
+    card. Forward at both training shapes (N = 4096 and 16384 tokens) in
+    bf16 at 2e-3 (the floor of tests/test_fused_lmhead_ce.py:89). dx and
+    dW with a non-uniform per-row g in [0.5, 1.5]: bf16 at both training
+    shapes at 5e-2 (that test's :97-100; both sides round the d-logits to
+    bf16, and may round one of them the other way), fp32 at N=511, at the
+    ragged N=33, D=64, V=130 (labels V and -1) and at D=1000 at 1e-4
+    (exact fp32 products summed in another order); each line names the
+    vocabulary chunks dx's launch splits into. Adam, with and without
+    weight decay, at an lr whose update spans several ulps of p: m and v
+    at rtol 1e-5, p through its update in fp32 and bit for bit in bf16
+    (``_adam_agrees``). The CE kernels must also allocate no [N, V]
+    buffer at the training shape. Returns {kernel: max abs err}."""
+    from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import fused_adam as fa
     from paddle_tpu_torch.ops import lmhead_ce as ce
 
@@ -253,24 +274,31 @@ def _check_training_kernels(torch):
     d, v = _TRAIN["d_model"], _TRAIN["vocab_size"]
     x, w, lbl = _inputs(torch, _TRAIN_N, d, v, torch.bfloat16, seed=40)
     g = torch.full((_TRAIN_N,), 1.0 / _TRAIN_N, device="cuda")
-    _no_logits_buffer(torch, "lmhead_ce_fwd", lambda: ce.lmhead_ce_fwd(
-        x, w, lbl))
-    nll, lse = ce.lmhead_ce_fwd(x, w, lbl)
-    for name, kern in (("lmhead_ce_dx", ce.lmhead_ce_dx),
-                       ("lmhead_ce_dw", ce.lmhead_ce_dw)):
-        _no_logits_buffer(torch, name, lambda: kern(x, w, lbl, lse, g))
-    ref_nll, ref_lse = ce.lmhead_ce_plain(x, w, lbl)
-    bad = _beyond(nll, ref_nll, 2e-3, 2e-3) + _beyond(lse, ref_lse, 2e-3,
-                                                      2e-3)
-    worst["lmhead_ce_fwd"] = max(_err(nll, ref_nll), _err(lse, ref_lse))
-    _say(phase="kernel_check", kernel="lmhead_ce_fwd", n=_TRAIN_N, d=d, v=v,
-         dtype="bfloat16", tolerance_rel=2e-3,
-         max_abs_err=worst["lmhead_ce_fwd"])
-    if bad:
-        raise AssertionError(f"lmhead_ce_fwd at the training shape: {bad} "
-                             f"values beyond 2e-3")
+    lse = ce.lmhead_ce_fwd(x, w, lbl)[1]
+    for name, fn in (
+            ("lmhead_ce_fwd", lambda: ce.lmhead_ce_fwd(x, w, lbl)),
+            ("lmhead_ce_dx", lambda: ce.lmhead_ce_dx(x, w, lbl, lse, g)),
+            ("lmhead_ce_dw", lambda: ce.lmhead_ce_dw(x, w, lbl, lse, g))):
+        _no_big_buffer(torch, name, fn, _TRAIN_N * v * 2, "[N, V]",
+                       n=_TRAIN_N, v=v)
+    for i, n in enumerate((_TRAIN_N, _LONG_N)):
+        x, w, lbl = _inputs(torch, n, d, v, torch.bfloat16, seed=40 + i)
+        nll, lse = ce.lmhead_ce_fwd(x, w, lbl)
+        ref_nll, ref_lse = ce.lmhead_ce_plain(x, w, lbl)
+        bad = _beyond(nll, ref_nll, 2e-3, 2e-3) + _beyond(lse, ref_lse, 2e-3,
+                                                          2e-3)
+        err = max(_err(nll, ref_nll), _err(lse, ref_lse))
+        worst["lmhead_ce_fwd"] = max(worst["lmhead_ce_fwd"], err)
+        _say(phase="kernel_check", kernel="lmhead_ce_fwd", n=n, d=d, v=v,
+             dtype="bfloat16", tolerance_rel=2e-3, max_abs_err=err)
+        if bad:
+            raise AssertionError(f"lmhead_ce_fwd at n={n}: {bad} values "
+                                 f"beyond 2e-3")
 
+    tile = _build.load().lmhead_ce_tile_n()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [(_TRAIN_N, d, v, torch.bfloat16, 5e-2),
+             (_LONG_N, d, v, torch.bfloat16, 5e-2),
              (511, d, v, torch.float32, 1e-4),
              (33, 64, 130, torch.float32, 1e-4),
              (100, 1000, 300, torch.float32, 1e-4)]  # D > 768: two slabs
@@ -281,9 +309,11 @@ def _check_training_kernels(torch):
         g = torch.from_numpy(np.random.RandomState(60 + i).uniform(
             0.5, 1.5, n).astype(np.float32)).cuda()
         lse = ce.lmhead_ce_plain(x, w, lbl)[1]
-        for name, kern, plain in (
-                ("lmhead_ce_dx", ce.lmhead_ce_dx, ce.lmhead_ce_dx_plain),
-                ("lmhead_ce_dw", ce.lmhead_ce_dw, ce.lmhead_ce_dw_plain)):
+        for name, kern, plain, rows, cols in (
+                ("lmhead_ce_dx", ce.lmhead_ce_dx, ce.lmhead_ce_dx_plain, n,
+                 vv),
+                ("lmhead_ce_dw", ce.lmhead_ce_dw, ce.lmhead_ce_dw_plain, vv,
+                 n)):
             got = kern(x, w, lbl, lse, g)
             ref = plain(x, w, lbl, lse, g)
             torch.cuda.synchronize()
@@ -292,7 +322,8 @@ def _check_training_kernels(torch):
             worst[name] = max(worst[name], err)
             _say(phase="kernel_check", kernel=name, n=n, d=dd, v=vv,
                  dtype=str(dtype).replace("torch.", ""), tolerance_rel=tol,
-                 max_abs_err=err)
+                 max_abs_err=err, chunks=ce.split_vocab(
+                     rows, cols, tile, tile, sms, ce._BWD_BLOCKS_PER_SM)[1])
             if bad or not torch.isfinite(got.float()).all():
                 raise AssertionError(
                     f"{name} disagrees with its plain version at n={n} "
@@ -389,6 +420,150 @@ def _adam_agrees(torch, p_in, got, pre_p, ref) -> dict:
     return report
 
 
+# The flash kernels against their plain versions, (rtol, atol) each:
+# |got - ref| <= atol + rtol * |ref|. fp32: out and lse at 1e-4, the
+# gradients at 2e-4 (exact fp32 products summed in another order;
+# tests/test_flash_attention.py holds the TPU kernel's gradients at 2e-4).
+# bf16: out at 2e-2 (that file's :39: the kernel's online softmax rounds P
+# against the running row max, the plain version the normalized P); lse
+# at 1e-4 (fp32 sums of exact products of bf16 values); the gradients at
+# one bf16 ulp (rtol 2^-7) plus atol 1e-3: both sides rebuild P from the
+# same lse, round P and dS to bf16 at the same places and sum in fp32, so
+# an output can differ only by one rounding flip where its fp32 value sits
+# at a bf16 boundary (the card measured at most 9.8e-4, a flip near 0.2,
+# and none at D = 64). tests/test_torch_smoke_checks.py shows this bound
+# rejecting each fault there, among them three that 2e-2 lets through:
+# P and dS left unrounded, lse stored in bf16, delta rounded to bf16.
+_BF16_GRAD = (2.0 ** -7, 1e-3)
+_FLASH_TOL = {"float32": dict(out=(1e-4, 1e-4), lse=(1e-4, 1e-4),
+                              dq=(2e-4, 2e-4), dk=(2e-4, 2e-4),
+                              dv=(2e-4, 2e-4)),
+              "bfloat16": dict(out=(2e-2, 2e-2), lse=(1e-4, 1e-4),
+                               dq=_BF16_GRAD, dk=_BF16_GRAD, dv=_BF16_GRAD)}
+_FLASH_KERNEL = dict(out="flash_attention_fwd", lse="flash_attention_fwd",
+                     dq="flash_attention_dq", dk="flash_attention_dkv",
+                     dv="flash_attention_dkv")
+# (dtype, layout, causal, B, H, Tq, Tk, D): the seq-2048 training shape;
+# fp32 in both layouts, causal and not; D = 128 and 256; causal Tq != Tk
+# (bottom-right; the first is tests/test_flash_attention.py:62-85's); and
+# sequence lengths that are not a multiple of the kernels' 64-row tile
+_FLASH_CASES = [
+    ("bfloat16", "BTHD", True, 8, 12, 2048, 2048, 64),
+    ("float32", "BTHD", True, 2, 3, 256, 256, 64),
+    ("float32", "BTHD", False, 2, 3, 256, 256, 64),
+    ("float32", "BHTD", True, 2, 3, 256, 256, 64),
+    ("float32", "BHTD", False, 2, 3, 256, 256, 64),
+    ("bfloat16", "BTHD", True, 2, 4, 1024, 1024, 128),
+    ("bfloat16", "BHTD", True, 2, 2, 512, 512, 256),
+    ("float32", "BHTD", False, 1, 2, 300, 300, 256),
+    ("float32", "BHTD", True, 1, 2, 128, 384, 64),
+    ("bfloat16", "BTHD", True, 2, 2, 256, 640, 128),
+    ("float32", "BTHD", True, 2, 3, 200, 200, 64),
+    ("bfloat16", "BTHD", True, 1, 4, 1000, 1000, 64),
+]
+
+
+def _flash_inputs(torch, b, h, tq, tk, d, dtype, layout, seed,
+                  device="cuda"):
+    """q, k, v and dO ~ N(0, 1) in the layout, rounded to dtype."""
+    r = np.random.RandomState(seed)
+
+    def make(t):
+        shape = (b, t, h, d) if layout == "BTHD" else (b, h, t, d)
+        return torch.from_numpy(r.randn(*shape).astype(np.float32)).to(
+            device, dtype)
+
+    return make(tq), make(tk), make(tk), make(tq)
+
+
+def _flash_outputs(torch, q, k, v, do, causal, layout):
+    """(got, ref): the wrappers' and the plain versions' out, lse, dq, dk
+    and dv. Both backwards start from the plain forward's out and lse, so
+    each backward kernel is held against its plain version on the same
+    inputs."""
+    from paddle_tpu_torch.ops import flash_attention as fl
+
+    out, lse = fl.flash_attention_fwd(q, k, v, causal, None, layout)
+    ref_out, ref_lse = fl.flash_attention_fwd_plain(q, k, v, causal, None,
+                                                    layout)
+    delta = fl.flash_attention_delta(ref_out, do, layout)
+    args = (q, k, v, do, ref_lse, delta, causal, None, layout)
+    dq = fl.flash_attention_dq(*args)
+    dk, dv = fl.flash_attention_dkv(*args)
+    ref_dk, ref_dv = fl.flash_attention_dkv_plain(*args)
+    got = dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv)
+    ref = dict(out=ref_out, lse=ref_lse,
+               dq=fl.flash_attention_dq_plain(*args), dk=ref_dk, dv=ref_dv)
+    return got, ref
+
+
+def _flash_agrees(torch, got, ref, dtype_name, what) -> dict:
+    """Holds flash outputs (any of out, lse, dq, dk, dv) against the plain
+    version's at ``_FLASH_TOL`` and raises naming each that disagrees or
+    is not finite. Returns {kernel: max abs err}."""
+    errs, bad = {}, []
+    for name, want in ref.items():
+        tol = _FLASH_TOL[dtype_name][name]
+        have = got[name]
+        err = _err(have, want)
+        beyond = _beyond(have, want, *tol)
+        if beyond or not torch.isfinite(have.float()).all():
+            bad.append(f"{name}: {beyond} values beyond (rtol, atol) {tol}, "
+                       f"max abs err {err}")
+        kernel = _FLASH_KERNEL[name]
+        errs[kernel] = max(errs.get(kernel, 0.0), err)
+    if bad:
+        raise AssertionError(f"flash attention disagrees with its plain "
+                             f"version at {what}: " + "; ".join(bad))
+    return errs
+
+
+def _check_flash(torch):
+    """Every case of ``_FLASH_CASES`` through ``_flash_agrees``, then the
+    kernels' peak added memory at the training shape: no [B, H, T, T]
+    buffer. Returns {kernel: max abs err}."""
+    from paddle_tpu_torch.ops import flash_attention as fl
+
+    worst = {}
+    for i, (dtype_name, layout, causal, b, h, tq, tk, d) in enumerate(
+            _FLASH_CASES):
+        q, k, v, do = _flash_inputs(torch, b, h, tq, tk, d,
+                                    getattr(torch, dtype_name), layout,
+                                    seed=100 + i)
+        got, ref = _flash_outputs(torch, q, k, v, do, causal, layout)
+        torch.cuda.synchronize()
+        what = (f"{dtype_name} {layout} {'causal' if causal else 'full'} "
+                f"B={b} H={h} Tq={tq} Tk={tk} D={d}")
+        errs = _flash_agrees(torch, got, ref, dtype_name, what)
+        for name, err in errs.items():
+            worst[name] = max(worst.get(name, 0.0), err)
+        _say(phase="kernel_check", kernel="flash_attention", dtype=dtype_name,
+             layout=layout, causal=causal, b=b, h=h, tq=tq, tk=tk, d=d,
+             tolerance=_FLASH_TOL[dtype_name],
+             max_abs_err={n: _err(got[n], ref[n]) for n in ref})
+        del got, ref
+
+    b, h, t, d = _LONG_B, _LONG["n_head"], _LONG_T, _head_dim(_LONG)
+    q, k, v, do = _flash_inputs(torch, b, h, t, t, d, torch.bfloat16,
+                                "BTHD", seed=99)
+    out, lse = fl.flash_attention_fwd(q, k, v, True, None, "BTHD")
+    delta = fl.flash_attention_delta(out, do, "BTHD")
+    args = (q, k, v, do, lse, delta, True, None, "BTHD")
+    shape = dict(b=b, h=h, t=t, d=d)
+    limit = b * h * t * t * 2
+    for name, fn in (
+            ("flash_attention_fwd",
+             lambda: fl.flash_attention_fwd(q, k, v, True, None, "BTHD")),
+            ("flash_attention_dq", lambda: fl.flash_attention_dq(*args)),
+            ("flash_attention_dkv", lambda: fl.flash_attention_dkv(*args))):
+        _no_big_buffer(torch, name, fn, limit, "[B, H, T, T]", **shape)
+    return worst
+
+
+def _head_dim(config) -> int:
+    return config["d_model"] // config["n_head"]
+
+
 def _bound_ms(nbytes: float, flops: float, dtype_name: str):
     t_bytes = nbytes / _PEAK_BYTES_PER_S
     t_ops = flops / _PEAK_FLOPS[dtype_name]
@@ -478,19 +653,98 @@ def _time_training_kernels(torch, card):
     return rows
 
 
-def _train(torch, card):
-    """bench.py's gpt2s @ seq 512 through the port's training entry points:
-    3 warm-up + 10 timed steps on one fixed batch, every path kernel's
-    launches counted from 0 over those 13 steps. Returns the launches."""
+def _time_flash(torch, card):
+    """Kernel, plain, library and bound of the flash kernels at the
+    seq-2048 training shape (B = 8, T = 2048, H = 12, D = 64, bf16,
+    causal, BTHD). Library: F.scaled_dot_product_attention(is_causal=True)
+    on BHTD views for the forward, autograd.grad of that call for dq
+    alone and for (dk, dv) alone, with the time of all three beside them.
+    Bounds: each input read once, each output written once (lse and
+    delta fp32), and 2*D FLOPs per visible score entry for each product
+    of the kernel's own algorithm: 2 for the forward, 3 for dq (scores,
+    dP, dS k), 4 for dk/dv (scores, dP, P^T dO, dS^T q)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import flash_attention as fl
+
+    b, h, t, d = _LONG_B, _LONG["n_head"], _LONG_T, _head_dim(_LONG)
+    q, k, v, do = _flash_inputs(torch, b, h, t, t, d, torch.bfloat16,
+                                "BTHD", seed=90)
+    out, lse = fl.flash_attention_fwd(q, k, v, True, None, "BTHD")
+    delta = fl.flash_attention_delta(out, do, "BTHD")
+    args = (q, k, v, do, lse, delta, True, None, "BTHD")
+
+    def sdpa(a, bb, c):
+        return F.scaled_dot_product_attention(
+            a.transpose(1, 2), bb.transpose(1, 2), c.transpose(1, 2),
+            is_causal=True)
+
+    qr, kr, vr = (x.detach().requires_grad_(True) for x in (q, k, v))
+    lib_out = sdpa(qr, kr, vr)
+
+    def library_grad(*wrt):
+        return lambda: torch.autograd.grad(lib_out, wrt, do.transpose(1, 2),
+                                           retain_graph=True)
+
+    # FLOPs of one product: 2 D per score entry the causal mask leaves
+    # visible, T (T + 1) / 2 of them in each (batch, head)
+    product = 2.0 * d * b * h * t * (t + 1) // 2
+    io = b * t * h * d * 2  # bytes of one bf16 q-sized tensor
+    stats = b * h * t * 4   # bytes of one fp32 row-stat tensor
+    specs = [  # name, kernel, plain, library, products, bytes
+        ("flash_attention_fwd",
+         lambda: fl.flash_attention_fwd(q, k, v, True, None, "BTHD"),
+         lambda: fl.flash_attention_fwd_plain(q, k, v, True, None, "BTHD"),
+         lambda: sdpa(q, k, v), 2, 4 * io + stats),
+        ("flash_attention_dq", lambda: fl.flash_attention_dq(*args),
+         lambda: fl.flash_attention_dq_plain(*args), library_grad(qr), 3,
+         5 * io + 2 * stats),
+        ("flash_attention_dkv", lambda: fl.flash_attention_dkv(*args),
+         lambda: fl.flash_attention_dkv_plain(*args), library_grad(kr, vr),
+         4, 6 * io + 2 * stats),
+    ]
+    all_ms = _median_ms(torch, library_grad(qr, kr, vr))
+    rows = {}
+    for name, kern, plain, library, products, nbytes in specs:
+        bound, by = _bound_ms(nbytes, products * product, "bfloat16")
+        row = dict(phase="kernel_time", kernel=name, b=b, t=t, h=h, d=d,
+                   dtype="bfloat16", layout="BTHD", causal=True,
+                   kernel_ms=_median_ms(torch, kern),
+                   plain_ms=_median_ms(torch, plain),
+                   library_ms=_median_ms(torch, library), bound_ms=bound,
+                   bound_by=by, flops=products * product, bytes=nbytes,
+                   repeats=_REPEATS, card=card)
+        if name == "flash_attention_fwd":
+            row["library"] = ("F.scaled_dot_product_attention(is_causal=True) "
+                              "on BHTD views")
+        else:
+            row["library"] = ("autograd.grad of F.scaled_dot_product_attention"
+                              " for this pass's gradients alone")
+            row["library_dq_dk_dv_ms"] = all_ms
+        _say(**row)
+        rows[name] = row
+    return rows
+
+
+def _train(torch, card, config, batch, seq, phase, flash_per_step):
+    """bench.py's gpt2s at ``seq`` through the port's training entry
+    points: 3 warm-up + 10 timed steps on one fixed batch, every path
+    kernel's launches counted from 0 over those 13 steps: the CE forward,
+    dx and dW once a step, Adam 196 times, the flash forward, dq and dk/dv
+    ``flash_per_step`` times (one per layer where attention takes flash,
+    none where it takes the einsum path), and FLASH_DISPATCH_COUNT rising
+    by as many forwards. Returns the launches."""
     from paddle_tpu_torch.framework import Executor, Scope, program_guard
     from paddle_tpu_torch.models.gpt import GPTConfig, build_train_program
+    from paddle_tpu_torch.ops import attention
+    from paddle_tpu_torch.ops import flash_attention as fl
     from paddle_tpu_torch.ops import fused_adam as fa
     from paddle_tpu_torch.ops import lmhead_ce as ce
     from paddle_tpu_torch.optimizer import Adam
 
     t0 = time.perf_counter()
-    cfg = GPTConfig(**_TRAIN)
-    main, startup, io = build_train_program(cfg, batch=_TRAIN_B, seq=_TRAIN_T)
+    cfg = GPTConfig(**config)
+    main, startup, io = build_train_program(cfg, batch=batch, seq=seq)
     with program_guard(main, startup):
         Adam(learning_rate=1e-4).minimize(io["loss"])
     build_s = time.perf_counter() - t0
@@ -502,7 +756,7 @@ def _train(torch, card):
     n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
     r = np.random.RandomState(0)  # the fixed batch of bench.py:60-65
     feed = {k: torch.from_numpy(r.randint(0, cfg.vocab_size, (
-        _TRAIN_B, _TRAIN_T)).astype(np.int64)).cuda()
+        batch, seq)).astype(np.int64)).cuda()
         for k in ("tokens", "labels")}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -510,6 +764,8 @@ def _train(torch, card):
     # the main path, counted: every count starts from 0 here
     ce.reset_launches()
     fa.reset_launches()
+    fl.reset_launches()
+    dispatched = attention.FLASH_DISPATCH_COUNT
     losses, step_s = [], []
     for _ in range(_WARM_STEPS + _TIMED_STEPS):
         t_step = time.perf_counter()
@@ -518,33 +774,43 @@ def _train(torch, card):
         step_s.append(time.perf_counter() - t_step)
         losses.append(float(loss))
     steps = _WARM_STEPS + _TIMED_STEPS
+    dispatched = attention.FLASH_DISPATCH_COUNT - dispatched
     launches = {"lmhead_ce_fwd": ce.launches, "lmhead_ce_dx": ce.dx_launches,
-                "lmhead_ce_dw": ce.dw_launches, "fused_adam": fa.launches}
+                "lmhead_ce_dw": ce.dw_launches, "fused_adam": fa.launches,
+                "flash_attention_fwd": fl.fwd_launches,
+                "flash_attention_dq": fl.dq_launches,
+                "flash_attention_dkv": fl.dkv_launches}
+    flash = steps * flash_per_step
     want = {"lmhead_ce_fwd": steps, "lmhead_ce_dx": steps,
-            "lmhead_ce_dw": steps, "fused_adam": steps * _ADAM_PER_STEP}
-    if launches != want:
-        raise AssertionError(f"training launches {launches}, expected "
-                             f"{want} over {steps} steps")
+            "lmhead_ce_dw": steps, "fused_adam": steps * _ADAM_PER_STEP,
+            "flash_attention_fwd": flash, "flash_attention_dq": flash,
+            "flash_attention_dkv": flash}
+    if launches != want or dispatched != flash:
+        raise AssertionError(f"{phase} launches {launches} and "
+                             f"{dispatched} flash dispatches, expected "
+                             f"{want} and {flash} over {steps} steps")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"training loss not finite and falling: "
+        raise AssertionError(f"{phase} loss not finite and falling: "
                              f"{losses}")
     peak = torch.cuda.max_memory_allocated()
     step_ms = statistics.median(step_s[_WARM_STEPS:]) * 1e3
-    _say(phase="train", config=_TRAIN, batch=_TRAIN_B, seq=_TRAIN_T,
+    _say(phase=phase, config=config, batch=batch, seq=seq,
          params=n_params, build_s=build_s, losses=losses,
          step_ms_median=step_ms,
          step_ms_all=[t * 1e3 for t in step_s[_WARM_STEPS:]],
-         tokens_per_s=_TRAIN_N / (step_ms / 1e3),
+         tokens_per_s=batch * seq / (step_ms / 1e3),
          max_memory_allocated=peak, launches=launches,
          launches_per_step={k: n // steps for k, n in launches.items()},
+         flash_dispatches=dispatched,
          adam_step_bound_ms=_bound_ms(n_params * 22, 15.0 * n_params,
                                       "float32")[0],
          card=card, note="one smoke run, not a benchmark")
-    _profile_train_step(torch, exe, main, feed, io, scope, card)
+    _profile_train_step(torch, exe, main, feed, io, scope, card,
+                        phase + "_profile")
     return launches
 
 
-def _profile_train_step(torch, exe, main, feed, io, scope, card):
+def _profile_train_step(torch, exe, main, feed, io, scope, card, phase):
     """One traced training step: host wall, device kernel time, launches
     and the kernels that take the most device time. A traced run: the
     tracer adds host time, so its wall is not the step metric."""
@@ -563,7 +829,7 @@ def _profile_train_step(torch, exe, main, feed, io, scope, card):
             kernels[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
     device_ms = sum(t for _, t in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]
-    _say(phase="train_profile", wall_ms=wall_ms, device_ms=device_ms,
+    _say(phase=phase, wall_ms=wall_ms, device_ms=device_ms,
          device_busy_share=device_ms / wall_ms if kernels else None,
          launches=sum(n for n, _ in kernels.values()),
          top_kernels=[{"name": k[:80], "calls": n, "ms": t}
@@ -571,46 +837,123 @@ def _profile_train_step(torch, exe, main, feed, io, scope, card):
          card=card, note="traced run; not measured if no CUDA events")
 
 
-def _cpu_vs_card(torch):
-    """A tiny fp32 config (2 layers, 2 heads, d 32, vocab 128, seq 16,
-    batch 2) trains 2 steps from the same numpy values on the CPU (plain
-    versions) and on the card (kernels); loss and every persistable must
-    agree at rtol = atol = 1e-4 (TF32 off: exact fp32 products, summed
-    in another order)."""
+# tiny fp32 configs of the CPU-against-card phase: (leg, GPTConfig
+# keywords, seq, PADDLE_TPU_FLASH_MIN_SEQ, Adam lr, Adam epsilon); batch 2
+# each. The flash leg runs Adam at epsilon 1e-5, as
+# tests/test_torch_static_training.py does: one gpt.wte gradient of its
+# batch cancels to ~1e-10, and at the default 1e-8 Adam's first step,
+# lr * g / (|g| + eps), turns the fp32 rounding difference of that sum
+# between an H100 and the CPU into a step difference of 2e-4 at lr 1e-3
+# (measured on an H100); at 1e-5 it shrinks a thousandfold, while the
+# other parameters still move by about lr.
+_CPU_VS_CARD = [
+    ("einsum", dict(vocab_size=128, n_layer=2, n_head=2, d_model=32,
+                    max_seq_len=16), 16, None, 1e-3, 1e-8),
+    ("flash", dict(vocab_size=256, n_layer=2, n_head=2, d_model=128,
+                   max_seq_len=128), 128, 128, 1e-3, 1e-5),
+]
+_TINY_TOL = 1e-4
+
+
+def _tiny_program(config, seq, lr, eps):
+    """(main, io, names, start, feed): a tiny fp32 GPT train program with
+    Adam, its persistables' names and startup values (from a CPU run) and
+    one seeded batch of 2."""
     from paddle_tpu_torch.framework import (CPUPlace, Executor, Scope,
                                             program_guard)
     from paddle_tpu_torch.models.gpt import GPTConfig, build_train_program
     from paddle_tpu_torch.optimizer import Adam
+
+    cfg = GPTConfig(**config)
+    main, startup, io = build_train_program(cfg, batch=2, seq=seq)
+    with program_guard(main, startup):
+        Adam(learning_rate=lr, epsilon=eps).minimize(io["loss"])
+    scope = Scope()
+    Executor(CPUPlace()).run(startup, scope=scope)
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    start = {n: scope.get(n).numpy() for n in names}
+    r = np.random.RandomState(1)
+    feed = {k: r.randint(0, cfg.vocab_size, (2, seq)).astype(np.int64)
+            for k in ("tokens", "labels")}
+    return main, io, names, start, feed
+
+
+def _tiny_steps(program, dev, flash_min_seq, steps=2):
+    """(losses, {persistable: np.ndarray}, flash dispatches): ``steps``
+    steps of a ``_tiny_program`` from its start on ``dev`` ("cpu": plain
+    versions, "cuda": kernels), with PADDLE_TPU_FLASH_MIN_SEQ at
+    ``flash_min_seq`` where it is given."""
+    from paddle_tpu_torch.framework import CPUPlace, Executor, Scope
+    from paddle_tpu_torch.ops import attention
     from paddle_tpu_torch.weights import scope_from_numpy
 
-    cfg = GPTConfig(vocab_size=128, n_layer=2, n_head=2, d_model=32,
-                    max_seq_len=16)
-    main, startup, io = build_train_program(cfg, batch=2, seq=16)
-    with program_guard(main, startup):
-        Adam(learning_rate=1e-3).minimize(io["loss"])
-    cpu_scope = Scope()
-    Executor(CPUPlace()).run(startup, scope=cpu_scope)
-    names = sorted(v.name for v in main.list_vars() if v.persistable)
-    start = {n: cpu_scope.get(n).numpy() for n in names}
-    r = np.random.RandomState(1)
-    feed = {k: r.randint(0, 128, (2, 16)).astype(np.int64)
-            for k in ("tokens", "labels")}
-    out = {}
-    for dev, place in (("cpu", CPUPlace()), ("cuda", None)):
+    main, io, names, start, feed = program
+    saved = os.environ.get("PADDLE_TPU_FLASH_MIN_SEQ")
+    if flash_min_seq:
+        os.environ["PADDLE_TPU_FLASH_MIN_SEQ"] = str(flash_min_seq)
+    try:
         scope = scope_from_numpy(start, Scope(), dev)
-        exe = Executor(place)
+        exe = Executor(CPUPlace() if dev == "cpu" else None)
+        before = attention.FLASH_DISPATCH_COUNT
         losses = [float(exe.run(main, feed=feed, fetch_list=[io["loss"]],
-                                scope=scope)[0]) for _ in range(2)]
-        out[dev] = (losses, {n: scope.get(n).cpu().numpy() for n in names})
-    (cl, cv), (gl, gv) = out["cpu"], out["cuda"]
-    np.testing.assert_allclose(gl, cl, rtol=1e-4, atol=1e-4)
+                                scope=scope)[0]) for _ in range(steps)]
+        return (losses, {n: scope.get(n).cpu().numpy() for n in names},
+                attention.FLASH_DISPATCH_COUNT - before)
+    finally:
+        if saved is None:
+            os.environ.pop("PADDLE_TPU_FLASH_MIN_SEQ", None)
+        else:
+            os.environ["PADDLE_TPU_FLASH_MIN_SEQ"] = saved
+
+
+def _tiny_agree(got, want, what) -> float:
+    """Holds one ``_tiny_steps`` run against another: the losses and every
+    persistable at rtol = atol = 1e-4, and each Adam moment also within
+    1e-4 of the largest value of its kind (every moment1, every moment2).
+    Adam's first steps move a parameter by about lr * sign(g), whatever
+    the size of g, so the parameters alone would pass a gradient of the
+    wrong size; its moments carry that size (m ~ g, v ~ g^2). Raises
+    naming what disagrees; returns the largest parameter difference."""
+    (gl, gv, _), (wl, wv, _) = got, want
+    np.testing.assert_allclose(gl, wl, rtol=_TINY_TOL, atol=_TINY_TOL,
+                               err_msg=f"{what}: losses")
+    scale = {kind: max(float(np.abs(wv[n]).max()) for n in wv
+                       if f"_{kind}_" in n) for kind in ("moment1", "moment2")}
     worst = 0.0
-    for n in names:
-        np.testing.assert_allclose(gv[n], cv[n], rtol=1e-4, atol=1e-4,
-                                   err_msg=n)
-        worst = max(worst, float(np.abs(gv[n] - cv[n]).max()))
-    _say(phase="cpu_vs_card", steps=2, losses_cpu=cl, losses_card=gl,
-         persistables=len(names), max_abs_diff=worst, tolerance=1e-4)
+    for n in sorted(wv):
+        np.testing.assert_allclose(gv[n], wv[n], rtol=_TINY_TOL,
+                                   atol=_TINY_TOL, err_msg=f"{what}: {n}")
+        diff = float(np.abs(gv[n] - wv[n]).max())
+        kind = next((k for k in scale if f"_{k}_" in n), None)
+        if kind and diff > _TINY_TOL * scale[kind]:
+            raise AssertionError(
+                f"{what}: {n} differs by {diff}, beyond 1e-4 of the largest "
+                f"{kind} ({scale[kind]})")
+        worst = max(worst, diff)
+    return worst
+
+
+def _cpu_vs_card(torch, leg, config, seq, flash_min_seq, lr, eps):
+    """A tiny fp32 config trains 2 steps (batch 2) from the same numpy
+    values on the CPU (plain versions) and on the card (kernels), held
+    together by ``_tiny_agree`` (TF32 off: exact fp32 products, summed in
+    another order). The flash leg lowers PADDLE_TPU_FLASH_MIN_SEQ to its
+    seq, so that attention (head_dim 64) takes the flash kernels on both
+    sides: FLASH_DISPATCH_COUNT must rise on each, and must not in the
+    einsum leg."""
+    program = _tiny_program(config, seq, lr, eps)
+    cpu = _tiny_steps(program, "cpu", flash_min_seq)
+    card = _tiny_steps(program, "cuda", flash_min_seq)
+    dispatched = {"cpu": cpu[2], "cuda": card[2]}
+    if (min(dispatched.values()) > 0) != bool(flash_min_seq):
+        raise AssertionError(f"cpu_vs_card {leg}: flash dispatches "
+                             f"{dispatched}")
+    worst = _tiny_agree(card, cpu, f"cpu_vs_card {leg}")
+    _say(phase="cpu_vs_card", leg=leg, config=config, seq=seq, lr=lr,
+         eps=eps, steps=2, losses_cpu=cpu[0], losses_card=card[0],
+         flash_dispatches=dispatched, persistables=len(program[2]),
+         max_abs_diff=worst, tolerance=_TINY_TOL,
+         moment_tolerance="1e-4 of the largest moment of its kind")
 
 
 def _serve(torch, card):
@@ -775,41 +1118,67 @@ def main() -> int:
     _build()
     serve_err = _check_kernel(torch)
     errs = _check_training_kernels(torch)
+    errs.update(_check_flash(torch))
     serve_times = _time_kernel(torch, card)
     times = _time_training_kernels(torch, card)
+    times.update(_time_flash(torch, card))
     serve_launches = _serve(torch, card)
-    train_launches = _train(torch, card)
-    _cpu_vs_card(torch)
+    train = _train(torch, card, _TRAIN, _TRAIN_B, _TRAIN_T, "train", 0)
+    train_long = _train(torch, card, _LONG, _LONG_B, _LONG_T,
+                        "train_long", _LAYERS)
+    for case in _CPU_VS_CARD:
+        _cpu_vs_card(torch, *case)
 
     ce_src = "paddle_tpu_torch/csrc/lmhead_ce.cu"
     pallas = "paddle_tpu/ops/pallas/"
     shape = {"n": _TRAIN_N, "d": _TRAIN["d_model"],
              "v": _TRAIN["vocab_size"], "dtype": "bfloat16"}
+
+    def by_path(name, **more):
+        return {"train": train[name], "train_long": train_long[name],
+                **more}
+
     t = serve_times[(511, "float32")]
     fwd = _kernel_row(
         "lmhead_ce_fwd", pallas + "fused_lmhead_ce.py:99", ce_src,
-        train_launches["lmhead_ce_fwd"],
+        train["lmhead_ce_fwd"],
         max(serve_err, errs["lmhead_ce_fwd"]), times["lmhead_ce_fwd"], card,
         shape=shape,
-        launches_by_path={"train": train_launches["lmhead_ce_fwd"],
-                          "serve": serve_launches},
+        launches_by_path=by_path("lmhead_ce_fwd", serve=serve_launches),
         serve_shape={"n": 511, "d": _SERVE_D, "v": _SERVE_V,
                      "dtype": "float32", "ms": t["kernel_ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "library_ms": t["library_ms"]})
     rows = [fwd] + [
-        _kernel_row(name, pallas + where, ce_src, train_launches[name],
+        _kernel_row(name, pallas + where, ce_src, train[name],
                     errs[name], times[name], card, shape=shape,
+                    launches_by_path=by_path(name),
                     library_dx_dw_ms=times[name]["library_dx_dw_ms"])
         for name, where in (("lmhead_ce_dx", "fused_lmhead_ce.py:188"),
                             ("lmhead_ce_dw", "fused_lmhead_ce.py:221"))]
     rows.append(_kernel_row(
         "fused_adam", pallas + "fused_adam.py:25",
-        "paddle_tpu_torch/csrc/fused_adam.cu", train_launches["fused_adam"],
+        "paddle_tpu_torch/csrc/fused_adam.cu", train["fused_adam"],
         errs["fused_adam"], times["fused_adam"], card,
+        launches_by_path=by_path("fused_adam"),
         shape={"param": "gpt.wte", "dims": [_TRAIN["vocab_size"],
                                             _TRAIN["d_model"]],
                "dtype": "bfloat16"}))
+    flash_shape = {"b": _LONG_B, "t": _LONG_T, "h": _LONG["n_head"],
+                   "d": _head_dim(_LONG), "dtype": "bfloat16",
+                   "layout": "BTHD", "causal": True}
+    for name, bthd, bhtd in (
+            ("flash_attention_fwd", 130, 68),
+            ("flash_attention_dq", 354, 315),
+            ("flash_attention_dkv", 471, 423)):
+        extra = ({} if name == "flash_attention_fwd" else
+                 {"library_dq_dk_dv_ms": times[name]["library_dq_dk_dv_ms"]})
+        rows.append(_kernel_row(
+            name, pallas + f"flash_attention.py:{bthd}",
+            "paddle_tpu_torch/csrc/flash_attention.cu", train_long[name],
+            errs[name], times[name], card,
+            replaces_bhtd=pallas + f"flash_attention.py:{bhtd}",
+            launches_by_path=by_path(name), shape=flash_shape, **extra))
     _say(kernels=rows)
     print(card, flush=True)
     _say(ok=True, device={"platform": "gpu",

@@ -1,0 +1,562 @@
+// Flash attention, forward and backward, for Hopper (sm_90a).
+//
+// Replaces the three TPU kernels of paddle_tpu/ops/pallas/flash_attention.py
+// (each run through pl.pallas_call), in both of their layouts:
+//   _fwd_kernel (BHTD) / _fwd_kernel_bthd (BTHD), by _fwd: for each query
+//     row r, without writing the [Tq, Tk] scores to device memory,
+//         s[r, c]  = (q[r] . k[c]) * scale       (fp32 products and sums)
+//         lse[r]   = logsumexp over the visible c of s[r, c]
+//         out[r]   = sum_c softmax(s[r])[c] * v[c]
+//   _bwd_dq_kernel / _bwd_dq_kernel_bthd, by _bwd (dq pass), from the saved
+//     lse and delta[r] = rowsum(dO[r] * out[r]):
+//         P = exp(s - lse), dP = dO . V^T, dS = P * (dP - delta)
+//         dq = scale * dS . K
+//   _bwd_dkv_kernel / _bwd_dkv_kernel_bthd (dk/dv pass):
+//         dv = P^T . dO          dk = scale * dS^T . Q
+// Causal masks are aligned bottom-right (column c is visible from row r iff
+// c <= r + Tk - Tq), as the TPU kernels and the einsum path align them.
+// Rounding, as on the TPU: P is rounded to the inputs' dtype before P . V
+// and before P^T . dO, dS before dS . K and dS^T . Q; every accumulator is
+// fp32 and the outputs are cast once. The scale multiplies the fp32 scores
+// (the BHTD rule; the TPU's BTHD kernel rounds q * scale to the inputs'
+// dtype first, which agrees at D = 64, where the scale is 0.125) and the
+// dq and dk sums once at the end. fp32 inputs are multiplied in full fp32
+// (no TF32); bf16 inputs are widened to fp32.
+// Masked scores take no part: the online softmax starts from -1e30, a
+// finite stand-in for -inf, as on the TPU, and a masked entry contributes
+// exactly 0. A row that sees no key (only with causal and Tq > Tk) has
+// l = 0, written out as 0 with lse = -1e30 (l is replaced by 1, as the
+// TPU does where a whole query block is skipped).
+//
+// Bound on this card (H100 SXM): operations. At the training shape
+// (B = 8, T = 2048, H = 12, D = 64, bf16, causal) the visible score
+// entries number B*H*T*(T+1)/2, and each product over them costs 2*D FLOPs
+// an entry: 51.6 GFLOP for the forward (2 products), 77.3 for dq (3) and
+// 103.1 for dk/dv (4): 0.052, 0.078 and 0.104 ms at the 989 TFLOP/s of the
+// bf16 tensor cores, against under 0.04 ms to move q, k, v, dO and the
+// outputs once at 3.35 TB/s. These kernels run on the fp32 FMA units
+// (67 TFLOP/s), so they sit far above that bound; mma/wgmma fed by TMA are
+// the work of making them fast.
+//
+// Design. The TPU grid walks the kv blocks (or, for dk/dv, the q blocks)
+// of one block in order on one core and carries the running max, sum and
+// accumulators in VMEM. Here that sequential axis is a loop inside one
+// block, and the parallel axes are the grid: one block of 256 threads per
+// (64-row tile, head, batch), the 64-row tile being a query tile for the
+// forward and dq and a key/value tile for dk/dv, so neither backward pass
+// needs atomics. At the training shape that is 32 x 12 x 8 = 3,072 blocks
+// a launch. Query tiles run in reverse order, so that the long causal rows
+// start first. Each thread owns a 4 x 4 patch of the 64 x 64 score tile
+// and 4 rows x D/16 columns of the output accumulator, in registers; the
+// 16 threads of a row reduce with shuffles. Score products stage both
+// operands 32 deep at a time in shared memory, transposed, so that each
+// thread reads its 4 rows and 4 columns as one float4 each; the second
+// product parks the rounded P (or dS) tile in shared memory and streams
+// the other operand's rows in 64-column slabs. Shared memory is 34,816
+// bytes a block whatever D is (64, 128 or 256). Tiles wholly above the
+// causal diagonal are skipped; only tiles that cross it, or the ragged
+// edge of a sequence, are masked. Strides for (batch, seq, head) make one
+// kernel per role serve both layouts: BTHD = (B, T, H, D) and
+// BHTD = (B, H, T, D), with D contiguous.
+//
+// Plain C interface, loaded with ctypes: each entry point launches one
+// kernel on the given stream and returns cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int BQ = 64;        // query rows per tile
+constexpr int BKV = 64;       // key/value rows per tile
+constexpr int BK = 32;        // depth staged in shared memory per step
+constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 scores each
+constexpr int TM = 4;
+constexpr int TN = 4;
+constexpr int ROW = 64 + 4;   // row stride of the shared tiles (float4 rows)
+constexpr float NEG = -1e30f;  // finite stand-in for -inf, as on the TPU
+
+struct Params {
+  const void* q;       // [B, Tq, H, D] or [B, H, Tq, D], as are dout and dq
+  const void* k;       // [B, Tk, H, D] or [B, H, Tk, D], as are v, dk, dv
+  const void* v;
+  const void* dout;    // dO (backward)
+  const float* lse;    // [B, H, Tq] (backward)
+  const float* delta;  // [B, H, Tq] (backward)
+  void* out;           // out (forward), dq (dq pass) or dk (dk/dv pass)
+  void* out2;          // dv (dk/dv pass)
+  float* lse_out;      // [B, H, Tq] (forward)
+  int tq, tk;
+  long long q_sb, q_st, q_sh;  // element strides of batch, seq and head
+  long long k_sb, k_st, k_sh;
+  float scale;
+  int causal;
+};
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float round_to(float v, float) { return v; }
+__device__ __forceinline__ float round_to(float v, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+__device__ __forceinline__ float row_max(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// dst[k][r] = src[r0 + r][k0 + k] for r < 64, k < BK (transposed), 0 for
+// rows at or past `rows`. A warp covers 4 rows x 8 depths: each row's 8
+// values are one sector in device memory, and the 32 stores hit 32
+// different banks (bank = 4k + r mod 32 with the ROW stride).
+template <typename T>
+__device__ __forceinline__ void stage_t(float (*dst)[ROW],
+                                        const T* __restrict__ src,
+                                        long long row_stride, int r0,
+                                        int rows, int k0, int tid) {
+#pragma unroll
+  for (int e = tid; e < 64 * BK; e += THREADS) {
+    const int lane = e & 31, chunk = e >> 5;  // 64 chunks of 32
+    const int r = (chunk & 15) * 4 + (lane & 3);
+    const int k = (chunk >> 4) * 8 + (lane >> 2);
+    const int gr = r0 + r;
+    dst[k][r] = gr < rows ? widen(src[gr * row_stride + k0 + k]) : 0.f;
+  }
+}
+
+// dst[r][c] = src[r0 + r][d1 + c] for r, c < 64 (not transposed), 0 for
+// rows at or past `rows`. Neighbouring threads read neighbouring columns.
+template <typename T>
+__device__ __forceinline__ void stage_rows(float (*dst)[ROW],
+                                           const T* __restrict__ src,
+                                           long long row_stride, int r0,
+                                           int rows, int d1, int tid) {
+#pragma unroll 4
+  for (int e = tid; e < 64 * 64; e += THREADS) {
+    const int r = e >> 6, c = e & 63;
+    const int gr = r0 + r;
+    dst[r][c] = gr < rows ? widen(src[gr * row_stride + d1 + c]) : 0.f;
+  }
+}
+
+// s[i][j] = sum over the D depths of a[a0 + 4ty + i] . b[b0 + 4tx + j]
+// (rows of two row-major operands; rows past a_rows / b_rows read as 0).
+// stg holds two [BK][ROW] staging tiles. Ends synchronised: stg is free.
+template <typename T, int D>
+__device__ __forceinline__ void scores(float (&s)[TM][TN],
+                                       const T* __restrict__ a,
+                                       long long a_st, int a0, int a_rows,
+                                       const T* __restrict__ b,
+                                       long long b_st, int b0, int b_rows,
+                                       float (*stg)[ROW], int tid, int ty,
+                                       int tx) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
+  float(*as)[ROW] = stg;
+  float(*bs)[ROW] = stg + BK;
+  for (int k0 = 0; k0 < D; k0 += BK) {
+    stage_t(as, a, a_st, a0, a_rows, k0, tid);
+    stage_t(bs, b, b_st, b0, b_rows, k0, tid);
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      const float4 av = *reinterpret_cast<const float4*>(&as[k][4 * ty]);
+      const float4 bv = *reinterpret_cast<const float4*>(&bs[k][4 * tx]);
+      const float ar[TM] = {av.x, av.y, av.z, av.w};
+      const float br[TN] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) s[i][j] = fmaf(ar[i], br[j], s[i][j]);
+    }
+    __syncthreads();
+  }
+}
+
+// acc[i][4 * sl + j] += sum over c < 64 of w[c][4ty + i] * src[r0 + c][64 sl
+// + 4tx + j], for every 64-column slab sl of D: the second product of each
+// pass, with w the rounded P or dS tile (the summed index first). The
+// slabs of src are staged through stg, which must be free; ends
+// synchronised, so w and stg may be overwritten after it.
+template <typename T, int D>
+__device__ __forceinline__ void accumulate(float (&acc)[TM][D / 16],
+                                           const float (*w)[ROW],
+                                           const T* __restrict__ src,
+                                           long long st, int r0, int rows,
+                                           float (*stg)[ROW], int tid,
+                                           int ty, int tx) {
+#pragma unroll
+  for (int sl = 0; sl < D / 64; ++sl) {
+    stage_rows(stg, src, st, r0, rows, 64 * sl, tid);
+    __syncthreads();
+#pragma unroll 8
+    for (int c = 0; c < 64; ++c) {
+      const float4 wv = *reinterpret_cast<const float4*>(&w[c][4 * ty]);
+      const float4 rv = *reinterpret_cast<const float4*>(&stg[c][4 * tx]);
+      const float wr[TM] = {wv.x, wv.y, wv.z, wv.w};
+      const float rr[TN] = {rv.x, rv.y, rv.z, rv.w};
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          acc[i][4 * sl + j] = fmaf(wr[i], rr[j], acc[i][4 * sl + j]);
+    }
+    __syncthreads();
+  }
+}
+
+// out rows [r0, r0 + 64) of a row-major [rows, D] operand: row 4ty + i,
+// columns 64 sl + 4tx + j, times `mul`, cast once.
+template <typename T, int D>
+__device__ __forceinline__ void write_rows(T* __restrict__ out, long long st,
+                                           int r0, int rows,
+                                           const float (&acc)[TM][D / 16],
+                                           float mul, int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = r0 + 4 * ty + i;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int sl = 0; sl < D / 64; ++sl)
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        store(&out[r * st + 64 * sl + 4 * tx + j], acc[i][4 * sl + j] * mul);
+  }
+}
+
+// The columns of query tile q0 a causal mask leaves visible end before
+// this (every column without a mask).
+__device__ __forceinline__ int kv_end(const Params& p, int q0) {
+  return p.causal ? min(p.tk, q0 + BQ + p.tk - p.tq) : p.tk;
+}
+
+// Does the (query tile q0, key tile c0) pair need per-entry masking: a
+// ragged edge of either sequence or a tile crossing the causal diagonal.
+__device__ __forceinline__ bool needs_mask(const Params& p, int q0, int c0) {
+  return q0 + BQ > p.tq || c0 + BKV > p.tk ||
+         (p.causal && c0 + BKV - 1 > q0 + p.tk - p.tq);
+}
+
+__device__ __forceinline__ bool visible(const Params& p, int r, int c) {
+  return r < p.tq && c < p.tk && (!p.causal || c <= r + p.tk - p.tq);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS) fwd_kernel(const Params p) {
+  __shared__ __align__(16) float stg[2 * BK][ROW];
+  __shared__ __align__(16) float pt[BKV][ROW];  // rounded P^T: [col][row]
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.k_sb + h * p.k_sh;
+
+  float m_run[TM], l_run[TM], acc[TM][D / 16];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    m_run[i] = NEG;
+    l_run[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
+  }
+
+  const int end = kv_end(p, q0);
+  for (int c0 = 0; c0 < end; c0 += BKV) {
+    float s[TM][TN];
+    scores<T, D>(s, q, p.q_st, q0, p.tq, k, p.k_st, c0, p.tk, stg, tid, ty,
+                 tx);
+    const bool masked = needs_mask(p, q0, c0);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int r = q0 + 4 * ty + i;
+      bool keep[TN];
+      float tmax = NEG;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        keep[j] = !masked || visible(p, r, c0 + 4 * tx + j);
+        s[i][j] *= p.scale;
+        if (keep[j]) tmax = fmaxf(tmax, s[i][j]);
+      }
+      const float m_new = fmaxf(m_run[i], row_max(tmax));
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float e = keep[j] ? expf(s[i][j] - m_new) : 0.f;
+        sum += e;
+        pt[4 * tx + j][4 * ty + i] = round_to(e, T());
+      }
+      const float alpha = expf(m_run[i] - m_new);
+      l_run[i] = l_run[i] * alpha + row_sum(sum);
+      m_run[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();
+    accumulate<T, D>(acc, pt, v, p.k_st, c0, p.tk, stg, tid, ty, tx);
+  }
+
+  T* out = static_cast<T*>(p.out) + b * p.q_sb + h * p.q_sh;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const float l_safe = l_run[i] == 0.f ? 1.f : l_run[i];
+    const int r = q0 + 4 * ty + i;
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) acc[i][c] /= l_safe;
+    if (tx == 0 && r < p.tq)
+      p.lse_out[((long long)b * gridDim.y + h) * p.tq + r] =
+          m_run[i] + logf(l_safe);
+  }
+  write_rows<T, D>(out, p.q_st, q0, p.tq, acc, 1.f, ty, tx);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS) dq_kernel(const Params p) {
+  __shared__ __align__(16) float stg[2 * BK][ROW];
+  __shared__ __align__(16) float dst[BKV][ROW];  // rounded dS^T: [col][row]
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* dout = static_cast<const T*>(p.dout) + b * p.q_sb + h * p.q_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.k_sb + h * p.k_sh;
+  const long long stats = ((long long)b * gridDim.y + h) * p.tq;
+
+  float row_lse[TM], row_delta[TM], acc[TM][D / 16];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = q0 + 4 * ty + i;
+    row_lse[i] = r < p.tq ? p.lse[stats + r] : 0.f;
+    row_delta[i] = r < p.tq ? p.delta[stats + r] : 0.f;
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
+  }
+
+  const int end = kv_end(p, q0);
+  for (int c0 = 0; c0 < end; c0 += BKV) {
+    float s[TM][TN], dp[TM][TN];
+    scores<T, D>(s, q, p.q_st, q0, p.tq, k, p.k_st, c0, p.tk, stg, tid, ty,
+                 tx);
+    scores<T, D>(dp, dout, p.q_st, q0, p.tq, v, p.k_st, c0, p.tk, stg, tid,
+                 ty, tx);
+    const bool masked = needs_mask(p, q0, c0);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int r = q0 + 4 * ty + i;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const bool keep = !masked || visible(p, r, c0 + 4 * tx + j);
+        const float pr = keep ? expf(s[i][j] * p.scale - row_lse[i]) : 0.f;
+        dst[4 * tx + j][4 * ty + i] =
+            round_to(pr * (dp[i][j] - row_delta[i]), T());
+      }
+    }
+    __syncthreads();
+    accumulate<T, D>(acc, dst, k, p.k_st, c0, p.tk, stg, tid, ty, tx);
+  }
+  write_rows<T, D>(static_cast<T*>(p.out) + b * p.q_sb + h * p.q_sh,
+                   p.q_st, q0, p.tq, acc, p.scale, ty, tx);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS) dkv_kernel(const Params p) {
+  __shared__ __align__(16) float stg[2 * BK][ROW];
+  __shared__ __align__(16) float wt[BQ][ROW];  // rounded P or dS: [row][col]
+
+  // this block's 64 key/value rows are the rows of its score tiles here
+  // (st = K Q^T), its query tiles the columns
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int c0 = blockIdx.x * BKV;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* dout = static_cast<const T*>(p.dout) + b * p.q_sb + h * p.q_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.k_sb + h * p.k_sh;
+  const long long stats = ((long long)b * gridDim.y + h) * p.tq;
+
+  float acc_k[TM][D / 16], acc_v[TM][D / 16];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+
+  // causal: query rows r see this tile from r = c0 - (Tk - Tq) on
+  const int first = c0 - (p.tk - p.tq);
+  const int begin = p.causal && first > 0 ? first / BQ * BQ : 0;
+  for (int q0 = begin; q0 < p.tq; q0 += BQ) {
+    float st[TM][TN], dpt[TM][TN];
+    scores<T, D>(st, k, p.k_st, c0, p.tk, q, p.q_st, q0, p.tq, stg, tid, ty,
+                 tx);
+    scores<T, D>(dpt, v, p.k_st, c0, p.tk, dout, p.q_st, q0, p.tq, stg, tid,
+                 ty, tx);
+    const bool masked = needs_mask(p, q0, c0);
+    float col_lse[TN], col_delta[TN];
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int r = q0 + 4 * tx + j;
+      col_lse[j] = r < p.tq ? p.lse[stats + r] : 0.f;
+      col_delta[j] = r < p.tq ? p.delta[stats + r] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int c = c0 + 4 * ty + i;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const bool keep = !masked || visible(p, q0 + 4 * tx + j, c);
+        const float pr = keep ? expf(st[i][j] * p.scale - col_lse[j]) : 0.f;
+        wt[4 * tx + j][4 * ty + i] = round_to(pr, T());
+        dpt[i][j] = pr * (dpt[i][j] - col_delta[j]);  // now dS^T
+      }
+    }
+    __syncthreads();
+    accumulate<T, D>(acc_v, wt, dout, p.q_st, q0, p.tq, stg, tid, ty, tx);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        wt[4 * tx + j][4 * ty + i] = round_to(dpt[i][j], T());
+    __syncthreads();
+    accumulate<T, D>(acc_k, wt, q, p.q_st, q0, p.tq, stg, tid, ty, tx);
+  }
+  const long long kbase = b * p.k_sb + h * p.k_sh;
+  write_rows<T, D>(static_cast<T*>(p.out) + kbase, p.k_st, c0, p.tk, acc_k,
+                   p.scale, ty, tx);
+  write_rows<T, D>(static_cast<T*>(p.out2) + kbase, p.k_st, c0, p.tk, acc_v,
+                   1.f, ty, tx);
+}
+
+enum Role { FWD, DQ, DKV };
+
+template <typename T, int D>
+int launch(Role role, const Params& p, int batch, int heads, cudaStream_t s) {
+  const int rows = role == DKV ? p.tk : p.tq;
+  const dim3 grid((rows + 63) / 64, heads, batch);
+  if (grid.x == 0 || grid.y == 0 || grid.z == 0) return 0;
+  if (role == FWD) {
+    auto kernel = fwd_kernel<T, D>;
+    kernel<<<grid, THREADS, 0, s>>>(p);
+  } else if (role == DQ) {
+    auto kernel = dq_kernel<T, D>;
+    kernel<<<grid, THREADS, 0, s>>>(p);
+  } else {
+    auto kernel = dkv_kernel<T, D>;
+    kernel<<<grid, THREADS, 0, s>>>(p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_d(Role role, const Params& p, int batch, int heads, int d,
+             cudaStream_t s) {
+  switch (d) {
+    case 64:
+      return launch<T, 64>(role, p, batch, heads, s);
+    case 128:
+      return launch<T, 128>(role, p, batch, heads, s);
+    case 256:
+      return launch<T, 256>(role, p, batch, heads, s);
+    default:
+      return -1;
+  }
+}
+
+int run(Role role, Params& p, int batch, int heads, int tq, int tk, int d,
+        long long q_sb, long long q_st, long long q_sh, long long k_sb,
+        long long k_st, long long k_sh, float scale, int causal, int is_bf16,
+        void* stream) {
+  p.tq = tq;
+  p.tk = tk;
+  p.q_sb = q_sb;
+  p.q_st = q_st;
+  p.q_sh = q_sh;
+  p.k_sb = k_sb;
+  p.k_st = k_st;
+  p.k_sh = k_sh;
+  p.scale = scale;
+  p.causal = causal;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_d<__nv_bfloat16>(role, p, batch, heads, d, s)
+                 : launch_d<float>(role, p, batch, heads, d, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// q: [B, Tq, H, D] (BTHD) or [B, H, Tq, D] (BHTD) at strides q_sb, q_st,
+// q_sh (elements; D contiguous), as are out, dout and dq; k: likewise at
+// k_sb, k_st, k_sh, as are v, dk and dv. lse and delta: [B, H, Tq] fp32.
+// d: 64, 128 or 256 (anything else returns -1).
+
+int flash_attn_fwd(const void* q, const void* k, const void* v, void* out,
+                   void* lse, int batch, int heads, int tq, int tk, int d,
+                   long long q_sb, long long q_st, long long q_sh,
+                   long long k_sb, long long k_st, long long k_sh,
+                   float scale, int causal, int is_bf16, void* stream) {
+  Params p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.out = out;
+  p.lse_out = static_cast<float*>(lse);
+  return run(FWD, p, batch, heads, tq, tk, d, q_sb, q_st, q_sh, k_sb, k_st,
+             k_sh, scale, causal, is_bf16, stream);
+}
+
+int flash_attn_dq(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dq, int batch, int heads, int tq, int tk, int d,
+                  long long q_sb, long long q_st, long long q_sh,
+                  long long k_sb, long long k_st, long long k_sh, float scale,
+                  int causal, int is_bf16, void* stream) {
+  Params p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.dout = dout;
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.out = dq;
+  return run(DQ, p, batch, heads, tq, tk, d, q_sb, q_st, q_sh, k_sb, k_st,
+             k_sh, scale, causal, is_bf16, stream);
+}
+
+int flash_attn_dkv(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dk, void* dv, int batch, int heads, int tq, int tk,
+                   int d, long long q_sb, long long q_st, long long q_sh,
+                   long long k_sb, long long k_st, long long k_sh,
+                   float scale, int causal, int is_bf16, void* stream) {
+  Params p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.dout = dout;
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.out = dk;
+  p.out2 = dv;
+  return run(DKV, p, batch, heads, tq, tk, d, q_sb, q_st, q_sh, k_sb, k_st,
+             k_sh, scale, causal, is_bf16, stream);
+}
+
+}  // extern "C"

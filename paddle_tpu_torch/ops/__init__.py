@@ -3,7 +3,8 @@
 Importing this package registers every op lowering the port has (the
 GPT training program's; mirrors ``paddle_tpu/ops``). Beside the
 lowerings sit the hand-written CUDA kernels' wrappers
-(``lmhead_ce.py``, ``fused_adam.py``) and the build that compiles them
+(``lmhead_ce.py``, ``fused_adam.py``,
+``flash_attention.py``) and the build that compiles them
 (``_build.py``).
 """
 from . import (  # noqa: F401

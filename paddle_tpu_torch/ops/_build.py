@@ -96,6 +96,13 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fused_adam_step.argtypes = [p, p, p, p, p, p, p, ctypes.c_longlong,
                                     f, f, f, f, f, f, i, i, p]
     lib.fused_adam_step.restype = i
+    ll = ctypes.c_longlong
+    dims = [i, i, i, i, i, ll, ll, ll, ll, ll, ll, f, i, i, p]
+    lib.flash_attn_fwd.argtypes = [p] * 5 + dims
+    lib.flash_attn_dq.argtypes = [p] * 7 + dims
+    lib.flash_attn_dkv.argtypes = [p] * 8 + dims
+    for fn in (lib.flash_attn_fwd, lib.flash_attn_dq, lib.flash_attn_dkv):
+        fn.restype = i
     return lib
 
 

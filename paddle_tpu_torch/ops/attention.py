@@ -1,22 +1,27 @@
-"""``fused_attention_tpu``: attention as the JAX package's einsum path.
+"""``fused_attention_tpu``: attention as the JAX package dispatches it.
 
-Port of ``paddle_tpu/ops/attention.py``. At the training slice's
-sequence lengths the JAX op takes ``_sdpa_xla``: two einsums around an
-fp32 softmax, the causal mask ``tril(ones(tq, tk), tk - tq)`` applied as
+Port of ``paddle_tpu/ops/attention.py``. The op takes the flash kernels
+(``ops/flash_attention.py``, hand-written CUDA; ``PERF.md`` rows 4-6)
+wherever the JAX op takes its pallas flash path, and nowhere else: no
+mask, sequence length >= ``PADDLE_TPU_FLASH_MIN_SEQ`` (1024), head_dim in
+{64, 128, 256}, and the JAX op's block candidates dividing both sequence
+lengths (:func:`_flash_would_run`). ``FLASH_DISPATCH_COUNT`` counts those
+dispatches, as the JAX op's counter does (``bench.py`` asserts that the
+long-sequence config took flash). Otherwise the op computes the JAX
+package's ``_sdpa_xla`` in plain PyTorch: two einsums around an fp32
+softmax, the causal mask ``tril(ones(tq, tk), tk - tq)`` applied as
 ``-inf``, in either layout (BTHD = (B, T, H, D), BHTD = (B, H, T, D)).
-The port computes exactly that in plain PyTorch. It is not
-``F.scaled_dot_product_attention``: the reference computes it with
-einsums, and the flash kernels of a later slice replace it where the JAX
-package takes flash.
+It is not ``F.scaled_dot_product_attention``: the reference computes it
+with einsums.
 
-Where the JAX op would take its pallas flash kernels (no mask, sequence
-length >= ``PADDLE_TPU_FLASH_MIN_SEQ`` (1024), head_dim in {64, 128,
-256}, sequence divisible into blocks) the port raises
-``errors.Unimplemented``: those kernels (``PERF.md`` rows 4-6) are not
-ported yet, and the einsum path never runs in their place.
 ``PADDLE_TPU_DISABLE_FLASH`` keeps its meaning: take the einsum path.
-Ring attention (a ``sequence_parallel_axis``) raises as well: the port
-has no device mesh yet.
+There is no fallback from flash to einsum: the JAX op falls back where
+pallas is unavailable on its backend, which has no counterpart here, so
+a kernel that fails to build or launch raises. Ring attention (a
+``sequence_parallel_axis``) raises: the port has no device mesh yet.
+
+The op registers an ``infer=`` rule, so builder-time inference never
+hands a meta tensor to a kernel wrapper.
 """
 from __future__ import annotations
 
@@ -28,6 +33,10 @@ import torch
 from ..framework import errors as _errs
 from ..framework.registry import register_op
 from .common import maybe
+from .flash_attention import flash_attention
+
+# fused_attention_tpu runs that dispatched to the flash kernels
+FLASH_DISPATCH_COUNT = 0
 
 
 def _sdpa_einsum(q, k, v, mask=None, is_causal=False, scale=None,
@@ -73,8 +82,17 @@ def _flash_would_run(q, k, layout: str) -> bool:
             and any(tk % b == 0 for b in cand_k))
 
 
-@register_op("fused_attention_tpu", no_grad_inputs=("Mask",), uses_rng=True)
+def _infer(op) -> None:
+    q, v = op._input_vars["Q"][0], op._input_vars["V"][0]
+    for var in op._output_vars.get("Out", []):
+        var.shape = tuple(q.shape[:-1]) + (v.shape[-1],)
+        var.dtype = q.dtype
+
+
+@register_op("fused_attention_tpu", no_grad_inputs=("Mask",), uses_rng=True,
+             infer=_infer)
 def _fused_attention_tpu(ctx, ins, attrs):
+    global FLASH_DISPATCH_COUNT
     q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
     mask = maybe(ins, "Mask")
     is_causal = attrs.get("is_causal", False)
@@ -87,15 +105,10 @@ def _fused_attention_tpu(ctx, ins, attrs):
     use_flash = (attrs.get("use_flash", True)
                  and not os.environ.get("PADDLE_TPU_DISABLE_FLASH"))
     if use_flash and mask is None and _flash_would_run(q, k, layout):
-        raise _errs.errors.Unimplemented(
-            f"fused_attention_tpu at sequence length "
-            f"{q.shape[1 if layout == 'BTHD' else 2]} takes the flash "
-            f"kernels in paddle_tpu (PERF.md kernel rows 4-6: _fwd_kernel, "
-            f"_bwd_dq_kernel, _bwd_dkv_kernel), which are not ported yet "
-            f"(ROADMAP.md queue B, items B4-B6); set "
-            f"PADDLE_TPU_DISABLE_FLASH=1 to take the einsum path in both "
-            f"packages")
-    out = _sdpa_einsum(q, k, v, mask, is_causal, layout=layout)
+        out = flash_attention(q, k, v, causal=is_causal, layout=layout)
+        FLASH_DISPATCH_COUNT += 1
+    else:
+        out = _sdpa_einsum(q, k, v, mask, is_causal, layout=layout)
     p = attrs.get("dropout_p", 0.0)
     if p and not attrs.get("is_test", False):
         keep = torch.rand(out.shape, generator=ctx.generator(

@@ -1,0 +1,190 @@
+"""The port's flash attention against the JAX package's pallas kernels.
+
+The same numpy inputs go through the TPU kernels of
+``paddle_tpu/ops/pallas/flash_attention.py``, run in pallas interpret
+mode as the JAX package's own tests run them on the CPU, and through the
+port's plain versions (``paddle_tpu_torch/ops/flash_attention.py``),
+which the port's wrappers take for CPU tensors:
+
+- out and lse from ``_fwd``;
+- dq, dk and dv from ``_bwd``, fed the JAX forward's out and lse;
+- the gradients of ``jax.grad`` of ``flash_attention`` against
+  ``torch.autograd`` through ``FlashAttention``.
+
+Cases: fp32 and bf16, causal and not, BTHD and BHTD, D = 64 and 128, and
+causal Tq != Tk (bottom-right aligned). Tolerances follow
+``tests/test_flash_attention.py``: fp32 out and lse at 2e-5, gradients at
+2e-4; bf16 at 2e-2 (the port rounds the fp32 scores times the scale where
+the TPU's BTHD kernel rounds q * scale first, and its online softmax
+rounds P against the running max where the plain version rounds the
+normalized P).
+"""
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import paddle_tpu.ops.pallas.flash_attention  # noqa: F401
+
+from paddle_tpu_torch.ops import flash_attention as fl
+
+jfa = sys.modules["paddle_tpu.ops.pallas.flash_attention"]
+
+_TOL = {"f32": (2e-5, 2e-4), "bf16": (2e-2, 2e-2)}  # (forward, gradients)
+_BLOCK = 128
+
+
+def _inputs(b, h, tq, tk, d, dt, layout, seed=0):
+    """q, k, v, dO as fp32 numpy values both sides hold exactly."""
+    r = np.random.RandomState(seed)
+
+    def make(t):
+        shape = (b, t, h, d) if layout == "BTHD" else (b, h, t, d)
+        a = r.randn(*shape).astype(np.float32)
+        if dt == "bf16":
+            a = np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+        return a
+
+    return make(tq), make(tk), make(tk), make(tq)
+
+
+def _jax(a, dt):
+    return jnp.asarray(a, jnp.bfloat16 if dt == "bf16" else jnp.float32)
+
+
+def _torch(a, dt):
+    return torch.from_numpy(a).to(torch.bfloat16 if dt == "bf16"
+                                  else torch.float32)
+
+
+def _np(t):
+    if isinstance(t, torch.Tensor):
+        return t.detach().float().numpy()
+    return np.array(t, np.float32)
+
+
+def _close(got, want, tol, what):
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol,
+                               err_msg=what)
+
+
+_CASES = [pytest.param(dt, layout, causal, 64, 256, 256,
+                       id=f"{dt}-{layout}-{'causal' if causal else 'full'}")
+          for dt in ("f32", "bf16") for layout in ("BTHD", "BHTD")
+          for causal in (True, False)]
+_CASES += [
+    pytest.param("f32", "BTHD", True, 128, 256, 256, id="f32-BTHD-d128"),
+    pytest.param("bf16", "BHTD", False, 128, 256, 256, id="bf16-BHTD-d128"),
+    pytest.param("f32", "BHTD", True, 64, 128, 384,
+                 id="f32-BHTD-tq128-tk384"),
+    pytest.param("bf16", "BTHD", True, 64, 128, 384,
+                 id="bf16-BTHD-tq128-tk384"),
+]
+
+
+@pytest.mark.parametrize("dt,layout,causal,d,tq,tk", _CASES)
+def test_plain_versions_match_the_pallas_kernels(dt, layout, causal, d, tq,
+                                                 tk):
+    q, k, v, do = _inputs(1, 2, tq, tk, d, dt, layout)
+    scale = 1.0 / np.sqrt(d)
+    bthd = layout == "BTHD"
+    jq, jk, jv, jdo = (_jax(a, dt) for a in (q, k, v, do))
+    jout, jlse = jfa._fwd(jq, jk, jv, causal=causal, scale=scale,
+                          block_q=_BLOCK, block_k=_BLOCK, interpret=True,
+                          bthd=bthd)
+    jgrads = jfa._bwd(causal, scale, _BLOCK, _BLOCK, True, bthd, None,
+                      (jq, jk, jv, jout, jlse), jdo)
+
+    tq_, tk_, tv_, tdo = (_torch(a, dt) for a in (q, k, v, do))
+    out, lse = fl.flash_attention_fwd(tq_, tk_, tv_, causal, None, layout)
+    fwd_tol, grad_tol = _TOL[dt]
+    _close(out, jout, fwd_tol, "out")
+    _close(lse, np.reshape(_np(jlse), lse.shape), fwd_tol, "lse")
+
+    # the backward from the JAX forward's out and lse, as _bwd takes them
+    jo = _torch(_np(jout), dt)
+    jl = torch.from_numpy(np.reshape(_np(jlse), lse.shape).copy())
+    delta = fl.flash_attention_delta(jo, tdo, layout)
+    args = (tq_, tk_, tv_, tdo, jl, delta, causal, None, layout)
+    dq = fl.flash_attention_dq(*args)
+    dk, dv = fl.flash_attention_dkv(*args)
+    for got, want, name in zip((dq, dk, dv), jgrads, ("dq", "dk", "dv")):
+        assert got.dtype == tq_.dtype
+        _close(got, want, grad_tol, name)
+
+
+@pytest.mark.parametrize("layout,causal,tq,tk", [
+    ("BTHD", True, 256, 256), ("BHTD", False, 256, 256),
+    ("BHTD", True, 128, 384)])
+def test_autograd_matches_jax_grad(layout, causal, tq, tk):
+    """FlashAttention through torch.autograd against jax.grad of the
+    JAX package's flash_attention, loss = sum(out ** 2), fp32."""
+    q, k, v, _ = _inputs(2, 2, tq, tk, 64, "f32", layout, seed=1)
+
+    def loss(a, b, c):
+        return (jfa.flash_attention(a, b, c, causal=causal, block_q=_BLOCK,
+                                    block_k=_BLOCK, layout=layout) ** 2).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a)
+                                               for a in (q, k, v)))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = fl.flash_attention(*leaves, causal=causal, layout=layout)
+    got = torch.autograd.grad((out ** 2).sum(), leaves)
+    for g, w, name in zip(got, want, "qkv"):
+        _close(g, w, 2e-4, f"d{name}")
+
+
+def test_fully_masked_rows_give_zero_and_the_stand_in_lse():
+    """Causal with Tq > Tk: a query row that sees no key gets out 0 and
+    lse -1e30 (the TPU kernel's value where such a row's whole block is
+    skipped), and no gradient flows through it."""
+    q, k, v, do = (_torch(a, "f32")
+                   for a in _inputs(1, 1, 6, 4, 64, "f32", "BHTD"))
+    out, lse = fl.flash_attention_fwd(q, k, v, True)
+    assert torch.all(out[:, :, :2] == 0)
+    assert torch.all(lse[:, :, :2] == -1e30)
+    assert torch.isfinite(out).all()
+    delta = fl.flash_attention_delta(out, do)
+    dq = fl.flash_attention_dq(q, k, v, do, lse, delta, True)
+    dk, dv = fl.flash_attention_dkv(q, k, v, do, lse, delta, True)
+    assert torch.all(dq[:, :, :2] == 0)
+    assert all(torch.isfinite(t).all() for t in (dq, dk, dv))
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    x = torch.zeros((1, 8, 2, 64))
+    with pytest.raises(ValueError, match="head_dim"):
+        fl.flash_attention_fwd(*(torch.zeros((1, 8, 2, 32)),) * 3,
+                               layout="BTHD")
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        fl.flash_attention_fwd(x.half(), x.half(), x.half(), layout="BTHD")
+    with pytest.raises(ValueError, match="layout"):
+        fl.flash_attention_fwd(x, x, x, layout="BSHD")
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros((1, 2, 8, 64)).transpose(1, 2)
+        fl.flash_attention_fwd(t, t, t, layout="BTHD")
+    with pytest.raises(ValueError, match="batch, heads or head_dim"):
+        fl.flash_attention_fwd(x, torch.zeros((1, 8, 3, 64)),
+                               torch.zeros((1, 8, 3, 64)), layout="BTHD")
+    out, lse = fl.flash_attention_fwd(x, x, x, layout="BTHD")
+    delta = fl.flash_attention_delta(out, x, "BTHD")
+    with pytest.raises(ValueError, match="lse"):
+        fl.flash_attention_dq(x, x, x, x, lse[:, :, :4], delta,
+                              layout="BTHD")
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        m = torch.zeros((1, 8, 2, 64), device="meta")
+        fl.flash_attention_fwd(m, m, m, layout="BTHD")
+
+
+def test_launch_counters_count_kernel_launches_only():
+    """On CPU tensors the wrappers run the plain versions and count no
+    launch; reset_launches zeroes every counter."""
+    fl.reset_launches()
+    q = torch.randn((1, 2, 64, 64), requires_grad=True)
+    fl.flash_attention(q, q, q, causal=True).sum().backward()
+    assert (fl.fwd_launches, fl.dq_launches, fl.dkv_launches) == (0, 0, 0)
+    assert q.grad is not None and torch.isfinite(q.grad).all()

@@ -6,6 +6,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -39,6 +40,8 @@ def _imported_roots(path):
 def test_no_jax_or_paddle_tpu_import_anywhere_in_the_port():
     files = _port_files()
     assert len(files) > 10 and os.path.exists(files[0])
+    assert any(f.endswith(os.path.join("ops", "flash_attention.py"))
+               for f in files)
     bad = [(os.path.relpath(f, _REPO), name) for f in files
            for name in _imported_roots(f)
            if name.split(".")[0] in _FORBIDDEN]
@@ -141,28 +144,37 @@ def _attention(t, monkeypatch, **env):
 
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    q = torch.zeros((1, t, 1, 64))
+    q = torch.from_numpy(np.random.RandomState(t).randn(1, t, 1, 64)
+                         .astype(np.float32))
     rule = registry.get_op_def("fused_attention_tpu").lower
-    return rule(registry.LoweringContext("cpu"), {"Q": [q], "K": [q],
-                                                  "V": [q]},
-                {"is_causal": True, "layout": "BTHD"})["Out"]
+    out = rule(registry.LoweringContext("cpu"), {"Q": [q], "K": [q],
+                                                 "V": [q]},
+               {"is_causal": True, "layout": "BTHD"})["Out"]
+    return out, q
 
 
 def test_attention_raises_where_the_reference_takes_flash(monkeypatch):
-    """At T >= 1024 (head_dim 64, no mask) the JAX op takes its flash
-    kernels, which are not ported: the port raises instead of running the
-    einsum path in their place; PADDLE_TPU_DISABLE_FLASH=1 (the
-    reference's switch to the einsum path) runs it, and below 1024 the
-    einsum path is the reference's own choice."""
-    from paddle_tpu_torch import errors
+    """Where the JAX op takes its flash kernels (T >= 1024, head_dim 64,
+    no mask) the port takes its own (the test keeps the name it had
+    while the port raised there): FLASH_DISPATCH_COUNT rises, and the
+    result is the einsum path's. At T = 512, and at T = 1024 under
+    PADDLE_TPU_DISABLE_FLASH=1 (the reference's switch to the einsum
+    path), the port takes the einsum path and the count stays."""
+    from paddle_tpu_torch.ops import attention
 
     monkeypatch.delenv("PADDLE_TPU_DISABLE_FLASH", raising=False)
     monkeypatch.delenv("PADDLE_TPU_FLASH_MIN_SEQ", raising=False)
-    with pytest.raises(errors.Unimplemented, match="flash"):
-        _attention(1024, monkeypatch)
-    assert _attention(512, monkeypatch).shape == (1, 512, 1, 64)
-    out = _attention(1024, monkeypatch, PADDLE_TPU_DISABLE_FLASH="1")
+    count = attention.FLASH_DISPATCH_COUNT
+    out, q = _attention(1024, monkeypatch)
+    assert attention.FLASH_DISPATCH_COUNT == count + 1
+    ref = attention._sdpa_einsum(q, q, q, is_causal=True, layout="BTHD")
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+    out, _ = _attention(512, monkeypatch)
+    assert out.shape == (1, 512, 1, 64)
+    assert attention.FLASH_DISPATCH_COUNT == count + 1
+    out, _ = _attention(1024, monkeypatch, PADDLE_TPU_DISABLE_FLASH="1")
     assert out.shape == (1, 1024, 1, 64)
+    assert attention.FLASH_DISPATCH_COUNT == count + 1
 
 
 def test_unported_paths_raise():

@@ -1,9 +1,26 @@
-"""The fused Adam check of ``chip_smoke.py`` (``_adam_agrees``) on the
-CPU, where the plain version stands in for the kernel: the plain step
-passes, and each altered step fails -- p rounded toward zero instead of
-to nearest even, the weight-decay term dropped, lr off by 1e-4, and m
-off by 3e-5 (three times m's rtol of 1e-5). The inputs are the card
-check's own (``_adam_inputs``), at a small size."""
+"""Checks of ``chip_smoke.py`` on the CPU, where the plain versions stand
+in for the kernels.
+
+- Fused Adam (``_adam_agrees``): the plain step passes, and each altered
+  step fails -- p rounded toward zero instead of to nearest even, the
+  weight-decay term dropped, lr off by 1e-4, and m off by 3e-5 (three
+  times m's rtol of 1e-5). The inputs are the card check's own
+  (``_adam_inputs``), at a small size.
+- Flash attention (``_flash_agrees``, at its fp32 and bf16 tolerances):
+  the wrappers' outputs pass, and in fp32 so does an independent
+  autograd reference (an fp32 softmax attention); each altered output
+  fails -- the causal diagonal off by one, the scale dropped (both
+  through that reference), lse taken from the row before (with the
+  backward fed that lse), dk and dv swapped, and delta dropped. In bf16
+  three rounding faults fail too, each of which a bound of 2e-2 on the
+  bf16 gradients would let through: P and dS left unrounded (the
+  reference, cast to bf16), lse stored in bf16, and delta rounded to
+  bf16. The inputs are the card check's own (``_flash_inputs``), at a
+  small size.
+- CPU against card (``_tiny_agree``): the tiny flash GPT leg, run twice
+  on the CPU, agrees with itself, and a run whose dq is 2% too large is
+  rejected (Adam's parameter step hardly sees a gradient's size; the
+  moments do)."""
 import os
 import sys
 
@@ -63,3 +80,106 @@ def test_plain_step_passes(shape, dtype, wd):
 def test_altered_step_fails(alter, shape, dtype, wd):
     with pytest.raises(AssertionError, match="fused_adam disagrees"):
         _step(shape, dtype, wd, alter)
+
+
+def _flash_reference(q, k, v, do, layout, shift=0, scale=0.125):
+    """out, lse, dq, dk, dv of an fp32 causal softmax attention by
+    autograd, its diagonal moved ``shift`` keys right, cast to q's
+    dtype (lse stays fp32)."""
+    def heads(t):
+        t = t.float()
+        return (t.transpose(1, 2) if layout == "BTHD" else t).detach()
+
+    qh, kh, vh = (heads(t).requires_grad_(True) for t in (q, k, v))
+    s = qh @ kh.transpose(-1, -2) * scale
+    tq, tk = s.shape[-2:]
+    keep = torch.ones((tq, tk), dtype=torch.bool).tril(tk - tq + shift)
+    s = s.masked_fill(~keep, float("-inf"))
+    out = torch.softmax(s, -1) @ vh
+    grads = torch.autograd.grad(out, (qh, kh, vh), heads(do))
+
+    def back(t):
+        t = t.transpose(1, 2) if layout == "BTHD" else t
+        return t.detach().to(q.dtype).contiguous()
+
+    return dict(out=back(out), lse=torch.logsumexp(s, -1).detach(),
+                dq=back(grads[0]), dk=back(grads[1]), dv=back(grads[2]))
+
+
+def _flash(dtype_name, alter=None, layout="BTHD"):
+    from paddle_tpu_torch.ops import flash_attention as fl
+
+    q, k, v, do = chip_smoke._flash_inputs(
+        torch, 1, 2, 128, 128, 64, getattr(torch, dtype_name), layout,
+        seed=5, device="cpu")
+    got, ref = chip_smoke._flash_outputs(torch, q, k, v, do, True, layout)
+    lse = ref["lse"]
+    delta = fl.flash_attention_delta(ref["out"], do, layout)
+    if alter in ("reference", "unrounded"):
+        got = _flash_reference(q, k, v, do, layout)
+    elif alter == "mask":
+        got = _flash_reference(q, k, v, do, layout, shift=1)
+    elif alter == "scale":
+        got = _flash_reference(q, k, v, do, layout, scale=1.0)
+    elif alter == "swap":
+        got = dict(got, dk=got["dv"], dv=got["dk"])
+    elif alter == "lse_row":
+        lse = lse.roll(1, dims=-1)
+        got = dict(got, lse=lse)
+    elif alter == "lse_bf16":
+        lse = lse.bfloat16().float()
+    elif alter == "no_delta":
+        delta = torch.zeros_like(delta)
+    elif alter == "delta_bf16":
+        delta = delta.bfloat16().float()
+    if alter in ("lse_row", "lse_bf16", "no_delta", "delta_bf16"):
+        args = (q, k, v, do, lse, delta, True, None, layout)
+        dk, dv = fl.flash_attention_dkv_plain(*args)
+        got = dict(got, dq=fl.flash_attention_dq_plain(*args), dk=dk, dv=dv)
+    return chip_smoke._flash_agrees(torch, got, ref, dtype_name,
+                                    f"{dtype_name} {alter}")
+
+
+@pytest.mark.parametrize("dtype_name,alter", [
+    ("float32", None), ("float32", "reference"), ("bfloat16", None)])
+def test_flash_outputs_pass(dtype_name, alter):
+    errs = _flash(dtype_name, alter)
+    assert set(errs) == {"flash_attention_fwd", "flash_attention_dq",
+                         "flash_attention_dkv"}
+
+
+_BF16_ROUNDING_FAULTS = ["unrounded", "lse_bf16", "delta_bf16"]
+
+
+@pytest.mark.parametrize("dtype_name,alter", [
+    (dt, alter) for dt in ("float32", "bfloat16")
+    for alter in ("mask", "scale", "lse_row", "swap", "no_delta")
+] + [("bfloat16", alter) for alter in _BF16_ROUNDING_FAULTS])
+def test_altered_flash_outputs_fail(dtype_name, alter):
+    with pytest.raises(AssertionError, match="flash attention disagrees"):
+        _flash(dtype_name, alter)
+
+
+@pytest.mark.parametrize("alter", _BF16_ROUNDING_FAULTS)
+def test_bf16_rounding_faults_pass_a_2e_2_bound(monkeypatch, alter):
+    loose = dict(chip_smoke._FLASH_TOL["bfloat16"], dq=(2e-2, 2e-2),
+                 dk=(2e-2, 2e-2), dv=(2e-2, 2e-2))
+    monkeypatch.setitem(chip_smoke._FLASH_TOL, "bfloat16", loose)
+    _flash("bfloat16", alter)
+
+
+def test_tiny_check_rejects_a_gradient_of_the_wrong_size(monkeypatch):
+    from paddle_tpu_torch.ops import flash_attention as fl
+
+    _, config, seq, min_seq, lr, eps = chip_smoke._CPU_VS_CARD[1]
+    program = chip_smoke._tiny_program(config, seq, lr, eps)
+    base = chip_smoke._tiny_steps(program, "cpu", min_seq)
+    assert base[2] > 0
+    chip_smoke._tiny_agree(chip_smoke._tiny_steps(program, "cpu", min_seq),
+                           base, "again")
+    plain = fl.flash_attention_dq_plain
+    monkeypatch.setattr(fl, "flash_attention_dq_plain",
+                        lambda *args: plain(*args) * 1.02)
+    scaled = chip_smoke._tiny_steps(program, "cpu", min_seq)
+    with pytest.raises(AssertionError, match="dq x 1.02"):
+        chip_smoke._tiny_agree(scaled, base, "dq x 1.02")

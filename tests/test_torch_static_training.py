@@ -17,6 +17,18 @@ One bf16 step: loss at rtol 2e-2 and parameters at atol 2e-2 -- bf16
 rounds at other places in the two frameworks (XLA keeps fused
 intermediates in fp32, PyTorch rounds each op's output). AdamW and SGD
 are held against the JAX package in ``test_torch_optimizer.py``.
+
+The flash GPT (2 layers, 2 heads, d 128 so that head_dim is 64, vocab
+256, seq 128, batch 2) runs with ``PADDLE_TPU_FLASH_MIN_SEQ=128``, so
+that attention takes the flash kernels in both packages (the JAX
+package's pallas kernels in interpret mode, the port's plain versions),
+at the same tolerances, with Adam's epsilon at 1e-5. One ``gpt.wte``
+gradient of its batch cancels to ~1e-10 (the median is 2.6e-3), and
+there Adam's first step, lr * g / (|g| + eps), turns the two packages'
+rounding noise (~6e-9, as large with einsum attention in both) into a
+step difference of up to lr * 6e-9 / eps: 4.7e-5 at the default eps
+1e-8 even at lr 1e-4, 6.5e-7 at eps 1e-5 and lr 1e-3, while the
+parameters move by up to 3e-3.
 """
 import numpy as np
 import pytest
@@ -36,24 +48,28 @@ from paddle_tpu_torch.optimizer import Adam
 from paddle_tpu_torch.weights import scope_from_numpy
 
 _CFG = dict(vocab_size=128, n_layer=2, n_head=2, d_model=32, max_seq_len=16)
-_B, _T = 2, 16
+_FLASH_CFG = dict(vocab_size=256, n_layer=2, n_head=2, d_model=128,
+                  max_seq_len=128)
+_B = 2
 
 
-def _batch(seed=0):
+def _batch(seed=0, cfg=_CFG):
     r = np.random.RandomState(seed)
-    return {"tokens": r.randint(0, 128, (_B, _T)).astype(np.int64),
-            "labels": r.randint(0, 128, (_B, _T)).astype(np.int64)}
+    shape = (_B, cfg["max_seq_len"])
+    return {"tokens": r.randint(0, cfg["vocab_size"], shape).astype(np.int64),
+            "labels": r.randint(0, cfg["vocab_size"], shape).astype(np.int64)}
 
 
-def _jax_run(impl, dtype, steps, feed):
+def _jax_run(impl, dtype, steps, feed, cfg_kw=_CFG, eps=1e-8):
     """(losses, {name: np.ndarray} before the steps, after the steps)."""
     pd.enable_static()
     try:
         with jnames.guard():
-            cfg = jgpt.GPTConfig(**_CFG, dtype=dtype, fused_lm_head=impl)
-            main, startup, io = jgpt.build_train_program(cfg, _B, _T)
+            cfg = jgpt.GPTConfig(**cfg_kw, dtype=dtype, fused_lm_head=impl)
+            main, startup, io = jgpt.build_train_program(
+                cfg, _B, cfg_kw["max_seq_len"])
             with jguard(main, startup):
-                JAdam(learning_rate=1e-3).minimize(io["loss"])
+                JAdam(learning_rate=1e-3, epsilon=eps).minimize(io["loss"])
         names = sorted(v.name for v in main.list_vars() if v.persistable)
         scope, exe = JScope(), JExecutor()
         exe.run(startup, scope=scope)
@@ -66,12 +82,13 @@ def _jax_run(impl, dtype, steps, feed):
         pd.disable_static()
 
 
-def _torch_run(impl, dtype, steps, feed, start):
+def _torch_run(impl, dtype, steps, feed, start, cfg_kw=_CFG, eps=1e-8):
     with unique_name.guard():
-        cfg = tgpt.GPTConfig(**_CFG, dtype=dtype, fused_lm_head=impl)
-        main, startup, io = tgpt.build_train_program(cfg, _B, _T)
+        cfg = tgpt.GPTConfig(**cfg_kw, dtype=dtype, fused_lm_head=impl)
+        main, startup, io = tgpt.build_train_program(
+            cfg, _B, cfg_kw["max_seq_len"])
         with program_guard(main, startup):
-            Adam(learning_rate=1e-3).minimize(io["loss"])
+            Adam(learning_rate=1e-3, epsilon=eps).minimize(io["loss"])
     names = sorted(v.name for v in main.list_vars() if v.persistable)
     assert names == sorted(start)
     scope = scope_from_numpy(start, Scope(), "cpu")
@@ -101,6 +118,48 @@ def test_one_bf16_step_matches_jax():
     feed = _batch(1)
     jl, start, jend = _jax_run("pallas", "bfloat16", 1, feed)
     tl, tend = _torch_run("pallas", "bfloat16", 1, feed, start)
+    np.testing.assert_allclose(tl, jl, rtol=2e-2)
+    for name in jend:
+        np.testing.assert_allclose(tend[name], jend[name].astype(np.float32),
+                                   atol=2e-2, rtol=0, err_msg=name)
+
+
+def _flash_counts():
+    from paddle_tpu.ops import attention as jattention
+
+    from paddle_tpu_torch.ops import attention as tattention
+
+    return jattention.FLASH_DISPATCH_COUNT, tattention.FLASH_DISPATCH_COUNT
+
+
+@pytest.fixture
+def flash_at_128(monkeypatch):
+    monkeypatch.setenv("PADDLE_TPU_FLASH_MIN_SEQ", "128")
+    monkeypatch.delenv("PADDLE_TPU_DISABLE_FLASH", raising=False)
+    before = _flash_counts()
+    yield
+    after = _flash_counts()
+    assert after[0] > before[0] and after[1] > before[1], (before, after)
+
+
+def test_flash_gpt_three_fp32_steps_match_jax(flash_at_128):
+    feed = _batch(2, _FLASH_CFG)
+    jl, start, jend = _jax_run("pallas", "float32", 3, feed, _FLASH_CFG, 1e-5)
+    tl, tend = _torch_run("pallas", "float32", 3, feed, start, _FLASH_CFG,
+                          1e-5)
+    np.testing.assert_allclose(tl, jl, rtol=1e-4)
+    assert tl[-1] < tl[0]
+    for name in jend:
+        np.testing.assert_allclose(tend[name], jend[name].astype(np.float32),
+                                   atol=1e-5, rtol=0, err_msg=name)
+
+
+def test_flash_gpt_one_bf16_step_matches_jax(flash_at_128):
+    feed = _batch(3, _FLASH_CFG)
+    jl, start, jend = _jax_run("pallas", "bfloat16", 1, feed, _FLASH_CFG,
+                               1e-5)
+    tl, tend = _torch_run("pallas", "bfloat16", 1, feed, start, _FLASH_CFG,
+                          1e-5)
     np.testing.assert_allclose(tl, jl, rtol=2e-2)
     for name in jend:
         np.testing.assert_allclose(tend[name], jend[name].astype(np.float32),
