@@ -12,14 +12,17 @@ Phases (any failure raises, and the script exits non-zero with no result):
    CUDA's versions; no CUDA card is an error;
 2. build: one nvcc per ``paddle_tpu_torch/csrc/*.cu``, all started
    together, into ``build/torch_kernels/`` (ptxas's register and
-   shared-memory report is printed);
+   shared-memory report is printed); the bf16 CE backward kernels'
+   tensor-core instructions counted in the library's SASS (none fails),
+   with their registers and spills;
 3. every kernel against its plain PyTorch version on the card: the
    lm-head + CE forward at the serving shapes (fp32), in bf16 and at the
-   training shapes (N = 4096 and 16384); its dx and dW at both training
-   shapes in bf16 (dx splits the vocabulary into 5 and 2 chunks there),
-   at N=511 in fp32, at a ragged edge with labels V and -1 and a
-   non-uniform g, and at D=1000 (the backward's accumulator sweeps D in
-   two slabs); the CE kernels' peak added memory at the training shape
+   training shapes (N = 4096 and 16384); its dx and dW (``_CE_GRAD_CASES``,
+   a non-uniform g): bf16 (tensor cores) at both training shapes, ragged
+   with labels V and -1, at D = 1000, at D = 60 (padded), at N = 1 and
+   at N = 600 (fewer blocks than SMs), at one bf16 ulp plus 2^-6; fp32
+   (FMA units) at N = 511, ragged and at D = 1000, at 1e-4; the CE
+   kernels' peak added memory at the training shape
    (no [N, V] buffer); fused Adam(W) on bf16, fp32, 1-D and odd shapes;
    the flash attention forward (out, lse), dq and dk/dv at the seq-2048
    training shape (bf16, causal, BTHD), in fp32 in both layouts causal
@@ -30,7 +33,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
 4. timing with CUDA events (median of 30 after warm-up): each kernel, its
    plain version, one PyTorch library call computing the same function,
    and the card's bound for the same work, at the serving score shapes
-   and at the training shapes;
+   and at the training shapes (dx and dW at N = 4096 and 16384, with
+   TFLOP/s on the 4NVD count);
 5. serving at full GPT width (12 x 768, vocab 32000, random weights from
    seed 0): 8 prompts covering every prefill bucket through
    ServingEngine.submit + run_until_idle, two of them again one after the
@@ -56,12 +60,15 @@ Phases (any failure raises, and the script exits non-zero with no result):
    the largest moment of its kind;
 8. a ``{"kernels": [...]}`` line: per ported kernel, its launches on the
    main paths, its largest error against the plain version and its
-   times at the training shape;
+   times at the training shape (dx and dW also at N = 16384, under
+   ``long_shape``);
 9. the card's name and power limit again, and the last line:
    ``{"ok": true, "device": {...}}``.
 """
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -114,23 +121,70 @@ def _environment(torch):
     return card
 
 
+# the bf16 CE backward's kernels in SASS and in ptxas's report: the
+# template argument of bwd_sm90_kernel<TOKEN_ROWS> names the product
+_SM90_KERNELS = {"ILb1E": "lmhead_ce_dx", "ILb0E": "lmhead_ce_dw"}
+
+
+def _sm90_report(so_path, log):
+    """{kernel: {hgmma, hmma, registers, spill_stores, spill_loads}} of the
+    bf16 CE backward: tensor-core instructions counted in the built
+    library's SASS (``cuobjdump -sass``), registers and spills from
+    ptxas's report in this process's build log."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", so_path], check=True,
+                          capture_output=True, text=True, timeout=120).stdout
+    report = {}
+    for body in sass.split("Function : ")[1:]:
+        name = body.split("\n", 1)[0].strip()
+        for tag, kernel in _SM90_KERNELS.items():
+            if "bwd_sm90_kernel" in name and tag in name:
+                report[kernel] = {"hgmma": body.count("HGMMA"),
+                                  "hmma": body.count("HMMA")}
+    for block in log.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", block)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", block)
+        for tag, kernel in _SM90_KERNELS.items():
+            if "bwd_sm90_kernel" in name and tag in name and regs:
+                report.setdefault(kernel, {}).update(
+                    registers=int(regs.group(1)),
+                    spill_stores=int(spills.group(1)) if spills else None,
+                    spill_loads=int(spills.group(2)) if spills else None)
+    return report
+
+
 def _build():
     from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import lmhead_ce as ce
 
     t0 = time.perf_counter()
-    _build.load()
+    lib = _build.load()
     print(_build.build_log(), flush=True)
+    geometry = (lib.lmhead_ce_sm90_tile(), lib.lmhead_ce_sm90_half(),
+                lib.lmhead_ce_sm90_slab())
+    if geometry != (ce.SM90_TILE, ce.SM90_HALF, ce.SM90_SLAB):
+        raise AssertionError(f"sm90 backward geometry {geometry} differs "
+                             f"from the wrapper's sm90_blocks")
+    sm90 = _sm90_report(_build.library_path(), _build.build_log())
+    if sorted(sm90) != sorted(_SM90_KERNELS.values()) or not all(
+            k.get("hgmma", 0) > 0 for k in sm90.values()):
+        raise AssertionError(f"bf16 CE backward kernels without tensor-core "
+                             f"instructions in their SASS: {sm90}")
     _say(phase="build", seconds=round(time.perf_counter() - t0, 3),
          nvcc_seconds=round(_build.build_seconds(), 3),
-         sources=[os.path.relpath(s) for s in _build.sources()])
+         sources=[os.path.relpath(s) for s in _build.sources()],
+         sm90_backward=sm90)
 
 
-def _inputs(torch, n, d, v, dtype, seed):
+def _inputs(torch, n, d, v, dtype, seed, device="cuda"):
     r = np.random.RandomState(seed)
     x = torch.from_numpy((r.randn(n, d) * 0.5).astype(np.float32))
     w = torch.from_numpy((r.randn(v, d) * 0.5).astype(np.float32))
     lbl = torch.from_numpy(r.randint(0, v, (n,)).astype(np.int64))
-    return (x.to("cuda", dtype), w.to("cuda", dtype), lbl.to("cuda"))
+    return (x.to(device, dtype), w.to(device, dtype), lbl.to(device))
 
 
 def _check_kernel(torch):
@@ -251,16 +305,66 @@ def _no_big_buffer(torch, name, fn, limit, buffer, **shape) -> None:
     del out
 
 
+# The CE backward kernels against their plain versions, (rtol, atol):
+# |got - ref| <= atol + rtol * |ref|. fp32 at 1e-4 (exact fp32 products
+# summed in another order). bf16 at one bf16 ulp (rtol 2^-7) plus atol
+# 2^-6: both sides round the d-logits to bf16 and the fp32 sum once, but
+# the kernel's scores are summed in another order and its exp is exp2f,
+# so a d-logit lying at a bf16 rounding boundary may round the other way
+# (about 2^-9 of a d-logit near 1, times a row of W or x) and move an
+# output across a rounding boundary of its own. The card measured at
+# most 9.5e-3 beyond one ulp (dx at N = 16384); atol 2^-6 (one ulp at
+# |out| in [2, 4)) holds that with a third to spare.
+# tests/test_torch_smoke_checks.py shows this bound rejecting an output
+# accumulated in bf16, one that drops a column tile and one that reads
+# the next row's lse, and passing the plain version summed in another
+# order.
+_CE_GRAD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2.0 ** -7, 2.0 ** -6)}
+# (N, D, V, dtype): bf16 at both training shapes, then the bf16 kernel's
+# edges -- ragged N and V with labels V and -1, D = 1000 (a third D block,
+# partly past D), D = 60 (the wrapper pads to 64), N = 1, and N = 600,
+# whose 10 row tiles x 2 D halves fill 20 of the card's SMs; fp32 at
+# N = 511, ragged, and at D = 1000 (the SIMT kernel's two slabs)
+_CE_GRAD_CASES = [
+    (_TRAIN_N, 768, 32768, "bfloat16"), (_LONG_N, 768, 32768, "bfloat16"),
+    (33, 64, 130, "bfloat16"), (100, 1000, 300, "bfloat16"),
+    (64, 60, 130, "bfloat16"), (1, 768, 300, "bfloat16"),
+    (600, 768, 5000, "bfloat16"),
+    (511, 768, 32768, "float32"), (33, 64, 130, "float32"),
+    (100, 1000, 300, "float32"),
+]
+
+
+def _excess(got, ref, rtol) -> float:
+    """The largest |got - ref| beyond rtol * |ref| (what atol must hold)."""
+    if not got.numel():
+        return 0.0
+    got, ref = got.float(), ref.float()
+    return float(((got - ref).abs() - rtol * ref.abs()).max())
+
+
+def _ce_grad_agrees(torch, got, ref, name, what) -> float:
+    """Holds a CE gradient (dx or dW) against the plain version's at
+    ``_CE_GRAD_TOL`` of its dtype; raises naming it if any value lies
+    beyond or is not finite. Returns the max abs error."""
+    rtol, atol = _CE_GRAD_TOL[str(ref.dtype).replace("torch.", "")]
+    err = _err(got, ref)
+    bad = _beyond(got, ref, rtol, atol)
+    if bad or not torch.isfinite(got.float()).all():
+        raise AssertionError(
+            f"{name} disagrees with its plain version at {what}: {bad} "
+            f"values beyond (rtol, atol) ({rtol}, {atol}), max abs err "
+            f"{err}")
+    return err
+
+
 def _check_training_kernels(torch):
     """The training path's kernels against their plain versions on the
     card. Forward at both training shapes (N = 4096 and 16384 tokens) in
     bf16 at 2e-3 (the floor of tests/test_fused_lmhead_ce.py:89). dx and
-    dW with a non-uniform per-row g in [0.5, 1.5]: bf16 at both training
-    shapes at 5e-2 (that test's :97-100; both sides round the d-logits to
-    bf16, and may round one of them the other way), fp32 at N=511, at the
-    ragged N=33, D=64, V=130 (labels V and -1) and at D=1000 at 1e-4
-    (exact fp32 products summed in another order); each line names the
-    vocabulary chunks dx's launch splits into. Adam, with and without
+    dW with a non-uniform per-row g in [0.5, 1.5] over ``_CE_GRAD_CASES``
+    through ``_ce_grad_agrees``; each line names the blocks of the bf16
+    launch or the vocabulary chunks of the fp32 one. Adam, with and without
     weight decay, at an lr whose update spans several ulps of p: m and v
     at rtol 1e-5, p through its update in fp32 and bit for bit in bf16
     (``_adam_agrees``). The CE kernels must also allocate no [N, V]
@@ -297,13 +401,9 @@ def _check_training_kernels(torch):
 
     tile = _build.load().lmhead_ce_tile_n()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    cases = [(_TRAIN_N, d, v, torch.bfloat16, 5e-2),
-             (_LONG_N, d, v, torch.bfloat16, 5e-2),
-             (511, d, v, torch.float32, 1e-4),
-             (33, 64, 130, torch.float32, 1e-4),
-             (100, 1000, 300, torch.float32, 1e-4)]  # D > 768: two slabs
-    for i, (n, dd, vv, dtype, tol) in enumerate(cases):
-        x, w, lbl = _inputs(torch, n, dd, vv, dtype, seed=50 + i)
+    for i, (n, dd, vv, dtype_name) in enumerate(_CE_GRAD_CASES):
+        x, w, lbl = _inputs(torch, n, dd, vv, getattr(torch, dtype_name),
+                            seed=50 + i)
         if vv == 130:  # labels outside [0, V) hit no column
             lbl[3], lbl[7] = vv, -1
         g = torch.from_numpy(np.random.RandomState(60 + i).uniform(
@@ -317,18 +417,17 @@ def _check_training_kernels(torch):
             got = kern(x, w, lbl, lse, g)
             ref = plain(x, w, lbl, lse, g)
             torch.cuda.synchronize()
-            err = _err(got, ref)
-            bad = _beyond(got, ref, tol, tol)
+            what = f"n={n} d={dd} v={vv} {dtype_name}"
+            err = _ce_grad_agrees(torch, got, ref, name, what)
             worst[name] = max(worst[name], err)
+            grid = (dict(blocks=len(ce.sm90_blocks(rows, dd)))
+                    if dtype_name == "bfloat16" else
+                    dict(chunks=ce.split_vocab(rows, cols, tile, tile, sms,
+                                               ce._BWD_BLOCKS_PER_SM)[1]))
             _say(phase="kernel_check", kernel=name, n=n, d=dd, v=vv,
-                 dtype=str(dtype).replace("torch.", ""), tolerance_rel=tol,
-                 max_abs_err=err, chunks=ce.split_vocab(
-                     rows, cols, tile, tile, sms, ce._BWD_BLOCKS_PER_SM)[1])
-            if bad or not torch.isfinite(got.float()).all():
-                raise AssertionError(
-                    f"{name} disagrees with its plain version at n={n} "
-                    f"d={dd} v={vv} {dtype}: {bad} values beyond {tol}, "
-                    f"max abs err {err}")
+                 dtype=dtype_name, tolerance=_CE_GRAD_TOL[dtype_name],
+                 max_abs_err=err, excess_over_rtol=_excess(
+                     got, ref, _CE_GRAD_TOL[dtype_name][0]), sms=sms, **grid)
 
     shapes = [((v, d), torch.bfloat16), ((d, 4 * d), torch.float32),
               ((d,), torch.float32), ((7, 100), torch.float32)]
@@ -572,59 +671,72 @@ def _bound_ms(nbytes: float, flops: float, dtype_name: str):
 
 
 def _time_training_kernels(torch, card):
-    """Kernel, plain, library and bound at the training shape (bf16,
-    N = 8 x 512 tokens, D = 768, V = 32768; g = 1/N, what mean() hands the
-    loss; Adam on gpt.wte). Bounds count each input read once and each
-    output written once, and the FLOPs of the kernel's own algorithm:
-    2NVD for the forward, 4NVD for dx and for dW (the score tile is
-    rebuilt, then multiplied again)."""
+    """Kernel, plain, library and bound at the training shapes (bf16,
+    D = 768, V = 32768; g = 1/N, what mean() hands the loss; Adam on
+    gpt.wte): the CE forward at N = 8 x 512 tokens, dx and dW at N = 8 x
+    512 and 8 x 2048 (the seq-2048 step's N). Bounds count each input
+    read once and each output written once, and the function's FLOPs:
+    2NVD for the forward, 4NVD for dx and for dW (the score tile, then
+    the product with the d-logits; the bf16 kernels build the score tile
+    once per D half, 6NVD at D = 768). ``tflops``: 4NVD over the kernel's
+    time. Returns {kernel: row}, dx and dW at N = 8 x 2048 under
+    (kernel, "long")."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import fused_adam as fa
     from paddle_tpu_torch.ops import lmhead_ce as ce
 
-    n, d, v = _TRAIN_N, _TRAIN["d_model"], _TRAIN["vocab_size"]
-    x, w, lbl = _inputs(torch, n, d, v, torch.bfloat16, seed=80)
-    g = torch.full((n,), 1.0 / n, device="cuda")
-    lse = ce.lmhead_ce_fwd(x, w, lbl)[1]
+    d, v = _TRAIN["d_model"], _TRAIN["vocab_size"]
     rows = {}
+    for n in (_TRAIN_N, _LONG_N):
+        x, w, lbl = _inputs(torch, n, d, v, torch.bfloat16, seed=80)
+        g = torch.full((n,), 1.0 / n, device="cuda")
+        lse = ce.lmhead_ce_fwd(x, w, lbl)[1]
 
-    def library_fwd():
-        return F.cross_entropy(x @ w.t(), lbl, reduction="none")
+        def library_fwd():
+            return F.cross_entropy(x @ w.t(), lbl, reduction="none")
 
-    xr = x.detach().requires_grad_(True)
-    wr = w.detach().requires_grad_(True)
-    lib_loss = F.cross_entropy(xr @ wr.t(), lbl, reduction="none")
+        xr = x.detach().requires_grad_(True)
+        wr = w.detach().requires_grad_(True)
+        lib_loss = F.cross_entropy(xr @ wr.t(), lbl, reduction="none")
 
-    def library_grad(*wrt):
-        return lambda: torch.autograd.grad(lib_loss, wrt, g,
-                                           retain_graph=True)
+        def library_grad(*wrt):
+            return lambda: torch.autograd.grad(lib_loss, wrt, g,
+                                               retain_graph=True)
 
-    io = (n * d + v * d) * 2 + 8 * n
-    specs = [
-        ("lmhead_ce_fwd", lambda: ce.lmhead_ce_fwd(x, w, lbl),
-         lambda: ce.lmhead_ce_plain(x, w, lbl), library_fwd,
-         _bound_ms(io + 4 * n, 2.0 * n * v * d, "bfloat16")),
-        ("lmhead_ce_dx", lambda: ce.lmhead_ce_dx(x, w, lbl, lse, g),
-         lambda: ce.lmhead_ce_dx_plain(x, w, lbl, lse, g), library_grad(xr),
-         _bound_ms(io + 8 * n + 2 * n * d, 4.0 * n * v * d, "bfloat16")),
-        ("lmhead_ce_dw", lambda: ce.lmhead_ce_dw(x, w, lbl, lse, g),
-         lambda: ce.lmhead_ce_dw_plain(x, w, lbl, lse, g), library_grad(wr),
-         _bound_ms(io + 8 * n + 2 * v * d, 4.0 * n * v * d, "bfloat16")),
-    ]
-    both_ms = _median_ms(torch, library_grad(xr, wr))
-    for name, kern, plain, library, (bound, by) in specs:
-        row = dict(phase="kernel_time", kernel=name, n=n, d=d, v=v,
-                   dtype="bfloat16", kernel_ms=_median_ms(torch, kern),
-                   plain_ms=_median_ms(torch, plain),
-                   library_ms=_median_ms(torch, library), bound_ms=bound,
-                   bound_by=by, repeats=_REPEATS, card=card)
-        if name != "lmhead_ce_fwd":
-            row["library"] = ("autograd.grad of F.cross_entropy(x @ w.t()) "
-                              "for this gradient alone")
-            row["library_dx_dw_ms"] = both_ms
-        _say(**row)
-        rows[name] = row
+        io = (n * d + v * d) * 2 + 8 * n
+        flops = 4.0 * n * v * d
+        specs = [
+            ("lmhead_ce_dx", lambda: ce.lmhead_ce_dx(x, w, lbl, lse, g),
+             lambda: ce.lmhead_ce_dx_plain(x, w, lbl, lse, g),
+             library_grad(xr),
+             _bound_ms(io + 8 * n + 2 * n * d, flops, "bfloat16")),
+            ("lmhead_ce_dw", lambda: ce.lmhead_ce_dw(x, w, lbl, lse, g),
+             lambda: ce.lmhead_ce_dw_plain(x, w, lbl, lse, g),
+             library_grad(wr),
+             _bound_ms(io + 8 * n + 2 * v * d, flops, "bfloat16")),
+        ]
+        if n == _TRAIN_N:
+            specs.insert(0, (
+                "lmhead_ce_fwd", lambda: ce.lmhead_ce_fwd(x, w, lbl),
+                lambda: ce.lmhead_ce_plain(x, w, lbl), library_fwd,
+                _bound_ms(io + 4 * n, 2.0 * n * v * d, "bfloat16")))
+        both_ms = _median_ms(torch, library_grad(xr, wr))
+        for name, kern, plain, library, (bound, by) in specs:
+            row = dict(phase="kernel_time", kernel=name, n=n, d=d, v=v,
+                       dtype="bfloat16", kernel_ms=_median_ms(torch, kern),
+                       plain_ms=_median_ms(torch, plain),
+                       library_ms=_median_ms(torch, library), bound_ms=bound,
+                       bound_by=by, repeats=_REPEATS, card=card)
+            if name != "lmhead_ce_fwd":
+                row["library"] = ("autograd.grad of F.cross_entropy(x @ "
+                                  "w.t()) for this gradient alone")
+                row["library_dx_dw_ms"] = both_ms
+                row["tflops"] = flops / row["kernel_ms"] / 1e9
+                row["over_library"] = row["kernel_ms"] / row["library_ms"]
+            _say(**row)
+            rows[name if n == _TRAIN_N else (name, "long")] = row
+        del lib_loss, xr, wr, x, w
 
     numel = v * d
     p = (torch.randn(v, d, device="cuda") * 0.02).to(torch.bfloat16)
@@ -1149,11 +1261,23 @@ def main() -> int:
                      "dtype": "float32", "ms": t["kernel_ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "library_ms": t["library_ms"]})
+    def long_shape(name):
+        t = times[(name, "long")]
+        return {"n": _LONG_N, "d": _TRAIN["d_model"],
+                "v": _TRAIN["vocab_size"], "dtype": "bfloat16",
+                **{k: t[k] for k in ("kernel_ms", "plain_ms", "bound_ms",
+                                     "library_ms", "library_dx_dw_ms",
+                                     "tflops", "over_library")}}
+
     rows = [fwd] + [
-        _kernel_row(name, pallas + where, ce_src, train[name],
-                    errs[name], times[name], card, shape=shape,
-                    launches_by_path=by_path(name),
-                    library_dx_dw_ms=times[name]["library_dx_dw_ms"])
+        _kernel_row(name, pallas + where,
+                    "paddle_tpu_torch/csrc/lmhead_ce_bwd_sm90.cu",
+                    train[name], errs[name], times[name], card, shape=shape,
+                    source_fp32=ce_src, launches_by_path=by_path(name),
+                    library_dx_dw_ms=times[name]["library_dx_dw_ms"],
+                    tflops=times[name]["tflops"],
+                    over_library=times[name]["over_library"],
+                    long_shape=long_shape(name))
         for name, where in (("lmhead_ce_dx", "fused_lmhead_ce.py:188"),
                             ("lmhead_ce_dw", "fused_lmhead_ce.py:221"))]
     rows.append(_kernel_row(

@@ -16,16 +16,18 @@
 //         dx = dl . W   (N x D)        dW = dl^T . x   (V x D)
 //     with fp32 accumulators cast once at the end.
 // fp32 inputs are multiplied in full fp32 (no TF32) and bf16 inputs are
-// widened to fp32; every sum accumulates in fp32.
+// widened to fp32; every sum accumulates in fp32. The backward here takes
+// fp32 only: bf16 dx and dW run on the tensor cores
+// (lmhead_ce_bwd_sm90.cu).
 //
 // Bound on this card (H100 SXM): operations. The forward takes 2*N*V*D
 // FLOPs, each backward product 4*N*V*D (the score tile is rebuilt, then
-// multiplied again). At the training shape N=4096, D=768, V=32768 in bf16
-// that is 206.2 GFLOP (forward) and 412.3 GFLOP (dx, and again dW): 0.208
-// and 0.417 ms at the 989 TFLOP/s of bf16 tensor cores, against 0.02 ms to
-// read x and W once at 3.35 TB/s. These kernels run on the fp32 FMA units
-// (67 TFLOP/s), so they sit far above that bound; the tensor-core
-// versions (wgmma fed by TMA) are the work of making them fast.
+// multiplied again). At the training shape N=4096, D=768, V=32768 that is
+// 206.2 GFLOP (forward) and 412.3 GFLOP (dx, and again dW): in bf16 0.208
+// and 0.417 ms at 989 TFLOP/s of tensor cores, against 0.02 ms to read x
+// and W once at 3.35 TB/s. These kernels run on the fp32 FMA units (67
+// TFLOP/s), so they sit far above that bound; the forward's tensor-core
+// version is the work of making it fast.
 //
 // Design, forward. The TPU grid walks the vocab tiles of one token block
 // in order on one core and carries (max, sum-exp, picked) in VMEM from
@@ -47,9 +49,9 @@
 //      mg = max m, l = sum l*exp(m - mg), picked = sum picked; then
 //      lse = mg + log(l > 0 ? l : 1) and nll = lse - picked.
 //
-// Design, backward. dx and dW are one kernel (bwd_partial_kernel) with
-// the roles of x and W swapped: a block owns 64 "rows" (tokens for dx,
-// vocab entries for dW) and sweeps 64-wide tiles of "columns" (the
+// Design, backward (fp32). dx and dW are one kernel (bwd_partial_kernel)
+// with the roles of x and W swapped: a block owns 64 "rows" (tokens for
+// dx, vocab entries for dW) and sweeps 64-wide tiles of "columns" (the
 // other side). For each column tile it rebuilds the 64x64 score tile as
 // the forward does, turns it into d-logits in registers (lse, g and the
 // label belong to the token side), parks them in shared memory, and adds
@@ -57,15 +59,12 @@
 // accumulator that lives in shared memory (196,608 bytes at D=768; with
 // the staging tiles 231,424 of the 232,448 bytes a block may use; a wider
 // D is swept in slabs of 768, rebuilding the scores once per slab).
-// Parallelism: dW has V/64 = 512 row blocks, enough for the card. dx has
-// only N/64 = 64 at N=4096 against 132 SMs, so its column (vocab) sweep is
-// split into chunks, the TPU's sequential grid axis turned parallel: each
-// (row block, chunk) writes an fp32 partial [chunks, N, D] and a second
-// launch (lmhead_ce_bwd_reduce) sums the chunks and casts once. With one
+// Parallelism: where rows alone leave the card idle (dx at small N), the
+// column sweep is split into chunks, the TPU's sequential grid axis turned
+// parallel: each (row block, chunk) writes an fp32 partial [chunks, N, D]
+// and a second launch (lmhead_ce_bwd_reduce) sums the chunks. With one
 // chunk a block writes its output directly.
 // Ragged N, V and D edges are masked inside the kernels; nothing is padded.
-// What these simple kernels leave out (wgmma, TMA, bf16 tensor-core MMA,
-// a pipelined shared-memory ring) is the work of making them fast.
 //
 // Plain C interface, loaded with ctypes: each entry point launches one
 // kernel on the given stream and returns cudaGetLastError().
@@ -242,29 +241,18 @@ constexpr int BC = 64;           // column tile of the backward
 constexpr int DSLAB_MAX = 768;   // widest D slab the accumulator holds
 constexpr int ROW = BN + PAD;    // row stride of the staging tiles
 
-__device__ __forceinline__ float round_to(float v, float) { return v; }
-__device__ __forceinline__ float round_to(float v, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
 // Stage rows [c0, c0 + 64) x columns [d1, d1 + 64) of a row-major
 // [rows, d] matrix into dst[k][c] (not transposed), zero outside
 // [0, rows) x [0, dend). Neighbouring threads read neighbouring columns.
-template <typename T>
 __device__ __forceinline__ void stage_rows(float (*dst)[ROW],
-                                           const T* __restrict__ src, int c0,
+                                           const float* __restrict__ src, int c0,
                                            int rows, int d1, int dend, int d,
                                            int tid) {
 #pragma unroll 4
   for (int e = tid; e < BC * 64; e += THREADS) {
     const int k = e >> 6, c = e & 63;
     const int gr = c0 + k, gd = d1 + c;
-    dst[k][c] = (gr < rows && gd < dend) ? widen(src[(size_t)gr * d + gd])
-                                         : 0.f;
+    dst[k][c] = (gr < rows && gd < dend) ? src[(size_t)gr * d + gd] : 0.f;
   }
 }
 
@@ -274,12 +262,12 @@ __device__ __forceinline__ void stage_rows(float (*dst)[ROW],
 // Shared memory (dynamic): acc [BN][dslab] fp32, then two [BK][ROW]
 // staging tiles (aliased by a [BC][ROW] tile of b's rows), then the
 // d-logits tile dlt [BC][ROW], stored column-major for float4 row reads.
-template <typename T, bool TOKEN_ROWS>
+template <bool TOKEN_ROWS>
 __global__ void __launch_bounds__(THREADS)
-bwd_partial_kernel(const T* __restrict__ a, const T* __restrict__ b,
+bwd_partial_kernel(const float* __restrict__ a, const float* __restrict__ b,
                    const long long* __restrict__ labels,
                    const float* __restrict__ g, const float* __restrict__ lse,
-                   float* __restrict__ part, T* __restrict__ out, int n_rows,
+                   float* __restrict__ part, float* __restrict__ out, int n_rows,
                    int n_cols, int d, int tiles_per_chunk, int dslab) {
   extern __shared__ __align__(16) float smem[];
   float* acc = smem;
@@ -356,7 +344,7 @@ bwd_partial_kernel(const T* __restrict__ a, const T* __restrict__ b,
             const float gg = TOKEN_ROWS ? row_g[i] : col_g;
             const bool hit = TOKEN_ROWS ? ((long long)c == row_lbl[i])
                                         : ((long long)r == col_lbl);
-            dl = round_to((expf(s[i][j] - l) - (hit ? 1.f : 0.f)) * gg, T());
+            dl = (expf(s[i][j] - l) - (hit ? 1.f : 0.f)) * gg;
           }
           dlt[4 * tx + j][4 * ty + i] = dl;
         }
@@ -406,42 +394,41 @@ bwd_partial_kernel(const T* __restrict__ a, const T* __restrict__ b,
         if (part != nullptr)
           part[(size_t)chunk * n_rows * d + at] = acc[e];
         else
-          store(&out[at], acc[e]);
+          out[at] = acc[e];
       }
     }
     __syncthreads();
   }
 }
 
-template <typename T>
 __global__ void bwd_reduce_kernel(const float* __restrict__ part,
-                                  T* __restrict__ out, long long total,
+                                  float* __restrict__ out, long long total,
                                   int n_chunks) {
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < total; i += (long long)gridDim.x * blockDim.x) {
     float sum = 0.f;
     for (int c = 0; c < n_chunks; ++c) sum += part[(size_t)c * total + i];
-    store(&out[i], sum);
+    out[i] = sum;
   }
 }
 
-template <typename T, bool TOKEN_ROWS>
+template <bool TOKEN_ROWS>
 int launch_bwd(const void* a, const void* b, const void* labels,
                const void* g, const void* lse, void* part, void* out,
                int n_rows, int n_cols, int d, int tiles_per_chunk,
                int n_chunks, int dslab, cudaStream_t s) {
   const size_t smem =
       (size_t)BN * dslab * sizeof(float) + (size_t)(2 * BK + BC) * ROW * 4;
-  auto kernel = bwd_partial_kernel<T, TOKEN_ROWS>;
+  auto kernel = bwd_partial_kernel<TOKEN_ROWS>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n_rows + BN - 1) / BN, n_chunks);
   kernel<<<grid, THREADS, smem, s>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b),
+      static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<const long long*>(labels), static_cast<const float*>(g),
       static_cast<const float*>(lse), static_cast<float*>(part),
-      static_cast<T*>(out), n_rows, n_cols, d, tiles_per_chunk, dslab);
+      static_cast<float*>(out), n_rows, n_cols, d, tiles_per_chunk, dslab);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -493,57 +480,41 @@ int lmhead_ce_tile_n() { return BN; }
 int lmhead_ce_tile_v() { return BV; }
 
 
-// Backward partials: token_rows = 1 computes dx (a = x [n_rows = N, d],
-// b = W [n_cols = V, d]); token_rows = 0 computes dW (a = W, b = x).
-// labels, g and lse belong to the tokens. Column chunk s covers column
-// tiles [s * tiles_per_chunk, (s + 1) * tiles_per_chunk) of 64. With
-// part != NULL each chunk writes part[s] ([n_chunks, n_rows, d] fp32);
-// with part == NULL (one chunk) the block writes out ([n_rows, d], the
-// inputs' dtype). dslab: a multiple of 64, at most lmhead_ce_bwd_max_slab().
+// fp32 backward partials (bf16 takes lmhead_ce_bwd_sm90.cu): token_rows =
+// 1 computes dx (a = x [n_rows = N, d], b = W [n_cols = V, d]); token_rows
+// = 0 computes dW (a = W, b = x). labels, g and lse belong to the tokens.
+// Column chunk s covers column tiles [s * tiles_per_chunk, (s + 1) *
+// tiles_per_chunk) of 64. With part != NULL each chunk writes part[s]
+// ([n_chunks, n_rows, d] fp32); with part == NULL (one chunk) the block
+// writes out ([n_rows, d] fp32). dslab: a multiple of 64, at most
+// lmhead_ce_bwd_max_slab().
 int lmhead_ce_bwd_partial(const void* a, const void* b, const void* labels,
                           const void* g, const void* lse, void* part,
                           void* out, int n_rows, int n_cols, int d,
                           int tiles_per_chunk, int n_chunks, int dslab,
-                          int token_rows, int is_bf16, void* stream) {
+                          int token_rows, void* stream) {
   if (dslab <= 0 || dslab % 64 || dslab > DSLAB_MAX) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return token_rows
-               ? launch_bwd<__nv_bfloat16, true>(a, b, labels, g, lse, part,
-                                                 out, n_rows, n_cols, d,
-                                                 tiles_per_chunk, n_chunks,
-                                                 dslab, s)
-               : launch_bwd<__nv_bfloat16, false>(a, b, labels, g, lse, part,
-                                                  out, n_rows, n_cols, d,
-                                                  tiles_per_chunk, n_chunks,
-                                                  dslab, s);
-  }
   return token_rows
-             ? launch_bwd<float, true>(a, b, labels, g, lse, part, out,
-                                       n_rows, n_cols, d, tiles_per_chunk,
-                                       n_chunks, dslab, s)
-             : launch_bwd<float, false>(a, b, labels, g, lse, part, out,
-                                        n_rows, n_cols, d, tiles_per_chunk,
-                                        n_chunks, dslab, s);
+             ? launch_bwd<true>(a, b, labels, g, lse, part, out, n_rows,
+                                n_cols, d, tiles_per_chunk, n_chunks, dslab,
+                                s)
+             : launch_bwd<false>(a, b, labels, g, lse, part, out, n_rows,
+                                 n_cols, d, tiles_per_chunk, n_chunks, dslab,
+                                 s);
 }
 
-// out = sum over the n_chunks partials ([n_chunks, total] fp32), cast once.
+// out = sum over the n_chunks fp32 partials ([n_chunks, total]).
 int lmhead_ce_bwd_reduce(const void* part, void* out, long long total,
-                         int n_chunks, int is_bf16, void* stream) {
+                         int n_chunks, void* stream) {
   constexpr int kThreads = 256;
   const long long want = (total + kThreads - 1) / kThreads;
   const int blocks = (int)(want < 4096 ? want : 4096);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (blocks == 0) return 0;
-  if (is_bf16) {
-    bwd_reduce_kernel<<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(part), static_cast<__nv_bfloat16*>(out),
-        total, n_chunks);
-  } else {
-    bwd_reduce_kernel<<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(part), static_cast<float*>(out), total,
-        n_chunks);
-  }
+  bwd_reduce_kernel<<<blocks, kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part), static_cast<float*>(out), total,
+      n_chunks);
   return static_cast<int>(cudaGetLastError());
 }
 

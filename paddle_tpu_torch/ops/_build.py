@@ -30,7 +30,8 @@ import threading
 import time
 from typing import List, Optional
 
-__all__ = ["load", "build_dir", "sources", "build_log", "build_seconds"]
+__all__ = ["load", "build_dir", "sources", "build_log", "build_seconds",
+           "library_path"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -40,6 +41,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_path = ""
 _log = ""
 _seconds = 0.0
 
@@ -84,12 +86,16 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lmhead_ce_combine.argtypes = [p, p, p, p, p, i, i, p]
     lib.lmhead_ce_combine.restype = i
     lib.lmhead_ce_bwd_partial.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
-                                          i, i, i, i, p]
+                                          i, i, i, p]
     lib.lmhead_ce_bwd_partial.restype = i
-    lib.lmhead_ce_bwd_reduce.argtypes = [p, p, ctypes.c_longlong, i, i, p]
+    lib.lmhead_ce_bwd_reduce.argtypes = [p, p, ctypes.c_longlong, i, p]
     lib.lmhead_ce_bwd_reduce.restype = i
+    lib.lmhead_ce_bwd_sm90.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+    lib.lmhead_ce_bwd_sm90.restype = i
     for tile in (lib.lmhead_ce_tile_n, lib.lmhead_ce_tile_v,
-                 lib.lmhead_ce_bwd_max_slab):
+                 lib.lmhead_ce_bwd_max_slab, lib.lmhead_ce_sm90_tile,
+                 lib.lmhead_ce_sm90_half, lib.lmhead_ce_sm90_slab,
+                 lib.lmhead_ce_sm90_max_d):
         tile.argtypes = []
         tile.restype = i
     f = ctypes.c_float
@@ -139,7 +145,7 @@ def _compile(srcs: List[str], out_dir: str, out: str) -> str:
 
 def load() -> ctypes.CDLL:
     """The kernels' shared library, built on first use (thread-safe)."""
-    global _lib, _log, _seconds
+    global _lib, _path, _log, _seconds
     with _lock:
         if _lib is not None:
             return _lib
@@ -154,6 +160,7 @@ def load() -> ctypes.CDLL:
             _log = _compile(srcs, out_dir, out)
             _seconds = time.perf_counter() - t0
         _lib = _declare(ctypes.CDLL(out))
+        _path = out
         return _lib
 
 
@@ -162,6 +169,11 @@ def build_log() -> str:
     library): with -Xptxas=-v, each kernel's registers, shared memory
     and spills."""
     return _log
+
+
+def library_path() -> str:
+    """Path of the loaded shared library ('' before :func:`load`)."""
+    return _path
 
 
 def build_seconds() -> float:

@@ -3,14 +3,17 @@
 Port of ``paddle_tpu/ops/pallas/fused_lmhead_ce.py`` (``lmhead_ce`` and
 its custom VJP: ``_stats_kernel`` forward, ``_dx_kernel`` and
 ``_dw_kernel`` backward). The kernels are in
-``paddle_tpu_torch/csrc/lmhead_ce.cu``, whose header states what bounds
-them on the card and how the design answers that:
+``paddle_tpu_torch/csrc/lmhead_ce.cu`` (forward; fp32 backward) and
+``paddle_tpu_torch/csrc/lmhead_ce_bwd_sm90.cu`` (bf16 backward on the
+tensor cores), whose headers state what bounds them on the card and how
+the design answers that:
 
 - forward: a split-vocab partial-stats launch and a combine launch,
   counted as one kernel (``launches``);
-- dx: a split-vocab partial launch and a reduce launch, counted as one
-  kernel (``dx_launches``);
-- dW: one launch over vocab tiles (``dw_launches``).
+- dx (``dx_launches``) and dW (``dw_launches``): in bf16 one wgmma
+  launch over (row tiles x D halves), :func:`sm90_blocks`; in fp32 a
+  SIMT launch over row tiles (dx at small N splits the vocabulary and
+  adds a reduce launch, counted with it as one kernel).
 
 Entry points:
 
@@ -31,7 +34,12 @@ Entry points:
 Labels outside ``[0, V)`` (negative ones included) pick nothing and hit
 no column, as on the TPU. Inputs are fp32 or bf16; sums are fp32; the
 backward rounds the d-logits to the inputs' dtype before the second
-product, as the TPU kernels do.
+product, as the TPU kernels do. The bf16 backward kernel reads x and W
+through TMA, which needs a row pitch of a multiple of 16 bytes: for a D
+that is not a multiple of 8 the wrapper pads x and W with zero columns
+into a copy (zero columns add nothing to any score or product) and
+returns the first D columns. It keeps the 64-row tile resident in shared
+memory, so bf16 dx and dW take D up to 1024 and raise above it.
 """
 from __future__ import annotations
 
@@ -53,9 +61,12 @@ dw_launches = 0   # backward dW
 # vocab chunks per token block are sized for about this many blocks per
 # SM, so that a 31-token score still spreads over the whole card
 _BLOCKS_PER_SM = 4
-# the backward's 64 x D shared-memory accumulator leaves room for one
-# block per SM: two waves of blocks
+# the fp32 backward's 64 x D shared-memory accumulator leaves room for
+# one block per SM: two waves of blocks
 _BWD_BLOCKS_PER_SM = 2
+# the bf16 backward's row tile, D columns per block and per consumer
+# warpgroup (csrc/lmhead_ce_bwd_sm90.cu)
+SM90_TILE, SM90_HALF, SM90_SLAB = 64, 384, 192
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -202,47 +213,111 @@ def _launch(x2d: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
     return nll, lse
 
 
-def _launch_bwd_side(lib, a, b, lbl, g, lse, out, n_rows, n_cols,
-                     token_rows: bool, stream) -> None:
-    """One backward product (dx when the rows are tokens, dW when they
-    are vocab entries) into ``out``."""
+def sm90_blocks(n_rows: int, d: int):
+    """The bf16 backward's grid: one entry per block, ``(rows, slabs)``
+    with ``rows`` its [start, end) of output rows and ``slabs`` the
+    [start, end) output columns of its two consumer warpgroups, clipped
+    to D (a slab past D is empty and its warpgroup stores nothing)."""
+    blocks = []
+    halves = -(-d // SM90_HALF)
+    for i in range(-(-n_rows // SM90_TILE)):
+        rows = (i * SM90_TILE, min(n_rows, (i + 1) * SM90_TILE))
+        for h in range(halves):
+            slabs = []
+            for w in range(SM90_HALF // SM90_SLAB):
+                lo = h * SM90_HALF + w * SM90_SLAB
+                slabs.append((min(lo, d), min(lo + SM90_SLAB, d)))
+            blocks.append((rows, tuple(slabs)))
+    return blocks
+
+
+def pad_d(*ts: torch.Tensor):
+    """Each 2-D tensor with zero columns added up to a D that is a
+    multiple of 8 (the same tensors where D already is one)."""
+    d = ts[0].shape[1]
+    extra = -d % 8
+    if not extra:
+        return ts
+    return tuple(torch.nn.functional.pad(t, (0, extra)) for t in ts)
+
+
+def _launch_bwd_sm90(lib, a, b, lbl, g, lse, n_rows, n_cols,
+                     token_rows: bool, stream) -> torch.Tensor:
+    """One bf16 backward product on the tensor cores; returns out
+    [n_rows, D] bf16. The kernel keeps the 64-row tile resident in shared
+    memory, which bounds D (``lmhead_ce_sm90_max_d()``, 1024)."""
     d = a.shape[1]
+    if d > lib.lmhead_ce_sm90_max_d():
+        raise ValueError(f"lmhead_ce bf16 backward takes D <= "
+                         f"{lib.lmhead_ce_sm90_max_d()}, got {d}")
+    a, b = pad_d(a, b)
+    a, b = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (a, b))
+    out = torch.empty((n_rows, a.shape[1]), dtype=a.dtype, device=a.device)
+    err = lib.lmhead_ce_bwd_sm90(
+        a.data_ptr(), b.data_ptr(), lbl.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), out.data_ptr(), n_rows, n_cols, a.shape[1],
+        int(token_rows), stream)
+    if err:
+        raise RuntimeError(
+            f"lmhead_ce {'dx' if token_rows else 'dW'} (sm90) launch "
+            f"failed: error {err} (rows={n_rows}, cols={n_cols}, d={d}; -2: "
+            f"no cuTensorMapEncodeTiled, -3: tensor map refused)")
+    return out if out.shape[1] == d else out[:, :d].contiguous()
+
+
+def _launch_bwd_simt(lib, a, b, lbl, g, lse, n_rows, n_cols,
+                     token_rows: bool, stream) -> torch.Tensor:
+    """One fp32 backward product on the FMA units; returns out
+    [n_rows, D] fp32."""
+    d = a.shape[1]
+    out = torch.empty((n_rows, d), dtype=a.dtype, device=a.device)
     tile = lib.lmhead_ce_tile_n()
     dslab = min(-(-d // 64) * 64, lib.lmhead_ce_bwd_max_slab())
     tiles_per_chunk, chunks = split_vocab(
         n_rows, n_cols, tile, tile, _sms(a.device), _BWD_BLOCKS_PER_SM)
     part = (torch.empty((chunks, n_rows, d), dtype=torch.float32,
                         device=a.device) if chunks > 1 else None)
-    is_bf16 = int(a.dtype == torch.bfloat16)
     name = "dx" if token_rows else "dW"
     err = lib.lmhead_ce_bwd_partial(
         a.data_ptr(), b.data_ptr(), lbl.data_ptr(), g.data_ptr(),
         lse.data_ptr(), None if part is None else part.data_ptr(),
         out.data_ptr(), n_rows, n_cols, d, tiles_per_chunk, chunks, dslab,
-        int(token_rows), is_bf16, stream)
+        int(token_rows), stream)
     if err:
         raise RuntimeError(
             f"lmhead_ce {name} launch failed: CUDA error {err} "
             f"(rows={n_rows}, cols={n_cols}, d={d}, chunks={chunks})")
     if part is not None:
         err = lib.lmhead_ce_bwd_reduce(part.data_ptr(), out.data_ptr(),
-                                       n_rows * d, chunks, is_bf16, stream)
+                                       n_rows * d, chunks, stream)
         if err:
             raise RuntimeError(f"lmhead_ce {name} reduce launch failed: "
                                f"CUDA error {err}")
+    return out
+
+
+def _launch_bwd_side(lib, a, b, lbl, g, lse, n_rows, n_cols,
+                     token_rows: bool, stream) -> torch.Tensor:
+    """One backward product (dx when the rows are tokens, dW when they
+    are vocab entries): bf16 on the tensor cores, fp32 on the FMA
+    units."""
+    launch = (_launch_bwd_sm90 if a.dtype == torch.bfloat16
+              else _launch_bwd_simt)
+    return launch(lib, a, b, lbl, g, lse, n_rows, n_cols, token_rows,
+                  stream)
 
 
 def _launch_dx(x2d, w, labels, lse, g) -> torch.Tensor:
     global dx_launches
     from . import _build
 
-    dx = torch.empty_like(x2d)
-    if x2d.shape[0]:
-        _launch_bwd_side(_build.load(), x2d, w, labels.to(torch.int64)
-                         .contiguous(), g, lse, dx, x2d.shape[0], w.shape[0],
-                         True, torch.cuda.current_stream(x2d.device)
-                         .cuda_stream)
-        dx_launches += 1
+    if not x2d.shape[0]:
+        return torch.empty_like(x2d)
+    dx = _launch_bwd_side(_build.load(), x2d, w, labels.to(torch.int64)
+                          .contiguous(), g, lse, x2d.shape[0], w.shape[0],
+                          True, torch.cuda.current_stream(x2d.device)
+                          .cuda_stream)
+    dx_launches += 1
     return dx
 
 
@@ -252,10 +327,10 @@ def _launch_dw(x2d, w, labels, lse, g) -> torch.Tensor:
 
     if not x2d.shape[0]:
         return torch.zeros_like(w)
-    dw = torch.empty_like(w)
-    _launch_bwd_side(_build.load(), w, x2d, labels.to(torch.int64)
-                     .contiguous(), g, lse, dw, w.shape[0], x2d.shape[0],
-                     False, torch.cuda.current_stream(x2d.device).cuda_stream)
+    dw = _launch_bwd_side(_build.load(), w, x2d, labels.to(torch.int64)
+                          .contiguous(), g, lse, w.shape[0], x2d.shape[0],
+                          False, torch.cuda.current_stream(x2d.device)
+                          .cuda_stream)
     dw_launches += 1
     return dw
 

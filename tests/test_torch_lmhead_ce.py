@@ -197,3 +197,138 @@ def test_backward_wrappers_are_the_autograd_function_s():
     dx2 = torch_ce.lmhead_ce_dx(x, w, lbl, lse, g2)
     torch.testing.assert_close(dx2[5], 2 * dx[5])
     torch.testing.assert_close(dx2[6:], dx[6:])
+
+
+@pytest.mark.parametrize("n,d", [
+    (31, 768), (511, 768),          # serving score shapes
+    (4096, 768), (16384, 768),      # dx at seq 512 and 2048
+    (32768, 768),                   # dW: rows are the vocabulary
+    (33, 64), (100, 1000), (64, 64), (1, 768), (600, 768)])  # edges
+def test_sm90_blocks_cover_every_row_tile_and_d_half_once(n, d):
+    """The bf16 backward's blocks tile the output exactly: every (row
+    tile, D half) one block, and each block's two warpgroup slabs
+    partition its half up to D, so every output element has one owner."""
+    blocks = torch_ce.sm90_blocks(n, d)
+    tiles, halves = -(-n // 64), -(-d // 384)
+    assert len(blocks) == tiles * halves
+    seen = {}
+    for (r0, r1), slabs in blocks:
+        assert r1 - r0 == min(64, n - r0) and r0 % 64 == 0
+        cols = [c for lo, hi in slabs for c in range(lo, hi)]
+        assert len(cols) == len(set(cols))
+        for c in (cols[0], cols[-1]) if cols else ():
+            assert 0 <= c < d
+        half = slabs[0][0] // 384
+        assert (r0, half) not in seen
+        seen[(r0, half)] = cols
+    for r0 in range(0, n, 64):
+        owned = sorted(c for h in range(halves) for c in seen[(r0, h)])
+        assert owned == list(range(d))
+    if (n, d) == (4096, 768):  # dx at seq 512: one wave on 132 SMs
+        assert len(blocks) == 128
+
+
+@pytest.mark.parametrize("d", [60, 61, 1])
+def test_zero_column_padding_keeps_plain_grads(d):
+    """The sm90 wrapper's D padding (zero columns up to a multiple of 8)
+    gives the plain dx and dW of the unpadded inputs in the first D
+    columns, and zeros in the added ones."""
+    n, v = 40, 70
+    x, w, lbl = (torch.from_numpy(a) for a in _data(n, d, v, seed=9))
+    x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    g = torch.linspace(0.5, 1.5, n)
+    xp, wp = torch_ce.pad_d(x, w)
+    assert xp.shape[1] % 8 == 0 and xp.shape[1] - d < 8
+    lse = torch_ce.lmhead_ce_plain(x, w, lbl)[1]
+    assert torch.equal(torch_ce.lmhead_ce_plain(xp, wp, lbl)[1], lse)
+    for plain in (torch_ce.lmhead_ce_dx_plain, torch_ce.lmhead_ce_dw_plain):
+        full = plain(xp, wp, lbl, lse, g)
+        assert torch.equal(full[:, :d], plain(x, w, lbl, lse, g))
+        assert not full[:, d:].any()
+
+
+class _Recorder:
+    """Stands in for the kernels' library: records each backward entry
+    point's call and launches nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls.append((name, args))
+            return 0
+        return call
+
+    def lmhead_ce_tile_n(self):
+        return 64
+
+    def lmhead_ce_bwd_max_slab(self):
+        return 768
+
+    def lmhead_ce_sm90_max_d(self):
+        return 1024
+
+
+@pytest.mark.parametrize("dtype,d,entry", [
+    (torch.bfloat16, 64, "lmhead_ce_bwd_sm90"),
+    (torch.bfloat16, 60, "lmhead_ce_bwd_sm90"),
+    (torch.float32, 64, "lmhead_ce_bwd_partial")])
+def test_backward_routes_bf16_to_the_tensor_core_kernel(monkeypatch, dtype,
+                                                         d, entry):
+    """bf16 dx and dW go to the sm90 entry point (D padded to a multiple
+    of 8 and cut back), fp32 to the SIMT one; one launch counted each."""
+    lib = _Recorder()
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(torch_ce, "_sms", lambda dev: 132)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: type("S", (), {"cuda_stream": 0}))
+    n, v = 48, 300
+    x, w, lbl = (torch.from_numpy(a) for a in _data(n, d, v))
+    x, w = x.to(dtype), w.to(dtype)
+    lse, g = torch.zeros(n), torch.ones(n)
+    torch_ce.reset_launches()
+    dx = torch_ce._launch_dx(x, w, lbl, lse, g)
+    dw = torch_ce._launch_dw(x, w, lbl, lse, g)
+    assert (torch_ce.dx_launches, torch_ce.dw_launches) == (1, 1)
+    assert dx.shape == x.shape and dw.shape == w.shape
+    assert dx.dtype == dw.dtype == dtype
+    names = [name for name, _ in lib.calls]
+    assert names[0] == names[-1] == entry
+    assert "lmhead_ce_bwd_sm90" not in names or dtype == torch.bfloat16
+    if entry == "lmhead_ce_bwd_sm90":
+        (_, a_dx), (_, a_dw) = lib.calls
+        # (rows, cols, d, token_rows) of each launch; d padded to 64
+        assert a_dx[6:10] == (n, v, 64, 1) and a_dw[6:10] == (v, n, 64, 0)
+
+
+def test_bf16_backward_above_its_widest_d_raises(monkeypatch):
+    """bf16 D above the resident row tile's 1024 raises before a launch;
+    fp32 takes the SIMT kernel at any D."""
+    lib = _Recorder()
+    monkeypatch.setattr(torch_ce, "_sms", lambda dev: 132)
+    x, w, lbl = (torch.from_numpy(a) for a in _data(8, 1032, 40))
+    lse, g = torch.zeros(8), torch.ones(8)
+    with pytest.raises(ValueError, match="D <= 1024"):
+        torch_ce._launch_bwd_side(lib, x.bfloat16(), w.bfloat16(), lbl, g,
+                                  lse, 8, 40, True, 0)
+    assert lib.calls == []
+    torch_ce._launch_bwd_side(lib, x, w, lbl, g, lse, 8, 40, True, 0)
+    assert [name for name, _ in lib.calls] == ["lmhead_ce_bwd_partial"]
+
+
+def test_cuda_route_without_a_card_raises(monkeypatch, tmp_path):
+    """With no compiler (no card's toolchain) the kernel route raises; it
+    never falls back to the plain version."""
+    calls = []
+    monkeypatch.setattr(torch_ce, "lmhead_ce_dx_plain",
+                        lambda *a: calls.append(a))
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "build_dir", lambda: str(tmp_path / "b"))
+    x, w, lbl = (torch.from_numpy(a) for a in _data(8, 16, 40))
+    x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        torch_ce._launch_dx(x, w, lbl, torch.zeros(8), torch.ones(8))
+    assert calls == []

@@ -17,6 +17,12 @@ in for the kernels.
   reference, cast to bf16), lse stored in bf16, and delta rounded to
   bf16. The inputs are the card check's own (``_flash_inputs``), at a
   small size.
+- lm-head + CE gradients (``_ce_grad_agrees``, at its fp32 and bf16
+  tolerances): the wrappers' dx and dW pass, and so does the plain
+  function summed over column tiles last to first in fp64; each altered
+  gradient fails -- one 64-wide column tile dropped, each row's d-logits
+  built from the row before's lse, and (bf16) the sum rounded to bf16
+  every 16 terms, as a bf16 accumulator would.
 - CPU against card (``_tiny_agree``): the tiny flash GPT leg, run twice
   on the CPU, agrees with itself, and a run whose dq is 2% too large is
   rejected (Adam's parameter step hardly sees a gradient's size; the
@@ -183,3 +189,69 @@ def test_tiny_check_rejects_a_gradient_of_the_wrong_size(monkeypatch):
     scaled = chip_smoke._tiny_steps(program, "cpu", min_seq)
     with pytest.raises(AssertionError, match="dq x 1.02"):
         chip_smoke._tiny_agree(scaled, base, "dq x 1.02")
+
+
+def _ce_grads(dtype_name, alter=None):
+    """(got, ref) dx and dW on the CPU: ref the plain versions, got the
+    same function altered by ``alter`` (None: the wrappers' own output)."""
+    from paddle_tpu_torch.ops import lmhead_ce as ce
+
+    n, d, v = 512, 64, 512
+    x, w, lbl = chip_smoke._inputs(torch, n, d, v, getattr(torch, dtype_name),
+                                   seed=7, device="cpu")
+    g = torch.linspace(0.5, 1.5, n)
+    lse = ce.lmhead_ce_plain(x, w, lbl)[1]
+    ref = {"lmhead_ce_dx": ce.lmhead_ce_dx_plain(x, w, lbl, lse, g),
+           "lmhead_ce_dw": ce.lmhead_ce_dw_plain(x, w, lbl, lse, g)}
+    if alter is None:
+        return {"lmhead_ce_dx": ce.lmhead_ce_dx(x, w, lbl, lse, g),
+                "lmhead_ce_dw": ce.lmhead_ce_dw(x, w, lbl, lse, g)}, ref
+    dl = ce._dlogits_plain(x, w, lbl, lse.roll(1) if alter == "lse_row"
+                           else lse, g)
+    xf, wf = x.float(), w.float()
+    if alter == "lse_row":  # each row's d-logits from the row before's lse
+        return {"lmhead_ce_dx": (dl @ wf).to(x.dtype),
+                "lmhead_ce_dw": (dl.t() @ xf).to(w.dtype)}, ref
+    if alter == "drop_tile":  # the second 64-wide column tile of each side
+        dx = dl.clone()
+        dx[:, 64:128] = 0
+        dw = dl.clone()
+        dw[64:128, :] = 0
+        return {"lmhead_ce_dx": (dx @ wf).to(x.dtype),
+                "lmhead_ce_dw": (dw.t() @ xf).to(w.dtype)}, ref
+    if alter == "bf16_sum":  # the accumulator rounded to bf16 every 16 terms
+        def summed(a, b):
+            acc = torch.zeros(a.shape[0], b.shape[1])
+            for k in range(0, a.shape[1], 16):
+                acc = (acc + a[:, k:k + 16] @ b[k:k + 16]).bfloat16().float()
+            return acc.to(x.dtype)
+        return {"lmhead_ce_dx": summed(dl, wf),
+                "lmhead_ce_dw": summed(dl.t().contiguous(), xf)}, ref
+    if alter == "reordered":  # column tiles summed last to first, in fp64
+        def summed(a, b):
+            acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float64)
+            for k in reversed(range(0, a.shape[1], 64)):
+                acc += a[:, k:k + 64].double() @ b[k:k + 64].double()
+            return acc.to(x.dtype)
+        return {"lmhead_ce_dx": summed(dl, wf),
+                "lmhead_ce_dw": summed(dl.t().contiguous(), xf)}, ref
+    raise ValueError(alter)
+
+
+@pytest.mark.parametrize("dtype_name,alter", [
+    ("bfloat16", None), ("bfloat16", "reordered"), ("float32", None),
+    ("float32", "reordered")])
+def test_ce_grads_pass(dtype_name, alter):
+    got, ref = _ce_grads(dtype_name, alter)
+    for name in ref:
+        chip_smoke._ce_grad_agrees(torch, got[name], ref[name], name, alter)
+
+
+@pytest.mark.parametrize("dtype_name,alter", [
+    (dt, alter) for dt in ("bfloat16", "float32")
+    for alter in ("drop_tile", "lse_row")] + [("bfloat16", "bf16_sum")])
+@pytest.mark.parametrize("name", ["lmhead_ce_dx", "lmhead_ce_dw"])
+def test_altered_ce_grads_fail(dtype_name, alter, name):
+    got, ref = _ce_grads(dtype_name, alter)
+    with pytest.raises(AssertionError, match=f"{name} disagrees"):
+        chip_smoke._ce_grad_agrees(torch, got[name], ref[name], name, alter)
