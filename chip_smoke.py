@@ -12,29 +12,37 @@ Phases (any failure raises, and the script exits non-zero with no result):
    CUDA's versions; no CUDA card is an error;
 2. build: one nvcc per ``paddle_tpu_torch/csrc/*.cu``, all started
    together, into ``build/torch_kernels/`` (ptxas's register and
-   shared-memory report is printed); the bf16 CE backward kernels'
-   tensor-core instructions counted in the library's SASS (none fails),
-   with their registers and spills;
+   shared-memory report is printed); the tensor-core kernels' (CE
+   forward, dx, dW; flash forward at head_dim 64 and 128) tensor-core
+   instructions counted in the library's SASS (none fails), with their
+   registers and spills, and their grid geometry held against their
+   wrappers';
 3. every kernel against its plain PyTorch version on the card: the
-   lm-head + CE forward at the serving shapes (fp32), in bf16 and at the
-   training shapes (N = 4096 and 16384); its dx and dW (``_CE_GRAD_CASES``,
-   a non-uniform g): bf16 (tensor cores) at both training shapes, ragged
-   with labels V and -1, at D = 1000, at D = 60 (padded), at N = 1 and
-   at N = 600 (fewer blocks than SMs), at one bf16 ulp plus 2^-6; fp32
-   (FMA units) at N = 511, ragged and at D = 1000, at 1e-4; the CE
-   kernels' peak added memory at the training shape
-   (no [N, V] buffer); fused Adam(W) on bf16, fp32, 1-D and odd shapes;
-   the flash attention forward (out, lse), dq and dk/dv at the seq-2048
-   training shape (bf16, causal, BTHD), in fp32 in both layouts causal
-   and not, at D = 128 and 256, at Tq != Tk (causal, bottom-right) and at
-   a sequence length that is not a multiple of the kernels' tile; the
+   lm-head + CE forward at the serving shapes (fp32, FMA units) and in
+   bf16 (tensor cores, ``_CE_FWD_CASES``) at both training shapes
+   (N = 4096 and 16384), ragged with labels V and -1, at D = 60
+   (padded), D = 1000, N = 1 and N = 600; its dx and dW
+   (``_CE_GRAD_CASES``, a non-uniform g): bf16 (tensor cores) at both
+   training shapes, ragged with labels V and -1, at D = 1000, at D = 60
+   (padded), at N = 1 and at N = 600 (fewer blocks than SMs), at one
+   bf16 ulp plus 2^-6; fp32 (FMA units) at N = 511, ragged and at
+   D = 1000, at 1e-4; the CE kernels' peak added memory at the training
+   shape (no [N, V] buffer); fused Adam(W) on bf16, fp32, 1-D and odd
+   shapes; the flash attention forward (out, lse), dq and dk/dv over
+   ``_FLASH_CASES``: the seq-2048 training shape (bf16, causal, BTHD),
+   fp32 and bf16 in both layouts causal and not, D = 128 and 256, Tq !=
+   Tk (causal, bottom-right; rows that see no key give out 0 and lse
+   -1e30 exactly) and sequence lengths that are not a multiple of the
+   kernels' tiles; dq and dk/dv from the kernel forward's own out and
+   lse at the seq-2048 shape against the plain chain (reported); the
    flash kernels' peak added memory at the training shape (no
    [B, H, T, T] buffer);
 4. timing with CUDA events (median of 30 after warm-up): each kernel, its
    plain version, one PyTorch library call computing the same function,
    and the card's bound for the same work, at the serving score shapes
-   and at the training shapes (dx and dW at N = 4096 and 16384, with
-   TFLOP/s on the 4NVD count);
+   and at the training shapes (the CE forward, dx and dW at N = 4096 and
+   16384, and the flash forward, with TFLOP/s and their ratio to the
+   library call);
 5. serving at full GPT width (12 x 768, vocab 32000, random weights from
    seed 0): 8 prompts covering every prefill bucket through
    ServingEngine.submit + run_until_idle, two of them again one after the
@@ -60,8 +68,10 @@ Phases (any failure raises, and the script exits non-zero with no result):
    the largest moment of its kind;
 8. a ``{"kernels": [...]}`` line: per ported kernel, its launches on the
    main paths, its largest error against the plain version and its
-   times at the training shape (dx and dW also at N = 16384, under
-   ``long_shape``);
+   times at the training shape (the CE forward, dx and dW also at
+   N = 16384, under ``long_shape``); a kernel whose bf16 path runs on
+   the tensor cores names that source, with the SIMT one beside it
+   (``source_fp32``, ``source_d256``);
 9. the card's name and power limit again, and the last line:
    ``{"ok": true, "device": {...}}``.
 """
@@ -121,14 +131,30 @@ def _environment(torch):
     return card
 
 
-# the bf16 CE backward's kernels in SASS and in ptxas's report: the
-# template argument of bwd_sm90_kernel<TOKEN_ROWS> names the product
-_SM90_KERNELS = {"ILb1E": "lmhead_ce_dx", "ILb0E": "lmhead_ce_dw"}
+# the tensor-core kernels in SASS and in ptxas's report: each name is
+# found by the pieces of its mangled symbol (its source's file name, the
+# kernel, the template argument: bwd_sm90_kernel<TOKEN_ROWS> names the CE
+# backward's product, fwd_sm90_kernel<D> the flash forward's head_dim)
+_SM90_KERNELS = {
+    "lmhead_ce_fwd": ("lmhead_ce_fwd_sm90", "fwd_sm90_kernel"),
+    "lmhead_ce_dx": ("lmhead_ce_bwd_sm90", "bwd_sm90_kernelILb1E"),
+    "lmhead_ce_dw": ("lmhead_ce_bwd_sm90", "bwd_sm90_kernelILb0E"),
+    "flash_attention_fwd_d64": ("flash_attention_fwd_sm90",
+                                "fwd_sm90_kernelILi64E"),
+    "flash_attention_fwd_d128": ("flash_attention_fwd_sm90",
+                                 "fwd_sm90_kernelILi128E"),
+}
+
+
+def _sm90_kernel(name):
+    """The ``_SM90_KERNELS`` key of a mangled kernel name, or None."""
+    return next((k for k, parts in _SM90_KERNELS.items()
+                 if all(p in name for p in parts)), None)
 
 
 def _sm90_report(so_path, log):
-    """{kernel: {hgmma, hmma, registers, spill_stores, spill_loads}} of the
-    bf16 CE backward: tensor-core instructions counted in the built
+    """{kernel: {hgmma, hmma, registers, spill_stores, spill_loads}} of
+    the tensor-core kernels: tensor-core instructions counted in the built
     library's SASS (``cuobjdump -sass``), registers and spills from
     ptxas's report in this process's build log."""
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -137,46 +163,58 @@ def _sm90_report(so_path, log):
                           capture_output=True, text=True, timeout=120).stdout
     report = {}
     for body in sass.split("Function : ")[1:]:
-        name = body.split("\n", 1)[0].strip()
-        for tag, kernel in _SM90_KERNELS.items():
-            if "bwd_sm90_kernel" in name and tag in name:
-                report[kernel] = {"hgmma": body.count("HGMMA"),
-                                  "hmma": body.count("HMMA")}
+        kernel = _sm90_kernel(body.split("\n", 1)[0].strip())
+        if kernel:
+            report[kernel] = {"hgmma": body.count("HGMMA"),
+                              "hmma": body.count("HMMA")}
     for block in log.split("Compiling entry function '")[1:]:
-        name = block.split("'", 1)[0]
+        kernel = _sm90_kernel(block.split("'", 1)[0])
         regs = re.search(r"Used (\d+) registers", block)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                            r"loads", block)
-        for tag, kernel in _SM90_KERNELS.items():
-            if "bwd_sm90_kernel" in name and tag in name and regs:
-                report.setdefault(kernel, {}).update(
-                    registers=int(regs.group(1)),
-                    spill_stores=int(spills.group(1)) if spills else None,
-                    spill_loads=int(spills.group(2)) if spills else None)
+        if kernel and regs:
+            report.setdefault(kernel, {}).update(
+                registers=int(regs.group(1)),
+                spill_stores=int(spills.group(1)) if spills else None,
+                spill_loads=int(spills.group(2)) if spills else None)
     return report
 
 
 def _build():
     from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as fl
     from paddle_tpu_torch.ops import lmhead_ce as ce
 
     t0 = time.perf_counter()
     lib = _build.load()
     print(_build.build_log(), flush=True)
-    geometry = (lib.lmhead_ce_sm90_tile(), lib.lmhead_ce_sm90_half(),
-                lib.lmhead_ce_sm90_slab())
-    if geometry != (ce.SM90_TILE, ce.SM90_HALF, ce.SM90_SLAB):
-        raise AssertionError(f"sm90 backward geometry {geometry} differs "
-                             f"from the wrapper's sm90_blocks")
+    geometry = {
+        "lmhead_ce_bwd": ((lib.lmhead_ce_sm90_tile(),
+                           lib.lmhead_ce_sm90_half(),
+                           lib.lmhead_ce_sm90_slab()),
+                          (ce.SM90_TILE, ce.SM90_HALF, ce.SM90_SLAB)),
+        "lmhead_ce_fwd": ((lib.lmhead_ce_fwd_sm90_tile_n(),
+                           lib.lmhead_ce_fwd_sm90_tile_v()),
+                          (ce.SM90_FWD_TILE_N, ce.SM90_FWD_TILE_V)),
+        "flash_attention_fwd": ((lib.flash_attn_fwd_sm90_tile_q(),
+                                 lib.flash_attn_fwd_sm90_tile_kv()),
+                                (fl.SM90_FWD_TILE_Q, fl.SM90_FWD_TILE_KV))}
+    for name, (built, wrapper) in geometry.items():
+        if built != wrapper:
+            raise AssertionError(f"{name} (sm90) geometry {built} differs "
+                                 f"from its wrapper's {wrapper}")
     sm90 = _sm90_report(_build.library_path(), _build.build_log())
-    if sorted(sm90) != sorted(_SM90_KERNELS.values()) or not all(
+    if sorted(sm90) != sorted(_SM90_KERNELS) or not all(
             k.get("hgmma", 0) > 0 for k in sm90.values()):
-        raise AssertionError(f"bf16 CE backward kernels without tensor-core "
+        raise AssertionError(f"tensor-core kernels without tensor-core "
                              f"instructions in their SASS: {sm90}")
+    serialized = [line.strip() for line in _build.build_log().splitlines()
+                  if "wgmma" in line and "serialized" in line]
     _say(phase="build", seconds=round(time.perf_counter() - t0, 3),
          nvcc_seconds=round(_build.build_seconds(), 3),
          sources=[os.path.relpath(s) for s in _build.sources()],
-         sm90_backward=sm90)
+         headers=[os.path.relpath(s) for s in _build.headers()],
+         sm90_kernels=sm90, wgmma_serialized=serialized)
 
 
 def _inputs(torch, n, d, v, dtype, seed, device="cuda"):
@@ -202,24 +240,34 @@ def _check_kernel(torch):
         x, w, lbl = _inputs(torch, n, d, v, dtype, seed=10 + i)
         if v == 130:  # labels outside [0, V) pick nothing
             lbl[3], lbl[7] = v, -1
-        nll, lse = ce.lmhead_ce_fwd(x, w, lbl)
-        ref_nll, ref_lse = ce.lmhead_ce_plain(x, w, lbl)
+        got = ce.lmhead_ce_fwd(x, w, lbl)
+        ref = ce.lmhead_ce_plain(x, w, lbl)
         torch.cuda.synchronize()
-        err = max(float((nll - ref_nll).abs().max()),
-                  float((lse - ref_lse).abs().max()))
-        bad = ((nll - ref_nll).abs() > tol + tol * ref_nll.abs()).sum()
-        if v == 130 and not (nll[[3, 7]] == lse[[3, 7]]).all():
-            raise AssertionError("out-of-range labels picked a logit")
-        if int(bad) or not torch.isfinite(nll).all():
-            raise AssertionError(
-                f"lmhead_ce disagrees with its plain version at n={n} d={d} "
-                f"v={v} {dtype}: {int(bad)} rows beyond {tol}, "
-                f"max abs err {err}")
+        err = _ce_fwd_agrees(torch, got, ref, lbl, v, tol,
+                             f"n={n} d={d} v={v} {dtype}")
         worst = max(worst, err)
         _say(phase="kernel_check", kernel="lmhead_ce_fwd", n=n, d=d, v=v,
              dtype=str(dtype).replace("torch.", ""), tolerance_rel=tol,
              max_abs_err=err)
     return worst
+
+
+def _ce_fwd_agrees(torch, got, ref, lbl, v, tol, what) -> float:
+    """Holds the CE forward's (nll, lse) against the plain version's at
+    rtol = atol = tol, and a row whose label lies outside [0, V) to nll
+    == lse exactly (it picks nothing); raises naming what disagrees or is
+    not finite. Returns the max abs error."""
+    (nll, lse), (ref_nll, ref_lse) = got, ref
+    err = max(_err(nll, ref_nll), _err(lse, ref_lse))
+    bad = _beyond(nll, ref_nll, tol, tol) + _beyond(lse, ref_lse, tol, tol)
+    outside = (lbl < 0) | (lbl >= v)
+    if bad or not (torch.isfinite(nll).all() and torch.isfinite(lse).all()) \
+            or not (nll[outside] == lse[outside]).all():
+        raise AssertionError(
+            f"lmhead_ce_fwd disagrees with its plain version at {what}: "
+            f"{bad} values beyond {tol}, max abs err {err}, or a label "
+            f"outside [0, V) picked a logit")
+    return err
 
 
 def _median_ms(torch, fn, *args):
@@ -305,6 +353,18 @@ def _no_big_buffer(torch, name, fn, limit, buffer, **shape) -> None:
     del out
 
 
+# The bf16 CE forward (the tensor-core kernel) against its plain version
+# at 2e-3, (N, D, V): both training shapes, then the kernel's edges --
+# ragged N and V (labels V and -1 at rows 3 and 7 wherever N > 7), D = 60
+# (the wrapper pads to 64), D = 1000 (16 chunks of 64, the last partly past
+# D), N = 1, and N = 600, whose 5 row tiles leave most SMs to the
+# vocabulary split
+_CE_FWD_CASES = [
+    (_TRAIN_N, 768, 32768), (_LONG_N, 768, 32768), (33, 64, 130),
+    (64, 60, 130), (100, 1000, 300), (1, 768, 300), (600, 768, 5000),
+]
+
+
 # The CE backward kernels against their plain versions, (rtol, atol):
 # |got - ref| <= atol + rtol * |ref|. fp32 at 1e-4 (exact fp32 products
 # summed in another order). bf16 at one bf16 ulp (rtol 2^-7) plus atol
@@ -360,8 +420,8 @@ def _ce_grad_agrees(torch, got, ref, name, what) -> float:
 
 def _check_training_kernels(torch):
     """The training path's kernels against their plain versions on the
-    card. Forward at both training shapes (N = 4096 and 16384 tokens) in
-    bf16 at 2e-3 (the floor of tests/test_fused_lmhead_ce.py:89). dx and
+    card. The bf16 forward over ``_CE_FWD_CASES`` at 2e-3 (the floor of
+    tests/test_fused_lmhead_ce.py:89), each line naming its blocks. dx and
     dW with a non-uniform per-row g in [0.5, 1.5] over ``_CE_GRAD_CASES``
     through ``_ce_grad_agrees``; each line names the blocks of the bf16
     launch or the vocabulary chunks of the fp32 one. Adam, with and without
@@ -385,22 +445,22 @@ def _check_training_kernels(torch):
             ("lmhead_ce_dw", lambda: ce.lmhead_ce_dw(x, w, lbl, lse, g))):
         _no_big_buffer(torch, name, fn, _TRAIN_N * v * 2, "[N, V]",
                        n=_TRAIN_N, v=v)
-    for i, n in enumerate((_TRAIN_N, _LONG_N)):
-        x, w, lbl = _inputs(torch, n, d, v, torch.bfloat16, seed=40 + i)
-        nll, lse = ce.lmhead_ce_fwd(x, w, lbl)
-        ref_nll, ref_lse = ce.lmhead_ce_plain(x, w, lbl)
-        bad = _beyond(nll, ref_nll, 2e-3, 2e-3) + _beyond(lse, ref_lse, 2e-3,
-                                                          2e-3)
-        err = max(_err(nll, ref_nll), _err(lse, ref_lse))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for i, (n, dd, vv) in enumerate(_CE_FWD_CASES):
+        x, w, lbl = _inputs(torch, n, dd, vv, torch.bfloat16, seed=40 + i)
+        if n > 7:  # labels outside [0, V) pick nothing
+            lbl[3], lbl[7] = vv, -1
+        got = ce.lmhead_ce_fwd(x, w, lbl)
+        ref = ce.lmhead_ce_plain(x, w, lbl)
+        torch.cuda.synchronize()
+        err = _ce_fwd_agrees(torch, got, ref, lbl, vv, 2e-3,
+                             f"n={n} d={dd} v={vv} bfloat16")
         worst["lmhead_ce_fwd"] = max(worst["lmhead_ce_fwd"], err)
-        _say(phase="kernel_check", kernel="lmhead_ce_fwd", n=n, d=d, v=v,
-             dtype="bfloat16", tolerance_rel=2e-3, max_abs_err=err)
-        if bad:
-            raise AssertionError(f"lmhead_ce_fwd at n={n}: {bad} values "
-                                 f"beyond 2e-3")
+        _say(phase="kernel_check", kernel="lmhead_ce_fwd", n=n, d=dd, v=vv,
+             dtype="bfloat16", tolerance_rel=2e-3, max_abs_err=err, sms=sms,
+             blocks=len(ce.sm90_fwd_blocks(n, vv, sms)))
 
     tile = _build.load().lmhead_ce_tile_n()
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for i, (n, dd, vv, dtype_name) in enumerate(_CE_GRAD_CASES):
         x, w, lbl = _inputs(torch, n, dd, vv, getattr(torch, dtype_name),
                             seed=50 + i)
@@ -545,7 +605,10 @@ _FLASH_KERNEL = dict(out="flash_attention_fwd", lse="flash_attention_fwd",
 # (dtype, layout, causal, B, H, Tq, Tk, D): the seq-2048 training shape;
 # fp32 in both layouts, causal and not; D = 128 and 256; causal Tq != Tk
 # (bottom-right; the first is tests/test_flash_attention.py:62-85's); and
-# sequence lengths that are not a multiple of the kernels' 64-row tile
+# sequence lengths that are not a multiple of the kernels' tiles. bf16 at
+# D = 64 and 128 runs the tensor-core forward (BHTD causal and not, Tq <
+# Tk, Tq > Tk with rows that see no key, T = 1000 and 300), bf16 at D =
+# 256 the SIMT one
 _FLASH_CASES = [
     ("bfloat16", "BTHD", True, 8, 12, 2048, 2048, 64),
     ("float32", "BTHD", True, 2, 3, 256, 256, 64),
@@ -559,6 +622,11 @@ _FLASH_CASES = [
     ("bfloat16", "BTHD", True, 2, 2, 256, 640, 128),
     ("float32", "BTHD", True, 2, 3, 200, 200, 64),
     ("bfloat16", "BTHD", True, 1, 4, 1000, 1000, 64),
+    ("bfloat16", "BHTD", True, 2, 3, 256, 256, 64),
+    ("bfloat16", "BHTD", False, 2, 3, 256, 256, 64),
+    ("bfloat16", "BHTD", True, 1, 2, 128, 384, 64),
+    ("bfloat16", "BHTD", True, 1, 2, 384, 128, 64),
+    ("bfloat16", "BHTD", False, 1, 2, 300, 300, 128),
 ]
 
 
@@ -634,6 +702,7 @@ def _check_flash(torch):
         what = (f"{dtype_name} {layout} {'causal' if causal else 'full'} "
                 f"B={b} H={h} Tq={tq} Tk={tk} D={d}")
         errs = _flash_agrees(torch, got, ref, dtype_name, what)
+        _no_key_rows_agree(got, causal, layout, tq, tk, what)
         for name, err in errs.items():
             worst[name] = max(worst.get(name, 0.0), err)
         _say(phase="kernel_check", kernel="flash_attention", dtype=dtype_name,
@@ -648,6 +717,7 @@ def _check_flash(torch):
     out, lse = fl.flash_attention_fwd(q, k, v, True, None, "BTHD")
     delta = fl.flash_attention_delta(out, do, "BTHD")
     args = (q, k, v, do, lse, delta, True, None, "BTHD")
+    _flash_chain(torch, args, **dict(b=b, h=h, t=t, d=d))
     shape = dict(b=b, h=h, t=t, d=d)
     limit = b * h * t * t * 2
     for name, fn in (
@@ -657,6 +727,55 @@ def _check_flash(torch):
             ("flash_attention_dkv", lambda: fl.flash_attention_dkv(*args))):
         _no_big_buffer(torch, name, fn, limit, "[B, H, T, T]", **shape)
     return worst
+
+
+def _no_key_rows_agree(got, causal, layout, tq, tk, what) -> None:
+    """Causal with Tq > Tk: the first Tq - Tk query rows see no key, and
+    must give out exactly 0 and lse exactly -1e30, as the contract states
+    (at -1e30 the relative tolerance of lse spans 1e26, and out's 2e-2
+    would pass a small nonzero row)."""
+    if not causal or tq <= tk:
+        return
+    rows = tq - tk
+    out = got["out"][:, :rows] if layout == "BTHD" else \
+        got["out"][:, :, :rows]
+    if out.count_nonzero() or not (got["lse"][..., :rows] == -1e30).all():
+        raise AssertionError(f"flash attention at {what}: a query row that "
+                             f"sees no key gave a nonzero out or an lse "
+                             f"other than -1e30")
+
+
+def _flash_chain(torch, args, **shape) -> None:
+    """dq and dk/dv started from the kernel forward's own out and lse (as
+    the training step runs them) against the plain chain (the plain
+    forward's out and lse into the plain dq and dk/dv), at the seq-2048
+    shape. Two forwards that agree at ``_FLASH_TOL`` give lse and delta
+    that differ in their last bits, so this is reported, not held to the
+    gradient tolerance: it fails only on a value that is not finite."""
+    from paddle_tpu_torch.ops import flash_attention as fl
+
+    q, k, v, do, _, _, causal, scale, layout = args
+    ref_out, ref_lse = fl.flash_attention_fwd_plain(q, k, v, causal, scale,
+                                                    layout)
+    ref_args = (q, k, v, do, ref_lse,
+                fl.flash_attention_delta(ref_out, do, layout), causal,
+                scale, layout)
+    got = dict(zip(("dk", "dv"), fl.flash_attention_dkv(*args)),
+               dq=fl.flash_attention_dq(*args))
+    ref = dict(zip(("dk", "dv"), fl.flash_attention_dkv_plain(*ref_args)),
+               dq=fl.flash_attention_dq_plain(*ref_args))
+    torch.cuda.synchronize()
+    errs = {n: _err(got[n], ref[n]) for n in ref}
+    beyond = {n: _beyond(got[n], ref[n], *_FLASH_TOL["bfloat16"][n])
+              for n in ref}
+    _say(phase="kernel_check", kernel="flash_attention_chain", **shape,
+         dtype="bfloat16", layout=layout, causal=causal,
+         what="dq, dk, dv from the kernel forward's out and lse against the "
+              "plain chain", max_abs_err=errs,
+         beyond_gradient_tolerance=beyond, tolerance=_FLASH_TOL["bfloat16"])
+    if not all(torch.isfinite(t.float()).all() for t in got.values()):
+        raise AssertionError("flash backward from the kernel forward's "
+                             "out and lse is not finite")
 
 
 def _head_dim(config) -> int:
@@ -673,14 +792,14 @@ def _bound_ms(nbytes: float, flops: float, dtype_name: str):
 def _time_training_kernels(torch, card):
     """Kernel, plain, library and bound at the training shapes (bf16,
     D = 768, V = 32768; g = 1/N, what mean() hands the loss; Adam on
-    gpt.wte): the CE forward at N = 8 x 512 tokens, dx and dW at N = 8 x
-    512 and 8 x 2048 (the seq-2048 step's N). Bounds count each input
-    read once and each output written once, and the function's FLOPs:
-    2NVD for the forward, 4NVD for dx and for dW (the score tile, then
-    the product with the d-logits; the bf16 kernels build the score tile
-    once per D half, 6NVD at D = 768). ``tflops``: 4NVD over the kernel's
-    time. Returns {kernel: row}, dx and dW at N = 8 x 2048 under
-    (kernel, "long")."""
+    gpt.wte): the CE forward, dx and dW at N = 8 x 512 and 8 x 2048 (the
+    seq-2048 step's N) tokens. Bounds count each input read once and each
+    output written once, and the function's FLOPs: 2NVD for the forward,
+    4NVD for dx and for dW (the score tile, then the product with the
+    d-logits; the bf16 kernels build the score tile once per D half, 6NVD
+    at D = 768). ``tflops``: the function's FLOPs over the kernel's time;
+    ``over_library``: the kernel's time over the library call's. Returns
+    {kernel: row}, each at N = 8 x 2048 under (kernel, "long")."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import fused_adam as fa
@@ -716,11 +835,10 @@ def _time_training_kernels(torch, card):
              library_grad(wr),
              _bound_ms(io + 8 * n + 2 * v * d, flops, "bfloat16")),
         ]
-        if n == _TRAIN_N:
-            specs.insert(0, (
-                "lmhead_ce_fwd", lambda: ce.lmhead_ce_fwd(x, w, lbl),
-                lambda: ce.lmhead_ce_plain(x, w, lbl), library_fwd,
-                _bound_ms(io + 4 * n, 2.0 * n * v * d, "bfloat16")))
+        specs.insert(0, (
+            "lmhead_ce_fwd", lambda: ce.lmhead_ce_fwd(x, w, lbl),
+            lambda: ce.lmhead_ce_plain(x, w, lbl), library_fwd,
+            _bound_ms(io + 4 * n, 2.0 * n * v * d, "bfloat16")))
         both_ms = _median_ms(torch, library_grad(xr, wr))
         for name, kern, plain, library, (bound, by) in specs:
             row = dict(phase="kernel_time", kernel=name, n=n, d=d, v=v,
@@ -728,12 +846,15 @@ def _time_training_kernels(torch, card):
                        plain_ms=_median_ms(torch, plain),
                        library_ms=_median_ms(torch, library), bound_ms=bound,
                        bound_by=by, repeats=_REPEATS, card=card)
-            if name != "lmhead_ce_fwd":
+            if name == "lmhead_ce_fwd":
+                row["library"] = "F.cross_entropy(x @ w.t())"
+                row["tflops"] = flops / 2 / row["kernel_ms"] / 1e9
+            else:
                 row["library"] = ("autograd.grad of F.cross_entropy(x @ "
                                   "w.t()) for this gradient alone")
                 row["library_dx_dw_ms"] = both_ms
                 row["tflops"] = flops / row["kernel_ms"] / 1e9
-                row["over_library"] = row["kernel_ms"] / row["library_ms"]
+            row["over_library"] = row["kernel_ms"] / row["library_ms"]
             _say(**row)
             rows[name if n == _TRAIN_N else (name, "long")] = row
         del lib_loss, xr, wr, x, w
@@ -774,7 +895,9 @@ def _time_flash(torch, card):
     Bounds: each input read once, each output written once (lse and
     delta fp32), and 2*D FLOPs per visible score entry for each product
     of the kernel's own algorithm: 2 for the forward, 3 for dq (scores,
-    dP, dS k), 4 for dk/dv (scores, dP, P^T dO, dS^T q)."""
+    dP, dS k), 4 for dk/dv (scores, dP, P^T dO, dS^T q). The forward's
+    row also carries ``tflops`` (its FLOPs over its time) and
+    ``over_library``."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import flash_attention as fl
@@ -829,6 +952,8 @@ def _time_flash(torch, card):
         if name == "flash_attention_fwd":
             row["library"] = ("F.scaled_dot_product_attention(is_causal=True) "
                               "on BHTD views")
+            row["tflops"] = products * product / row["kernel_ms"] / 1e9
+            row["over_library"] = row["kernel_ms"] / row["library_ms"]
         else:
             row["library"] = ("autograd.grad of F.scaled_dot_product_attention"
                               " for this pass's gradients alone")
@@ -922,10 +1047,27 @@ def _train(torch, card, config, batch, seq, phase, flash_per_step):
     return launches
 
 
+# the port's kernels in a trace of the bf16 training step, by pieces of
+# the names the profiler gives their CUDA kernels (the CE forward counts
+# its combine launch with it)
+_TRACE_NAMES = {
+    "lmhead_ce_fwd": ("::fwd_sm90_kernel(", "::partial_kernel",
+                      "::combine_kernel("),
+    "lmhead_ce_dx": ("::bwd_sm90_kernel<true>",),
+    "lmhead_ce_dw": ("::bwd_sm90_kernel<false>",),
+    "flash_attention_fwd": ("::fwd_sm90_kernel<", "::fwd_kernel<"),
+    "flash_attention_dq": ("::dq_kernel<",),
+    "flash_attention_dkv": ("::dkv_kernel<",),
+    "fused_adam": ("::adam_kernel<",),
+}
+
+
 def _profile_train_step(torch, exe, main, feed, io, scope, card, phase):
-    """One traced training step: host wall, device kernel time, launches
-    and the kernels that take the most device time. A traced run: the
-    tracer adds host time, so its wall is not the step metric."""
+    """One traced training step: host wall, device kernel time, launches,
+    the device time of each of the port's kernels (``path_kernels``:
+    calls and ms) and the kernels that take the most device time. A
+    traced run: the tracer adds host time, so its wall is not the step
+    metric."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -941,9 +1083,15 @@ def _profile_train_step(torch, exe, main, feed, io, scope, card, phase):
             kernels[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
     device_ms = sum(t for _, t in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]
+    ours = {}
+    for name, pieces in _TRACE_NAMES.items():
+        hits = [nt for k, nt in kernels.items()
+                if any(p in k for p in pieces)]
+        ours[name] = {"calls": sum(n for n, _ in hits),
+                      "ms": sum(t for _, t in hits)}
     _say(phase=phase, wall_ms=wall_ms, device_ms=device_ms,
          device_busy_share=device_ms / wall_ms if kernels else None,
-         launches=sum(n for n, _ in kernels.values()),
+         launches=sum(n for n, _ in kernels.values()), path_kernels=ours,
          top_kernels=[{"name": k[:80], "calls": n, "ms": t}
                       for k, (n, t) in top],
          card=card, note="traced run; not measured if no CUDA events")
@@ -1241,7 +1389,8 @@ def main() -> int:
     for case in _CPU_VS_CARD:
         _cpu_vs_card(torch, *case)
 
-    ce_src = "paddle_tpu_torch/csrc/lmhead_ce.cu"
+    csrc = "paddle_tpu_torch/csrc/"
+    ce_src = csrc + "lmhead_ce.cu"
     pallas = "paddle_tpu/ops/pallas/"
     shape = {"n": _TRAIN_N, "d": _TRAIN["d_model"],
              "v": _TRAIN["vocab_size"], "dtype": "bfloat16"}
@@ -1250,28 +1399,32 @@ def main() -> int:
         return {"train": train[name], "train_long": train_long[name],
                 **more}
 
-    t = serve_times[(511, "float32")]
-    fwd = _kernel_row(
-        "lmhead_ce_fwd", pallas + "fused_lmhead_ce.py:99", ce_src,
-        train["lmhead_ce_fwd"],
-        max(serve_err, errs["lmhead_ce_fwd"]), times["lmhead_ce_fwd"], card,
-        shape=shape,
-        launches_by_path=by_path("lmhead_ce_fwd", serve=serve_launches),
-        serve_shape={"n": 511, "d": _SERVE_D, "v": _SERVE_V,
-                     "dtype": "float32", "ms": t["kernel_ms"],
-                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                     "library_ms": t["library_ms"]})
     def long_shape(name):
         t = times[(name, "long")]
         return {"n": _LONG_N, "d": _TRAIN["d_model"],
                 "v": _TRAIN["vocab_size"], "dtype": "bfloat16",
                 **{k: t[k] for k in ("kernel_ms", "plain_ms", "bound_ms",
                                      "library_ms", "library_dx_dw_ms",
-                                     "tflops", "over_library")}}
+                                     "tflops", "over_library") if k in t}}
+
+    t = serve_times[(511, "float32")]
+    fwd = _kernel_row(
+        "lmhead_ce_fwd", pallas + "fused_lmhead_ce.py:99",
+        csrc + "lmhead_ce_fwd_sm90.cu", train["lmhead_ce_fwd"],
+        max(serve_err, errs["lmhead_ce_fwd"]), times["lmhead_ce_fwd"], card,
+        shape=shape, source_fp32=ce_src,
+        launches_by_path=by_path("lmhead_ce_fwd", serve=serve_launches),
+        tflops=times["lmhead_ce_fwd"]["tflops"],
+        over_library=times["lmhead_ce_fwd"]["over_library"],
+        long_shape=long_shape("lmhead_ce_fwd"),
+        serve_shape={"n": 511, "d": _SERVE_D, "v": _SERVE_V,
+                     "dtype": "float32", "source": ce_src,
+                     "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+                     "bound_ms": t["bound_ms"],
+                     "library_ms": t["library_ms"]})
 
     rows = [fwd] + [
-        _kernel_row(name, pallas + where,
-                    "paddle_tpu_torch/csrc/lmhead_ce_bwd_sm90.cu",
+        _kernel_row(name, pallas + where, csrc + "lmhead_ce_bwd_sm90.cu",
                     train[name], errs[name], times[name], card, shape=shape,
                     source_fp32=ce_src, launches_by_path=by_path(name),
                     library_dx_dw_ms=times[name]["library_dx_dw_ms"],
@@ -1281,9 +1434,8 @@ def main() -> int:
         for name, where in (("lmhead_ce_dx", "fused_lmhead_ce.py:188"),
                             ("lmhead_ce_dw", "fused_lmhead_ce.py:221"))]
     rows.append(_kernel_row(
-        "fused_adam", pallas + "fused_adam.py:25",
-        "paddle_tpu_torch/csrc/fused_adam.cu", train["fused_adam"],
-        errs["fused_adam"], times["fused_adam"], card,
+        "fused_adam", pallas + "fused_adam.py:25", csrc + "fused_adam.cu",
+        train["fused_adam"], errs["fused_adam"], times["fused_adam"], card,
         launches_by_path=by_path("fused_adam"),
         shape={"param": "gpt.wte", "dims": [_TRAIN["vocab_size"],
                                             _TRAIN["d_model"]],
@@ -1291,16 +1443,23 @@ def main() -> int:
     flash_shape = {"b": _LONG_B, "t": _LONG_T, "h": _LONG["n_head"],
                    "d": _head_dim(_LONG), "dtype": "bfloat16",
                    "layout": "BTHD", "causal": True}
+    flash_src = csrc + "flash_attention.cu"
     for name, bthd, bhtd in (
             ("flash_attention_fwd", 130, 68),
             ("flash_attention_dq", 354, 315),
             ("flash_attention_dkv", 471, 423)):
-        extra = ({} if name == "flash_attention_fwd" else
-                 {"library_dq_dk_dv_ms": times[name]["library_dq_dk_dv_ms"]})
+        if name == "flash_attention_fwd":
+            extra = {"source_fp32": flash_src, "source_d256": flash_src,
+                     "tflops": times[name]["tflops"],
+                     "over_library": times[name]["over_library"]}
+            source = csrc + "flash_attention_fwd_sm90.cu"
+        else:
+            extra = {"library_dq_dk_dv_ms":
+                     times[name]["library_dq_dk_dv_ms"]}
+            source = flash_src
         rows.append(_kernel_row(
-            name, pallas + f"flash_attention.py:{bthd}",
-            "paddle_tpu_torch/csrc/flash_attention.cu", train_long[name],
-            errs[name], times[name], card,
+            name, pallas + f"flash_attention.py:{bthd}", source,
+            train_long[name], errs[name], times[name], card,
             replaces_bhtd=pallas + f"flash_attention.py:{bhtd}",
             launches_by_path=by_path(name), shape=flash_shape, **extra))
     _say(kernels=rows)

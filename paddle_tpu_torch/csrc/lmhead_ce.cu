@@ -1,8 +1,9 @@
-// Fused lm-head + softmax cross-entropy, forward and backward, for Hopper
-// (sm_90a).
+// Fused lm-head + softmax cross-entropy, forward and backward, in fp32 for
+// Hopper (sm_90a).
 //
-// Replaces the three TPU kernels of paddle_tpu/ops/pallas/fused_lmhead_ce.py
-// (each run through pl.pallas_call):
+// Replaces, for fp32 inputs, the three TPU kernels of
+// paddle_tpu/ops/pallas/fused_lmhead_ce.py (each run through
+// pl.pallas_call):
 //   _stats_kernel (forward, by _stats_call): for each token row n, without
 //     writing the [N, V] logits to device memory,
 //         lse[n] = logsumexp_v (x[n] . w[v])
@@ -11,23 +12,21 @@
 //   _dx_kernel (backward, by _dx_call) and _dw_kernel (by _dw_call), from
 //     the saved lse and a per-row cotangent g, again without an [N, V]
 //     buffer of logits or of d-logits:
-//         dl[n, v] = (exp(x[n] . w[v] - lse[n]) - [v == label[n]]) * g[n],
-//                    rounded to W's dtype (fused_lmhead_ce.py:211, :244)
+//         dl[n, v] = (exp(x[n] . w[v] - lse[n]) - [v == label[n]]) * g[n]
 //         dx = dl . W   (N x D)        dW = dl^T . x   (V x D)
 //     with fp32 accumulators cast once at the end.
-// fp32 inputs are multiplied in full fp32 (no TF32) and bf16 inputs are
-// widened to fp32; every sum accumulates in fp32. The backward here takes
-// fp32 only: bf16 dx and dW run on the tensor cores
-// (lmhead_ce_bwd_sm90.cu).
+// Products are full fp32 (no TF32) and every sum accumulates in fp32. bf16
+// runs on the tensor cores: the forward's partials in
+// lmhead_ce_fwd_sm90.cu (merged by this file's combine launch), dx and dW
+// in lmhead_ce_bwd_sm90.cu. The serving path scores in fp32, so it takes
+// this file's forward.
 //
 // Bound on this card (H100 SXM): operations. The forward takes 2*N*V*D
 // FLOPs, each backward product 4*N*V*D (the score tile is rebuilt, then
-// multiplied again). At the training shape N=4096, D=768, V=32768 that is
-// 206.2 GFLOP (forward) and 412.3 GFLOP (dx, and again dW): in bf16 0.208
-// and 0.417 ms at 989 TFLOP/s of tensor cores, against 0.02 ms to read x
-// and W once at 3.35 TB/s. These kernels run on the fp32 FMA units (67
-// TFLOP/s), so they sit far above that bound; the forward's tensor-core
-// version is the work of making it fast.
+// multiplied again): at serving's N=511, D=768, V=32000 the forward is
+// 25.1 GFLOP, 0.375 ms at the 67 TFLOP/s of the fp32 FMA units, which is
+// what these kernels run on (fp32 has no faster route but TF32, which the
+// contract's full-fp32 products rule out).
 //
 // Design, forward. The TPU grid walks the vocab tiles of one token block
 // in order on one core and carries (max, sum-exp, picked) in VMEM from
@@ -36,9 +35,9 @@
 // SMs. So the work is split two ways, in two launches:
 //   1. lmhead_ce_partial: grid (token blocks x vocab chunks), sized by the
 //      wrapper to about 4 blocks per SM. A block stages a 64-row x tile and
-//      a 64-column W tile in shared memory BK=32 deep at a time (widened to
-//      fp32, transposed so that each thread reads its 4 rows and its 4
-//      columns as one float4 each), forms the 64x64 score tile with fp32
+//      a 64-column W tile in shared memory BK=32 deep at a time
+//      (transposed, so that each thread reads its 4 rows and its 4 columns
+//      as one float4 each), forms the 64x64 score tile with fp32
 //      FMAs (4x4 scores per thread, in registers; two 16-byte shared loads
 //      feed 16 FMAs, so the FMA units and not shared memory set the pace),
 //      and folds it into per-row online (m, l, picked) for its vocab chunk;
@@ -69,7 +68,6 @@
 // Plain C interface, loaded with ctypes: each entry point launches one
 // kernel on the given stream and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -83,19 +81,13 @@ constexpr int TN = 4;
 constexpr int PAD = 4;         // row stride BN + PAD keeps float4 alignment
 constexpr float NEG = -1e30f;  // finite stand-in for -inf, as on the TPU
 
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
 // Stage rows [r0, r0 + 64) x depth [k0, k0 + BK) of a row-major [rows, d]
 // matrix into dst[k][r] (transposed), zero outside [0, rows) x [0, d).
 // A warp covers 4 rows x 8 depths: each row's 8 values are one 32-byte
 // sector in device memory, and the 32 stores hit 32 different banks
 // (bank = 4k + r mod 32 with the BN + PAD row stride).
-template <typename T>
 __device__ __forceinline__ void stage(float (*dst)[BN + PAD],
-                                      const T* __restrict__ src, int r0,
+                                      const float* __restrict__ src, int r0,
                                       int rows, int k0, int d, int tid) {
 #pragma unroll
   for (int e = tid; e < BN * BK; e += THREADS) {
@@ -103,13 +95,12 @@ __device__ __forceinline__ void stage(float (*dst)[BN + PAD],
     const int r = (chunk & 15) * 4 + (lane & 3);
     const int k = (chunk >> 4) * 8 + (lane >> 2);
     const int gr = r0 + r, gk = k0 + k;
-    dst[k][r] = (gr < rows && gk < d) ? widen(src[(size_t)gr * d + gk]) : 0.f;
+    dst[k][r] = (gr < rows && gk < d) ? src[(size_t)gr * d + gk] : 0.f;
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-partial_kernel(const T* __restrict__ x, const T* __restrict__ w,
+partial_kernel(const float* __restrict__ x, const float* __restrict__ w,
                const long long* __restrict__ labels,
                float* __restrict__ m_part, float* __restrict__ l_part,
                float* __restrict__ pk_part, int n, int d, int v,
@@ -436,33 +427,24 @@ int launch_bwd(const void* a, const void* b, const void* labels,
 
 extern "C" {
 
-// Partial stats of every (token block, vocab chunk): m/l/pk_part are
+// fp32 partial stats of every (token block, vocab chunk): m/l/pk_part are
 // [n_chunks, n] fp32; chunk s covers vocab tiles
 // [s * tiles_per_chunk, (s + 1) * tiles_per_chunk) of BV columns.
 int lmhead_ce_partial(const void* x, const void* w, const void* labels,
                       void* m_part, void* l_part, void* pk_part, int n, int d,
-                      int v, int tiles_per_chunk, int n_chunks, int is_bf16,
+                      int v, int tiles_per_chunk, int n_chunks,
                       void* stream) {
   const dim3 grid((n + BN - 1) / BN, n_chunks);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long* lbl = static_cast<const long long*>(labels);
-  float* m = static_cast<float*>(m_part);
-  float* l = static_cast<float*>(l_part);
-  float* pk = static_cast<float*>(pk_part);
-  if (is_bf16) {
-    partial_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w), lbl, m, l, pk, n, d, v,
-        tiles_per_chunk);
-  } else {
-    partial_kernel<float><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), lbl, m, l,
-        pk, n, d, v, tiles_per_chunk);
-  }
+  partial_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const long long*>(labels), static_cast<float*>(m_part),
+      static_cast<float*>(l_part), static_cast<float*>(pk_part), n, d, v,
+      tiles_per_chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Merge the n_chunks partials of each row into lse and nll ([n] fp32).
+// Merge the n_chunks partials of each row (of this file's partial kernel
+// or of lmhead_ce_fwd_sm90) into lse and nll ([n] fp32).
 int lmhead_ce_combine(const void* m_part, const void* l_part,
                       const void* pk_part, void* nll, void* lse, int n,
                       int n_chunks, void* stream) {

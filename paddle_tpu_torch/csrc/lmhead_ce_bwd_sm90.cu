@@ -72,16 +72,14 @@
 // d-logit exchange, not the tensor cores or the memory, set the pace; that
 // is the next redesign's target.
 //
-// Plain C interface, loaded with ctypes; the tensor maps are encoded with
-// cuTensorMapEncodeTiled, obtained through cudaGetDriverEntryPoint (the
-// library does not link libcuda), and passed as __grid_constant__.
+// Plain C interface, loaded with ctypes. The barrier, TMA and wgmma
+// helpers and the tensor-map encoding are sm90.cuh's.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 namespace {
+
+using namespace sm90;
 
 constexpr int TILE = 64;                      // rows, columns, chunk depth
 constexpr int CHUNK = TILE * TILE * 2;        // one 64 x 64 bf16 box: 8 KB
@@ -93,121 +91,7 @@ constexpr int HALF_PAIRS = HALF_CHUNKS / 2;
 constexpr int MAX_STAGES = 7;
 constexpr int MIN_STAGES = HALF_PAIRS + 1;
 constexpr int THREADS = 384;
-constexpr int SMEM_LIMIT = 232448;
 constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile(
-      "{\n .reg .b64 state;\n"
-      " mbarrier.arrive.shared::cta.b64 state, [%0];\n}" ::"r"(bar)
-      : "memory");
-}
-
-// A wait that has not ended after about 10 s of clock cycles is a fault of
-// the pipeline: trap (the launch fails) rather than hang the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long start = clock64();
-  do {
-    if (clock64() - start > 20000000000ll) __trap();
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// 2-D TMA load of the 64 x 64 box at (column c0, row c1) into dst.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled tile whose rows are
-// 128 bytes: 8-row groups 1024 bytes apart. K-major operands ignore the
-// leading offset; the MN-major B of the second product spans one 64-wide
-// atom, so its leading offset is unused too. Both are set to 1024.
-__device__ __forceinline__ uint64_t desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
-         (static_cast<uint64_t>(1024 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// keep the compiler from moving accumulator reads across wgmma waits
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d[64 x 32] (+)= A[64 x 16] . B[32 x 16]^T, both K-major in shared memory
-__device__ __forceinline__ void wgmma_score(float (&d)[16], uint64_t da,
-                                            uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d[64 x 64] += A[64 x 16] (K-major) . B[16 x 64] (MN-major: transposed)
-__device__ __forceinline__ void wgmma_out(float (&d)[32], uint64_t da,
-                                          uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n}"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
 
 // Pair of chunks (128 columns of D) loaded at position p of a column tile:
 // first the pairs outside the block's half [lo, lo + n_half), then the
@@ -257,7 +141,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_init(empty(s), 2);  // one arrival per consumer warpgroup
     }
     mbar_init(a_full, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -358,8 +242,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                                 wg * (32 * 128);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_score(s, desc(a_addr + 32 * kk), desc(b_addr + 32 * kk),
-                      (p | h | kk) != 0);
+          wgmma_n32(s, desc(a_addr + 32 * kk), desc(b_addr + 32 * kk),
+                    (p | h | kk) != 0);
       }
       wgmma_commit();
       wgmma_wait<1>();
@@ -420,8 +304,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       const uint32_t b_addr = b_s + st * STAGE + (j & 1) * CHUNK;
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_out(o[cc], desc(dl_addr + 32 * kk),
-                  desc(b_addr + kk * 16 * 128));
+        wgmma_n64<1>(o[cc], desc(dl_addr + 32 * kk),
+                     desc(b_addr + kk * 16 * 128), 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -450,41 +334,6 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A row-major [rows, d] bf16 matrix in 64 x 64 boxes, 128-byte swizzle,
-// zeros outside.
-bool make_map(CUtensorMap* map, const void* ptr, int rows, int d) {
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};
-  const cuuint32_t box[2] = {TILE, TILE};
-  const cuuint32_t elem[2] = {1, 1};
-  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                   const_cast<void*>(ptr), dims, strides, box, elem,
-                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 int stages_for(int kc) {
@@ -517,7 +366,8 @@ int lmhead_ce_bwd_sm90(const void* a, const void* b, const void* labels,
     return -1;
   if (encoder() == nullptr) return -2;
   CUtensorMap map_a, map_b;
-  if (!make_map(&map_a, a, n_rows, d) || !make_map(&map_b, b, n_cols, d))
+  if (!make_map_2d(&map_a, a, n_rows, d, TILE) ||
+      !make_map_2d(&map_b, b, n_cols, d, TILE))
     return -3;
   const int stages = stages_for(kc);
   if (stages < MIN_STAGES) return -1;
@@ -531,9 +381,8 @@ int lmhead_ce_bwd_sm90(const void* a, const void* b, const void* labels,
   const float* lp = static_cast<const float*>(lse);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
   auto kernel = token_rows ? bwd_sm90_kernel<true> : bwd_sm90_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int err = allow_smem(kernel, smem);
+  if (err) return err;
   kernel<<<grid, THREADS, smem, s>>>(map_a, map_b, lbl, gp, lp, o, n_rows,
                                      n_cols, d, kc, stages);
   return static_cast<int>(cudaGetLastError());

@@ -1,9 +1,11 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
 Every ``*.cu`` file under ``paddle_tpu_torch/csrc/`` exposes a plain C
-interface. At first use each source is compiled for Hopper (``sm_90a``)
-by its own ``nvcc``, all of them started together, and the objects are
-linked into one shared library::
+interface; the ``*.cuh`` headers beside them (``sm90.cuh``: the helpers
+of the tensor-core kernels) are included, not compiled. At first use
+each source is compiled for Hopper (``sm_90a``) by its own ``nvcc``, all
+of them started together, and the objects are linked into one shared
+library::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
          -Xcompiler -fPIC -Xptxas=-v -c -o <hash>/<name>.o csrc/<name>.cu
@@ -11,8 +13,9 @@ linked into one shared library::
          -o build/torch_kernels/<hash>/libpaddle_tpu_torch_kernels.so <hash>/*.o
 
 The build directory sits at the root of the checkout, is keyed on a hash
-of the sources and the flags (a changed source rebuilds, an unchanged one
-loads what is there), and is listed in ``.gitignore``. PyTorch's headers
+of the sources, the headers and the flags (a changed source or header
+rebuilds, an unchanged tree loads what is there), and is listed in
+``.gitignore``. PyTorch's headers
 are never included, so a build takes seconds, not minutes.
 
 There is no fallback: a missing ``nvcc`` or a failed compile raises with
@@ -30,8 +33,8 @@ import threading
 import time
 from typing import List, Optional
 
-__all__ = ["load", "build_dir", "sources", "build_log", "build_seconds",
-           "library_path"]
+__all__ = ["load", "build_dir", "sources", "headers", "build_log",
+           "build_seconds", "library_path"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -47,7 +50,13 @@ _seconds = 0.0
 
 
 def sources() -> List[str]:
+    """The ``*.cu`` files: one nvcc each."""
     return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+
+
+def headers() -> List[str]:
+    """The ``*.cuh`` files the sources include: hashed, not compiled."""
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))
 
 
 def build_dir() -> str:
@@ -68,9 +77,10 @@ def _nvcc() -> str:
         "of paddle_tpu_torch cannot be built (there is no fallback)")
 
 
-def _key(srcs: List[str]) -> str:
+def _key() -> str:
+    """Hash of the flags and of every source and header under csrc/."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in srcs:
+    for path in sources() + headers():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
@@ -81,7 +91,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """argtypes for every entry point: a pointer or a stream as a Python
     int is 64 bits wide and must not be passed as a 32-bit C int."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lmhead_ce_partial.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.lmhead_ce_partial.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
     lib.lmhead_ce_partial.restype = i
     lib.lmhead_ce_combine.argtypes = [p, p, p, p, p, i, i, p]
     lib.lmhead_ce_combine.restype = i
@@ -92,10 +102,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lmhead_ce_bwd_reduce.restype = i
     lib.lmhead_ce_bwd_sm90.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
     lib.lmhead_ce_bwd_sm90.restype = i
+    lib.lmhead_ce_fwd_sm90.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.lmhead_ce_fwd_sm90.restype = i
     for tile in (lib.lmhead_ce_tile_n, lib.lmhead_ce_tile_v,
                  lib.lmhead_ce_bwd_max_slab, lib.lmhead_ce_sm90_tile,
                  lib.lmhead_ce_sm90_half, lib.lmhead_ce_sm90_slab,
-                 lib.lmhead_ce_sm90_max_d):
+                 lib.lmhead_ce_sm90_max_d, lib.lmhead_ce_fwd_sm90_tile_n,
+                 lib.lmhead_ce_fwd_sm90_tile_v, lib.flash_attn_fwd_sm90_tile_q,
+                 lib.flash_attn_fwd_sm90_tile_kv):
         tile.argtypes = []
         tile.restype = i
     f = ctypes.c_float
@@ -109,6 +123,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.flash_attn_dkv.argtypes = [p] * 8 + dims
     for fn in (lib.flash_attn_fwd, lib.flash_attn_dq, lib.flash_attn_dkv):
         fn.restype = i
+    geo = ctypes.POINTER(ll)
+    lib.flash_attn_fwd_sm90.argtypes = [p] * 5 + [i] * 5 + [geo, geo, f, i, p]
+    lib.flash_attn_fwd_sm90.restype = i
     return lib
 
 
@@ -152,7 +169,7 @@ def load() -> ctypes.CDLL:
         srcs = sources()
         if not srcs:
             raise RuntimeError(f"no CUDA sources under {_CSRC}")
-        out_dir = os.path.join(build_dir(), _key(srcs))
+        out_dir = os.path.join(build_dir(), _key())
         out = os.path.join(out_dir, _LIB_NAME)
         if not os.path.exists(out):
             os.makedirs(out_dir, exist_ok=True)

@@ -4,13 +4,19 @@ Port of ``paddle_tpu/ops/pallas/flash_attention.py`` (``flash_attention``
 and its custom VJP: ``_fwd_kernel``/``_fwd_kernel_bthd`` forward,
 ``_bwd_dq_kernel``/``_bwd_dq_kernel_bthd`` and
 ``_bwd_dkv_kernel``/``_bwd_dkv_kernel_bthd`` backward). The kernels are
-in ``paddle_tpu_torch/csrc/flash_attention.cu``, whose header states
-what bounds them on the card and how the design answers that. One kernel
-per role serves both layouts through (batch, seq, head) strides:
+in ``paddle_tpu_torch/csrc/flash_attention_fwd_sm90.cu`` (the bf16
+forward at head_dim 64 and 128, on the tensor cores) and
+``paddle_tpu_torch/csrc/flash_attention.cu`` (the rest, on the FMA
+units), whose headers state what bounds them on the card and how the
+design answers that. One kernel per role serves both layouts:
 
-- forward: out and the per-row logsumexp (``fwd_launches``);
-- dq (``dq_launches``);
-- dk and dv, one kernel (``dkv_launches``).
+- forward: out and the per-row logsumexp (``fwd_launches``). bf16 at
+  head_dim 64 or 128 takes the wgmma kernel, which reads q, k and v
+  through rank-3 TMA tensor maps (:func:`tma_geometry`); fp32, and bf16
+  at head_dim 256, take the SIMT kernel, which reads them through
+  (batch, seq, head) strides;
+- dq (``dq_launches``), SIMT;
+- dk and dv, one kernel (``dkv_launches``), SIMT.
 
 Entry points:
 
@@ -58,13 +64,14 @@ skipped.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional, Tuple
 
 import torch
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_dq",
-           "flash_attention_dkv", "flash_attention_delta",
+           "flash_attention_dkv", "flash_attention_delta", "tma_geometry",
            "flash_attention_fwd_plain", "flash_attention_dq_plain",
            "flash_attention_dkv_plain", "FlashAttention", "fwd_launches",
            "dq_launches", "dkv_launches", "reset_launches"]
@@ -78,6 +85,10 @@ dkv_launches = 0
 _NEG = -1e30  # the TPU kernel's finite stand-in for -inf
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128, 256)
+_SM90_HEAD_DIMS = (64, 128)  # bf16 forward on the tensor cores
+# the bf16 forward's query rows per block and key/value rows per ring
+# stage (csrc/flash_attention_fwd_sm90.cu)
+SM90_FWD_TILE_Q, SM90_FWD_TILE_KV = 128, 64
 _LAYOUTS = ("BHTD", "BTHD")
 
 
@@ -259,17 +270,62 @@ def _raise_if(err: int, what: str, q, k, layout) -> None:
             f"{q.dtype})")
 
 
+def tma_geometry(t: torch.Tensor, layout: str) -> Tuple[int, ...]:
+    """How the bf16 forward addresses a contiguous q, k or v through a
+    rank-3 TMA tensor map: ``(inner, outer, st_seq, st_outer, head_col,
+    outer_b, outer_h)``, in elements. The map's dimensions are (inner,
+    T, outer), strided st_seq and st_outer; element (b, t, h, c) sits at
+    coordinates (h * head_col + c, t, b * outer_b + h * outer_h). BTHD:
+    (H*D, T, B), a head a column offset; BHTD: (D, T, B*H). T is a
+    dimension of its own, so a box past a sequence's end reads TMA's
+    zero fill, never the next batch's or head's rows."""
+    s = t.stride()
+    if layout == "BTHD":
+        b, _, h, d = t.shape
+        return (h * d, b, s[1], s[0], s[2], 1, 0)
+    b, h, _, d = t.shape
+    return (d, b * h, s[2], s[1], 0, h, 1)
+
+
+def _launch_fwd_sm90(lib, q, k, v, causal, scale, layout):
+    """The bf16 forward on the tensor cores (head_dim 64 or 128)."""
+    b, h, tq, tk, d = _dims(q, k, layout)
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    geo = [(ctypes.c_longlong * 7)(*tma_geometry(t, layout)) for t in (q, k)]
+    err = lib.flash_attn_fwd_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, h, tq, tk, d, *geo, scale, int(causal),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(
+            f"flash attention forward (sm90) launch failed: error {err} "
+            f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {layout}; -2: no "
+            f"cuTensorMapEncodeTiled, -3: tensor map refused)")
+    return out, lse
+
+
+def _launch_fwd_simt(lib, q, k, v, causal, scale, layout):
+    """The forward on the FMA units (fp32, and bf16 at head_dim 256)."""
+    b, h, tq, _, _ = _dims(q, k, layout)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    err = lib.flash_attn_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), *_geometry(q, k, scale, causal, layout))
+    _raise_if(err, "forward", q, k, layout)
+    return out, lse
+
+
 def _launch_fwd(q, k, v, causal, scale, layout):
     global fwd_launches
     from . import _build
 
-    b, h, tq, _, _ = _dims(q, k, layout)
-    out = torch.empty_like(q)
-    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    err = _build.load().flash_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), *_geometry(q, k, scale, causal, layout))
-    _raise_if(err, "forward", q, k, layout)
+    tensor_cores = (q.dtype == torch.bfloat16
+                    and q.shape[-1] in _SM90_HEAD_DIMS)
+    launch = _launch_fwd_sm90 if tensor_cores else _launch_fwd_simt
+    out, lse = launch(_build.load(), q, k, v, causal, scale, layout)
     fwd_launches += 1
     return out, lse
 

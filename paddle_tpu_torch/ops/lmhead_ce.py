@@ -3,13 +3,19 @@
 Port of ``paddle_tpu/ops/pallas/fused_lmhead_ce.py`` (``lmhead_ce`` and
 its custom VJP: ``_stats_kernel`` forward, ``_dx_kernel`` and
 ``_dw_kernel`` backward). The kernels are in
-``paddle_tpu_torch/csrc/lmhead_ce.cu`` (forward; fp32 backward) and
-``paddle_tpu_torch/csrc/lmhead_ce_bwd_sm90.cu`` (bf16 backward on the
-tensor cores), whose headers state what bounds them on the card and how
-the design answers that:
+``paddle_tpu_torch/csrc/lmhead_ce_fwd_sm90.cu`` (bf16 forward on the
+tensor cores), ``paddle_tpu_torch/csrc/lmhead_ce_bwd_sm90.cu`` (bf16
+backward on the tensor cores) and ``paddle_tpu_torch/csrc/lmhead_ce.cu``
+(fp32 forward and backward on the FMA units, and the forward's combine
+launch), whose headers state what bounds them on the card and how the
+design answers that:
 
-- forward: a split-vocab partial-stats launch and a combine launch,
-  counted as one kernel (``launches``);
+- forward (``launches``): a split-vocab partial-stats launch and a
+  combine launch, counted as one kernel. bf16 partials: one wgmma launch
+  over (128-row tiles x vocab chunks), :func:`sm90_fwd_blocks`; fp32
+  partials: the SIMT launch over (64-row tiles x vocab chunks). The
+  serving path scores in fp32 (``serving/model.py``), so it stays on the
+  SIMT partials; training runs bf16;
 - dx (``dx_launches``) and dW (``dw_launches``): in bf16 one wgmma
   launch over (row tiles x D halves), :func:`sm90_blocks`; in fp32 a
   SIMT launch over row tiles (dx at small N splits the vocabulary and
@@ -34,12 +40,13 @@ Entry points:
 Labels outside ``[0, V)`` (negative ones included) pick nothing and hit
 no column, as on the TPU. Inputs are fp32 or bf16; sums are fp32; the
 backward rounds the d-logits to the inputs' dtype before the second
-product, as the TPU kernels do. The bf16 backward kernel reads x and W
-through TMA, which needs a row pitch of a multiple of 16 bytes: for a D
-that is not a multiple of 8 the wrapper pads x and W with zero columns
-into a copy (zero columns add nothing to any score or product) and
-returns the first D columns. It keeps the 64-row tile resident in shared
-memory, so bf16 dx and dW take D up to 1024 and raise above it.
+product, as the TPU kernels do. The bf16 kernels read x and W through
+TMA, which needs a row pitch of a multiple of 16 bytes: for a D that is
+not a multiple of 8 the wrapper pads x and W with zero columns into a
+copy (zero columns add nothing to any score or product) and returns the
+first D columns. The bf16 forward streams D, so it takes any D; the bf16
+backward keeps the 64-row tile resident in shared memory, so bf16 dx and
+dW take D up to 1024 and raise above it.
 """
 from __future__ import annotations
 
@@ -67,6 +74,13 @@ _BWD_BLOCKS_PER_SM = 2
 # the bf16 backward's row tile, D columns per block and per consumer
 # warpgroup (csrc/lmhead_ce_bwd_sm90.cu)
 SM90_TILE, SM90_HALF, SM90_SLAB = 64, 384, 192
+# the bf16 forward's token rows per block and vocab columns per tile
+# (csrc/lmhead_ce_fwd_sm90.cu)
+SM90_FWD_TILE_N, SM90_FWD_TILE_V = 128, 128
+# its blocks run one per SM; its vocab chunks are sized for about this
+# many blocks per SM over the launch, so that the last of several waves
+# leaves little of the card idle
+_SM90_FWD_BLOCKS_PER_SM = 8
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -178,31 +192,84 @@ def _sms(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
+def sm90_fwd_split(n: int, v: int, sms: int) -> Tuple[int, int]:
+    """(tiles_per_chunk, chunks) of the bf16 forward's launch."""
+    return split_vocab(n, v, SM90_FWD_TILE_N, SM90_FWD_TILE_V, sms,
+                       _SM90_FWD_BLOCKS_PER_SM)
+
+
+def sm90_fwd_blocks(n: int, v: int, sms: int):
+    """The bf16 forward's grid, in launch order (the row tile fastest):
+    one entry per block, ``(rows, cols)``, each its [start, end) of token
+    rows and of vocab columns (its chunk), clipped to N and V."""
+    per, chunks = sm90_fwd_split(n, v, sms)
+    width = per * SM90_FWD_TILE_V
+    return [((i * SM90_FWD_TILE_N, min(n, (i + 1) * SM90_FWD_TILE_N)),
+             (c * width, min(v, (c + 1) * width)))
+            for c in range(chunks) for i in range(-(-n // SM90_FWD_TILE_N))]
+
+
+def _aligned(*ts: torch.Tensor):
+    """Each tensor, cloned where its pointer is not 16-byte aligned (TMA
+    refuses it)."""
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in ts)
+
+
+def _partial_sm90(lib, x2d, w, lbl, sms, stream) -> torch.Tensor:
+    """The bf16 partial stats [3, chunks, N] on the tensor cores."""
+    n, v = x2d.shape[0], w.shape[0]
+    x2d, w = _aligned(*pad_d(x2d, w))
+    per, chunks = sm90_fwd_split(n, v, sms)
+    part = torch.empty((3, chunks, n), dtype=torch.float32,
+                       device=x2d.device)
+    err = lib.lmhead_ce_fwd_sm90(
+        x2d.data_ptr(), w.data_ptr(), lbl.data_ptr(), part[0].data_ptr(),
+        part[1].data_ptr(), part[2].data_ptr(), n, x2d.shape[1], v, per,
+        chunks, stream)
+    if err:
+        raise RuntimeError(
+            f"lmhead_ce forward (sm90) launch failed: error {err} (n={n}, "
+            f"d={x2d.shape[1]}, v={v}, chunks={chunks}; -2: no "
+            f"cuTensorMapEncodeTiled, -3: tensor map refused)")
+    return part
+
+
+def _partial_simt(lib, x2d, w, lbl, sms, stream) -> torch.Tensor:
+    """The fp32 partial stats [3, chunks, N] on the FMA units."""
+    n, d = x2d.shape
+    v = w.shape[0]
+    per, chunks = split_vocab(n, v, lib.lmhead_ce_tile_n(),
+                              lib.lmhead_ce_tile_v(), sms)
+    part = torch.empty((3, chunks, n), dtype=torch.float32,
+                       device=x2d.device)
+    err = lib.lmhead_ce_partial(
+        x2d.data_ptr(), w.data_ptr(), lbl.data_ptr(), part[0].data_ptr(),
+        part[1].data_ptr(), part[2].data_ptr(), n, d, v, per, chunks,
+        stream)
+    if err:
+        raise RuntimeError(f"lmhead_ce_partial launch failed: CUDA error "
+                           f"{err} (n={n}, d={d}, v={v}, chunks={chunks})")
+    return part
+
+
 def _launch(x2d: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     global launches
     from . import _build
 
     lib = _build.load()
-    n, d = x2d.shape
-    v = w.shape[0]
+    n = x2d.shape[0]
     dev = x2d.device
     nll = torch.empty((n,), dtype=torch.float32, device=dev)
     lse = torch.empty((n,), dtype=torch.float32, device=dev)
     if n == 0:
         return nll, lse
     lbl = labels.to(torch.int64).contiguous()
-    tiles_per_chunk, chunks = split_vocab(
-        n, v, lib.lmhead_ce_tile_n(), lib.lmhead_ce_tile_v(), _sms(dev))
-    part = torch.empty((3, chunks, n), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.lmhead_ce_partial(
-        x2d.data_ptr(), w.data_ptr(), lbl.data_ptr(), part[0].data_ptr(),
-        part[1].data_ptr(), part[2].data_ptr(), n, d, v, tiles_per_chunk,
-        chunks, int(x2d.dtype == torch.bfloat16), stream)
-    if err:
-        raise RuntimeError(f"lmhead_ce_partial launch failed: CUDA error "
-                           f"{err} (n={n}, d={d}, v={v}, chunks={chunks})")
+    partial = (_partial_sm90 if x2d.dtype == torch.bfloat16
+               else _partial_simt)
+    part = partial(lib, x2d, w, lbl, _sms(dev), stream)
+    chunks = part.shape[1]
     err = lib.lmhead_ce_combine(
         part[0].data_ptr(), part[1].data_ptr(), part[2].data_ptr(),
         nll.data_ptr(), lse.data_ptr(), n, chunks, stream)
@@ -250,8 +317,7 @@ def _launch_bwd_sm90(lib, a, b, lbl, g, lse, n_rows, n_cols,
     if d > lib.lmhead_ce_sm90_max_d():
         raise ValueError(f"lmhead_ce bf16 backward takes D <= "
                          f"{lib.lmhead_ce_sm90_max_d()}, got {d}")
-    a, b = pad_d(a, b)
-    a, b = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (a, b))
+    a, b = _aligned(*pad_d(a, b))
     out = torch.empty((n_rows, a.shape[1]), dtype=a.dtype, device=a.device)
     err = lib.lmhead_ce_bwd_sm90(
         a.data_ptr(), b.data_ptr(), lbl.data_ptr(), g.data_ptr(),

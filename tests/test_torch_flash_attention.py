@@ -188,3 +188,121 @@ def test_launch_counters_count_kernel_launches_only():
     fl.flash_attention(q, q, q, causal=True).sum().backward()
     assert (fl.fwd_launches, fl.dq_launches, fl.dkv_launches) == (0, 0, 0)
     assert q.grad is not None and torch.isfinite(q.grad).all()
+
+
+@pytest.mark.parametrize("layout,shape", [
+    ("BTHD", (2, 5, 3, 64)), ("BHTD", (2, 3, 5, 64)),
+    ("BTHD", (3, 7, 2, 128)), ("BHTD", (1, 4, 9, 128))])
+def test_tma_geometry_addresses_every_element(layout, shape):
+    """The bf16 forward's rank-3 tensor map (dims (inner, T, outer),
+    strides st_seq and st_outer) puts element (b, t, h, c) at coordinates
+    inside the map and at the offset tensor.stride() gives it, in both
+    layouts; a head's D columns never cross into the next head's."""
+    t = torch.empty(shape)
+    inner, outer, st_seq, st_outer, head_col, outer_b, outer_h = \
+        fl.tma_geometry(t, layout)
+    if layout == "BTHD":
+        nb, nt, nh, d = shape
+    else:
+        nb, nh, nt, d = shape
+    b, tt, h, c = np.meshgrid(np.arange(nb), np.arange(nt), np.arange(nh),
+                              np.arange(d), indexing="ij")
+    c0 = h * head_col + c
+    c2 = b * outer_b + h * outer_h
+    assert (c0 >= 0).all() and (c0 < inner).all()
+    assert (c2 >= 0).all() and (c2 < outer).all()
+    assert ((c0 - c) // d == h * head_col // d).all()  # whole heads
+    s = t.stride()
+    want = (b * s[0] + h * s[2 if layout == "BTHD" else 1]
+            + tt * s[1 if layout == "BTHD" else 2] + c)
+    np.testing.assert_array_equal(c0 + tt * st_seq + c2 * st_outer, want)
+    assert inner * nt * outer == t.numel()
+    assert st_seq * 2 % 16 == 0 and st_outer * 2 % 16 == 0  # TMA's pitch
+
+
+class _Recorder:
+    """Stands in for the kernels' library: records each call and returns
+    ``err``."""
+
+    def __init__(self, err=0):
+        self.calls, self.err = [], err
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls.append((name, args))
+            return self.err
+        return call
+
+
+def _stub_library(monkeypatch, lib):
+    from paddle_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: type("S", (), {"cuda_stream": 0}))
+
+
+@pytest.mark.parametrize("dtype,d,layout,entry", [
+    (torch.bfloat16, 64, "BTHD", "flash_attn_fwd_sm90"),
+    (torch.bfloat16, 128, "BHTD", "flash_attn_fwd_sm90"),
+    (torch.bfloat16, 256, "BTHD", "flash_attn_fwd"),
+    (torch.float32, 64, "BHTD", "flash_attn_fwd"),
+    (torch.float32, 128, "BTHD", "flash_attn_fwd")])
+def test_forward_routes_bf16_to_the_tensor_core_kernel(monkeypatch, dtype, d,
+                                                       layout, entry):
+    """bf16 at head_dim 64 and 128 goes to the sm90 entry point, with the
+    tensor-map geometry of q and of k; fp32, and bf16 at head_dim 256, to
+    the SIMT one; one launch counted either way."""
+    lib = _Recorder()
+    _stub_library(monkeypatch, lib)
+    q, k, v, _ = (_torch(a, "f32").to(dtype)
+                  for a in _inputs(2, 3, 96, 160, d, "f32", layout))
+    fl.reset_launches()
+    out, lse = fl._launch_fwd(q, k, v, True, 0.125, layout)
+    assert fl.fwd_launches == 1
+    assert out.shape == q.shape and lse.shape == (2, 3, 96)
+    (name, args), = lib.calls
+    assert name == entry
+    if entry == "flash_attn_fwd_sm90":
+        assert args[5:10] == (2, 3, 96, 160, d)
+        assert tuple(args[10]) == fl.tma_geometry(q, layout)
+        assert tuple(args[11]) == fl.tma_geometry(k, layout)
+        assert args[12:14] == (0.125, 1)
+
+
+def test_forward_raises_on_a_refused_launch(monkeypatch):
+    """A refused tensor map (or any error code) raises with the code; no
+    launch is counted and the plain version is never taken."""
+    calls = []
+    monkeypatch.setattr(fl, "flash_attention_fwd_plain",
+                        lambda *a: calls.append(a))
+    lib = _Recorder(err=-3)
+    _stub_library(monkeypatch, lib)
+    q = torch.zeros((1, 128, 2, 64), dtype=torch.bfloat16)
+    fl.reset_launches()
+    with pytest.raises(RuntimeError, match="error -3.*tensor map refused"):
+        fl._launch_fwd(q, q, q, True, 0.125, "BTHD")
+    assert fl.fwd_launches == 0 and calls == []
+
+
+def test_ablation_tool_anchors_match_the_forward_kernel(monkeypatch):
+    """tools/torch_flash_fwd_ablation.py edits the bf16 forward's source
+    by text; each of its anchors (the exponential, the two wgmma calls,
+    the producer's loads) must still be in the kernel, and each variant
+    must differ from it."""
+    import importlib.util
+    import os
+
+    tools = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "tools")
+    monkeypatch.syspath_prepend(tools)
+    spec = importlib.util.spec_from_file_location(
+        "torch_flash_fwd_ablation",
+        os.path.join(tools, "torch_flash_fwd_ablation.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    with open(tool.SOURCE) as f:
+        src = f.read()
+    variants = tool.variants(src)
+    assert variants["kernel"] == src
+    assert len({text for text in variants.values()}) == len(variants)

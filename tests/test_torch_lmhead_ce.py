@@ -332,3 +332,135 @@ def test_cuda_route_without_a_card_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         torch_ce._launch_dx(x, w, lbl, torch.zeros(8), torch.ones(8))
     assert calls == []
+
+
+@pytest.mark.parametrize("n,v", [
+    (4096, 32768), (16384, 32768),  # the training shapes
+    (33, 130), (100, 300), (1, 300), (600, 5000), (511, 32000),  # edges
+    (128, 128), (129, 129)])
+def test_sm90_fwd_blocks_cover_every_row_tile_and_vocab_tile_once(n, v):
+    """The bf16 forward's grid, in launch order (the row tile fastest),
+    covers every (128-row tile, 128-column vocab tile) exactly once, with
+    N and V ragged: no chunk starts at or past V, and rows and columns
+    are clipped to N and V."""
+    tn, tv = torch_ce.SM90_FWD_TILE_N, torch_ce.SM90_FWD_TILE_V
+    blocks = torch_ce.sm90_fwd_blocks(n, v, sms=132)
+    per, chunks = torch_ce.sm90_fwd_split(n, v, 132)
+    row_tiles = -(-n // tn)
+    seen = set()
+    for i, ((r0, r1), (c0, c1)) in enumerate(blocks):
+        assert r0 == (i % row_tiles) * tn and c0 == (i // row_tiles) * per * tv
+        assert r1 == min(n, r0 + tn)
+        assert c0 % tv == 0 and c0 < c1 <= v
+        for c in range(c0, c1, tv):
+            assert (r0, c) not in seen
+            seen.add((r0, c))
+    assert seen == {(r, c) for r in range(0, n, tn) for c in range(0, v, tv)}
+    assert len(blocks) == row_tiles * chunks
+    if (n, v) == (4096, 32768):  # several waves of one block per SM
+        assert len(blocks) >= 4 * 132
+
+
+class _FwdRecorder(_Recorder):
+    """The library stand-in, with the forward's geometry getters and an
+    error code for the sm90 entry points."""
+
+    def __init__(self, err=0):
+        super().__init__()
+        self.err = err
+
+    def lmhead_ce_tile_v(self):
+        return 64
+
+    def lmhead_ce_fwd_sm90(self, *args):
+        self.calls.append(("lmhead_ce_fwd_sm90", args))
+        return self.err
+
+
+def _stub_launch(monkeypatch, lib):
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(torch_ce, "_sms", lambda dev: 132)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: type("S", (), {"cuda_stream": 0}))
+
+
+@pytest.mark.parametrize("dtype,d,entry", [
+    (torch.bfloat16, 64, "lmhead_ce_fwd_sm90"),
+    (torch.bfloat16, 60, "lmhead_ce_fwd_sm90"),
+    (torch.float32, 64, "lmhead_ce_partial")])
+def test_forward_routes_bf16_to_the_tensor_core_kernel(monkeypatch, dtype, d,
+                                                       entry):
+    """The bf16 forward's partials go to the sm90 entry point (D padded to
+    a multiple of 8, the chunks of sm90_fwd_split), fp32's to the SIMT
+    one; both are merged by the combine launch; one launch counted."""
+    lib = _FwdRecorder()
+    _stub_launch(monkeypatch, lib)
+    n, v = 300, 1000
+    x, w, lbl = (torch.from_numpy(a) for a in _data(n, d, v))
+    torch_ce.reset_launches()
+    nll, lse = torch_ce._launch(x.to(dtype), w.to(dtype), lbl)
+    assert torch_ce.launches == 1 and nll.shape == lse.shape == (n,)
+    names = [name for name, _ in lib.calls]
+    assert names == [entry, "lmhead_ce_combine"]
+    args = lib.calls[0][1]
+    if entry == "lmhead_ce_fwd_sm90":
+        per, chunks = torch_ce.sm90_fwd_split(n, v, 132)
+        assert args[6:11] == (n, 64, v, per, chunks)
+    else:
+        assert args[6:9] == (n, d, v)
+    assert lib.calls[1][1][-2] == args[10]  # combine merges every chunk
+
+
+def test_forward_raises_on_a_refused_launch(monkeypatch):
+    """A refused tensor map (or any error code) raises with the code; no
+    launch is counted and the plain version is never taken."""
+    calls = []
+    monkeypatch.setattr(torch_ce, "lmhead_ce_plain",
+                        lambda *a: calls.append(a))
+    lib = _FwdRecorder(err=-3)
+    _stub_launch(monkeypatch, lib)
+    x, w, lbl = (torch.from_numpy(a) for a in _data(40, 64, 300))
+    torch_ce.reset_launches()
+    with pytest.raises(RuntimeError, match="error -3.*tensor map refused"):
+        torch_ce._launch(x.bfloat16(), w.bfloat16(), lbl)
+    assert torch_ce.launches == 0 and calls == []
+    assert [name for name, _ in lib.calls] == ["lmhead_ce_fwd_sm90"]
+
+
+def test_build_key_follows_the_headers(monkeypatch, tmp_path):
+    """The build directory's key hashes every *.cu and *.cuh under csrc/,
+    so an edited header rebuilds instead of loading a stale library; only
+    the *.cu files are compiled."""
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "_CSRC", str(tmp_path))
+    assert [p.rsplit("/", 1)[1] for p in _build.sources()] == ["a.cu"]
+    assert [p.rsplit("/", 1)[1] for p in _build.headers()] == ["h.cuh"]
+    key = _build._key()
+    assert _build._key() == key
+    (tmp_path / "h.cuh").write_text("// two\n")
+    edited = _build._key()
+    assert edited != key
+    (tmp_path / "b.cuh").write_text("// new\n")
+    assert _build._key() not in (key, edited)
+
+
+def test_ablation_tool_anchors_match_the_backward_kernel():
+    """tools/torch_ce_bwd_ablation.py edits the bf16 backward's source by
+    text; each of its anchors (the producer's loads, the two wgmma calls)
+    must still be in the kernel, and each variant must differ from it."""
+    import importlib.util
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "torch_ce_bwd_ablation",
+        os.path.join(root, "tools", "torch_ce_bwd_ablation.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    with open(tool.SOURCE) as f:
+        src = f.read()
+    variants = tool.variants(src)
+    assert variants["kernel"] == src
+    assert all(text != src for name, text in variants.items()
+               if name != "kernel")

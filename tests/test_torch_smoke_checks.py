@@ -255,3 +255,136 @@ def test_altered_ce_grads_fail(dtype_name, alter, name):
     got, ref = _ce_grads(dtype_name, alter)
     with pytest.raises(AssertionError, match=f"{name} disagrees"):
         chip_smoke._ce_grad_agrees(torch, got[name], ref[name], name, alter)
+
+
+def _ce_fwd(dtype_name, alter=None):
+    """(got, ref, lbl, v) of the CE forward on the CPU: ref the plain
+    version, got the function altered by ``alter`` (None: the wrapper's
+    own output). N = 64, D = 64 and V = 300, a V that leaves 84 columns
+    of the kernel's last 128-column tile past V."""
+    from paddle_tpu_torch.ops import lmhead_ce as ce
+
+    n, d, v = 64, 64, 300
+    x, w, lbl = chip_smoke._inputs(torch, n, d, v, getattr(torch, dtype_name),
+                                   seed=9, device="cpu")
+    lbl[3], lbl[7] = v, -1
+    ref = ce.lmhead_ce_plain(x, w, lbl)
+    if alter is None:
+        return ce.lmhead_ce_fwd(x, w, lbl), ref, lbl, v
+    logits = x.double() @ w.double().t()
+    picked = torch.where((lbl >= 0) & (lbl < v), logits.gather(
+        1, lbl.clamp(0, v - 1)[:, None])[:, 0], torch.zeros(n).double())
+    if alter == "reordered":  # columns summed last to first, in fp64
+        logits = logits.flip(1)
+    elif alter == "drop_tile":  # the second 128-column tile left out
+        logits = torch.cat([logits[:, :128], logits[:, 256:]], 1)
+    elif alter == "wrong_column":  # the logit one column right picked
+        right = (lbl + 1).clamp(0, v - 1)
+        picked = torch.where((lbl >= 0) & (lbl < v), logits.gather(
+            1, right[:, None])[:, 0], picked)
+    elif alter == "past_v":  # the last tile's 84 zero-filled columns kept
+        logits = torch.cat([logits, torch.zeros(n, 84).double()], 1)
+    lse = torch.logsumexp(logits, 1)
+    return ((lse - picked).float(), lse.float()), ref, lbl, v
+
+
+@pytest.mark.parametrize("dtype_name,tol", [("float32", 1e-4),
+                                            ("bfloat16", 2e-3)])
+@pytest.mark.parametrize("alter", [None, "reordered"])
+def test_ce_forward_passes(dtype_name, tol, alter):
+    got, ref, lbl, v = _ce_fwd(dtype_name, alter)
+    chip_smoke._ce_fwd_agrees(torch, got, ref, lbl, v, tol, alter)
+
+
+@pytest.mark.parametrize("dtype_name,tol", [("float32", 1e-4),
+                                            ("bfloat16", 2e-3)])
+@pytest.mark.parametrize("alter", ["drop_tile", "wrong_column", "past_v"])
+def test_altered_ce_forward_fails(dtype_name, tol, alter):
+    got, ref, lbl, v = _ce_fwd(dtype_name, alter)
+    with pytest.raises(AssertionError, match="lmhead_ce_fwd disagrees"):
+        chip_smoke._ce_fwd_agrees(torch, got, ref, lbl, v, tol, alter)
+
+
+def _online_fwd(q, k, v, layout, rescale=True, drop=None, shift=0):
+    """out and lse of a causal attention computed as the tensor-core
+    kernel computes them: key tiles of 64 in order, an online softmax in
+    fp32 with P rounded to q's dtype against the running max. ``rescale``
+    False leaves out the alpha rescale of the output and the row sum;
+    ``drop`` leaves out one key tile; ``shift`` moves the diagonal that
+    many keys right."""
+    def heads(t):
+        return (t.transpose(1, 2) if layout == "BTHD" else t).float()
+
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    tq, tk, d = qh.shape[2], kh.shape[2], qh.shape[3]
+    keep = torch.ones((tq, tk), dtype=torch.bool).tril(tk - tq + shift)
+    m = torch.full(qh.shape[:3], -1e30)
+    l = torch.zeros(qh.shape[:3])
+    o = torch.zeros(qh.shape)
+    for c0 in range(0, tk, 64):
+        if c0 == drop:
+            continue
+        s = (qh @ kh[:, :, c0:c0 + 64].transpose(-1, -2)) / d ** 0.5
+        s = s.masked_fill(~keep[:, c0:c0 + 64], float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new) if rescale else torch.ones_like(m)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        o = o * alpha[..., None] + p.to(q.dtype).float() @ vh[:, :, c0:c0 + 64]
+        m = m_new
+    out = o / torch.where(l > 0, l, torch.ones_like(l))[..., None]
+    lse = torch.where(l > 0, m + torch.log(l), torch.full_like(l, -1e30))
+    out = out.transpose(1, 2) if layout == "BTHD" else out
+    return out.to(q.dtype).contiguous(), lse
+
+
+def _flash_fwd(dtype_name, layout, **alter):
+    """chip_smoke's flash check on a forward computed the kernel's way
+    (altered by ``alter``) and the wrappers' backward."""
+    q, k, v, do = chip_smoke._flash_inputs(
+        torch, 1, 2, 256, 256, 64, getattr(torch, dtype_name), layout,
+        seed=5, device="cpu")
+    got, ref = chip_smoke._flash_outputs(torch, q, k, v, do, True, layout)
+    out, lse = _online_fwd(q, k, v, layout, **alter)
+    got = dict(got, out=out, lse=lse)
+    return chip_smoke._flash_agrees(torch, got, ref, dtype_name,
+                                    f"{dtype_name} {alter}")
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["BTHD", "BHTD"])
+def test_online_forward_passes(dtype_name, layout):
+    _flash_fwd(dtype_name, layout)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("alter", [dict(drop=64), dict(rescale=False),
+                                   dict(shift=1)],
+                         ids=["dropped_key_tile", "no_alpha", "diagonal"])
+def test_altered_online_forward_fails(dtype_name, alter):
+    with pytest.raises(AssertionError, match="flash attention disagrees"):
+        _flash_fwd(dtype_name, "BTHD", **alter)
+
+
+def test_rows_that_see_no_key_must_give_zero_and_the_stand_in():
+    """Causal with Tq > Tk: the plain version's rows that see no key pass
+    the exact check; an lse off -1e30 by 1e-5 of itself and an out of
+    0.01 in one such row, which the tolerances let through, fail it."""
+    from paddle_tpu_torch.ops import flash_attention as fl
+
+    q, k, v, _ = chip_smoke._flash_inputs(torch, 1, 2, 384, 128, 64,
+                                          torch.bfloat16, "BHTD", seed=4,
+                                          device="cpu")
+    out, lse = fl.flash_attention_fwd(q, k, v, True, None, "BHTD")
+    chip_smoke._no_key_rows_agree(dict(out=out, lse=lse), True, "BHTD", 384,
+                                  128, "plain")
+    bad_lse = lse.clone()
+    bad_lse[..., :256] *= 1 - 1e-5
+    bad_out = out.clone()
+    bad_out[:, :, 5] = 0.01
+    tol = chip_smoke._FLASH_TOL["bfloat16"]
+    assert chip_smoke._beyond(bad_lse, lse, *tol["lse"]) == 0
+    assert chip_smoke._beyond(bad_out, out, *tol["out"]) == 0
+    for got in (dict(out=out, lse=bad_lse), dict(out=bad_out, lse=lse)):
+        with pytest.raises(AssertionError, match="sees no key"):
+            chip_smoke._no_key_rows_agree(got, True, "BHTD", 384, 128, "x")

@@ -42,8 +42,8 @@ sys.path.insert(0, ROOT)
 from paddle_tpu_torch.ops import _build  # noqa: E402
 from paddle_tpu_torch.ops import lmhead_ce as ce  # noqa: E402
 
-SOURCE = os.path.join(ROOT, "paddle_tpu_torch", "csrc",
-                      "lmhead_ce_bwd_sm90.cu")
+CSRC = os.path.join(ROOT, "paddle_tpu_torch", "csrc")
+SOURCE = os.path.join(CSRC, "lmhead_ce_bwd_sm90.cu")
 _LOAD = """          mbar_expect_tx(full(stage), STAGE);
           tma_load(b_s + stage * STAGE, &map_b, 2 * q * TILE, t * TILE,
                    full(stage));
@@ -56,12 +56,12 @@ _NO_LOAD = """          if (t > 0) {
           }"""
 _SCORE = """#pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_score(s, desc(a_addr + 32 * kk), desc(b_addr + 32 * kk),
-                      (p | h | kk) != 0);"""
+          wgmma_n32(s, desc(a_addr + 32 * kk), desc(b_addr + 32 * kk),
+                    (p | h | kk) != 0);"""
 _PRODUCT = """#pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_out(o[cc], desc(dl_addr + 32 * kk),
-                  desc(b_addr + kk * 16 * 128));"""
+        wgmma_n64<1>(o[cc], desc(dl_addr + 32 * kk),
+                     desc(b_addr + kk * 16 * 128), 1);"""
 
 
 def _only(cond, text):
@@ -85,7 +85,8 @@ def variants(src):
 
 
 def build(sources, out_dir):
-    """One nvcc per variant, started together; {name: ctypes library}."""
+    """One nvcc per variant, started together, each finding the kernel's
+    headers (sm90.cuh) in csrc/; {name: ctypes library}."""
     nvcc = _build._nvcc()
     procs = {}
     for name, src in sources.items():
@@ -93,7 +94,7 @@ def build(sources, out_dir):
         with open(cu, "w") as f:
             f.write(src)
         procs[name] = subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, "-shared", "-o",
+            [nvcc, *_build.NVCC_FLAGS, "-I", CSRC, "-shared", "-o",
              os.path.join(out_dir, f"{name}.so"), cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}

@@ -1,0 +1,147 @@
+#!/usr/bin/env python3
+"""Where the bf16 flash attention forward spends its time, on one CUDA
+card: ablations of ``paddle_tpu_torch/csrc/flash_attention_fwd_sm90.cu``.
+
+Each variant is the kernel's source with one part of its work removed,
+built by its own nvcc (all started together) into its own library and
+timed with CUDA events (median of 20 after 3 warm-up calls) at the
+seq-2048 training shape (B = 8, T = 2048, H = 12, D = 64, bf16, causal,
+BTHD), in the order kernel, variants, variants reversed, kernel:
+
+- ``kernel``: the source as it is (its result is checked against the
+  plain version: largest error of out and of lse);
+- ``no_exp``: the softmax without its exponentials (P = s - m), the rest
+  of it (scale, mask, row max, shuffles, row sum, rescale) kept;
+- ``no_scores``: the score wgmma on one k16 slice of D's four;
+- ``no_product``: no P . V wgmma;
+- ``no_reload``: no key or value tile loaded after the first (the ring's
+  barriers still turn over);
+- ``skeleton``: ``no_scores``, ``no_product`` and ``no_exp`` together:
+  the loads, barriers and the rest of the softmax alone.
+
+The variants' outputs are wrong by construction; only their times mean
+anything. Run from the root of a checkout:
+
+    python3 tools/torch_flash_fwd_ablation.py
+
+It prints one JSON line per timing, the card's name and power limit
+beside each.
+"""
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from paddle_tpu_torch.ops import _build  # noqa: E402
+from paddle_tpu_torch.ops import flash_attention as fl  # noqa: E402
+from torch_ce_bwd_ablation import _median_ms  # noqa: E402
+
+CSRC = os.path.join(ROOT, "paddle_tpu_torch", "csrc")
+SOURCE = os.path.join(CSRC, "flash_attention_fwd_sm90.cu")
+_EXP = "        e = exp2f(e - m_new);"
+_SCORES = """      wgmma_n64<0>(s, desc(q_addr + hh * Q_BOX + 32 * kk),
+                   desc(k_addr + hh * KV_BOX + 32 * kk), (hh | kk) != 0);"""
+_PRODUCT = """      wgmma_n64_rs(o[hh], pa[kk],
+                   desc(v_addr + hh * KV_BOX + kk * 16 * 128));"""
+_LOAD = """        mbar_expect_tx(full(stage), STAGE);
+        for (int hh = 0; hh < HALVES; ++hh) {
+          tma_load_3d(ks + hh * KV_BOX, &map_k, kc + 64 * hh, j * BKV, ko,
+                      full(stage));
+          tma_load_3d(ks + (HALVES + hh) * KV_BOX, &map_v, kc + 64 * hh,
+                      j * BKV, ko, full(stage));
+        }"""
+
+
+def variants(src):
+    """{name: source}; raises if the kernel no longer has the text a
+    variant edits."""
+    for piece in (_EXP, _SCORES, _PRODUCT, _LOAD):
+        if piece not in src:
+            raise RuntimeError("the kernel's source changed; update the "
+                               "ablations of tools/torch_flash_fwd_ablation"
+                               ".py")
+    no_exp = src.replace(_EXP, "        e = e - m_new;")
+    no_scores = src.replace(_SCORES, "      if (hh == 0 && kk == 0)\n"
+                            + _SCORES)
+    no_product = src.replace(_PRODUCT, "      ;")
+    no_reload = src.replace(_LOAD, "        if (j > 0) {\n"
+                            "          mbar_arrive(full(stage));\n"
+                            "        } else {\n" + _LOAD + "\n        }")
+    skeleton = no_exp.replace(_SCORES, "      if (hh == 0 && kk == 0)\n"
+                              + _SCORES).replace(_PRODUCT, "      ;")
+    return {"kernel": src, "no_exp": no_exp, "no_scores": no_scores,
+            "no_product": no_product, "no_reload": no_reload,
+            "skeleton": skeleton}
+
+
+def build(sources, out_dir):
+    """One nvcc per variant, started together, each finding the kernel's
+    headers (sm90.cuh) in csrc/; {name: ctypes library}."""
+    nvcc = _build._nvcc()
+    procs = {}
+    for name, src in sources.items():
+        cu = os.path.join(out_dir, f"{name}.cu")
+        with open(cu, "w") as f:
+            f.write(src)
+        procs[name] = subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-I", CSRC, "-shared", "-o",
+             os.path.join(out_dir, f"{name}.so"), cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        lib = ctypes.CDLL(os.path.join(out_dir, f"{name}.so"))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        geo = ctypes.POINTER(ctypes.c_longlong)
+        lib.flash_attn_fwd_sm90.argtypes = [p] * 5 + [i] * 5 + [
+            geo, geo, ctypes.c_float, i, p]
+        lib.flash_attn_fwd_sm90.restype = i
+        libs[name] = lib
+    return libs
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_flash_fwd_ablation: no CUDA card")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], check=True,
+                          capture_output=True, text=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+    with open(SOURCE) as f:
+        sources = variants(f.read())
+    b, t, h, d = 8, 2048, 12, 64
+    r = np.random.RandomState(0)
+    q, k, v = (torch.from_numpy(r.randn(b, t, h, d).astype(np.float32))
+               .cuda().bfloat16() for _ in range(3))
+    ref_out, ref_lse = fl.flash_attention_fwd_plain(q, k, v, True, None,
+                                                    "BTHD")
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build(sources, tmp)
+        names = list(libs)
+        for name in names + names[::-1]:
+            def run(lib=libs[name]):
+                return fl._launch_fwd_sm90(lib, q, k, v, True, d ** -0.5,
+                                           "BTHD")
+            row = dict(kernel="flash_attention_fwd", variant=name, b=b, t=t,
+                       h=h, d=d, ms=_median_ms(run), card=card)
+            if name == "kernel":
+                out, lse = run()
+                row["out_err"] = float((out.float() - ref_out.float())
+                                       .abs().max())
+                row["lse_err"] = float((lse - ref_lse).abs().max())
+            print(json.dumps(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
