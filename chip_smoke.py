@@ -13,10 +13,10 @@ Phases (any failure raises, and the script exits non-zero with no result):
 2. build: one nvcc per ``paddle_tpu_torch/csrc/*.cu``, all started
    together, into ``build/torch_kernels/`` (ptxas's register and
    shared-memory report is printed); the tensor-core kernels' (CE
-   forward, dx, dW; flash forward at head_dim 64 and 128) tensor-core
-   instructions counted in the library's SASS (none fails), with their
-   registers and spills, and their grid geometry held against their
-   wrappers';
+   forward, dx, dW; flash forward, dq and dk/dv at head_dim 64 and 128)
+   tensor-core instructions counted in the library's SASS (none fails),
+   with their registers and spills, and their grid geometry held against
+   their wrappers';
 3. every kernel against its plain PyTorch version on the card: the
    lm-head + CE forward at the serving shapes (fp32, FMA units) and in
    bf16 (tensor cores, ``_CE_FWD_CASES``) at both training shapes
@@ -33,16 +33,17 @@ Phases (any failure raises, and the script exits non-zero with no result):
    fp32 and bf16 in both layouts causal and not, D = 128 and 256, Tq !=
    Tk (causal, bottom-right; rows that see no key give out 0 and lse
    -1e30 exactly) and sequence lengths that are not a multiple of the
-   kernels' tiles; dq and dk/dv from the kernel forward's own out and
-   lse at the seq-2048 shape against the plain chain (reported); the
-   flash kernels' peak added memory at the training shape (no
-   [B, H, T, T] buffer);
+   kernels' tiles; the gradient chain (dq and dk/dv from the kernel
+   forward's own out and lse) against the plain chain in fp32, within
+   twice the plain bf16 chain's own error, at the seq-2048 shape and in
+   BHTD at D = 128; the flash kernels' peak added memory at the training
+   shape (no [B, H, T, T] buffer);
 4. timing with CUDA events (median of 30 after warm-up): each kernel, its
    plain version, one PyTorch library call computing the same function,
    and the card's bound for the same work, at the serving score shapes
    and at the training shapes (the CE forward, dx and dW at N = 4096 and
-   16384, and the flash forward, with TFLOP/s and their ratio to the
-   library call);
+   16384, and the flash forward, dq and dk/dv, with TFLOP/s and their
+   ratio to the library call);
 5. serving at full GPT width (12 x 768, vocab 32000, random weights from
    seed 0): 8 prompts covering every prefill bucket through
    ServingEngine.submit + run_until_idle, two of them again one after the
@@ -134,7 +135,8 @@ def _environment(torch):
 # the tensor-core kernels in SASS and in ptxas's report: each name is
 # found by the pieces of its mangled symbol (its source's file name, the
 # kernel, the template argument: bwd_sm90_kernel<TOKEN_ROWS> names the CE
-# backward's product, fwd_sm90_kernel<D> the flash forward's head_dim)
+# backward's product, fwd_sm90_kernel<D>, dq_sm90_kernel<D> and
+# dkv_sm90_kernel<D> the flash kernels' head_dim)
 _SM90_KERNELS = {
     "lmhead_ce_fwd": ("lmhead_ce_fwd_sm90", "fwd_sm90_kernel"),
     "lmhead_ce_dx": ("lmhead_ce_bwd_sm90", "bwd_sm90_kernelILb1E"),
@@ -143,6 +145,14 @@ _SM90_KERNELS = {
                                 "fwd_sm90_kernelILi64E"),
     "flash_attention_fwd_d128": ("flash_attention_fwd_sm90",
                                  "fwd_sm90_kernelILi128E"),
+    "flash_attention_dq_d64": ("flash_attention_bwd_sm90",
+                               "dq_sm90_kernelILi64E"),
+    "flash_attention_dq_d128": ("flash_attention_bwd_sm90",
+                                "dq_sm90_kernelILi128E"),
+    "flash_attention_dkv_d64": ("flash_attention_bwd_sm90",
+                                "dkv_sm90_kernelILi64E"),
+    "flash_attention_dkv_d128": ("flash_attention_bwd_sm90",
+                                 "dkv_sm90_kernelILi128E"),
 }
 
 
@@ -198,7 +208,12 @@ def _build():
                           (ce.SM90_FWD_TILE_N, ce.SM90_FWD_TILE_V)),
         "flash_attention_fwd": ((lib.flash_attn_fwd_sm90_tile_q(),
                                  lib.flash_attn_fwd_sm90_tile_kv()),
-                                (fl.SM90_FWD_TILE_Q, fl.SM90_FWD_TILE_KV))}
+                                (fl.SM90_FWD_TILE_Q, fl.SM90_FWD_TILE_KV)),
+        "flash_attention_bwd": ({d: (lib.flash_attn_bwd_sm90_tile(d),
+                                     lib.flash_attn_dq_sm90_stage(d),
+                                     lib.flash_attn_dkv_sm90_stage(d))
+                                 for d in fl.SM90_BWD_TILES},
+                                fl.SM90_BWD_TILES)}
     for name, (built, wrapper) in geometry.items():
         if built != wrapper:
             raise AssertionError(f"{name} (sm90) geometry {built} differs "
@@ -606,9 +621,10 @@ _FLASH_KERNEL = dict(out="flash_attention_fwd", lse="flash_attention_fwd",
 # fp32 in both layouts, causal and not; D = 128 and 256; causal Tq != Tk
 # (bottom-right; the first is tests/test_flash_attention.py:62-85's); and
 # sequence lengths that are not a multiple of the kernels' tiles. bf16 at
-# D = 64 and 128 runs the tensor-core forward (BHTD causal and not, Tq <
-# Tk, Tq > Tk with rows that see no key, T = 1000 and 300), bf16 at D =
-# 256 the SIMT one
+# D = 64 and 128 runs the tensor-core forward, dq and dk/dv (both layouts
+# causal and not, Tq < Tk, Tq > Tk with rows that see no key, T = 1000
+# and 300, and T = 333 at D = 128 in BTHD), bf16 at D = 256 the SIMT
+# ones
 _FLASH_CASES = [
     ("bfloat16", "BTHD", True, 8, 12, 2048, 2048, 64),
     ("float32", "BTHD", True, 2, 3, 256, 256, 64),
@@ -627,6 +643,8 @@ _FLASH_CASES = [
     ("bfloat16", "BHTD", True, 1, 2, 128, 384, 64),
     ("bfloat16", "BHTD", True, 1, 2, 384, 128, 64),
     ("bfloat16", "BHTD", False, 1, 2, 300, 300, 128),
+    ("bfloat16", "BTHD", False, 2, 3, 256, 256, 64),
+    ("bfloat16", "BTHD", True, 2, 2, 333, 333, 128),
 ]
 
 
@@ -686,8 +704,9 @@ def _flash_agrees(torch, got, ref, dtype_name, what) -> dict:
 
 
 def _check_flash(torch):
-    """Every case of ``_FLASH_CASES`` through ``_flash_agrees``, then the
-    kernels' peak added memory at the training shape: no [B, H, T, T]
+    """Every case of ``_FLASH_CASES`` through ``_flash_agrees``, the
+    gradient chain over ``_CHAIN_CASES`` through ``_flash_chain``, then
+    the kernels' peak added memory at the training shape: no [B, H, T, T]
     buffer. Returns {kernel: max abs err}."""
     from paddle_tpu_torch.ops import flash_attention as fl
 
@@ -711,13 +730,13 @@ def _check_flash(torch):
              max_abs_err={n: _err(got[n], ref[n]) for n in ref})
         del got, ref
 
+    _check_chain(torch)
     b, h, t, d = _LONG_B, _LONG["n_head"], _LONG_T, _head_dim(_LONG)
     q, k, v, do = _flash_inputs(torch, b, h, t, t, d, torch.bfloat16,
                                 "BTHD", seed=99)
     out, lse = fl.flash_attention_fwd(q, k, v, True, None, "BTHD")
     delta = fl.flash_attention_delta(out, do, "BTHD")
     args = (q, k, v, do, lse, delta, True, None, "BTHD")
-    _flash_chain(torch, args, **dict(b=b, h=h, t=t, d=d))
     shape = dict(b=b, h=h, t=t, d=d)
     limit = b * h * t * t * 2
     for name, fn in (
@@ -745,37 +764,107 @@ def _no_key_rows_agree(got, causal, layout, tq, tk, what) -> None:
                              f"other than -1e30")
 
 
-def _flash_chain(torch, args, **shape) -> None:
-    """dq and dk/dv started from the kernel forward's own out and lse (as
-    the training step runs them) against the plain chain (the plain
-    forward's out and lse into the plain dq and dk/dv), at the seq-2048
-    shape. Two forwards that agree at ``_FLASH_TOL`` give lse and delta
-    that differ in their last bits, so this is reported, not held to the
-    gradient tolerance: it fails only on a value that is not finite."""
+# The gradient chain (forward, delta, dq, dk/dv) against its fp32 truth:
+# the kernel chain's relative Frobenius error in each of dq, dk and dv may
+# be at most _CHAIN_MULTIPLE times the plain bf16 chain's own, plus
+# _CHAIN_ATOL. Why 2: both chains round P, dS and each output to bf16 at
+# the same places, so each lies about as far from the truth; the kernel
+# chain adds its own last-bit differences (P rounded against the running
+# row max in the forward, exp2 for exp, another order of fp32 sums), which
+# are independent of and no larger than those roundings, so its error
+# stays near sqrt(2) times the plain chain's at most. A dropped tile, a
+# wrong row of delta or lse, or a mask off the diagonal moves a gradient
+# by a sizeable share of its norm, far beyond twice a bf16 rounding error.
+# tests/test_torch_smoke_checks.py shows the bound passing the plain and
+# a kernel-way chain and rejecting a dropped key tile in dk and delta
+# taken from the wrong row.
+_CHAIN_MULTIPLE = 2.0
+_CHAIN_ATOL = 1e-3
+# (B, H, T, D, layout) of the chain check, causal bf16: the seq-2048
+# training shape, and BHTD at head_dim 128
+_CHAIN_CASES = [(_LONG_B, _LONG["n_head"], _LONG_T, 64, "BTHD"),
+                (2, 4, 1024, 128, "BHTD")]
+
+
+def _plain_chain(q, k, v, do, causal, layout) -> dict:
+    """dq, dk, dv of the plain chain: the plain forward's out and lse,
+    delta, the plain dq and dk/dv, in the inputs' dtype."""
     from paddle_tpu_torch.ops import flash_attention as fl
 
-    q, k, v, do, _, _, causal, scale, layout = args
-    ref_out, ref_lse = fl.flash_attention_fwd_plain(q, k, v, causal, scale,
-                                                    layout)
-    ref_args = (q, k, v, do, ref_lse,
-                fl.flash_attention_delta(ref_out, do, layout), causal,
-                scale, layout)
-    got = dict(zip(("dk", "dv"), fl.flash_attention_dkv(*args)),
-               dq=fl.flash_attention_dq(*args))
-    ref = dict(zip(("dk", "dv"), fl.flash_attention_dkv_plain(*ref_args)),
-               dq=fl.flash_attention_dq_plain(*ref_args))
+    out, lse = fl.flash_attention_fwd_plain(q, k, v, causal, None, layout)
+    args = (q, k, v, do, lse, fl.flash_attention_delta(out, do, layout),
+            causal, None, layout)
+    dk, dv = fl.flash_attention_dkv_plain(*args)
+    return dict(dq=fl.flash_attention_dq_plain(*args), dk=dk, dv=dv)
+
+
+def _kernel_chain(q, k, v, do, causal, layout) -> dict:
+    """dq, dk, dv as the training step makes them: the wrappers' forward,
+    delta from its out, the wrappers' dq and dk/dv from its lse."""
+    from paddle_tpu_torch.ops import flash_attention as fl
+
+    out, lse = fl.flash_attention_fwd(q, k, v, causal, None, layout)
+    args = (q, k, v, do, lse, fl.flash_attention_delta(out, do, layout),
+            causal, None, layout)
+    dk, dv = fl.flash_attention_dkv(*args)
+    return dict(dq=fl.flash_attention_dq(*args), dk=dk, dv=dv)
+
+
+def _rel_err(got, truth) -> float:
+    """||got - truth||_F / ||truth||_F, summed in fp64."""
+    diff = (got.double() - truth.double()).norm()
+    return float(diff / truth.double().norm().clamp_min(1e-300))
+
+
+def _chain_agrees(torch, got, plain, truth, what) -> dict:
+    """Holds a gradient chain (``got``: dq, dk, dv) against the fp32
+    ``truth`` within _CHAIN_MULTIPLE times the plain bf16 chain's own
+    relative Frobenius error, plus _CHAIN_ATOL; raises naming each
+    gradient that lies beyond or is not finite. Returns the report: each
+    gradient's errors, bound and max abs errors."""
+    report, bad = {}, []
+    for name in ("dq", "dk", "dv"):
+        own = _rel_err(plain[name], truth[name])
+        err = _rel_err(got[name], truth[name])
+        bound = _CHAIN_MULTIPLE * own + _CHAIN_ATOL
+        report[name] = dict(rel_err=err, plain_rel_err=own, bound=bound,
+                            max_abs_err=_err(got[name], truth[name]),
+                            plain_max_abs_err=_err(plain[name], truth[name]))
+        if not err <= bound or not torch.isfinite(got[name].float()).all():
+            bad.append(f"{name}: relative error {err} against the fp32 "
+                       f"chain, bound {bound} ({_CHAIN_MULTIPLE} x the plain "
+                       f"bf16 chain's {own} + {_CHAIN_ATOL})")
+    if bad:
+        raise AssertionError(f"flash gradient chain beyond its bound at "
+                             f"{what}: " + "; ".join(bad))
+    return report
+
+
+def _check_chain(torch) -> None:
+    """``_flash_chain`` over ``_CHAIN_CASES`` (causal, bf16)."""
+    for i, (b, h, t, d, layout) in enumerate(_CHAIN_CASES):
+        q, k, v, do = _flash_inputs(torch, b, h, t, t, d, torch.bfloat16,
+                                    layout, seed=98 + i)
+        _flash_chain(torch, q, k, v, do, True, layout, b=b, h=h, t=t, d=d)
+        del q, k, v, do
+        torch.cuda.empty_cache()
+
+
+def _flash_chain(torch, q, k, v, do, causal, layout, **shape) -> None:
+    """The kernel chain (``_kernel_chain``, as the training step runs it)
+    against the truth, the plain chain run in fp32 on the same bf16
+    inputs, through ``_chain_agrees``."""
+    got = _kernel_chain(q, k, v, do, causal, layout)
+    plain = _plain_chain(q, k, v, do, causal, layout)
+    truth = _plain_chain(*(t.float() for t in (q, k, v, do)), causal, layout)
     torch.cuda.synchronize()
-    errs = {n: _err(got[n], ref[n]) for n in ref}
-    beyond = {n: _beyond(got[n], ref[n], *_FLASH_TOL["bfloat16"][n])
-              for n in ref}
+    what = f"{layout} {'causal' if causal else 'full'} {shape}"
+    report = _chain_agrees(torch, got, plain, truth, what)
     _say(phase="kernel_check", kernel="flash_attention_chain", **shape,
-         dtype="bfloat16", layout=layout, causal=causal,
-         what="dq, dk, dv from the kernel forward's out and lse against the "
-              "plain chain", max_abs_err=errs,
-         beyond_gradient_tolerance=beyond, tolerance=_FLASH_TOL["bfloat16"])
-    if not all(torch.isfinite(t.float()).all() for t in got.values()):
-        raise AssertionError("flash backward from the kernel forward's "
-                             "out and lse is not finite")
+         dtype=str(q.dtype).replace("torch.", ""), layout=layout,
+         causal=causal, what="dq, dk, dv from the kernel forward's out and "
+         "lse against the fp32 chain", multiple=_CHAIN_MULTIPLE,
+         atol=_CHAIN_ATOL, **report)
 
 
 def _head_dim(config) -> int:
@@ -895,9 +984,9 @@ def _time_flash(torch, card):
     Bounds: each input read once, each output written once (lse and
     delta fp32), and 2*D FLOPs per visible score entry for each product
     of the kernel's own algorithm: 2 for the forward, 3 for dq (scores,
-    dP, dS k), 4 for dk/dv (scores, dP, P^T dO, dS^T q). The forward's
-    row also carries ``tflops`` (its FLOPs over its time) and
-    ``over_library``."""
+    dP, dS k), 4 for dk/dv (scores, dP, P^T dO, dS^T q). Each row also
+    carries ``tflops`` (those FLOPs over its time) and ``over_library``
+    (its time over the library call's)."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import flash_attention as fl
@@ -949,11 +1038,11 @@ def _time_flash(torch, card):
                    library_ms=_median_ms(torch, library), bound_ms=bound,
                    bound_by=by, flops=products * product, bytes=nbytes,
                    repeats=_REPEATS, card=card)
+        row["tflops"] = products * product / row["kernel_ms"] / 1e9
+        row["over_library"] = row["kernel_ms"] / row["library_ms"]
         if name == "flash_attention_fwd":
             row["library"] = ("F.scaled_dot_product_attention(is_causal=True) "
                               "on BHTD views")
-            row["tflops"] = products * product / row["kernel_ms"] / 1e9
-            row["over_library"] = row["kernel_ms"] / row["library_ms"]
         else:
             row["library"] = ("autograd.grad of F.scaled_dot_product_attention"
                               " for this pass's gradients alone")
@@ -1056,8 +1145,8 @@ _TRACE_NAMES = {
     "lmhead_ce_dx": ("::bwd_sm90_kernel<true>",),
     "lmhead_ce_dw": ("::bwd_sm90_kernel<false>",),
     "flash_attention_fwd": ("::fwd_sm90_kernel<", "::fwd_kernel<"),
-    "flash_attention_dq": ("::dq_kernel<",),
-    "flash_attention_dkv": ("::dkv_kernel<",),
+    "flash_attention_dq": ("::dq_sm90_kernel<", "::dq_kernel<"),
+    "flash_attention_dkv": ("::dkv_sm90_kernel<", "::dkv_kernel<"),
     "fused_adam": ("::adam_kernel<",),
 }
 
@@ -1448,15 +1537,14 @@ def main() -> int:
             ("flash_attention_fwd", 130, 68),
             ("flash_attention_dq", 354, 315),
             ("flash_attention_dkv", 471, 423)):
+        extra = {"source_fp32": flash_src, "source_d256": flash_src,
+                 "tflops": times[name]["tflops"],
+                 "over_library": times[name]["over_library"]}
         if name == "flash_attention_fwd":
-            extra = {"source_fp32": flash_src, "source_d256": flash_src,
-                     "tflops": times[name]["tflops"],
-                     "over_library": times[name]["over_library"]}
             source = csrc + "flash_attention_fwd_sm90.cu"
         else:
-            extra = {"library_dq_dk_dv_ms":
-                     times[name]["library_dq_dk_dv_ms"]}
-            source = flash_src
+            extra["library_dq_dk_dv_ms"] = times[name]["library_dq_dk_dv_ms"]
+            source = csrc + "flash_attention_bwd_sm90.cu"
         rows.append(_kernel_row(
             name, pallas + f"flash_attention.py:{bthd}", source,
             train_long[name], errs[name], times[name], card,

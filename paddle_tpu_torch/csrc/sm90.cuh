@@ -1,5 +1,6 @@
 // What the sm_90a kernels share (lmhead_ce_bwd_sm90.cu,
-// lmhead_ce_fwd_sm90.cu, flash_attention_fwd_sm90.cu): mbarriers, TMA
+// lmhead_ce_fwd_sm90.cu, flash_attention_fwd_sm90.cu,
+// flash_attention_bwd_sm90.cu): mbarriers, TMA
 // loads, wgmma shared-memory descriptors and instructions, and, on the
 // host, the encoding of TMA tensor maps.
 //

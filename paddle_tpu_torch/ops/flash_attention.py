@@ -4,11 +4,12 @@ Port of ``paddle_tpu/ops/pallas/flash_attention.py`` (``flash_attention``
 and its custom VJP: ``_fwd_kernel``/``_fwd_kernel_bthd`` forward,
 ``_bwd_dq_kernel``/``_bwd_dq_kernel_bthd`` and
 ``_bwd_dkv_kernel``/``_bwd_dkv_kernel_bthd`` backward). The kernels are
-in ``paddle_tpu_torch/csrc/flash_attention_fwd_sm90.cu`` (the bf16
-forward at head_dim 64 and 128, on the tensor cores) and
-``paddle_tpu_torch/csrc/flash_attention.cu`` (the rest, on the FMA
-units), whose headers state what bounds them on the card and how the
-design answers that. One kernel per role serves both layouts:
+in ``paddle_tpu_torch/csrc/flash_attention_fwd_sm90.cu`` and
+``paddle_tpu_torch/csrc/flash_attention_bwd_sm90.cu`` (bf16 at head_dim
+64 and 128, on the tensor cores) and
+``paddle_tpu_torch/csrc/flash_attention.cu`` (fp32, and bf16 at head_dim
+256, on the FMA units), whose headers state what bounds them on the card
+and how the design answers that. One kernel per role serves both layouts:
 
 - forward: out and the per-row logsumexp (``fwd_launches``). bf16 at
   head_dim 64 or 128 takes the wgmma kernel, which reads q, k and v
@@ -85,10 +86,14 @@ dkv_launches = 0
 _NEG = -1e30  # the TPU kernel's finite stand-in for -inf
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128, 256)
-_SM90_HEAD_DIMS = (64, 128)  # bf16 forward on the tensor cores
+_SM90_HEAD_DIMS = (64, 128)  # bf16 kernels on the tensor cores
 # the bf16 forward's query rows per block and key/value rows per ring
 # stage (csrc/flash_attention_fwd_sm90.cu)
 SM90_FWD_TILE_Q, SM90_FWD_TILE_KV = 128, 64
+# the bf16 backward's, by head_dim (csrc/flash_attention_bwd_sm90.cu):
+# rows of a block's own tile (query rows for dq, keys for dk/dv), key
+# rows of a dq ring stage, query rows of a dk/dv ring stage
+SM90_BWD_TILES = {64: (128, 64, 32), 128: (64, 64, 32)}
 _LAYOUTS = ("BHTD", "BTHD")
 
 
@@ -287,6 +292,11 @@ def tma_geometry(t: torch.Tensor, layout: str) -> Tuple[int, ...]:
     return (d, b * h, s[2], s[1], 0, h, 1)
 
 
+def _tensor_cores(q: torch.Tensor) -> bool:
+    """bf16 at head_dim 64 or 128: the tensor-core kernels' inputs."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] in _SM90_HEAD_DIMS
+
+
 def _launch_fwd_sm90(lib, q, k, v, causal, scale, layout):
     """The bf16 forward on the tensor cores (head_dim 64 or 128)."""
     b, h, tq, tk, d = _dims(q, k, layout)
@@ -322,38 +332,56 @@ def _launch_fwd(q, k, v, causal, scale, layout):
     global fwd_launches
     from . import _build
 
-    tensor_cores = (q.dtype == torch.bfloat16
-                    and q.shape[-1] in _SM90_HEAD_DIMS)
-    launch = _launch_fwd_sm90 if tensor_cores else _launch_fwd_simt
+    launch = _launch_fwd_sm90 if _tensor_cores(q) else _launch_fwd_simt
     out, lse = launch(_build.load(), q, k, v, causal, scale, layout)
     fwd_launches += 1
     return out, lse
 
 
-def _launch_dq(q, k, v, dout, lse, delta, causal, scale, layout):
-    global dq_launches
+def _launch_bwd(entry, what, outs, q, k, v, dout, lse, delta, causal, scale,
+                layout):
+    """The dq or dk/dv kernel ``entry`` writes ``outs``. bf16 at head_dim
+    64 or 128 takes its tensor-core version (``entry`` + ``_sm90``),
+    which reads q, k, v and dO through rank-3 tensor maps (dO through
+    q's geometry); the rest takes the SIMT one, through strides."""
     from . import _build
 
-    dq = torch.empty_like(q)
-    err = _build.load().flash_attn_dq(
+    if _tensor_cores(q):
+        b, h, tq, tk, d = _dims(q, k, layout)
+        q, k, v, dout = (t if t.data_ptr() % 16 == 0 else t.clone()
+                         for t in (q, k, v, dout))
+        geo = [(ctypes.c_longlong * 7)(*tma_geometry(t, layout))
+               for t in (q, k)]
+        entry += "_sm90"
+        dims = (b, h, tq, tk, d, *geo, scale, int(causal),
+                torch.cuda.current_stream(q.device).cuda_stream)
+    else:
+        dims = _geometry(q, k, scale, causal, layout)
+    err = getattr(_build.load(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        *_geometry(q, k, scale, causal, layout))
-    _raise_if(err, "dq", q, k, layout)
+        lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
+        *dims)
+    if err:
+        raise RuntimeError(
+            f"flash attention {what} launch ({entry}) failed: error {err} "
+            f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {layout}, {q.dtype}; "
+            f"-2: no cuTensorMapEncodeTiled, -3: tensor map refused)")
+
+
+def _launch_dq(q, k, v, dout, lse, delta, causal, scale, layout):
+    global dq_launches
+    dq = torch.empty_like(q)
+    _launch_bwd("flash_attn_dq", "dq", (dq,), q, k, v, dout, lse, delta,
+                causal, scale, layout)
     dq_launches += 1
     return dq
 
 
 def _launch_dkv(q, k, v, dout, lse, delta, causal, scale, layout):
     global dkv_launches
-    from . import _build
-
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _build.load().flash_attn_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_geometry(q, k, scale, causal, layout))
-    _raise_if(err, "dk/dv", q, k, layout)
+    _launch_bwd("flash_attn_dkv", "dk/dv", (dk, dv), q, k, v, dout, lse,
+                delta, causal, scale, layout)
     dkv_launches += 1
     return dk, dv
 

@@ -306,3 +306,78 @@ def test_ablation_tool_anchors_match_the_forward_kernel(monkeypatch):
     variants = tool.variants(src)
     assert variants["kernel"] == src
     assert len({text for text in variants.values()}) == len(variants)
+
+
+@pytest.mark.parametrize("dtype,d,layout,sm90", [
+    (torch.bfloat16, 64, "BTHD", True), (torch.bfloat16, 64, "BHTD", True),
+    (torch.bfloat16, 128, "BTHD", True), (torch.bfloat16, 128, "BHTD", True),
+    (torch.bfloat16, 256, "BTHD", False), (torch.float32, 64, "BHTD", False),
+    (torch.float32, 128, "BTHD", False)])
+@pytest.mark.parametrize("role", ["dq", "dkv"])
+def test_backward_routes_bf16_to_the_tensor_core_kernels(monkeypatch, dtype, d,
+                                                         layout, sm90, role):
+    """bf16 at head_dim 64 and 128 goes to the sm90 dq and dk/dv entry
+    points, with the tensor-map geometry of q (which dO shares) and of k;
+    fp32, and bf16 at head_dim 256, to the SIMT ones; one launch counted
+    either way, on that role's counter only."""
+    lib = _Recorder()
+    _stub_library(monkeypatch, lib)
+    q, k, v, do = (_torch(a, "f32").to(dtype)
+                   for a in _inputs(2, 3, 96, 160, d, "f32", layout))
+    lse, delta = torch.zeros((2, 3, 96)), torch.zeros((2, 3, 96))
+    fl.reset_launches()
+    launch = fl._launch_dq if role == "dq" else fl._launch_dkv
+    outs = launch(q, k, v, do, lse, delta, True, 0.125, layout)
+    assert (fl.fwd_launches, fl.dq_launches, fl.dkv_launches) == (
+        (0, 1, 0) if role == "dq" else (0, 0, 1))
+    (name, args), = lib.calls
+    entry = f"flash_attn_{role}" + ("_sm90" if sm90 else "")
+    assert name == entry
+    n_out = 1 if role == "dq" else 2
+    if role == "dq":
+        assert outs.shape == q.shape
+    else:
+        assert outs[0].shape == outs[1].shape == k.shape
+    ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
+    assert list(args[:6]) == ptrs
+    if sm90:
+        dims = args[6 + n_out:]
+        assert dims[:5] == (2, 3, 96, 160, d)
+        assert tuple(dims[5]) == fl.tma_geometry(q, layout)
+        assert tuple(dims[6]) == fl.tma_geometry(k, layout)
+        assert dims[7:9] == (0.125, 1)
+
+
+@pytest.mark.parametrize("role", ["dq", "dkv"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_raises_on_a_refused_launch(monkeypatch, role, dtype):
+    """A refused tensor map or launch raises with the error code; no launch
+    is counted and the plain version is never taken."""
+    calls = []
+    for plain in ("flash_attention_dq_plain", "flash_attention_dkv_plain"):
+        monkeypatch.setattr(fl, plain, lambda *a: calls.append(a))
+    lib = _Recorder(err=-3)
+    _stub_library(monkeypatch, lib)
+    q = torch.zeros((1, 128, 2, 64), dtype=dtype)
+    stats = torch.zeros((1, 2, 128))
+    fl.reset_launches()
+    launch = fl._launch_dq if role == "dq" else fl._launch_dkv
+    with pytest.raises(RuntimeError, match="error -3"):
+        launch(q, q, q, q, stats, stats, True, 0.125, "BTHD")
+    assert (fl.dq_launches, fl.dkv_launches) == (0, 0) and calls == []
+
+
+def test_backward_clones_a_misaligned_input(monkeypatch):
+    """A bf16 input whose pointer is not 16-byte aligned (a view at an
+    odd offset) reaches the tensor-core kernel as an aligned copy, as TMA
+    needs."""
+    lib = _Recorder()
+    _stub_library(monkeypatch, lib)
+    flat = torch.zeros(1 * 128 * 2 * 64 + 1, dtype=torch.bfloat16)
+    q = flat[1:].view(1, 128, 2, 64)
+    assert q.data_ptr() % 16
+    stats = torch.zeros((1, 2, 128))
+    fl._launch_dkv(q, q, q, q, stats, stats, True, 0.125, "BTHD")
+    (name, args), = lib.calls
+    assert name == "flash_attn_dkv_sm90"
+    assert all(a % 16 == 0 for a in args[:4])

@@ -23,6 +23,15 @@ in for the kernels.
   gradient fails -- one 64-wide column tile dropped, each row's d-logits
   built from the row before's lse, and (bf16) the sum rounded to bf16
   every 16 terms, as a bf16 accumulator would.
+- The flash backward computed the tensor-core kernels' way
+  (``_keymajor_bwd``: key-major score tiles, P and dS rounded per tile)
+  passes ``_flash_agrees``; a dropped query tile, P left unrounded for
+  dv, a diagonal moved one key right and lse taken from the column
+  before each fail it.
+- The flash gradient chain (``_chain_agrees``: relative Frobenius error
+  against the chain run in fp32, within twice the plain bf16 chain's
+  own): the wrappers' chain and one computed the kernels' way pass; dk
+  with a key tile dropped and delta taken from the row before fail.
 - CPU against card (``_tiny_agree``): the tiny flash GPT leg, run twice
   on the CPU, agrees with itself, and a run whose dq is 2% too large is
   rejected (Adam's parameter step hardly sees a gradient's size; the
@@ -388,3 +397,131 @@ def test_rows_that_see_no_key_must_give_zero_and_the_stand_in():
     for got in (dict(out=out, lse=bad_lse), dict(out=bad_out, lse=lse)):
         with pytest.raises(AssertionError, match="sees no key"):
             chip_smoke._no_key_rows_agree(got, True, "BHTD", 384, 128, "x")
+
+
+def _keymajor_bwd(q, k, v, do, lse, delta, layout, drop=None,
+                  unrounded=False, shift=0, lse_col=False):
+    """dq, dk and dv of a causal attention computed as the tensor-core
+    backward kernels compute them: key tiles of 64 (the rows of the dk/dv
+    kernel's score tiles S^T = K Q^T) against query tiles of 64, P =
+    exp(s^T * scale - lse) masked before the exponential, P and dS rounded
+    to q's dtype per tile, fp32 sums, dq and dk scaled once at the end.
+    ``drop`` leaves one query tile out of dk and dv; ``unrounded`` keeps
+    P in fp32 for dv; ``shift`` moves the diagonal that many keys right;
+    ``lse_col`` gives each query column the lse of the column before."""
+    def heads(t):
+        return (t.transpose(1, 2) if layout == "BTHD" else t).float()
+
+    def rnd(t):
+        return t.to(q.dtype).float()
+
+    qh, kh, vh, doh = (heads(t) for t in (q, k, v, do))
+    tq, tk, d = qh.shape[2], kh.shape[2], qh.shape[3]
+    scale = d ** -0.5
+    if lse_col:
+        lse = lse.roll(1, dims=-1)
+    keep_t = torch.ones((tq, tk), dtype=torch.bool).tril(tk - tq + shift).t()
+    dq, dk, dv = (torch.zeros(t.shape) for t in (qh, kh, vh))
+    for c0 in range(0, tk, 64):
+        kt, vt = kh[:, :, c0:c0 + 64], vh[:, :, c0:c0 + 64]
+        for r0 in range(0, tq, 64):
+            qt, dot = qh[:, :, r0:r0 + 64], doh[:, :, r0:r0 + 64]
+            st = (kt @ qt.transpose(-1, -2)) * scale \
+                - lse[..., None, r0:r0 + 64]
+            p = torch.exp(st.masked_fill(~keep_t[c0:c0 + 64, r0:r0 + 64],
+                                         float("-inf")))
+            dpt = vt @ dot.transpose(-1, -2)
+            dst = rnd(p * (dpt - delta[..., None, r0:r0 + 64]))
+            dq[:, :, r0:r0 + 64] += dst.transpose(-1, -2) @ kt
+            if r0 == drop:
+                continue
+            dv[:, :, c0:c0 + 64] += (p if unrounded else rnd(p)) @ dot
+            dk[:, :, c0:c0 + 64] += dst @ qt
+
+    def back(t):
+        t = t.transpose(1, 2) if layout == "BTHD" else t
+        return t.to(q.dtype).contiguous()
+
+    return dict(dq=back(dq * scale), dk=back(dk * scale), dv=back(dv))
+
+
+def _flash_bwd(dtype_name, layout, **alter):
+    """chip_smoke's flash check on a backward computed the kernels' way
+    (altered by ``alter``) from the plain forward's out and lse."""
+    from paddle_tpu_torch.ops import flash_attention as fl
+
+    q, k, v, do = chip_smoke._flash_inputs(
+        torch, 1, 2, 256, 256, 64, getattr(torch, dtype_name), layout,
+        seed=5, device="cpu")
+    got, ref = chip_smoke._flash_outputs(torch, q, k, v, do, True, layout)
+    delta = fl.flash_attention_delta(ref["out"], do, layout)
+    got = dict(got, **_keymajor_bwd(q, k, v, do, ref["lse"], delta, layout,
+                                    **alter))
+    return chip_smoke._flash_agrees(torch, got, ref, dtype_name,
+                                    f"{dtype_name} {alter}")
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["BTHD", "BHTD"])
+def test_keymajor_backward_passes(dtype_name, layout):
+    _flash_bwd(dtype_name, layout)
+
+
+@pytest.mark.parametrize("layout", ["BTHD", "BHTD"])
+@pytest.mark.parametrize("alter", [dict(drop=128), dict(unrounded=True),
+                                   dict(shift=1), dict(lse_col=True)],
+                         ids=["dropped_query_tile", "unrounded_p",
+                              "diagonal", "lse_column"])
+def test_altered_keymajor_backward_fails(layout, alter):
+    with pytest.raises(AssertionError, match="flash attention disagrees"):
+        _flash_bwd("bfloat16", layout, **alter)
+
+
+def _chain(layout, alter=None):
+    """chip_smoke's chain check on the CPU (B 1, H 2, T 256, D 64, bf16,
+    causal): the plain bf16 chain and the truth (the plain chain in fp32),
+    and as ``got`` the wrappers' chain, the kernels' way (the online
+    forward, then the key-major backward), or a faulty chain: dk with its
+    second key tile dropped, or delta taken from the row before."""
+    from paddle_tpu_torch.ops import flash_attention as fl
+
+    q, k, v, do = chip_smoke._flash_inputs(torch, 1, 2, 256, 256, 64,
+                                           torch.bfloat16, layout, seed=6,
+                                           device="cpu")
+    plain = chip_smoke._plain_chain(q, k, v, do, True, layout)
+    truth = chip_smoke._plain_chain(*(t.float() for t in (q, k, v, do)),
+                                    True, layout)
+    if alter == "kernel_way":
+        out, lse = _online_fwd(q, k, v, layout)
+        got = _keymajor_bwd(q, k, v, do, lse,
+                            fl.flash_attention_delta(out, do, layout), layout)
+    elif alter == "delta_row":
+        out, lse = fl.flash_attention_fwd(q, k, v, True, None, layout)
+        delta = fl.flash_attention_delta(out, do, layout).roll(1, dims=-1)
+        args = (q, k, v, do, lse, delta, True, None, layout)
+        dk, dv = fl.flash_attention_dkv(*args)
+        got = dict(dq=fl.flash_attention_dq(*args), dk=dk, dv=dv)
+    else:
+        got = chip_smoke._kernel_chain(q, k, v, do, True, layout)
+    if alter == "dropped_key_tile":
+        dk = got["dk"].clone()
+        (dk[:, 64:128] if layout == "BTHD" else dk[:, :, 64:128]).zero_()
+        got = dict(got, dk=dk)
+    return chip_smoke._chain_agrees(torch, got, plain, truth,
+                                    f"{layout} {alter}")
+
+
+@pytest.mark.parametrize("layout", ["BTHD", "BHTD"])
+@pytest.mark.parametrize("alter", [None, "kernel_way"])
+def test_chain_bound_passes(layout, alter):
+    report = _chain(layout, alter)
+    for name in ("dq", "dk", "dv"):
+        assert 0 < report[name]["plain_rel_err"] < 1e-2
+        assert report[name]["rel_err"] <= report[name]["bound"]
+
+
+@pytest.mark.parametrize("layout", ["BTHD", "BHTD"])
+@pytest.mark.parametrize("alter", ["dropped_key_tile", "delta_row"])
+def test_chain_bound_rejects_faults(layout, alter):
+    with pytest.raises(AssertionError, match="chain beyond its bound"):
+        _chain(layout, alter)
