@@ -13,15 +13,19 @@ Phases (any failure raises, and the script exits non-zero with no result):
 2. build: one nvcc per ``paddle_tpu_torch/csrc/*.cu``, all started
    together, into ``build/torch_kernels/`` (ptxas's register and
    shared-memory report is printed); the tensor-core kernels' (CE
-   forward, dx, dW; flash forward, dq and dk/dv at head_dim 64 and 128)
-   tensor-core instructions counted in the library's SASS (none fails),
+   forward in bf16 and in fp32, dx, dW; flash forward, dq and dk/dv at
+   head_dim 64 and 128) tensor-core instructions counted in the
+   library's SASS (none fails),
    with their registers and spills, and their grid geometry held against
    their wrappers';
 3. every kernel against its plain PyTorch version on the card: the
-   lm-head + CE forward at the serving shapes (fp32, FMA units) and in
-   bf16 (tensor cores, ``_CE_FWD_CASES``) at both training shapes
-   (N = 4096 and 16384), ragged with labels V and -1, at D = 60
-   (padded), D = 1000, N = 1 and N = 600; its dx and dW
+   lm-head + CE forward in fp32 (split TF32 on the tensor cores) at the
+   serving shapes, ragged with labels V and -1, at N = 1, D = 60 (padded)
+   and D = 1000, and against float64 logits at the serving shapes within
+   ``_TF32_MULTIPLE`` times the plain fp32 version's own error; in bf16
+   (``_CE_FWD_CASES``) at both training shapes (N = 4096 and 16384),
+   ragged with labels V and -1, at D = 60 (padded), D = 1000, N = 1 and
+   N = 600; its dx and dW
    (``_CE_GRAD_CASES``, a non-uniform g): bf16 (tensor cores) at both
    training shapes, ragged with labels V and -1, at D = 1000, at D = 60
    (padded), at N = 1 and at N = 600 (fewer blocks than SMs), at one
@@ -43,7 +47,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
    and the card's bound for the same work, at the serving score shapes
    and at the training shapes (the CE forward, dx and dW at N = 4096 and
    16384, and the flash forward, dq and dk/dv, with TFLOP/s and their
-   ratio to the library call);
+   ratio to the library call); the fp32 CE forward also beside its
+   split-TF32 bound;
 5. serving at full GPT width (12 x 768, vocab 32000, random weights from
    seed 0): 8 prompts covering every prefill bucket through
    ServingEngine.submit + run_until_idle, two of them again one after the
@@ -60,7 +65,11 @@ Phases (any failure raises, and the script exits non-zero with no result):
    must be finite and fall, and each path kernel must launch every step
    (CE forward, dx and dW once, Adam 196 times, flash forward, dq and
    dk/dv 12 times at seq 2048); then one traced step each (device time
-   by kernel);
+   by kernel); at seq 512, before the main path, the loss band (C2): the
+   same 13 steps from the same initial parameters in fp32 (T) and in bf16
+   with the CE kernels replaced by their plain versions (Y); the main
+   path (K) must lie within 2 max |Y - T| + 1e-3 of T at every step
+   (``_loss_band``);
 7. CPU against card: tiny fp32 configs train 2 steps from the same numpy
    values on the CPU (plain versions) and on the card (kernels): one at
    seq 16 (einsum attention), one at seq 128 with
@@ -71,11 +80,13 @@ Phases (any failure raises, and the script exits non-zero with no result):
    main paths, its largest error against the plain version and its
    times at the training shape (the CE forward, dx and dW also at
    N = 16384, under ``long_shape``); a kernel whose bf16 path runs on
-   the tensor cores names that source, with the SIMT one beside it
-   (``source_fp32``, ``source_d256``);
+   the tensor cores names that source, with the fp32 one beside it
+   (``source_fp32``, ``source_d256``; the CE forward's fp32 source is its
+   split-TF32 kernel, ``serve_shapes`` its times at the serving shapes);
 9. the card's name and power limit again, and the last line:
    ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import json
 import os
 import re
@@ -89,7 +100,9 @@ import numpy as np
 
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
 _PEAK_BYTES_PER_S = 3.35e12
-_PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # fp32 outside tensor cores
+# fp32 on the FMA units, outside the tensor cores; tf32 the tensor cores'
+# dense rate, which the fp32 CE forward's three tf32 products run at
+_PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tfloat32": 494.7e12}
 
 _SERVE_D, _SERVE_V = 768, 32000
 # bench.py's headline training config (gpt2s @ seq 512)
@@ -136,9 +149,11 @@ def _environment(torch):
 # found by the pieces of its mangled symbol (its source's file name, the
 # kernel, the template argument: bwd_sm90_kernel<TOKEN_ROWS> names the CE
 # backward's product, fwd_sm90_kernel<D>, dq_sm90_kernel<D> and
-# dkv_sm90_kernel<D> the flash kernels' head_dim)
+# dkv_sm90_kernel<D> the flash kernels' head_dim; no two entries' pieces
+# match one kernel)
 _SM90_KERNELS = {
     "lmhead_ce_fwd": ("lmhead_ce_fwd_sm90", "fwd_sm90_kernel"),
+    "lmhead_ce_fwd_f32": ("lmhead_ce_fwd_f32_sm90", "fwd_f32_sm90_kernel"),
     "lmhead_ce_dx": ("lmhead_ce_bwd_sm90", "bwd_sm90_kernelILb1E"),
     "lmhead_ce_dw": ("lmhead_ce_bwd_sm90", "bwd_sm90_kernelILb0E"),
     "flash_attention_fwd_d64": ("flash_attention_fwd_sm90",
@@ -206,6 +221,9 @@ def _build():
         "lmhead_ce_fwd": ((lib.lmhead_ce_fwd_sm90_tile_n(),
                            lib.lmhead_ce_fwd_sm90_tile_v()),
                           (ce.SM90_FWD_TILE_N, ce.SM90_FWD_TILE_V)),
+        "lmhead_ce_fwd_f32": ((lib.lmhead_ce_fwd_f32_sm90_tile_n(),
+                               lib.lmhead_ce_fwd_f32_sm90_tile_v()),
+                              (ce.SM90_FWD_TILE_N, ce.SM90_FWD_TILE_V)),
         "flash_attention_fwd": ((lib.flash_attn_fwd_sm90_tile_q(),
                                  lib.flash_attn_fwd_sm90_tile_kv()),
                                 (fl.SM90_FWD_TILE_Q, fl.SM90_FWD_TILE_KV)),
@@ -242,18 +260,27 @@ def _inputs(torch, n, d, v, dtype, seed, device="cuda"):
 
 def _check_kernel(torch):
     """lmhead_ce against lmhead_ce_plain on the card, nll and lse, at
-    rtol = atol = tol. fp32: 1e-4, both sides sum exact fp32 products,
-    in another order; bf16: 2e-3, the floor of
-    tests/test_fused_lmhead_ce.py; the ragged case at the fp32 bound."""
+    rtol = atol = tol. fp32 (split TF32 on the tensor cores against exact
+    fp32 products): 1e-4, as when both sides summed exact fp32 products;
+    the split drops about 2^-22 of each product, and
+    tests/test_torch_lmhead_ce_f32.py's emulation of the kernel lies within
+    2e-4 of the plain version at |nll| of 10 to 40 (rtol 1e-4 gives 1e-3
+    to 4e-3 there). bf16: 2e-3, the floor of tests/test_fused_lmhead_ce.py.
+    fp32 cases: the serving shapes, then ragged N and V, N = 1, D = 60
+    (padded to 64) and D = 1000 (a last 32-deep stage partly past D), with
+    labels V and -1 at rows 3 and 7 off the serving shapes."""
     from paddle_tpu_torch.ops import lmhead_ce as ce
 
     cases = [(n, _SERVE_D, _SERVE_V, torch.float32, 1e-4) for n in _SCORE_NS]
     cases += [(511, _SERVE_D, _SERVE_V, torch.bfloat16, 2e-3),
-              (33, 64, 130, torch.float32, 1e-4)]
+              (33, 64, 130, torch.float32, 1e-4),
+              (1, _SERVE_D, _SERVE_V, torch.float32, 1e-4),
+              (64, 60, 130, torch.float32, 1e-4),
+              (100, 1000, 300, torch.float32, 1e-4)]
     worst = 0.0
     for i, (n, d, v, dtype, tol) in enumerate(cases):
         x, w, lbl = _inputs(torch, n, d, v, dtype, seed=10 + i)
-        if v == 130:  # labels outside [0, V) pick nothing
+        if n > 7 and v != _SERVE_V:  # labels outside [0, V) pick nothing
             lbl[3], lbl[7] = v, -1
         got = ce.lmhead_ce_fwd(x, w, lbl)
         ref = ce.lmhead_ce_plain(x, w, lbl)
@@ -264,6 +291,64 @@ def _check_kernel(torch):
         _say(phase="kernel_check", kernel="lmhead_ce_fwd", n=n, d=d, v=v,
              dtype=str(dtype).replace("torch.", ""), tolerance_rel=tol,
              max_abs_err=err)
+    return max(worst, _check_fp64_truth(torch))
+
+
+# The fp32 CE forward (split TF32 on the tensor cores) against float64
+# logits: its max abs error in nll and lse may be at most _TF32_MULTIPLE
+# times the plain fp32 version's own (full fp32 products, TF32 off, and
+# torch.logsumexp), plus _TF32_ATOL. Why 28:
+# tests/test_torch_lmhead_ce_f32.py emulates the kernel's arithmetic on the
+# CPU -- the split, its two accumulators, the online reduction by tiles and
+# the combine -- with the tensor cores' fp32 accumulation modelled as
+# truncating after every 4 products, and finds 14.0 times the plain
+# version's error at N = 64, D = 768, V = 2048; the bound is twice that.
+# A 1xTF32 kernel (hi . hi alone) lies 20 times beyond it there, so the
+# bound tells split TF32 from TF32.
+_TF32_MULTIPLE = 28.0
+_TF32_ATOL = 1e-6
+
+
+def _fp64_err(torch, got, x, w, labels) -> float:
+    """Max abs error of (nll, lse) against those of float64 logits."""
+    logits = x.double() @ w.double().t()
+    lse = torch.logsumexp(logits, 1)
+    v = w.shape[0]
+    lbl = labels.long()
+    hit = (lbl >= 0) & (lbl < v)
+    picked = torch.where(hit, logits.gather(1, lbl.clamp(0, v - 1)[:, None])
+                         [:, 0], torch.zeros_like(lse))
+    return max(_err(got[0].double(), lse - picked), _err(got[1].double(), lse))
+
+
+def _check_fp64_truth(torch) -> float:
+    """The fp32 forward at the serving shapes against float64 logits,
+    within ``_TF32_MULTIPLE`` times the plain fp32 version's own error plus
+    ``_TF32_ATOL``; raises where it is not. Returns the kernel's largest
+    error against the plain version."""
+    from paddle_tpu_torch.ops import lmhead_ce as ce
+
+    worst = 0.0
+    for i, n in enumerate(_SCORE_NS):
+        x, w, lbl = _inputs(torch, n, _SERVE_D, _SERVE_V, torch.float32,
+                            seed=20 + i)
+        got = ce.lmhead_ce_fwd(x, w, lbl)
+        plain = ce.lmhead_ce_plain(x, w, lbl)
+        torch.cuda.synchronize()
+        err = _fp64_err(torch, got, x, w, lbl)
+        own = _fp64_err(torch, plain, x, w, lbl)
+        bound = _TF32_MULTIPLE * own + _TF32_ATOL
+        _say(phase="kernel_check", kernel="lmhead_ce_fwd", check="fp64_truth",
+             n=n, d=_SERVE_D, v=_SERVE_V, dtype="float32", max_abs_err=err,
+             plain_max_abs_err=own, ratio=err / own if own else None,
+             bound=bound, multiple=_TF32_MULTIPLE, atol=_TF32_ATOL)
+        if not err <= bound or not all(bool(torch.isfinite(t).all())
+                                       for t in got):
+            raise AssertionError(
+                f"lmhead_ce_fwd fp32 at n={n}: max abs error {err} against "
+                f"float64 logits, beyond {bound} ({_TF32_MULTIPLE} x the "
+                f"plain fp32 version's {own} + {_TF32_ATOL})")
+        worst = max(worst, _err(got[0], plain[0]), _err(got[1], plain[1]))
     return worst
 
 
@@ -300,18 +385,47 @@ def _median_ms(torch, fn, *args):
     return statistics.median(times)
 
 
-def _bound(n, d, v, dtype_name, elem):
+def _device_ms(torch, fn, *args, calls=10):
+    """Device time of one call of ``fn``: the summed durations of the CUDA
+    kernels it launches in a traced window of ``calls`` calls, over
+    ``calls`` (the CUDA-event time of a short call also holds the host's
+    time to launch it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / calls
+
+
+def _bound(n, d, v, dtype_name, elem, products=1):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    2*N*V*D FLOPs over the peak rate of the inputs' type. Bytes: x, W
-    and the int64 labels read once, the fp32 nll written once."""
+    ``products`` times 2*N*V*D FLOPs over the peak rate of
+    ``dtype_name``. Bytes: x, W and the int64 labels read once, the fp32
+    nll written once. fp32 at 67 TFLOP/s is the FMA units' bound; TF32
+    alone (10 mantissa bits, about 1e-3 on a score) is ruled out for fp32,
+    and split TF32, the tensor cores' route, takes three tf32 products a
+    score (``"tfloat32"``, products=3)."""
     nbytes = (n * d + v * d) * elem + 8 * n + 4 * n
     t_bytes = nbytes / _PEAK_BYTES_PER_S
-    t_ops = 2.0 * n * v * d / _PEAK_FLOPS[dtype_name]
+    t_ops = products * 2.0 * n * v * d / _PEAK_FLOPS[dtype_name]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes > t_ops else "operations")
 
 
 def _time_kernel(torch, card):
+    """Kernel, plain, library and bound of the CE forward at the serving
+    shapes (fp32, and bf16 at N = 511), CUDA-event medians; each row also
+    carries the device time of the kernel and of the library call from a
+    traced window (``_device_ms``), which leaves the host's launch time
+    out, and, in fp32, the split-TF32 bound (three tf32 products a score
+    at the tensor cores' rate) and its TFLOP/s."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import lmhead_ce as ce
@@ -333,6 +447,14 @@ def _time_kernel(torch, card):
                    library_ms=_median_ms(torch, library, x, w, lbl),
                    bound_ms=bound_ms, bound_by=bound_by,
                    repeats=_REPEATS, card=card)
+        if dtype == torch.float32:  # the split-TF32 kernel's own bound
+            row["bound_tf32_ms"], row["bound_tf32_by"] = _bound(
+                n, _SERVE_D, _SERVE_V, "tfloat32", 4, products=3)
+            row["tflops_tf32"] = (6.0 * n * _SERVE_V * _SERVE_D
+                                  / row["kernel_ms"] / 1e9)
+        row["over_library"] = row["kernel_ms"] / row["library_ms"]
+        row["kernel_device_ms"] = _device_ms(torch, ce.lmhead_ce, x, w, lbl)
+        row["library_device_ms"] = _device_ms(torch, library, x, w, lbl)
         _say(**row)
         rows[(n, name)] = row
     return rows
@@ -1052,38 +1174,176 @@ def _time_flash(torch, card):
     return rows
 
 
-def _train(torch, card, config, batch, seq, phase, flash_per_step):
+def _train_program(config, batch, seq):
+    """(main, startup, io): bench.py's GPT training program with
+    Adam(1e-4), built under a fresh unique-name generator, so that two
+    builds (bf16 and fp32) name their persistables alike."""
+    from paddle_tpu_torch.framework import program_guard, unique_name
+    from paddle_tpu_torch.models.gpt import GPTConfig, build_train_program
+    from paddle_tpu_torch.optimizer import Adam
+
+    with unique_name.guard():
+        main, startup, io = build_train_program(GPTConfig(**config),
+                                                batch=batch, seq=seq)
+        with program_guard(main, startup):
+            Adam(learning_rate=1e-4).minimize(io["loss"])
+    if io["lm_head_impl"] != "pallas":
+        raise AssertionError(f"loss path {io['lm_head_impl']!r}, not the "
+                             f"fused kernels")
+    return main, startup, io
+
+
+def _fixed_batch(torch, vocab, batch, seq, device="cuda"):
+    """bench.py:60-65's fixed batch: tokens and labels from seed 0."""
+    r = np.random.RandomState(0)
+    return {k: torch.from_numpy(r.randint(0, vocab, (batch, seq)).astype(
+        np.int64)).to(device) for k in ("tokens", "labels")}
+
+
+def _executor(device):
+    from paddle_tpu_torch.framework import CPUPlace, Executor
+
+    return Executor(CPUPlace() if device == "cpu" else None)
+
+
+def _losses(program, start, feed, device, steps, dtype=None):
+    """The loss of each of ``steps`` steps of ``program`` (main, startup,
+    io) from the persistables ``start`` ({name: tensor}, cloned, cast to
+    ``dtype`` where given) on ``device``."""
+    from paddle_tpu_torch.framework import Scope
+
+    main, _, io = program
+    scope = Scope()
+    for name, t in start.items():
+        scope.set(name, t.to(dtype).clone() if dtype else t.clone())
+    exe = _executor(device)
+    return [float(exe.run(main, feed=feed, fetch_list=[io["loss"]],
+                          scope=scope)[0]) for _ in range(steps)]
+
+
+@contextlib.contextmanager
+def _plain_ce():
+    """The three CE kernels (forward, dx, dW) replaced by their plain
+    versions inside the wrappers, for the yardstick run Y of the loss band
+    and nothing else; undone on exit, which also fails unless the CE
+    kernels' launch counts stayed at 0 meanwhile."""
+    from paddle_tpu_torch.ops import lmhead_ce as ce
+
+    saved = ce._launch, ce._launch_dx, ce._launch_dw
+    ce.reset_launches()
+    ce._launch = ce.lmhead_ce_plain
+    ce._launch_dx, ce._launch_dw = ce.lmhead_ce_dx_plain, ce.lmhead_ce_dw_plain
+    try:
+        yield
+    finally:
+        ce._launch, ce._launch_dx, ce._launch_dw = saved
+    counts = ce.launches, ce.dx_launches, ce.dw_launches
+    if counts != (0, 0, 0):
+        raise AssertionError(f"CE kernels launched during the plain run: "
+                             f"{counts}")
+
+
+def _band_runs(torch, config, batch, seq, start, feed, device="cuda",
+               steps=_WARM_STEPS + _TIMED_STEPS) -> dict:
+    """The loss band's two reference trajectories from the initial
+    persistables ``start`` of the bf16 main path: Y, the same bf16 program
+    with the CE kernels replaced by their plain versions (``_plain_ce``),
+    and T, the truth, the program in fp32 (TF32 off: every kernel on its
+    fp32 route) from ``start`` cast up. Returns their losses and walls."""
+    out = {}
+    t0 = time.perf_counter()
+    with _plain_ce():
+        out["Y"] = _losses(_train_program(config, batch, seq), start, feed,
+                           device, steps)
+    t1 = time.perf_counter()
+    out["T"] = _losses(_train_program(dict(config, dtype="float32"), batch,
+                                      seq), start, feed, device, steps,
+                       torch.float32)
+    out["wall_s"] = {"Y": t1 - t0, "T": time.perf_counter() - t1}
+    return out
+
+
+# C2, the seq-512 loss band. K (the main path: bf16, the kernels), T (the
+# truth: the same program in fp32 with TF32 off, every kernel on its fp32
+# route) and Y (the yardstick: bf16 with the three CE kernels replaced by
+# their plain versions) train 13 steps on the fixed batch from the same
+# initial parameters (T's cast up to fp32). At every step t
+#     |K_t - T_t| <= _BAND_MULTIPLE * max_{s <= t} |Y_s - T_s| + _BAND_ATOL.
+# Why 2: K and Y run the same bf16 program and differ only in the CE
+# kernels' own last-bit differences (another order of fp32 sums, exp2f for
+# exp, d-logits rounded to bf16 at a boundary the other way); the bf16
+# rounding of the whole model, which moves both away from T, is shared. So
+# K should lie about as far from T as Y does, at most sqrt(2) times as far
+# if the CE differences were as large as all of bf16's and independent of
+# them; 2 leaves room above that. The running max keeps the band from
+# closing where Y's trajectory happens to cross T's. Why 1e-3: at step 1
+# (no update yet) K and Y differ only in the CE forward's summation order,
+# about 1e-5 of a mean loss near 10.5, while |Y - T| may be small; 1e-3 is
+# the last digit the loss is read to. A CE kernel that drops a vocabulary
+# tile, picks the wrong logit or rebuilds the d-logits from the wrong lse
+# moves every step's loss in one direction and leaves the band within a
+# few steps (tests/test_torch_smoke_checks.py shows a dropped tile
+# rejected and the plain and a reordered CE accepted).
+_BAND_MULTIPLE = 2.0
+_BAND_ATOL = 1e-3
+
+
+def _loss_band(k, t, y) -> dict:
+    """Holds trajectory ``k`` to the band around the truth ``t`` that the
+    yardstick ``y`` sets (the rule above); raises naming the steps outside
+    it, or if a loss is not finite or the lengths differ. Returns the
+    report: the three trajectories, each step's bound and distance, and the
+    worst ratio of distance to bound."""
+    if not (len(k) == len(t) == len(y)) or not all(
+            np.isfinite(k + t + y)):
+        raise AssertionError(f"loss band: trajectories not finite or of "
+                             f"unequal length: K {k}, T {t}, Y {y}")
+    reach, bounds, dists = 0.0, [], []
+    for kt, tt, yt in zip(k, t, y):
+        reach = max(reach, abs(yt - tt))
+        bounds.append(_BAND_MULTIPLE * reach + _BAND_ATOL)
+        dists.append(abs(kt - tt))
+    ratios = [dd / b for dd, b in zip(dists, bounds)]
+    report = dict(K=k, T=t, Y=y, bound=bounds, k_to_t=dists,
+                  worst_ratio=max(ratios), multiple=_BAND_MULTIPLE,
+                  atol=_BAND_ATOL)
+    outside = [i + 1 for i, r in enumerate(ratios) if not r <= 1.0]
+    if outside:
+        raise AssertionError(f"loss band: K lies outside the band at steps "
+                             f"{outside}: {report}")
+    return report
+
+
+def _train(torch, card, config, batch, seq, phase, flash_per_step,
+           band=False):
     """bench.py's gpt2s at ``seq`` through the port's training entry
     points: 3 warm-up + 10 timed steps on one fixed batch, every path
     kernel's launches counted from 0 over those 13 steps: the CE forward,
     dx and dW once a step, Adam 196 times, the flash forward, dq and dk/dv
     ``flash_per_step`` times (one per layer where attention takes flash,
     none where it takes the einsum path), and FLASH_DISPATCH_COUNT rising
-    by as many forwards. Returns the launches."""
-    from paddle_tpu_torch.framework import Executor, Scope, program_guard
-    from paddle_tpu_torch.models.gpt import GPTConfig, build_train_program
+    by as many forwards. With ``band``, first the loss band's T and Y runs
+    (``_band_runs``) from the main path's initial persistables, then the
+    main path (K), held by ``_loss_band``. Returns the launches."""
+    from paddle_tpu_torch.framework import Scope
     from paddle_tpu_torch.ops import attention
     from paddle_tpu_torch.ops import flash_attention as fl
     from paddle_tpu_torch.ops import fused_adam as fa
     from paddle_tpu_torch.ops import lmhead_ce as ce
-    from paddle_tpu_torch.optimizer import Adam
 
     t0 = time.perf_counter()
-    cfg = GPTConfig(**config)
-    main, startup, io = build_train_program(cfg, batch=batch, seq=seq)
-    with program_guard(main, startup):
-        Adam(learning_rate=1e-4).minimize(io["loss"])
+    program = _train_program(config, batch, seq)
+    main, startup, io = program
     build_s = time.perf_counter() - t0
-    if io["lm_head_impl"] != "pallas":
-        raise AssertionError(f"loss path {io['lm_head_impl']!r}, not the "
-                             f"fused kernels")
-    scope, exe = Scope(), Executor()
+    scope, exe = Scope(), _executor("cuda")
     exe.run(startup, scope=scope)
     n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
-    r = np.random.RandomState(0)  # the fixed batch of bench.py:60-65
-    feed = {k: torch.from_numpy(r.randint(0, cfg.vocab_size, (
-        batch, seq)).astype(np.int64)).cuda()
-        for k in ("tokens", "labels")}
+    feed = _fixed_batch(torch, config["vocab_size"], batch, seq)
+    if band:
+        start = {v.name: scope.get(v.name).detach().clone()
+                 for v in main.list_vars() if v.persistable}
+        runs = _band_runs(torch, config, batch, seq, start, feed)
+        del start
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -1133,6 +1393,11 @@ def _train(torch, card, config, batch, seq, phase, flash_per_step):
          card=card, note="one smoke run, not a benchmark")
     _profile_train_step(torch, exe, main, feed, io, scope, card,
                         phase + "_profile")
+    if band:
+        _say(phase=phase + "_loss_band", config=config, batch=batch, seq=seq,
+             wall_s=runs["wall_s"], card=card,
+             what="|K - T| <= multiple x max over s <= t of |Y - T| + atol",
+             **_loss_band(losses, runs["T"], runs["Y"]))
     return launches
 
 
@@ -1140,7 +1405,7 @@ def _train(torch, card, config, batch, seq, phase, flash_per_step):
 # the names the profiler gives their CUDA kernels (the CE forward counts
 # its combine launch with it)
 _TRACE_NAMES = {
-    "lmhead_ce_fwd": ("::fwd_sm90_kernel(", "::partial_kernel",
+    "lmhead_ce_fwd": ("::fwd_sm90_kernel(", "::fwd_f32_sm90_kernel(",
                       "::combine_kernel("),
     "lmhead_ce_dx": ("::bwd_sm90_kernel<true>",),
     "lmhead_ce_dw": ("::bwd_sm90_kernel<false>",),
@@ -1232,7 +1497,7 @@ def _tiny_steps(program, dev, flash_min_seq, steps=2):
     steps of a ``_tiny_program`` from its start on ``dev`` ("cpu": plain
     versions, "cuda": kernels), with PADDLE_TPU_FLASH_MIN_SEQ at
     ``flash_min_seq`` where it is given."""
-    from paddle_tpu_torch.framework import CPUPlace, Executor, Scope
+    from paddle_tpu_torch.framework import Scope
     from paddle_tpu_torch.ops import attention
     from paddle_tpu_torch.weights import scope_from_numpy
 
@@ -1242,7 +1507,7 @@ def _tiny_steps(program, dev, flash_min_seq, steps=2):
         os.environ["PADDLE_TPU_FLASH_MIN_SEQ"] = str(flash_min_seq)
     try:
         scope = scope_from_numpy(start, Scope(), dev)
-        exe = Executor(CPUPlace() if dev == "cpu" else None)
+        exe = _executor(dev)
         before = attention.FLASH_DISPATCH_COUNT
         losses = [float(exe.run(main, feed=feed, fetch_list=[io["loss"]],
                                 scope=scope)[0]) for _ in range(steps)]
@@ -1472,7 +1737,8 @@ def main() -> int:
     times = _time_training_kernels(torch, card)
     times.update(_time_flash(torch, card))
     serve_launches = _serve(torch, card)
-    train = _train(torch, card, _TRAIN, _TRAIN_B, _TRAIN_T, "train", 0)
+    train = _train(torch, card, _TRAIN, _TRAIN_B, _TRAIN_T, "train", 0,
+                   band=True)
     train_long = _train(torch, card, _LONG, _LONG_B, _LONG_T,
                         "train_long", _LAYERS)
     for case in _CPU_VS_CARD:
@@ -1496,21 +1762,23 @@ def main() -> int:
                                      "library_ms", "library_dx_dw_ms",
                                      "tflops", "over_library") if k in t}}
 
-    t = serve_times[(511, "float32")]
+    fp32_src = csrc + "lmhead_ce_fwd_f32_sm90.cu"
     fwd = _kernel_row(
         "lmhead_ce_fwd", pallas + "fused_lmhead_ce.py:99",
         csrc + "lmhead_ce_fwd_sm90.cu", train["lmhead_ce_fwd"],
         max(serve_err, errs["lmhead_ce_fwd"]), times["lmhead_ce_fwd"], card,
-        shape=shape, source_fp32=ce_src,
+        shape=shape, source_fp32=fp32_src, source_combine=ce_src,
         launches_by_path=by_path("lmhead_ce_fwd", serve=serve_launches),
         tflops=times["lmhead_ce_fwd"]["tflops"],
         over_library=times["lmhead_ce_fwd"]["over_library"],
         long_shape=long_shape("lmhead_ce_fwd"),
-        serve_shape={"n": 511, "d": _SERVE_D, "v": _SERVE_V,
-                     "dtype": "float32", "source": ce_src,
-                     "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
-                     "bound_ms": t["bound_ms"],
-                     "library_ms": t["library_ms"]})
+        serve_shapes=[{"n": n, "d": _SERVE_D, "v": _SERVE_V,
+                       "dtype": "float32", "source": fp32_src,
+                       **{k: serve_times[(n, "float32")][k] for k in (
+                           "kernel_ms", "plain_ms", "library_ms",
+                           "bound_ms", "bound_tf32_ms", "tflops_tf32",
+                           "over_library")}}
+                      for n in _SCORE_NS])
 
     rows = [fwd] + [
         _kernel_row(name, pallas + where, csrc + "lmhead_ce_bwd_sm90.cu",

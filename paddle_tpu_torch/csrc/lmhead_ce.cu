@@ -1,63 +1,54 @@
-// Fused lm-head + softmax cross-entropy, forward and backward, in fp32 for
-// Hopper (sm_90a).
+// Fused lm-head + softmax cross-entropy in fp32 for Hopper (sm_90a): the
+// backward products, and the combine launch of every forward.
 //
-// Replaces, for fp32 inputs, the three TPU kernels of
+// Replaces, for fp32 inputs, two of the three TPU kernels of
 // paddle_tpu/ops/pallas/fused_lmhead_ce.py (each run through
-// pl.pallas_call):
+// pl.pallas_call), and finishes the third:
 //   _stats_kernel (forward, by _stats_call): for each token row n, without
 //     writing the [N, V] logits to device memory,
 //         lse[n] = logsumexp_v (x[n] . w[v])
 //         nll[n] = lse[n] - (x[n] . w[label[n]])   (0 picked if the label
 //                                                 lies outside [0, V))
+//     Its partial stats (max, sum-exp, picked) per (row tile, vocabulary
+//     chunk) come from the tensor cores: bf16 in lmhead_ce_fwd_sm90.cu,
+//     fp32 in lmhead_ce_fwd_f32_sm90.cu (split TF32: three tf32 products a
+//     score, about 2^-22 of a product dropped, fp32-class accuracy). This
+//     file's combine launch merges them.
 //   _dx_kernel (backward, by _dx_call) and _dw_kernel (by _dw_call), from
 //     the saved lse and a per-row cotangent g, again without an [N, V]
 //     buffer of logits or of d-logits:
 //         dl[n, v] = (exp(x[n] . w[v] - lse[n]) - [v == label[n]]) * g[n]
 //         dx = dl . W   (N x D)        dW = dl^T . x   (V x D)
 //     with fp32 accumulators cast once at the end.
-// Products are full fp32 (no TF32) and every sum accumulates in fp32. bf16
-// runs on the tensor cores: the forward's partials in
-// lmhead_ce_fwd_sm90.cu (merged by this file's combine launch), dx and dW
-// in lmhead_ce_bwd_sm90.cu. The serving path scores in fp32, so it takes
-// this file's forward.
+// The backward's products are full fp32 on the FMA units and every sum
+// accumulates in fp32. bf16 dx and dW run on the tensor cores
+// (lmhead_ce_bwd_sm90.cu).
 //
-// Bound on this card (H100 SXM): operations. The forward takes 2*N*V*D
-// FLOPs, each backward product 4*N*V*D (the score tile is rebuilt, then
-// multiplied again): at serving's N=511, D=768, V=32000 the forward is
-// 25.1 GFLOP, 0.375 ms at the 67 TFLOP/s of the fp32 FMA units, which is
-// what these kernels run on (fp32 has no faster route but TF32, which the
-// contract's full-fp32 products rule out).
+// Bound on this card (H100 SXM): operations. Each backward product takes
+// 4*N*V*D FLOPs (the score tile is rebuilt, then multiplied again): at
+// N=511, D=768, V=32768 that is 51.4 GFLOP, 0.77 ms at the 67 TFLOP/s of
+// the fp32 FMA units, which is what these kernels run on. TF32 alone (10
+// mantissa bits) is ruled out for fp32; split TF32 (three tf32 products)
+// is the tensor cores' route, which the forward takes.
 //
-// Design, forward. The TPU grid walks the vocab tiles of one token block
-// in order on one core and carries (max, sum-exp, picked) in VMEM from
-// tile to tile. Blocks on Hopper run in parallel and in no order, and at
-// serving's N=31 a grid over token blocks alone would fill one of the 132
-// SMs. So the work is split two ways, in two launches:
-//   1. lmhead_ce_partial: grid (token blocks x vocab chunks), sized by the
-//      wrapper to about 4 blocks per SM. A block stages a 64-row x tile and
-//      a 64-column W tile in shared memory BK=32 deep at a time
-//      (transposed, so that each thread reads its 4 rows and its 4 columns
-//      as one float4 each), forms the 64x64 score tile with fp32
-//      FMAs (4x4 scores per thread, in registers; two 16-byte shared loads
-//      feed 16 FMAs, so the FMA units and not shared memory set the pace),
-//      and folds it into per-row online (m, l, picked) for its vocab chunk;
-//      the 16 threads that share a row reduce with warp shuffles. It writes
-//      the chunk's partial stats [S, N] x 3.
-//   2. lmhead_ce_combine: one thread per row merges the S partials exactly
-//      as the cross-shard combine of fused_lmhead_ce.py:344-348 does:
-//      mg = max m, l = sum l*exp(m - mg), picked = sum picked; then
-//      lse = mg + log(l > 0 ? l : 1) and nll = lse - picked.
+// Combine. lmhead_ce_combine: one thread per row merges the S partials
+// exactly as the cross-shard combine of fused_lmhead_ce.py:344-348 does:
+// mg = max m, l = sum l*exp(m - mg), picked = sum picked; then
+// lse = mg + log(l > 0 ? l : 1) and nll = lse - picked.
 //
 // Design, backward (fp32). dx and dW are one kernel (bwd_partial_kernel)
 // with the roles of x and W swapped: a block owns 64 "rows" (tokens for
 // dx, vocab entries for dW) and sweeps 64-wide tiles of "columns" (the
-// other side). For each column tile it rebuilds the 64x64 score tile as
-// the forward does, turns it into d-logits in registers (lse, g and the
-// label belong to the token side), parks them in shared memory, and adds
-// d-logits . (the column tile's D-wide rows) into a 64 x D fp32
-// accumulator that lives in shared memory (196,608 bytes at D=768; with
-// the staging tiles 231,424 of the 232,448 bytes a block may use; a wider
-// D is swept in slabs of 768, rebuilding the scores once per slab).
+// other side). For each column tile it stages a 64-row and a 64-column
+// tile BK=32 deep at a time in shared memory (transposed, so that each
+// thread reads its 4 rows and its 4 columns as one float4 each), forms the
+// 64x64 score tile with fp32 FMAs (4x4 scores per thread), turns it into
+// d-logits in registers (lse, g and the label belong to the token side),
+// parks them in shared memory, and adds d-logits . (the column tile's
+// D-wide rows) into a 64 x D fp32 accumulator that lives in shared memory
+// (196,608 bytes at D=768; with the staging tiles 231,424 of the 232,448
+// bytes a block may use; a wider D is swept in slabs of 768, rebuilding
+// the scores once per slab).
 // Parallelism: where rows alone leave the card idle (dx at small N), the
 // column sweep is split into chunks, the TPU's sequential grid axis turned
 // parallel: each (row block, chunk) writes an fp32 partial [chunks, N, D]
@@ -72,8 +63,7 @@
 
 namespace {
 
-constexpr int BN = 64;        // token rows per block
-constexpr int BV = 64;        // vocab columns per tile
+constexpr int BN = 64;        // rows per block
 constexpr int BK = 32;        // depth staged in shared memory per step
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 scores each
 constexpr int TM = 4;
@@ -96,112 +86,6 @@ __device__ __forceinline__ void stage(float (*dst)[BN + PAD],
     const int k = (chunk >> 4) * 8 + (lane >> 2);
     const int gr = r0 + r, gk = k0 + k;
     dst[k][r] = (gr < rows && gk < d) ? src[(size_t)gr * d + gk] : 0.f;
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-partial_kernel(const float* __restrict__ x, const float* __restrict__ w,
-               const long long* __restrict__ labels,
-               float* __restrict__ m_part, float* __restrict__ l_part,
-               float* __restrict__ pk_part, int n, int d, int v,
-               int tiles_per_chunk) {
-  __shared__ __align__(16) float xs[BK][BN + PAD];
-  __shared__ __align__(16) float ws[BK][BV + PAD];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // owns tile columns 4*tx .. 4*tx + 3
-  const int ty = tid / 16;  // owns tile rows 4*ty .. 4*ty + 3; the 16 lanes
-                            // of one ty are a half-warp, so row reductions
-                            // are shuffles
-  const int row0 = blockIdx.x * BN;
-  const int chunk = blockIdx.y;
-  const int col_begin = chunk * tiles_per_chunk * BV;
-  const int col_end = min(v, col_begin + tiles_per_chunk * BV);
-
-  float m_run[TM], l_run[TM], picked[TM];
-  long long lbl[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + 4 * ty + i;
-    m_run[i] = NEG;
-    l_run[i] = 0.f;
-    picked[i] = 0.f;
-    lbl[i] = r < n ? labels[r] : -1;
-  }
-
-  for (int c0 = col_begin; c0 < col_end; c0 += BV) {
-    float acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < d; k0 += BK) {
-      stage(xs, x, row0, n, k0, d, tid);
-      stage(ws, w, c0, col_end, k0, d, tid);
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < BK; ++k) {
-        const float4 a = *reinterpret_cast<const float4*>(&xs[k][4 * ty]);
-        const float4 b = *reinterpret_cast<const float4*>(&ws[k][4 * tx]);
-        const float av[TM] = {a.x, a.y, a.z, a.w};
-        const float bv[TN] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j)
-            acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-
-    // online (max, sum-exp, picked) update of each owned row
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      float tmax = NEG;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int col = c0 + 4 * tx + j;
-        if (col < col_end) {
-          tmax = fmaxf(tmax, acc[i][j]);
-          if ((long long)col == lbl[i]) picked[i] += acc[i][j];
-        }
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      const float m_new = fmaxf(m_run[i], tmax);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int col = c0 + 4 * tx + j;
-        sum += col < col_end ? expf(acc[i][j] - m_new) : 0.f;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l_run[i] = l_run[i] * expf(m_run[i] - m_new) + sum;
-      m_run[i] = m_new;
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      picked[i] += __shfl_xor_sync(0xffffffffu, picked[i], off);
-  }
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int r = row0 + 4 * ty + i;
-      if (r < n) {
-        const size_t at = (size_t)chunk * n + r;
-        m_part[at] = m_run[i];
-        l_part[at] = l_run[i];
-        pk_part[at] = picked[i];
-      }
-    }
   }
 }
 
@@ -427,24 +311,8 @@ int launch_bwd(const void* a, const void* b, const void* labels,
 
 extern "C" {
 
-// fp32 partial stats of every (token block, vocab chunk): m/l/pk_part are
-// [n_chunks, n] fp32; chunk s covers vocab tiles
-// [s * tiles_per_chunk, (s + 1) * tiles_per_chunk) of BV columns.
-int lmhead_ce_partial(const void* x, const void* w, const void* labels,
-                      void* m_part, void* l_part, void* pk_part, int n, int d,
-                      int v, int tiles_per_chunk, int n_chunks,
-                      void* stream) {
-  const dim3 grid((n + BN - 1) / BN, n_chunks);
-  partial_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const long long*>(labels), static_cast<float*>(m_part),
-      static_cast<float*>(l_part), static_cast<float*>(pk_part), n, d, v,
-      tiles_per_chunk);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Merge the n_chunks partials of each row (of this file's partial kernel
-// or of lmhead_ce_fwd_sm90) into lse and nll ([n] fp32).
+// Merge the n_chunks partials of each row (of lmhead_ce_fwd_sm90 or
+// lmhead_ce_fwd_f32_sm90) into lse and nll ([n] fp32).
 int lmhead_ce_combine(const void* m_part, const void* l_part,
                       const void* pk_part, void* nll, void* lse, int n,
                       int n_chunks, void* stream) {
@@ -457,9 +325,8 @@ int lmhead_ce_combine(const void* m_part, const void* l_part,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Geometry the wrapper sizes the grid and the partials with.
+// Row tile of the fp32 backward, which the wrapper sizes its grid with.
 int lmhead_ce_tile_n() { return BN; }
-int lmhead_ce_tile_v() { return BV; }
 
 
 // fp32 backward partials (bf16 takes lmhead_ce_bwd_sm90.cu): token_rows =

@@ -1,15 +1,15 @@
 // What the sm_90a kernels share (lmhead_ce_bwd_sm90.cu,
-// lmhead_ce_fwd_sm90.cu, flash_attention_fwd_sm90.cu,
-// flash_attention_bwd_sm90.cu): mbarriers, TMA
-// loads, wgmma shared-memory descriptors and instructions, and, on the
+// lmhead_ce_fwd_sm90.cu, lmhead_ce_fwd_f32_sm90.cu,
+// flash_attention_fwd_sm90.cu, flash_attention_bwd_sm90.cu): mbarriers,
+// TMA loads, wgmma shared-memory descriptors and instructions, and, on the
 // host, the encoding of TMA tensor maps.
 //
 // Every operand these kernels hand to wgmma from shared memory is a tile
-// of 64 bf16 columns (128 bytes a row) written by TMA with the 128-byte
-// swizzle, so one descriptor form serves all of them (desc()). The host
-// encodes tensor maps with cuTensorMapEncodeTiled, obtained through
-// cudaGetDriverEntryPoint (the library does not link libcuda); a kernel
-// takes them as __grid_constant__ parameters.
+// of 128-byte rows (64 bf16 or 32 fp32 columns) written by TMA with the
+// 128-byte swizzle, so one descriptor form serves all of them (desc()).
+// The host encodes tensor maps with cuTensorMapEncodeTiled, obtained
+// through cudaGetDriverEntryPoint (the library does not link libcuda); a
+// kernel takes them as __grid_constant__ parameters.
 
 #pragma once
 
@@ -21,6 +21,7 @@
 namespace sm90 {
 
 constexpr int BOX_COLS = 64;  // bf16 columns of every TMA box: 128 bytes
+constexpr int BOX_COLS_F32 = 32;  // fp32 columns of a box: 128 bytes
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory of one block
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -68,6 +69,12 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// Make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma's operand reads, later TMA writes to the same bytes).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // ---------------------------------------------------------------- TMA
@@ -197,6 +204,40 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d[64 x 128] (+)= A[64 x 8] . B[128 x 8]^T in tf32, both K-major in
+// shared memory (rows of 32 fp32 values; a k8 slice starts 32 bytes
+// further per slice, as a k16 slice of bf16 does). The tensor cores read
+// the top 19 bits of each fp32 value (sign, exponent, 10 mantissa bits):
+// values whose low 13 bits are zero are taken exactly.
+__device__ __forceinline__ void wgmma_n128_tf32(float (&d)[64], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d[64 x 64] += A[64 x 16] . B[16 x 64], A from registers (bf16 pairs:
 // a[0] rows r, columns 2 (t % 4) + {0, 1}; a[1] rows r + 8, the same
 // columns; a[2], a[3] the same 8 columns further, with r = 16 (t / 32) +
@@ -252,29 +293,37 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A bf16 tensor of `rank` dimensions (dims[0] contiguous; strides in bytes
-// of dims 1..rank-1) in boxes of 64 x box_rows (x 1), 128-byte swizzle,
-// zeros outside. False if the encoder refuses it (a pointer or a stride
-// not a multiple of 16 bytes).
+// A bf16 (or, with f32, fp32) tensor of `rank` dimensions (dims[0]
+// contiguous; strides in bytes of dims 1..rank-1) in boxes of 128 bytes
+// (64 bf16 or 32 fp32 values) x box_rows (x 1), 128-byte swizzle, zeros
+// outside. False if the encoder refuses it (a pointer or a stride not a
+// multiple of 16 bytes).
 inline bool make_map(CUtensorMap* map, const void* ptr, int rank,
                      const cuuint64_t* dims, const cuuint64_t* strides,
-                     int box_rows) {
-  const cuuint32_t box[3] = {BOX_COLS, static_cast<cuuint32_t>(box_rows), 1};
+                     int box_rows, bool f32 = false) {
+  const cuuint32_t box[3] = {
+      static_cast<cuuint32_t>(f32 ? BOX_COLS_F32 : BOX_COLS),
+      static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+  return encoder()(map,
+                   f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                   rank,
                    const_cast<void*>(ptr), dims, strides, box, elem,
                    CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A row-major [rows, d] bf16 matrix in 64 x box_rows boxes.
+// A row-major [rows, d] bf16 (or fp32) matrix in 128-byte x box_rows
+// boxes.
 inline bool make_map_2d(CUtensorMap* map, const void* ptr, int rows, int d,
-                        int box_rows) {
+                        int box_rows, bool f32 = false) {
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};
-  return make_map(map, ptr, 2, dims, strides, box_rows);
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) *
+                                 (f32 ? 4 : 2)};
+  return make_map(map, ptr, 2, dims, strides, box_rows, f32);
 }
 
 // Launch with `smem` bytes of dynamic shared memory: the CUDA error of

@@ -91,8 +91,6 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """argtypes for every entry point: a pointer or a stream as a Python
     int is 64 bits wide and must not be passed as a 32-bit C int."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lmhead_ce_partial.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
-    lib.lmhead_ce_partial.restype = i
     lib.lmhead_ce_combine.argtypes = [p, p, p, p, p, i, i, p]
     lib.lmhead_ce_combine.restype = i
     lib.lmhead_ce_bwd_partial.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
@@ -102,13 +100,16 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lmhead_ce_bwd_reduce.restype = i
     lib.lmhead_ce_bwd_sm90.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
     lib.lmhead_ce_bwd_sm90.restype = i
-    lib.lmhead_ce_fwd_sm90.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
-    lib.lmhead_ce_fwd_sm90.restype = i
-    for tile in (lib.lmhead_ce_tile_n, lib.lmhead_ce_tile_v,
-                 lib.lmhead_ce_bwd_max_slab, lib.lmhead_ce_sm90_tile,
-                 lib.lmhead_ce_sm90_half, lib.lmhead_ce_sm90_slab,
-                 lib.lmhead_ce_sm90_max_d, lib.lmhead_ce_fwd_sm90_tile_n,
-                 lib.lmhead_ce_fwd_sm90_tile_v, lib.flash_attn_fwd_sm90_tile_q,
+    for fwd in (lib.lmhead_ce_fwd_sm90, lib.lmhead_ce_fwd_f32_sm90):
+        fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+        fwd.restype = i
+    for tile in (lib.lmhead_ce_tile_n, lib.lmhead_ce_bwd_max_slab,
+                 lib.lmhead_ce_sm90_tile, lib.lmhead_ce_sm90_half,
+                 lib.lmhead_ce_sm90_slab, lib.lmhead_ce_sm90_max_d,
+                 lib.lmhead_ce_fwd_sm90_tile_n, lib.lmhead_ce_fwd_sm90_tile_v,
+                 lib.lmhead_ce_fwd_f32_sm90_tile_n,
+                 lib.lmhead_ce_fwd_f32_sm90_tile_v,
+                 lib.flash_attn_fwd_sm90_tile_q,
                  lib.flash_attn_fwd_sm90_tile_kv):
         tile.argtypes = []
         tile.restype = i

@@ -4,18 +4,23 @@ Port of ``paddle_tpu/ops/pallas/fused_lmhead_ce.py`` (``lmhead_ce`` and
 its custom VJP: ``_stats_kernel`` forward, ``_dx_kernel`` and
 ``_dw_kernel`` backward). The kernels are in
 ``paddle_tpu_torch/csrc/lmhead_ce_fwd_sm90.cu`` (bf16 forward on the
-tensor cores), ``paddle_tpu_torch/csrc/lmhead_ce_bwd_sm90.cu`` (bf16
-backward on the tensor cores) and ``paddle_tpu_torch/csrc/lmhead_ce.cu``
-(fp32 forward and backward on the FMA units, and the forward's combine
-launch), whose headers state what bounds them on the card and how the
-design answers that:
+tensor cores), ``paddle_tpu_torch/csrc/lmhead_ce_fwd_f32_sm90.cu`` (fp32
+forward on the tensor cores through split TF32),
+``paddle_tpu_torch/csrc/lmhead_ce_bwd_sm90.cu`` (bf16 backward on the
+tensor cores) and ``paddle_tpu_torch/csrc/lmhead_ce.cu`` (fp32 backward
+on the FMA units, and the forward's combine launch), whose headers state
+what bounds them on the card and how the design answers that:
 
 - forward (``launches``): a split-vocab partial-stats launch and a
-  combine launch, counted as one kernel. bf16 partials: one wgmma launch
-  over (128-row tiles x vocab chunks), :func:`sm90_fwd_blocks`; fp32
-  partials: the SIMT launch over (64-row tiles x vocab chunks). The
-  serving path scores in fp32 (``serving/model.py``), so it stays on the
-  SIMT partials; training runs bf16;
+  combine launch, counted as one kernel. Both dtypes' partials are one
+  wgmma launch over (128-row tiles x vocab chunks),
+  :func:`sm90_fwd_blocks`. bf16 multiplies bf16 with fp32 sums; fp32
+  writes each operand as hi + lo, two tf32 values (hi rounded to
+  nearest, lo the rounded remainder), and sums three tf32 products a
+  score (hi.hi + lo.hi + hi.lo): about 2^-22 of each product is dropped,
+  so its scores are fp32-class (TF32 alone, 10 mantissa bits, would put
+  about 1e-3 on a score). The serving path (``serving/model.py``) scores
+  in fp32; training runs bf16;
 - dx (``dx_launches``) and dW (``dw_launches``): in bf16 one wgmma
   launch over (row tiles x D halves), :func:`sm90_blocks`; in fp32 a
   SIMT launch over row tiles (dx at small N splits the vocabulary and
@@ -40,13 +45,13 @@ Entry points:
 Labels outside ``[0, V)`` (negative ones included) pick nothing and hit
 no column, as on the TPU. Inputs are fp32 or bf16; sums are fp32; the
 backward rounds the d-logits to the inputs' dtype before the second
-product, as the TPU kernels do. The bf16 kernels read x and W through
-TMA, which needs a row pitch of a multiple of 16 bytes: for a D that is
-not a multiple of 8 the wrapper pads x and W with zero columns into a
-copy (zero columns add nothing to any score or product) and returns the
-first D columns. The bf16 forward streams D, so it takes any D; the bf16
-backward keeps the 64-row tile resident in shared memory, so bf16 dx and
-dW take D up to 1024 and raise above it.
+product, as the TPU kernels do. The tensor-core kernels read x and W
+through TMA, which needs a row pitch of a multiple of 16 bytes: for a D
+that is not a multiple of 8 the wrapper pads x and W with zero columns
+into a copy (zero columns add nothing to any score or product) and
+returns the first D columns. The forwards stream D, so they take any D;
+the bf16 backward keeps the 64-row tile resident in shared memory, so
+bf16 dx and dW take D up to 1024 and raise above it.
 """
 from __future__ import annotations
 
@@ -65,8 +70,9 @@ launches = 0      # forward (stats)
 dx_launches = 0   # backward dx
 dw_launches = 0   # backward dW
 
-# vocab chunks per token block are sized for about this many blocks per
-# SM, so that a 31-token score still spreads over the whole card
+# split_vocab sizes the vocab chunks of a row block for about this many
+# blocks per SM by default, so that a 31-token grid still spreads over the
+# whole card
 _BLOCKS_PER_SM = 4
 # the fp32 backward's 64 x D shared-memory accumulator leaves room for
 # one block per SM: two waves of blocks
@@ -74,10 +80,10 @@ _BWD_BLOCKS_PER_SM = 2
 # the bf16 backward's row tile, D columns per block and per consumer
 # warpgroup (csrc/lmhead_ce_bwd_sm90.cu)
 SM90_TILE, SM90_HALF, SM90_SLAB = 64, 384, 192
-# the bf16 forward's token rows per block and vocab columns per tile
-# (csrc/lmhead_ce_fwd_sm90.cu)
+# the forwards' token rows per block and vocab columns per tile, both
+# dtypes (csrc/lmhead_ce_fwd_sm90.cu, csrc/lmhead_ce_fwd_f32_sm90.cu)
 SM90_FWD_TILE_N, SM90_FWD_TILE_V = 128, 128
-# its blocks run one per SM; its vocab chunks are sized for about this
+# their blocks run one per SM; their vocab chunks are sized for about this
 # many blocks per SM over the launch, so that the last of several waves
 # leaves little of the card idle
 _SM90_FWD_BLOCKS_PER_SM = 8
@@ -193,13 +199,13 @@ def _sms(dev) -> int:
 
 
 def sm90_fwd_split(n: int, v: int, sms: int) -> Tuple[int, int]:
-    """(tiles_per_chunk, chunks) of the bf16 forward's launch."""
+    """(tiles_per_chunk, chunks) of the forward's launch (both dtypes)."""
     return split_vocab(n, v, SM90_FWD_TILE_N, SM90_FWD_TILE_V, sms,
                        _SM90_FWD_BLOCKS_PER_SM)
 
 
 def sm90_fwd_blocks(n: int, v: int, sms: int):
-    """The bf16 forward's grid, in launch order (the row tile fastest):
+    """The forward's grid, in launch order (the row tile fastest):
     one entry per block, ``(rows, cols)``, each its [start, end) of token
     rows and of vocab columns (its chunk), clipped to N and V."""
     per, chunks = sm90_fwd_split(n, v, sms)
@@ -215,40 +221,29 @@ def _aligned(*ts: torch.Tensor):
     return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in ts)
 
 
+# the forward's partial-stats entry point by dtype
+_FWD_ENTRY = {torch.bfloat16: "lmhead_ce_fwd_sm90",
+              torch.float32: "lmhead_ce_fwd_f32_sm90"}
+
+
 def _partial_sm90(lib, x2d, w, lbl, sms, stream) -> torch.Tensor:
-    """The bf16 partial stats [3, chunks, N] on the tensor cores."""
+    """The partial stats [3, chunks, N] on the tensor cores (bf16, or fp32
+    through split TF32)."""
     n, v = x2d.shape[0], w.shape[0]
     x2d, w = _aligned(*pad_d(x2d, w))
     per, chunks = sm90_fwd_split(n, v, sms)
     part = torch.empty((3, chunks, n), dtype=torch.float32,
                        device=x2d.device)
-    err = lib.lmhead_ce_fwd_sm90(
+    entry = _FWD_ENTRY[x2d.dtype]
+    err = getattr(lib, entry)(
         x2d.data_ptr(), w.data_ptr(), lbl.data_ptr(), part[0].data_ptr(),
         part[1].data_ptr(), part[2].data_ptr(), n, x2d.shape[1], v, per,
         chunks, stream)
     if err:
         raise RuntimeError(
-            f"lmhead_ce forward (sm90) launch failed: error {err} (n={n}, "
+            f"lmhead_ce forward ({entry}) launch failed: error {err} (n={n}, "
             f"d={x2d.shape[1]}, v={v}, chunks={chunks}; -2: no "
             f"cuTensorMapEncodeTiled, -3: tensor map refused)")
-    return part
-
-
-def _partial_simt(lib, x2d, w, lbl, sms, stream) -> torch.Tensor:
-    """The fp32 partial stats [3, chunks, N] on the FMA units."""
-    n, d = x2d.shape
-    v = w.shape[0]
-    per, chunks = split_vocab(n, v, lib.lmhead_ce_tile_n(),
-                              lib.lmhead_ce_tile_v(), sms)
-    part = torch.empty((3, chunks, n), dtype=torch.float32,
-                       device=x2d.device)
-    err = lib.lmhead_ce_partial(
-        x2d.data_ptr(), w.data_ptr(), lbl.data_ptr(), part[0].data_ptr(),
-        part[1].data_ptr(), part[2].data_ptr(), n, d, v, per, chunks,
-        stream)
-    if err:
-        raise RuntimeError(f"lmhead_ce_partial launch failed: CUDA error "
-                           f"{err} (n={n}, d={d}, v={v}, chunks={chunks})")
     return part
 
 
@@ -266,9 +261,7 @@ def _launch(x2d: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
         return nll, lse
     lbl = labels.to(torch.int64).contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    partial = (_partial_sm90 if x2d.dtype == torch.bfloat16
-               else _partial_simt)
-    part = partial(lib, x2d, w, lbl, _sms(dev), stream)
+    part = _partial_sm90(lib, x2d, w, lbl, _sms(dev), stream)
     chunks = part.shape[1]
     err = lib.lmhead_ce_combine(
         part[0].data_ptr(), part[1].data_ptr(), part[2].data_ptr(),

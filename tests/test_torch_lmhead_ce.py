@@ -362,18 +362,19 @@ def test_sm90_fwd_blocks_cover_every_row_tile_and_vocab_tile_once(n, v):
 
 
 class _FwdRecorder(_Recorder):
-    """The library stand-in, with the forward's geometry getters and an
-    error code for the sm90 entry points."""
+    """The library stand-in, with an error code for the forward's sm90
+    entry points (bf16, and fp32 through split TF32)."""
 
     def __init__(self, err=0):
         super().__init__()
         self.err = err
 
-    def lmhead_ce_tile_v(self):
-        return 64
-
     def lmhead_ce_fwd_sm90(self, *args):
         self.calls.append(("lmhead_ce_fwd_sm90", args))
+        return self.err
+
+    def lmhead_ce_fwd_f32_sm90(self, *args):
+        self.calls.append(("lmhead_ce_fwd_f32_sm90", args))
         return self.err
 
 
@@ -384,15 +385,21 @@ def _stub_launch(monkeypatch, lib):
                         lambda dev=None: type("S", (), {"cuda_stream": 0}))
 
 
+# the ids are those the cases had when fp32 took the SIMT partials
+# ("lmhead_ce_partial"), kept so that runs before and after compare
 @pytest.mark.parametrize("dtype,d,entry", [
-    (torch.bfloat16, 64, "lmhead_ce_fwd_sm90"),
-    (torch.bfloat16, 60, "lmhead_ce_fwd_sm90"),
-    (torch.float32, 64, "lmhead_ce_partial")])
+    pytest.param(torch.bfloat16, 64, "lmhead_ce_fwd_sm90",
+                 id="dtype0-64-lmhead_ce_fwd_sm90"),
+    pytest.param(torch.bfloat16, 60, "lmhead_ce_fwd_sm90",
+                 id="dtype1-60-lmhead_ce_fwd_sm90"),
+    pytest.param(torch.float32, 64, "lmhead_ce_fwd_f32_sm90",
+                 id="dtype2-64-lmhead_ce_partial")])
 def test_forward_routes_bf16_to_the_tensor_core_kernel(monkeypatch, dtype, d,
                                                        entry):
-    """The bf16 forward's partials go to the sm90 entry point (D padded to
-    a multiple of 8, the chunks of sm90_fwd_split), fp32's to the SIMT
-    one; both are merged by the combine launch; one launch counted."""
+    """The forward's partials go to the sm90 entry point of their dtype
+    (bf16; fp32 through split TF32) with D padded to a multiple of 8 and
+    the chunks of sm90_fwd_split; the combine launch merges them; one
+    launch counted."""
     lib = _FwdRecorder()
     _stub_launch(monkeypatch, lib)
     n, v = 300, 1000
@@ -403,11 +410,8 @@ def test_forward_routes_bf16_to_the_tensor_core_kernel(monkeypatch, dtype, d,
     names = [name for name, _ in lib.calls]
     assert names == [entry, "lmhead_ce_combine"]
     args = lib.calls[0][1]
-    if entry == "lmhead_ce_fwd_sm90":
-        per, chunks = torch_ce.sm90_fwd_split(n, v, 132)
-        assert args[6:11] == (n, 64, v, per, chunks)
-    else:
-        assert args[6:9] == (n, d, v)
+    per, chunks = torch_ce.sm90_fwd_split(n, v, 132)
+    assert args[6:11] == (n, 64, v, per, chunks)
     assert lib.calls[1][1][-2] == args[10]  # combine merges every chunk
 
 
@@ -425,6 +429,24 @@ def test_forward_raises_on_a_refused_launch(monkeypatch):
         torch_ce._launch(x.bfloat16(), w.bfloat16(), lbl)
     assert torch_ce.launches == 0 and calls == []
     assert [name for name, _ in lib.calls] == ["lmhead_ce_fwd_sm90"]
+
+
+def test_fp32_forward_raises_on_a_refused_launch(monkeypatch):
+    """A refused fp32 (split-TF32) launch raises with its code; no launch
+    is counted, the plain version is not taken and no other entry point
+    is tried."""
+    calls = []
+    monkeypatch.setattr(torch_ce, "lmhead_ce_plain",
+                        lambda *a: calls.append(a))
+    lib = _FwdRecorder(err=-3)
+    _stub_launch(monkeypatch, lib)
+    x, w, lbl = (torch.from_numpy(a) for a in _data(40, 64, 300))
+    torch_ce.reset_launches()
+    with pytest.raises(RuntimeError, match="lmhead_ce_fwd_f32_sm90.*error "
+                                           "-3.*tensor map refused"):
+        torch_ce._launch(x, w, lbl)
+    assert torch_ce.launches == 0 and calls == []
+    assert [name for name, _ in lib.calls] == ["lmhead_ce_fwd_f32_sm90"]
 
 
 def test_build_key_follows_the_headers(monkeypatch, tmp_path):

@@ -35,7 +35,14 @@ in for the kernels.
 - CPU against card (``_tiny_agree``): the tiny flash GPT leg, run twice
   on the CPU, agrees with itself, and a run whose dq is 2% too large is
   rejected (Adam's parameter step hardly sees a gradient's size; the
-  moments do)."""
+  moments do).
+- The seq-512 loss band (``_loss_band``, C2), on a tiny bf16 GPT trained
+  13 steps on the CPU from one start: K trained with the wrappers (the
+  plain versions here) and with a CE forward whose logits are summed in
+  fp64 and read last column to first lie inside the band that Y (bf16,
+  plain CE) sets around T (fp32); a CE forward that drops one 128-column
+  vocabulary tile lies outside. ``_plain_ce`` is undone on exit and fails
+  if a CE kernel launch was counted inside it."""
 import os
 import sys
 
@@ -525,3 +532,95 @@ def test_chain_bound_passes(layout, alter):
 def test_chain_bound_rejects_faults(layout, alter):
     with pytest.raises(AssertionError, match="chain beyond its bound"):
         _chain(layout, alter)
+
+
+# the loss band's tiny config: 4 vocabulary tiles of 128, bf16
+_BAND = dict(vocab_size=512, n_layer=2, n_head=2, d_model=64, max_seq_len=32,
+             dtype="bfloat16")
+_BAND_B, _BAND_T = 4, 32
+
+
+@pytest.fixture(scope="module")
+def band():
+    """(program, start, feed, runs): the bf16 program, its initial
+    persistables, the fixed batch and ``_band_runs``' T and Y, on the
+    CPU."""
+    from paddle_tpu_torch.framework import Scope
+
+    program = chip_smoke._train_program(_BAND, _BAND_B, _BAND_T)
+    scope = Scope()
+    chip_smoke._executor("cpu").run(program[1], scope=scope)
+    start = {v.name: scope.get(v.name).detach().clone()
+             for v in program[0].list_vars() if v.persistable}
+    feed = chip_smoke._fixed_batch(torch, _BAND["vocab_size"], _BAND_B,
+                                   _BAND_T, "cpu")
+    runs = chip_smoke._band_runs(torch, _BAND, _BAND_B, _BAND_T, start, feed,
+                                 "cpu")
+    return program, start, feed, runs
+
+
+def _band_k(band, monkeypatch, alter=None):
+    """K's losses on the CPU, the CE forward altered by ``alter``."""
+    from paddle_tpu_torch.ops import lmhead_ce as ce
+
+    program, start, feed, _ = band
+    plain = ce.lmhead_ce_plain
+
+    def forward(x, w, labels):
+        logits = x.double() @ w.double().t()
+        keep = torch.ones(w.shape[0], dtype=torch.bool)
+        if alter == "drop_tile":  # the second 128-column tile left out
+            keep[128:256] = False
+        else:  # "reordered": fp64 sums, columns last to first
+            logits, keep = logits.flip(1), keep.flip(0)
+            labels = w.shape[0] - 1 - labels.long()
+        lse = torch.logsumexp(logits[:, keep], 1)
+        lbl = labels.long().clamp(0, w.shape[0] - 1)
+        picked = torch.where(keep[lbl], logits.gather(1, lbl[:, None])[:, 0],
+                             torch.zeros_like(lse))
+        return (lse - picked).float(), lse.float()
+
+    if alter:
+        monkeypatch.setattr(ce, "lmhead_ce_plain", forward)
+    losses = chip_smoke._losses(program, start, feed, "cpu",
+                                len(band[3]["T"]))
+    monkeypatch.setattr(ce, "lmhead_ce_plain", plain)
+    return losses
+
+
+@pytest.mark.parametrize("alter", [None, "reordered"])
+def test_loss_band_passes(band, monkeypatch, alter):
+    report = chip_smoke._loss_band(_band_k(band, monkeypatch, alter),
+                                   band[3]["T"], band[3]["Y"])
+    assert report["worst_ratio"] <= 1.0 and len(report["bound"]) == 13
+
+
+def test_loss_band_rejects_a_dropped_vocab_tile(band, monkeypatch):
+    k = _band_k(band, monkeypatch, "drop_tile")
+    with pytest.raises(AssertionError, match="outside the band"):
+        chip_smoke._loss_band(k, band[3]["T"], band[3]["Y"])
+
+
+def test_loss_band_rejects_unequal_or_nonfinite_runs(band):
+    t, y = band[3]["T"], band[3]["Y"]
+    with pytest.raises(AssertionError, match="not finite"):
+        chip_smoke._loss_band(y[:-1], t, y)
+    with pytest.raises(AssertionError, match="not finite"):
+        chip_smoke._loss_band(y[:-1] + [float("nan")], t, y)
+
+
+def test_plain_ce_swap_is_undone_and_counts_nothing():
+    from paddle_tpu_torch.ops import lmhead_ce as ce
+
+    kernels = ce._launch, ce._launch_dx, ce._launch_dw
+    x, w, lbl = chip_smoke._inputs(torch, 8, 16, 40, torch.float32, seed=1,
+                                   device="cpu")
+    with chip_smoke._plain_ce():
+        got = ce._launch(x, w, lbl)
+    assert (ce._launch, ce._launch_dx, ce._launch_dw) == kernels
+    torch.testing.assert_close(got, ce.lmhead_ce_plain(x, w, lbl))
+    with pytest.raises(AssertionError, match="launched during the plain"):
+        with chip_smoke._plain_ce():
+            ce.dx_launches += 1
+    assert (ce._launch, ce._launch_dx, ce._launch_dw) == kernels
+    ce.reset_launches()
