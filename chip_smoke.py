@@ -51,34 +51,50 @@ Phases (any failure raises, and the script exits non-zero with no result):
    split-TF32 bound;
 5. serving at full GPT width (12 x 768, vocab 32000, random weights from
    seed 0): 8 prompts covering every prefill bucket through
-   ServingEngine.submit + run_until_idle, two of them again one after the
-   other on a threaded engine (tokens must be bit-identical), greedy
-   agreement of every request with the full-context reference, prompt
-   scoring through the fused lm-head + CE kernel (its launch counter
-   must rise), and a traced window of decode ticks;
+   ServingEngine.warm + submit + run_until_idle, first eagerly
+   (PADDLE_TPU_EAGER=1), then on the card's default compiled route (the
+   main path: decode, prefill and score replayed as CUDA graphs); the
+   replayed greedy tokens must equal the eager ones and the replayed NLL
+   the eager NLL within 1e-5; two prompts again, one after the other, on
+   a threaded engine that captures on its scheduler thread (tokens must
+   be bit-identical), greedy agreement of every request with the
+   full-context reference, prompt scoring through the fused lm-head + CE
+   kernel (its launch counter must rise), and a traced window of decode
+   ticks, eager and replayed; tick wall, tokens/s and TTFT side by side;
 6. training at full width: bench.py's gpt2s config (vocab 32768,
    12 x 768, bf16, batch 8) through build_train_program, Adam.minimize
    and Executor.run, at seq 512 (phase ``train``: attention takes the
    einsum path, no flash launch) and at seq 2048 (phase ``train_long``:
-   attention takes the flash kernels, FLASH_DISPATCH_COUNT rises by 12 a
-   step): 3 warm-up and 10 timed steps on one fixed batch each; the loss
-   must be finite and fall, and each path kernel must launch every step
-   (CE forward, dx and dW once, Adam 196 times, flash forward, dq and
-   dk/dv 12 times at seq 2048); then one traced step each (device time
-   by kernel); at seq 512, before the main path, the loss band (C2): the
-   same 13 steps from the same initial parameters in fp32 (T) and in bf16
-   with the CE kernels replaced by their plain versions (Y); the main
-   path (K) must lie within 2 max |Y - T| + 1e-3 of T at every step
-   (``_loss_band``);
+   attention takes the flash kernels): 3 warm-up and 10 timed steps on
+   one fixed batch, the learning rate 1e-4 and 5e-5 at the last step,
+   twice from the same start: eagerly (E) and on the card's default
+   compiled route (R, the main path: step 1 eager, step 2 captured as a
+   CUDA graph and replayed once, every later step replayed). R must
+   equal E bit for bit (losses and every persistable), or each
+   difference must be one that a second eager run shares; both must read
+   the schedule's learning rate back from the card and show beta1's
+   power multiplied once a step (``_replay_agrees``); R's loss must be
+   finite and fall; the wrappers' launch counts must show the steps run
+   on the host (warm-up and capture), and FLASH_DISPATCH_COUNT 12 a
+   host step at seq 2048; then one traced step each: R's replayed step
+   must show, in the device trace, the CE forward, dx and dW once, Adam
+   196 times, and the flash forward, dq and dk/dv 12 times at seq 2048;
+   its other kernels' device time by op family; step wall, tokens/s,
+   busy share and peak memory of R beside E; at seq 512, before both,
+   the loss band (C2): the same 13 steps from the same initial
+   parameters in fp32 (T) and in bf16 with the CE kernels replaced by
+   their plain versions (Y); R (K) must lie within 2 max |Y - T| + 1e-3
+   of T at every step (``_loss_band``);
 7. CPU against card: tiny fp32 configs train 2 steps from the same numpy
-   values on the CPU (plain versions) and on the card (kernels): one at
-   seq 16 (einsum attention), one at seq 128 with
-   PADDLE_TPU_FLASH_MIN_SEQ=128 (flash attention); loss and every
-   persistable must agree at 1e-4, and each Adam moment within 1e-4 of
-   the largest moment of its kind;
+   values on the CPU (plain versions, eager) and on the card (kernels;
+   step 1 the warm-up, step 2 captured and replayed): one at seq 16
+   (einsum attention), one at seq 128 with PADDLE_TPU_FLASH_MIN_SEQ=128
+   (flash attention); loss and every persistable must agree at 1e-4, and
+   each Adam moment within 1e-4 of the largest moment of its kind;
 8. a ``{"kernels": [...]}`` line: per ported kernel, its launches on the
-   main paths, its largest error against the plain version and its
-   times at the training shape (the CE forward, dx and dW also at
+   main paths (the wrapper's host count) and per replayed training step
+   (the device trace's), its largest error against the plain version and
+   its times at the training shape (the CE forward, dx and dW also at
    N = 16384, under ``long_shape``); a kernel whose bf16 path runs on
    the tensor cores names that source, with the fp32 one beside it
    (``source_fp32``, ``source_d256``; the CE forward's fp32 source is its
@@ -117,6 +133,13 @@ _LONG_B, _LONG_T = 8, 2048
 _LONG_N = _LONG_B * _LONG_T
 _LAYERS = _LONG["n_layer"]
 _WARM_STEPS, _TIMED_STEPS = 3, 10
+_LR = 1e-4  # bench.py's Adam learning rate
+# the last training step's rate: a schedule that changes after the
+# capture, so that a learning rate frozen into the graph shows, in the
+# rate read back from the card and in the final parameters, while every
+# loss (read before its step's update) stays that of bench.py's constant
+# rate
+_LAST_LR = 5e-5
 _ADAM_PER_STEP = 196  # wte, wpe, 16 per layer x 12, lnf scale and bias
 _SCORE_NS = (31, 127, 511)  # score's N = bucket - 1 at buckets 32/128/512
 _PROMPT_LENS = (17, 45, 96, 128, 200, 311, 480, 500)
@@ -1176,8 +1199,9 @@ def _time_flash(torch, card):
 
 def _train_program(config, batch, seq):
     """(main, startup, io): bench.py's GPT training program with
-    Adam(1e-4), built under a fresh unique-name generator, so that two
-    builds (bf16 and fp32) name their persistables alike."""
+    Adam(1e-4) (``io["optimizer"]``), built under a fresh unique-name
+    generator, so that two builds (bf16 and fp32) name their persistables
+    alike."""
     from paddle_tpu_torch.framework import program_guard, unique_name
     from paddle_tpu_torch.models.gpt import GPTConfig, build_train_program
     from paddle_tpu_torch.optimizer import Adam
@@ -1186,7 +1210,8 @@ def _train_program(config, batch, seq):
         main, startup, io = build_train_program(GPTConfig(**config),
                                                 batch=batch, seq=seq)
         with program_guard(main, startup):
-            Adam(learning_rate=1e-4).minimize(io["loss"])
+            io["optimizer"] = Adam(learning_rate=_LR)
+            io["optimizer"].minimize(io["loss"])
     if io["lm_head_impl"] != "pallas":
         raise AssertionError(f"loss path {io['lm_head_impl']!r}, not the "
                              f"fused kernels")
@@ -1314,17 +1339,167 @@ def _loss_band(k, t, y) -> dict:
     return report
 
 
+@contextlib.contextmanager
+def _eager():
+    """PADDLE_TPU_EAGER=1 inside: the card runs op by op (the eager leg
+    E of a replay-versus-eager comparison); restored on exit."""
+    saved = os.environ.get("PADDLE_TPU_EAGER")
+    os.environ["PADDLE_TPU_EAGER"] = "1"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("PADDLE_TPU_EAGER", None)
+        else:
+            os.environ["PADDLE_TPU_EAGER"] = saved
+
+
+def _lr_schedule(steps, first=_LR, last=_LAST_LR):
+    """The learning rate of each step: ``first``, then ``last`` at the
+    last step (see ``_LAST_LR``)."""
+    return [first] * (steps - 1) + [last]
+
+
+def _trajectory(exe, scope, program, feed, lrs) -> dict:
+    """Runs one step per entry of ``lrs`` (the optimizer's rate set
+    before each) and returns the trajectory: each step's loss, its
+    learning rate read back from the device (the step's own copy, which
+    a graph reads), the beta1 power of ``gpt.wte`` after it and its host
+    wall; then every persistable of ``scope`` (``state``) and the
+    executor's runs by phase over these steps."""
+    main, _, io = program
+    opt = io["optimizer"]
+    b1p = next(n for n in scope.local_var_names()
+               if n.startswith("gpt.wte_beta1_pow"))
+    before = dict(exe.phases)
+    out = {"losses": [], "lr": [], "beta1_pow": [], "step_s": []}
+    for lr in lrs:
+        opt.set_lr(lr)
+        t0 = time.perf_counter()
+        loss, got_lr = exe.run(main, feed=feed, scope=scope,
+                               fetch_list=[io["loss"], opt._lr_var])
+        out["step_s"].append(time.perf_counter() - t0)  # numpy: synced
+        out["losses"].append(float(loss))
+        out["lr"].append(float(got_lr))
+        out["beta1_pow"].append(float(scope.get(b1p).reshape(-1)[0]))
+    out["state"] = {n: scope.get(n) for n in sorted(scope.local_var_names())}
+    out["phases"] = {k: exe.phases[k] - before[k] for k in before}
+    return out
+
+
+def _leg(program, start, feed, device, lrs, staged=False):
+    """``_trajectory`` of ``program`` from the persistables ``start``
+    ({name: tensor}, cloned) in a fresh scope and executor on
+    ``device`` (``staged``: the compiled route on the CPU)."""
+    from paddle_tpu_torch.framework import Scope
+
+    scope = Scope()
+    for name, t in start.items():
+        scope.set(name, t.clone())
+    exe = _executor(device)
+    exe.staged = staged
+    return _trajectory(exe, scope, program, feed, lrs)
+
+
+def _beta_pows(b1p0, beta1, steps):
+    """The beta1 power after each of ``steps`` steps from ``b1p0``: the
+    previous one times ``beta1``, each product rounded to fp32 as the
+    card's in-place multiply rounds it."""
+    want, b = [], np.float32(b1p0)
+    for _ in range(steps):
+        b = np.float32(b * np.float32(beta1))
+        want.append(float(b))
+    return want
+
+
+def _unequal(a, b):
+    """Names whose tensors differ (or exist on one side only)."""
+    return sorted(n for n in set(a) | set(b)
+                  if n not in a or n not in b or not a[n].equal(b[n]))
+
+
+def _replay_agrees(r, e, lrs, b1p0, beta1=0.9, again=None) -> dict:
+    """Holds the replayed trajectory ``r`` (``_trajectory``) against the
+    eager one ``e`` from the same start: each step's learning rate as
+    read back from the device is the schedule's ``lrs`` on both (a rate
+    frozen into a graph stays at the captured one); each step's beta1
+    power is ``b1p0`` times ``beta1``, once a step (``_beta_pows``), on
+    both (a step applied twice or never is off by one); the losses and
+    every persistable after the last step equal bit for bit. A loss or
+    persistable that differs is accepted only where ``again``, a second
+    eager trajectory from the same start, differs from ``e`` at the same
+    step or in the same persistable (the cause is then eager's own
+    run-to-run variation, named in the report); raises otherwise.
+    Returns the report."""
+    steps = len(lrs)
+    if not all(len(t[k]) == steps for t in (r, e)
+               for k in ("losses", "lr", "beta1_pow")):
+        raise AssertionError(f"replay vs eager: trajectories of another "
+                             f"length than the {steps} steps")
+    want_b = _beta_pows(b1p0, beta1, steps)
+    for leg, t in (("replay", r), ("eager", e)):
+        lr = [float(np.float32(x)) for x in lrs]
+        if t["lr"] != lr:
+            raise AssertionError(f"replay vs eager: {leg} ran the learning "
+                                 f"rates {t['lr']}, not the schedule {lr}")
+        if t["beta1_pow"] != want_b:
+            off = [i + 1 for i, (g, w) in enumerate(zip(t["beta1_pow"],
+                                                        want_b)) if g != w]
+            raise AssertionError(
+                f"replay vs eager: {leg}'s beta1 power {t['beta1_pow']} is "
+                f"not {beta1} once a step ({want_b}) at steps {off}")
+    if not all(np.isfinite(r["losses"])):
+        raise AssertionError(f"replay vs eager: losses {r['losses']}")
+    steps_off = [i + 1 for i, (a, b) in enumerate(zip(r["losses"],
+                                                      e["losses"])) if a != b]
+    state_off = _unequal(r["state"], e["state"])
+    report = {"bit_identical": not steps_off and not state_off,
+              "loss_steps_differing": steps_off,
+              "persistables_differing": len(state_off),
+              "persistables": len(e["state"]),
+              "max_abs_loss_diff": max(abs(a - b) for a, b in
+                                       zip(r["losses"], e["losses"]))}
+    if report["bit_identical"]:
+        return report
+    if again is None:
+        raise AssertionError(f"replay vs eager: losses differ at steps "
+                             f"{steps_off} and {len(state_off)} "
+                             f"persistables differ ({state_off[:5]}), with "
+                             f"no second eager run to name a cause")
+    eager_steps = {i + 1 for i, (a, b) in enumerate(zip(again["losses"],
+                                                        e["losses"])) if a != b}
+    eager_state = set(_unequal(again["state"], e["state"]))
+    unexplained = ([s for s in steps_off if s < min(eager_steps, default=1e9)]
+                   + [n for n in state_off if n not in eager_state])
+    if unexplained:
+        raise AssertionError(f"replay vs eager: differences that two eager "
+                             f"runs do not share: {unexplained[:8]}")
+    report["cause"] = ("eager's own run-to-run variation: a second eager "
+                       "run from the same start differs from the first "
+                       f"from step {min(eager_steps, default=None)} and in "
+                       f"{len(eager_state)} persistables")
+    return report
+
+
 def _train(torch, card, config, batch, seq, phase, flash_per_step,
            band=False):
     """bench.py's gpt2s at ``seq`` through the port's training entry
-    points: 3 warm-up + 10 timed steps on one fixed batch, every path
-    kernel's launches counted from 0 over those 13 steps: the CE forward,
-    dx and dW once a step, Adam 196 times, the flash forward, dq and dk/dv
-    ``flash_per_step`` times (one per layer where attention takes flash,
-    none where it takes the einsum path), and FLASH_DISPATCH_COUNT rising
-    by as many forwards. With ``band``, first the loss band's T and Y runs
-    (``_band_runs``) from the main path's initial persistables, then the
-    main path (K), held by ``_loss_band``. Returns the launches."""
+    points: 3 warm-up + 10 timed steps on one fixed batch, twice from the
+    same initial persistables: E, eagerly (PADDLE_TPU_EAGER=1), then R,
+    the main path, on the card's default compiled route (step 1 eager,
+    step 2 captured as a CUDA graph and replayed once, steps 3-13
+    replayed); the learning rate ``_lr_schedule``. R is held to E by
+    ``_replay_agrees``, and its loss must be finite and falling. The
+    kernel wrappers' launches are counted from 0 over R's 13 steps: they
+    count the steps that ran on the host (R's warm-up and its capture),
+    each the CE forward, dx and dW once, Adam 196 times, the flash
+    forward, dq and dk/dv ``flash_per_step`` times (one per layer where
+    attention takes flash, none where it takes the einsum path), and
+    FLASH_DISPATCH_COUNT rises by as many forwards. Then one traced step
+    of each: R's replayed step must show every path kernel's launches
+    per step in the device trace. With ``band``, first the loss band's
+    T and Y runs (``_band_runs``) from the same start, and R (K) is held
+    by ``_loss_band``. Returns the launches and R's traced step."""
     from paddle_tpu_torch.framework import Scope
     from paddle_tpu_torch.ops import attention
     from paddle_tpu_torch.ops import flash_attention as fl
@@ -1339,116 +1514,318 @@ def _train(torch, card, config, batch, seq, phase, flash_per_step,
     exe.run(startup, scope=scope)
     n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
     feed = _fixed_batch(torch, config["vocab_size"], batch, seq)
+    start = {v.name: scope.get(v.name).detach().clone()
+             for v in main.list_vars() if v.persistable}
+    b1p0 = float(start[next(n for n in start
+                            if n.startswith("gpt.wte_beta1_pow"))])
     if band:
-        start = {v.name: scope.get(v.name).detach().clone()
-                 for v in main.list_vars() if v.persistable}
         runs = _band_runs(torch, config, batch, seq, start, feed)
-        del start
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    steps = _WARM_STEPS + _TIMED_STEPS
+    lrs = _lr_schedule(steps)
+    per_step = {"lmhead_ce_fwd": 1, "lmhead_ce_dx": 1, "lmhead_ce_dw": 1,
+                "fused_adam": _ADAM_PER_STEP,
+                "flash_attention_fwd": flash_per_step,
+                "flash_attention_dq": flash_per_step,
+                "flash_attention_dkv": flash_per_step}
+
+    def measured(run):
+        """``run()``'s trajectory, with the bytes allocated before it and
+        its peak."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t = run()
+        torch.cuda.synchronize()
+        t["memory"] = (before, torch.cuda.max_memory_allocated())
+        return t
+
+    legs, traced = {}, {}
+    e_scope, e_exe = Scope(), _executor("cuda")
+    for name, t in start.items():
+        e_scope.set(name, t.clone())
+    with _eager():
+        legs["E"] = measured(lambda: _trajectory(e_exe, e_scope, program,
+                                                 feed, lrs))
 
     # the main path, counted: every count starts from 0 here
     ce.reset_launches()
     fa.reset_launches()
     fl.reset_launches()
     dispatched = attention.FLASH_DISPATCH_COUNT
-    losses, step_s = [], []
-    for _ in range(_WARM_STEPS + _TIMED_STEPS):
-        t_step = time.perf_counter()
-        (loss,) = exe.run(main, feed=feed, fetch_list=[io["loss"]],
-                          scope=scope)  # the numpy fetch synchronizes
-        step_s.append(time.perf_counter() - t_step)
-        losses.append(float(loss))
-    steps = _WARM_STEPS + _TIMED_STEPS
+    legs["R"] = r = measured(lambda: _trajectory(exe, scope, program, feed,
+                                                 lrs))
     dispatched = attention.FLASH_DISPATCH_COUNT - dispatched
     launches = {"lmhead_ce_fwd": ce.launches, "lmhead_ce_dx": ce.dx_launches,
                 "lmhead_ce_dw": ce.dw_launches, "fused_adam": fa.launches,
                 "flash_attention_fwd": fl.fwd_launches,
                 "flash_attention_dq": fl.dq_launches,
                 "flash_attention_dkv": fl.dkv_launches}
-    flash = steps * flash_per_step
-    want = {"lmhead_ce_fwd": steps, "lmhead_ce_dx": steps,
-            "lmhead_ce_dw": steps, "fused_adam": steps * _ADAM_PER_STEP,
-            "flash_attention_fwd": flash, "flash_attention_dq": flash,
-            "flash_attention_dkv": flash}
-    if launches != want or dispatched != flash:
+    on_host = r["phases"]["eager"] + r["phases"]["capture"]
+    if r["phases"] != {"eager": 1, "capture": 1, "replay": steps - 2}:
+        raise AssertionError(f"{phase}: runs by phase {r['phases']}, not "
+                             f"1 warm-up, 1 capture and {steps - 2} replays")
+    want = {k: on_host * n for k, n in per_step.items()}
+    if launches != want or dispatched != on_host * flash_per_step:
         raise AssertionError(f"{phase} launches {launches} and "
                              f"{dispatched} flash dispatches, expected "
-                             f"{want} and {flash} over {steps} steps")
+                             f"{want} and {on_host * flash_per_step} over "
+                             f"the {on_host} steps run on the host")
+    losses = r["losses"]
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"{phase} loss not finite and falling: "
                              f"{losses}")
-    peak = torch.cuda.max_memory_allocated()
-    step_ms = statistics.median(step_s[_WARM_STEPS:]) * 1e3
+    again = None
+    try:
+        agree = _replay_agrees(r, legs["E"], lrs, b1p0)
+    except AssertionError:
+        # name the cause: a second eager leg from the same start
+        with _eager():
+            again = _leg(program, start, feed, "cuda", lrs)
+        agree = _replay_agrees(r, legs["E"], lrs, b1p0, again=again)
+    fetch_list = [io["loss"], io["optimizer"]._lr_var]  # _trajectory's
+    with _eager():
+        traced["E"] = _profile_step(torch, e_exe, main, feed, fetch_list,
+                                    e_scope, card, phase + "_eager_profile")
+    traced["R"] = _profile_step(torch, exe, main, feed, fetch_list, scope,
+                                card, phase + "_profile", per_step=per_step)
+
+    def side(leg):
+        t = legs[leg]
+        ms = statistics.median(t["step_s"][_WARM_STEPS:]) * 1e3
+        return {"step_ms_median": ms,
+                "step_ms_all": [x * 1e3 for x in t["step_s"]],
+                "tokens_per_s": batch * seq / (ms / 1e3),
+                "device_busy_share": traced[leg]["device_ms"] / ms,
+                "traced_wall_ms": traced[leg]["wall_ms"],
+                "traced_device_ms": traced[leg]["device_ms"],
+                "allocated_before": t["memory"][0],
+                "max_memory_allocated": t["memory"][1],
+                "losses": t["losses"]}
+
     _say(phase=phase, config=config, batch=batch, seq=seq,
          params=n_params, build_s=build_s, losses=losses,
-         step_ms_median=step_ms,
-         step_ms_all=[t * 1e3 for t in step_s[_WARM_STEPS:]],
-         tokens_per_s=batch * seq / (step_ms / 1e3),
-         max_memory_allocated=peak, launches=launches,
-         launches_per_step={k: n // steps for k, n in launches.items()},
-         flash_dispatches=dispatched,
+         step_ms_median=side("R")["step_ms_median"],
+         step_ms_all=[t * 1e3 for t in r["step_s"][_WARM_STEPS:]],
+         tokens_per_s=side("R")["tokens_per_s"],
+         max_memory_allocated=r["memory"][1], launches=launches,
+         launches_on_host_per_step={k: n // on_host
+                                    for k, n in launches.items()},
+         launches_per_replayed_step={
+             k: v["calls"] for k, v in traced["R"]["path_kernels"].items()},
+         runs_by_phase=r["phases"], flash_dispatches=dispatched,
+         lr=r["lr"], beta1_pow=r["beta1_pow"],
          adam_step_bound_ms=_bound_ms(n_params * 22, 15.0 * n_params,
                                       "float32")[0],
-         card=card, note="one smoke run, not a benchmark")
-    _profile_train_step(torch, exe, main, feed, io, scope, card,
-                        phase + "_profile")
+         card=card, note="one smoke run, not a benchmark; launches are the "
+         "wrappers' host counts (the warm-up and the capture), "
+         "launches_per_replayed_step the device trace's")
+    _say(phase=phase + "_replay_vs_eager", seq=seq, replayed=side("R"),
+         eager=side("E"), lr=lrs,
+         device_ms_by_op_family=traced["E"]["by_op_family_ms"],
+         non_kernel_ms_by_op_family=traced["E"][
+             "non_kernel_by_op_family_ms"],
+         by_op_share=traced["E"]["by_op_share"],
+         by_op_note="the eager step's trace, charged to the executor's op "
+         "ranges; the replayed step launches the same kernels "
+         "(bit-identical results) with no host ops to charge them to",
+         beta1_pow_expected=_beta_pows(b1p0, 0.9, steps),
+         second_eager_losses=again and again["losses"], card=card, **agree)
     if band:
         _say(phase=phase + "_loss_band", config=config, batch=batch, seq=seq,
              wall_s=runs["wall_s"], card=card,
              what="|K - T| <= multiple x max over s <= t of |Y - T| + atol",
              **_loss_band(losses, runs["T"], runs["Y"]))
-    return launches
+    return launches, traced["R"]
 
 
 # the port's kernels in a trace of the bf16 training step, by pieces of
-# the names the profiler gives their CUDA kernels (the CE forward counts
-# its combine launch with it)
+# the names the profiler gives their CUDA kernels: the first tuple counts
+# the kernel's launches, the second adds the time of its helper launches
+# (the CE forward's combine)
 _TRACE_NAMES = {
-    "lmhead_ce_fwd": ("::fwd_sm90_kernel(", "::fwd_f32_sm90_kernel(",
-                      "::combine_kernel("),
-    "lmhead_ce_dx": ("::bwd_sm90_kernel<true>",),
-    "lmhead_ce_dw": ("::bwd_sm90_kernel<false>",),
-    "flash_attention_fwd": ("::fwd_sm90_kernel<", "::fwd_kernel<"),
-    "flash_attention_dq": ("::dq_sm90_kernel<", "::dq_kernel<"),
-    "flash_attention_dkv": ("::dkv_sm90_kernel<", "::dkv_kernel<"),
-    "fused_adam": ("::adam_kernel<",),
+    "lmhead_ce_fwd": (("::fwd_sm90_kernel(", "::fwd_f32_sm90_kernel("),
+                      ("::combine_kernel(",)),
+    "lmhead_ce_dx": (("::bwd_sm90_kernel<true>",), ()),
+    "lmhead_ce_dw": (("::bwd_sm90_kernel<false>",), ()),
+    "flash_attention_fwd": (("::fwd_sm90_kernel<", "::fwd_kernel<"), ()),
+    "flash_attention_dq": (("::dq_sm90_kernel<", "::dq_kernel<"), ()),
+    "flash_attention_dkv": (("::dkv_sm90_kernel<", "::dkv_kernel<"), ()),
+    "fused_adam": (("::adam_kernel<",), ()),
+}
+
+# the other kernels of a traced step, by op family: the first family
+# whose pieces a kernel's name holds (copies before elementwise: PyTorch
+# names its copy and fill kernels inside its elementwise templates)
+_FAMILIES = [
+    ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "gemv", "splitKreduce")),
+    ("layer_norm", ("layer_norm", "LayerNorm", "GammaBeta")),
+    ("copy", ("copy", "Memcpy", "Memset", "CatArray", "FillFunctor")),
+    ("softmax", ("softmax", "Softmax")),
+    ("reduction", ("reduce_kernel", "Reduce")),
+    ("index", ("index", "gather", "scatter", "embedding")),
+    ("elementwise", ("elementwise",)),
+]
+
+
+def _family(name) -> str:
+    return next((f for f, pieces in _FAMILIES
+                 if any(p in name for p in pieces)), "other")
+
+
+# the GPT program's op types by family (a grad op goes with its forward
+# op's); the first family whose prefix starts the type
+_OP_FAMILIES = [
+    ("gemm", ("matmul", "mul")),
+    ("layer_norm", ("layer_norm",)),
+    ("attention", ("fused_attention",)),
+    ("lm_head_ce", ("fused_lm_head_ce",)),
+    ("adam", ("adam",)),
+    ("embedding", ("lookup_table",)),
+    ("copy", ("reshape", "transpose", "slice", "cast", "concat", "split",
+              "fill", "assign")),
+    ("elementwise", ("elementwise", "gelu", "scale", "sum", "mean",
+                     "softmax", "dropout")),
+]
+
+
+def _by_op(torch, events) -> dict:
+    """Device ms by program op type, from a traced step that ran its ops
+    on the host (eagerly): each top-level host op that put work on the
+    device, on any thread (a grad op's backward runs on autograd's
+    thread while the executor's thread waits in it), is charged to the
+    executor's ``OP_RANGE`` range whose host interval holds its start.
+    Returns {} for a replayed step, which runs no host ops."""
+    import bisect
+
+    from paddle_tpu_torch.framework.executor import OP_RANGE
+
+    ranges = sorted((e.time_range.start, e.time_range.end,
+                     e.name[len(OP_RANGE):]) for e in events
+                    if e.name.startswith(OP_RANGE)
+                    and e.device_type == torch.autograd.DeviceType.CPU)
+    starts = [r[0] for r in ranges]
+    out = {}
+    for e in events:
+        parent = e.cpu_parent
+        if (e.device_type != torch.autograd.DeviceType.CPU or not ranges
+                or e.name.startswith(OP_RANGE)
+                or (parent is not None
+                    and not parent.name.startswith(OP_RANGE))):
+            continue
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        if not us:
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        op = (ranges[i][2] if i >= 0 and e.time_range.start <= ranges[i][1]
+              else f"(outside an op: {e.name[:60]})")
+        out[op] = out.get(op, 0.0) + us / 1e3
+    return out
+
+
+# the op family each of the port's kernels runs in, where ``_by_op``
+# charges it: the CE and flash kernels launch inside an autograd
+# Function's torch op; the fused Adam kernel launches straight from its
+# op's range, and the profiler charges such a kernel to no host op (it
+# is the device time ``by_op_share`` misses)
+_KERNEL_OPS = {
+    "lm_head_ce": ("lmhead_ce_fwd", "lmhead_ce_dx", "lmhead_ce_dw"),
+    "attention": ("flash_attention_fwd", "flash_attention_dq",
+                  "flash_attention_dkv"),
 }
 
 
-def _profile_train_step(torch, exe, main, feed, io, scope, card, phase):
+def _op_family(op_type) -> str:
+    base = op_type[:-len("_grad")] if op_type.endswith("_grad") else op_type
+    return next((f for f, prefixes in _OP_FAMILIES
+                 if base.startswith(prefixes)), "other")
+
+
+def _profile_step(torch, exe, main, feed, fetch_list, scope, card, phase,
+                  per_step=None) -> dict:
     """One traced training step: host wall, device kernel time, launches,
-    the device time of each of the port's kernels (``path_kernels``:
-    calls and ms) and the kernels that take the most device time. A
-    traced run: the tracer adds host time, so its wall is not the step
-    metric."""
+    each of the port's kernels' device calls and ms (``path_kernels``),
+    the other kernels' device time by kernel family (``families``), the
+    device time by program op type and op family where the step ran its
+    ops on the host (``by_op_ms``, ``by_op_family_ms``: ``_by_op``) and
+    the kernels that take the most device time. With ``per_step``
+    ({kernel: launches}), the step must be a replay of the executor's
+    captured step for ``fetch_list`` (the trajectory's, so the same
+    analysed entry) and the trace must show each path kernel launched
+    exactly so often (a replayed step's launches are counted here, from
+    the device). A traced run: the tracer adds host time, so its wall is
+    not the step metric, nor its busy share (``traced_busy_share``); the
+    busy share is the device time over the untraced step's wall. Prints
+    the report and returns it."""
     from torch.profiler import ProfilerActivity, profile
 
+    from paddle_tpu_torch.framework.executor import OP_RANGE
+
+    replays = exe.phases["replay"]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        exe.run(main, feed=feed, fetch_list=[io["loss"]], scope=scope)
+        exe.run(main, feed=feed, fetch_list=fetch_list, scope=scope)
         wall_ms = (time.perf_counter() - t0) * 1e3
+    if per_step is not None and exe.phases["replay"] != replays + 1:
+        raise AssertionError(f"{phase}: the traced step was not a replay "
+                             f"({exe.phases})")
     kernels = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # an op's range also shows on the device timeline (the span of
+        # its kernels): not a kernel
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.name.startswith(OP_RANGE)):
             n, t = kernels.get(e.name, (0, 0.0))
             kernels[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
     device_ms = sum(t for _, t in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]
-    ours = {}
-    for name, pieces in _TRACE_NAMES.items():
-        hits = [nt for k, nt in kernels.items()
-                if any(p in k for p in pieces)]
-        ours[name] = {"calls": sum(n for n, _ in hits),
-                      "ms": sum(t for _, t in hits)}
-    _say(phase=phase, wall_ms=wall_ms, device_ms=device_ms,
-         device_busy_share=device_ms / wall_ms if kernels else None,
-         launches=sum(n for n, _ in kernels.values()), path_kernels=ours,
-         top_kernels=[{"name": k[:80], "calls": n, "ms": t}
-                      for k, (n, t) in top],
-         card=card, note="traced run; not measured if no CUDA events")
+    ours, claimed = {}, set()
+    for name, (counted, helpers) in _TRACE_NAMES.items():
+        hits = [k for k in kernels if any(p in k for p in counted)]
+        more = [k for k in kernels if any(p in k for p in helpers)]
+        claimed.update(hits + more)
+        ours[name] = {"calls": sum(kernels[k][0] for k in hits),
+                      "ms": sum(kernels[k][1] for k in hits + more)}
+    families, other = {}, []
+    for k, (n, t) in kernels.items():
+        if k in claimed:
+            continue
+        fam = families.setdefault(_family(k), {"calls": 0, "ms": 0.0})
+        fam["calls"] += n
+        fam["ms"] += t
+        if _family(k) == "other":
+            other.append((t, k[:80]))
+    if per_step is not None:
+        seen = {k: v["calls"] for k, v in ours.items()}
+        if seen != per_step:
+            raise AssertionError(f"{phase}: path kernels launched {seen} "
+                                 f"times in the traced step, not {per_step}")
+    by_op = _by_op(torch, prof.events())
+    by_family = {}
+    for op, ms in by_op.items():
+        fam = _op_family(op)
+        by_family[fam] = by_family.get(fam, 0.0) + ms
+    # the same less the port's kernels, each charged to its op's family
+    non_kernel = {f: ms - sum(ours[k]["ms"] for k in _KERNEL_OPS.get(f, ()))
+                  for f, ms in by_family.items()}
+    report = dict(
+        wall_ms=wall_ms, device_ms=device_ms,
+        traced_busy_share=device_ms / wall_ms if kernels else None,
+        launches=sum(n for n, _ in kernels.values()), path_kernels=ours,
+        non_kernel_ms=device_ms - sum(v["ms"] for v in ours.values()),
+        families=families,
+        other_top=[k for _, k in sorted(other, reverse=True)[:5]],
+        by_op_ms=dict(sorted(by_op.items(), key=lambda kv: -kv[1])),
+        by_op_family_ms=by_family, non_kernel_by_op_family_ms=non_kernel,
+        by_op_share=sum(by_op.values()) / device_ms if by_op else None,
+        top_kernels=[{"name": k[:80], "calls": n, "ms": t}
+                     for k, (n, t) in top])
+    _say(phase=phase, **report, card=card,
+         note="traced run; not measured if no CUDA events")
+    return report
 
 
 # tiny fp32 configs of the CPU-against-card phase: (leg, GPTConfig
@@ -1570,10 +1947,61 @@ def _cpu_vs_card(torch, leg, config, seq, flash_min_seq, lr, eps):
          moment_tolerance="1e-4 of the largest moment of its kind")
 
 
+def _serve_leg(model, prompts):
+    """The 8 prompts through a fresh ServingEngine, warmed on its own
+    pages first (on the compiled route: every program captured there),
+    submitted at once and run until idle, then each prompt scored.
+    Returns the tokens, each request's TTFT, each decode tick's wall, the
+    wall, the decoded tokens the ledger counted and the scores."""
+    from paddle_tpu_torch.serving import ServingEngine, ledger
+
+    ledger.reset()
+    engine = ServingEngine(model)
+    engine.warm(full=True)
+    t0 = time.perf_counter()
+    handles = [engine.submit(p, max_new_tokens=_NEW_TOKENS) for p in prompts]
+    engine.run_until_idle()
+    wall = time.perf_counter() - t0
+    tokens = [h.result(timeout=60) for h in handles]
+    if any(len(t) != _NEW_TOKENS for t in tokens):
+        raise AssertionError(f"not every request got {_NEW_TOKENS} tokens: "
+                             f"{[len(t) for t in tokens]}")
+    ticks = {}
+    for h in handles:
+        for t_a, t_b, tick in h._req.tick_windows:
+            ticks[tick] = (t_b - t_a) / 1e6
+    return {"tokens": tokens, "wall_s": wall,
+            "ttft_ms": [(h._req.t_first_token - h._req.t_submit) / 1e6
+                        for h in handles],
+            "tick_ms": list(ticks.values()),
+            "decode_tokens": ledger.totals()["decode_tokens"],
+            "scores": [model.score(p) for p in prompts]}
+
+
+def _serve_side(leg) -> dict:
+    """One serve leg's user-facing numbers."""
+    n = sum(len(t) for t in leg["tokens"])
+    return {"wall_s": leg["wall_s"], "generated_tokens": n,
+            "tokens_per_s": n / leg["wall_s"],
+            "ttft_ms_mean": statistics.mean(leg["ttft_ms"]),
+            "ttft_ms_max": max(leg["ttft_ms"]),
+            "decode_ticks": len(leg["tick_ms"]),
+            "decode_tick_ms_mean": statistics.mean(leg["tick_ms"]),
+            "decode_tick_ms_median": statistics.median(leg["tick_ms"])}
+
+
 def _serve(torch, card):
+    """Serving at full width: the 8 prompts first eagerly (E,
+    PADDLE_TPU_EAGER=1), then on the card's default compiled route (R,
+    the main path: decode, prefill per bucket and score per bucket
+    replayed as CUDA graphs), each through ``_serve_leg``. R's greedy
+    tokens must equal E's, and its NLL E's within 1e-5; R is held against
+    the full-context reference; two prompts again, one after the other,
+    on a threaded engine that captures on its scheduler thread (tokens
+    bit-identical); then traced decode windows of both."""
     from paddle_tpu_torch.ops import lmhead_ce as ce
     from paddle_tpu_torch.serving import (DecodeModel, GPTConfig,
-                                          ServingEngine, init_params, ledger)
+                                          ServingEngine, init_params)
     from paddle_tpu_torch.weights import params_from_numpy
 
     cfg = GPTConfig(vocab_size=_SERVE_V, n_layer=12, n_head=12,
@@ -1591,32 +2019,28 @@ def _serve(torch, card):
 
     r = np.random.RandomState(0)
     prompts = [r.randint(1, _SERVE_V, size=n).tolist() for n in _PROMPT_LENS]
+    with _eager():
+        eager = _serve_leg(model, prompts)
 
     # the main path, counted: the kernel's launches start from 0 here
     ce.reset_launches()
-    ledger.reset()
-    engine = ServingEngine(model)
-    t0 = time.perf_counter()
-    handles = [engine.submit(p, max_new_tokens=_NEW_TOKENS) for p in prompts]
-    engine.run_until_idle()
-    wall = time.perf_counter() - t0
-    batched = [h.result(timeout=60) for h in handles]
-    if any(len(t) != _NEW_TOKENS for t in batched):
-        raise AssertionError(f"not every request got {_NEW_TOKENS} tokens: "
-                             f"{[len(t) for t in batched]}")
-    ttft_ms = [(h._req.t_first_token - h._req.t_submit) / 1e6
-               for h in handles]
-    ticks = {}
-    for h in handles:
-        for t_a, t_b, tick in h._req.tick_windows:
-            ticks[tick] = (t_b - t_a) / 1e6
-    decode_tokens = ledger.totals()["decode_tokens"]
-
-    scores = [model.score(p) for p in prompts]
+    replayed = _serve_leg(model, prompts)
     launches = ce.launches
     if launches < 1:
         raise AssertionError("score never launched the lmhead_ce kernel")
-    nll, total = scores[-1]
+    programs = {str(k): p.run.calls for k, p in model._programs.items()}
+    if not all(c["replay"] for c in programs.values()):
+        raise AssertionError(f"a serving program never replayed: {programs}")
+    if replayed["tokens"] != eager["tokens"]:
+        raise AssertionError("replayed greedy tokens differ from eager ones")
+    nll_diff = max(float(np.abs(a[0] - b[0]).max()) for a, b in
+                   zip(replayed["scores"], eager["scores"]))
+    total_diff = max(abs(a[1] - b[1]) for a, b in
+                     zip(replayed["scores"], eager["scores"]))
+    if not nll_diff <= 1e-5:
+        raise AssertionError(f"replayed nll off the eager nll by {nll_diff}")
+    batched = replayed["tokens"]
+    nll, total = replayed["scores"][-1]
     if nll.shape != (_PROMPT_LENS[-1] - 1,) or not np.isfinite(nll).all():
         raise AssertionError(f"score gave {nll.shape}, finite="
                              f"{np.isfinite(nll).all()}")
@@ -1633,7 +2057,7 @@ def _serve(torch, card):
         raise AssertionError(f"score nll off the full-logits reference by "
                              f"{score_err}")
 
-    seq_engine = ServingEngine(model)
+    seq_engine = ServingEngine(model)  # unwarmed: captures on its thread
     seq_engine.start()
     try:
         sequential = [seq_engine.submit(prompts[i], _NEW_TOKENS)
@@ -1658,27 +2082,46 @@ def _serve(torch, card):
         raise AssertionError(f"{disagree} greedy tokens disagree with the "
                              f"full-context reference beyond a 1e-4 margin")
 
-    _profile_decode(torch, model, card)
+    with _eager():
+        profiles = {"eager": _profile_decode(torch, model, card, "eager")}
+    profiles["replayed"] = _profile_decode(torch, model, card, "replayed")
+    rep = _serve_side(replayed)
     _say(phase="serve", requests=len(prompts), new_tokens=_NEW_TOKENS,
-         generated_tokens=sum(len(t) for t in batched),
-         decode_tokens=decode_tokens, wall_s=wall,
-         tokens_per_s=sum(len(t) for t in batched) / wall,
-         ttft_ms_mean=statistics.mean(ttft_ms), ttft_ms_max=max(ttft_ms),
-         decode_ticks=len(ticks),
-         decode_tick_ms_mean=statistics.mean(ticks.values()),
+         generated_tokens=rep["generated_tokens"],
+         decode_tokens=replayed["decode_tokens"], wall_s=rep["wall_s"],
+         tokens_per_s=rep["tokens_per_s"], ttft_ms_mean=rep["ttft_ms_mean"],
+         ttft_ms_max=rep["ttft_ms_max"], decode_ticks=rep["decode_ticks"],
+         decode_tick_ms_mean=rep["decode_tick_ms_mean"],
          sequential_bit_identical=True, greedy_disagreements=disagree,
          score_total_nll=total, score_max_abs_err_vs_full_logits=score_err,
-         lmhead_ce_launches=launches, card=card,
-         note="one smoke run, not a benchmark")
+         lmhead_ce_launches=launches, programs=programs, card=card,
+         note="one smoke run, not a benchmark; lmhead_ce_launches are the "
+         "wrapper's host count (score's warm-ups and captures)")
+    _say(phase="serve_replay_vs_eager", replayed=rep,
+         eager=_serve_side(eager), tokens_equal=True,
+         nll_max_abs_diff=nll_diff, total_nll_max_abs_diff=total_diff,
+         decode_tick_traced={k: {f: v[f] for f in (
+             "wall_ms_per_tick", "device_ms_per_tick", "traced_busy_share",
+             "launches_per_tick")} for k, v in profiles.items()},
+         decode_busy_share={
+             "replayed": profiles["replayed"]["device_ms_per_tick"]
+             / rep["decode_tick_ms_median"],
+             "eager": profiles["eager"]["device_ms_per_tick"]
+             / _serve_side(eager)["decode_tick_ms_median"]},
+         busy_note="device ms of a traced tick over the median untraced "
+         "engine tick (which also holds the host's staging and readback)",
+         card=card)
     return launches
 
 
-def _profile_decode(torch, model, card, ticks=5):
+def _profile_decode(torch, model, card, leg, ticks=5):
     """A traced window of decode ticks at full batch (8 slots, 500
-    tokens of context each): host wall per tick, device kernel time per
-    tick (torch.profiler's CUDA activity), launches per tick and the
-    kernels that take the most device time. A traced run: the tracer
-    adds host time, so its wall is not the serving metric."""
+    tokens of context each) on fresh pages, after warming them (on the
+    compiled route that captures decode there): host wall per tick,
+    device kernel time per tick (torch.profiler's CUDA activity),
+    launches per tick and the kernels that take the most device time. A
+    traced run: the tracer adds host time, so its wall is not the serving
+    metric. Prints and returns the report."""
     from torch.profiler import ProfilerActivity, profile
 
     B, per = model.max_batch, 500 // model.block_size + 1
@@ -1688,6 +2131,7 @@ def _profile_decode(torch, model, card, ticks=5):
     lens = np.full(B, 500, np.int32)
     toks = np.arange(B, dtype=np.int32)
     pages = model.init_pages()
+    model.warm(pages=pages)
     model.decode(pages, tables, lens, toks)  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1704,14 +2148,17 @@ def _profile_decode(torch, model, card, ticks=5):
             kernels[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
     device_ms = sum(t for _, t in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]
-    _say(phase="decode_profile", ticks=ticks, batch=B, context=500,
-         wall_ms_per_tick=wall_ms / ticks,
-         device_ms_per_tick=device_ms / ticks,
-         device_busy_share=device_ms / wall_ms if kernels else None,
-         launches_per_tick=sum(n for n, _ in kernels.values()) / ticks,
-         top_kernels=[{"name": k[:80], "calls": n, "ms": t}
-                      for k, (n, t) in top],
-         card=card, note="traced run; not measured if no CUDA events")
+    report = dict(
+        wall_ms_per_tick=wall_ms / ticks,
+        device_ms_per_tick=device_ms / ticks,
+        traced_busy_share=device_ms / wall_ms if kernels else None,
+        launches_per_tick=sum(n for n, _ in kernels.values()) / ticks,
+        top_kernels=[{"name": k[:80], "calls": n, "ms": t}
+                     for k, (n, t) in top])
+    _say(phase="decode_profile", leg=leg, ticks=ticks, batch=B, context=500,
+         **report, card=card,
+         note="traced run; not measured if no CUDA events")
+    return report
 
 
 def _kernel_row(name, replaces, source, launches, err, t, card, **extra):
@@ -1719,7 +2166,11 @@ def _kernel_row(name, replaces, source, launches, err, t, card, **extra):
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], **extra, "card": card}
+            "library_ms": t["library_ms"], **extra, "card": card,
+            "launches_note": "launches: the wrapper's count on the host "
+            "over the training main path (its warm-up and capture steps; "
+            "replays launch the captured kernels without Python); "
+            "launches_per_replayed_step: a replayed step's device trace"}
 
 
 def main() -> int:
@@ -1737,10 +2188,10 @@ def main() -> int:
     times = _time_training_kernels(torch, card)
     times.update(_time_flash(torch, card))
     serve_launches = _serve(torch, card)
-    train = _train(torch, card, _TRAIN, _TRAIN_B, _TRAIN_T, "train", 0,
-                   band=True)
-    train_long = _train(torch, card, _LONG, _LONG_B, _LONG_T,
-                        "train_long", _LAYERS)
+    train, traced = _train(torch, card, _TRAIN, _TRAIN_B, _TRAIN_T, "train",
+                           0, band=True)
+    train_long, traced_long = _train(torch, card, _LONG, _LONG_B, _LONG_T,
+                                     "train_long", _LAYERS)
     for case in _CPU_VS_CARD:
         _cpu_vs_card(torch, *case)
 
@@ -1753,6 +2204,10 @@ def main() -> int:
     def by_path(name, **more):
         return {"train": train[name], "train_long": train_long[name],
                 **more}
+
+    def replayed(name):  # the device trace's launches per replayed step
+        return {"train": traced["path_kernels"][name]["calls"],
+                "train_long": traced_long["path_kernels"][name]["calls"]}
 
     def long_shape(name):
         t = times[(name, "long")]
@@ -1769,6 +2224,7 @@ def main() -> int:
         max(serve_err, errs["lmhead_ce_fwd"]), times["lmhead_ce_fwd"], card,
         shape=shape, source_fp32=fp32_src, source_combine=ce_src,
         launches_by_path=by_path("lmhead_ce_fwd", serve=serve_launches),
+        launches_per_replayed_step=replayed("lmhead_ce_fwd"),
         tflops=times["lmhead_ce_fwd"]["tflops"],
         over_library=times["lmhead_ce_fwd"]["over_library"],
         long_shape=long_shape("lmhead_ce_fwd"),
@@ -1784,6 +2240,7 @@ def main() -> int:
         _kernel_row(name, pallas + where, csrc + "lmhead_ce_bwd_sm90.cu",
                     train[name], errs[name], times[name], card, shape=shape,
                     source_fp32=ce_src, launches_by_path=by_path(name),
+                    launches_per_replayed_step=replayed(name),
                     library_dx_dw_ms=times[name]["library_dx_dw_ms"],
                     tflops=times[name]["tflops"],
                     over_library=times[name]["over_library"],
@@ -1794,6 +2251,7 @@ def main() -> int:
         "fused_adam", pallas + "fused_adam.py:25", csrc + "fused_adam.cu",
         train["fused_adam"], errs["fused_adam"], times["fused_adam"], card,
         launches_by_path=by_path("fused_adam"),
+        launches_per_replayed_step=replayed("fused_adam"),
         shape={"param": "gpt.wte", "dims": [_TRAIN["vocab_size"],
                                             _TRAIN["d_model"]],
                "dtype": "bfloat16"}))
@@ -1817,7 +2275,9 @@ def main() -> int:
             name, pallas + f"flash_attention.py:{bthd}", source,
             train_long[name], errs[name], times[name], card,
             replaces_bhtd=pallas + f"flash_attention.py:{bhtd}",
-            launches_by_path=by_path(name), shape=flash_shape, **extra))
+            launches_by_path=by_path(name),
+            launches_per_replayed_step=replayed(name), shape=flash_shape,
+            **extra))
     _say(kernels=rows)
     print(card, flush=True)
     _say(ok=True, device={"platform": "gpu",

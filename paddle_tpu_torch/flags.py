@@ -2,8 +2,10 @@
 
 Port of ``paddle_tpu/flags.py``, cut to the flags this package reads:
 the serving engine's ``PADDLE_TPU_SERVE_*`` knobs, the monitor and
-profiler switches, and the chaos sites. The variable names are the JAX
-package's own, so one deployment's environment drives either package.
+profiler switches, the chaos sites and ``PADDLE_TPU_EAGER`` (the port's
+own: the card replays CUDA graphs unless it is set). The other variable
+names are the JAX package's own, so one deployment's environment drives
+either package.
 
 Every variable is declared here once (name, typed default, help) and
 read through :func:`env_flag`. Flags are read live from ``os.environ``:
@@ -166,6 +168,14 @@ define_env_flag(
     "seed of the chaos injector's deterministic per-site decision "
     "stream: the same spec + seed reproduces the same faults at the "
     "same checks")
+
+# -- compiled execution --------------------------------------------------------
+define_env_flag(
+    "PADDLE_TPU_EAGER", False,
+    "run the card eagerly, op by op (the counterpart of jax.disable_jit): "
+    "by default a steady training step (Executor.run) and each serving "
+    "program (DecodeModel decode, prefill and score) are captured once "
+    "as a CUDA graph and replayed; the CPU always runs eagerly")
 
 # -- static-graph training ---------------------------------------------------
 define_env_flag(

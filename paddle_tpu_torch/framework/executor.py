@@ -1,34 +1,58 @@
-"""Executor: runs a program block on one device, op by op.
+"""Executor: runs a program block on one device.
 
 Port of ``paddle_tpu/framework/executor.py`` for one device. The JAX
 executor traces every op's lowering into one function and jit-compiles
-it; the port runs the same lowerings eagerly, in program order
-(:func:`lower_block` / :func:`lower_op`), on torch tensors that stay on
-the device between ops.
+it (``_CompiledBlock``, ``_get_compiled``); the port runs the same
+lowerings in program order (:func:`lower_block` / :func:`lower_op`), on
+torch tensors that stay on the device between ops, and on the card
+captures a steady step as a CUDA graph and replays it
+(:class:`_CompiledStep`, through ``replay.Captured``).
 
 - **Cache.** One entry per (program, version, feed spec, fetch list,
   scope) holds the analysed block: which scope vars the block reads
   (:meth:`Executor._analyze_block`), which persistables it writes, and
   the autograd plan of the generic grad ops (which forward op each grad
   op differentiates, and which input slots of that forward op enter the
-  tape; see ``registry.py``).
-- **A step.** Feeds and the program's ``_extra_feeds`` (the optimizer's
-  learning rate, a host scalar read each run) are copied to the device;
-  the ops run under ``torch.no_grad()``, and only the forward ops that a
-  grad op will differentiate run on the autograd tape; each updated
-  persistable is written back to the scope. An op that updates in place
-  (the fused Adam kernel) returns the scope's own tensor, so nothing is
-  copied. ``return_numpy=False`` returns the fetched tensors.
+  tape; see ``registry.py``). On the compiled route it also holds the
+  entry's one compiled step.
+- **Eager step** (the CPU; the card with ``PADDLE_TPU_EAGER=1``, the
+  counterpart of ``jax.disable_jit``). Feeds and the program's
+  ``_extra_feeds`` (the optimizer's learning rate, a host scalar read
+  each run) are copied to the device; the ops run under
+  ``torch.no_grad()``, and only the forward ops that a grad op will
+  differentiate run on the autograd tape; each updated persistable is
+  written back to the scope. An op that updates in place (the fused
+  Adam kernel, the beta powers) returns the scope's own tensor, so
+  nothing is copied. ``return_numpy=False`` returns the fetched tensors.
+- **Compiled step** (the card's default). The entry's first run is an
+  eager warm-up, the second is captured as a CUDA graph and replayed
+  once, every later run replays it. Before each run the feeds and the
+  learning rate are copied into the step's static buffers (so an LR
+  schedule reaches the graph); the persistables the block reads are
+  bound by address, and a scope value replaced since the capture (by
+  ``scope.set``, a checkpoint load, ``weights.scope_from_numpy``) makes
+  the step capture again on the new tensors; a persistable written out
+  of place is copied back into its bound tensor inside the graph;
+  fetches and persistables the block only writes are cloned out of the
+  graph's pool, so a later step never changes what a run returned. A
+  random draw refuses to be captured (``LoweringContext.generator``):
+  such a program raises ``errors.Unimplemented`` at its capture unless
+  ``PADDLE_TPU_EAGER`` is set. ``Executor.staged`` takes this route on
+  the CPU, with the body called directly (tests).
 - **Observability.** Each run is an ``executor/run`` span of the ported
   ``profiler`` and counts on the ported ``monitor``
   (``executor_run_total``, ``executor_run_seconds``,
-  ``executor_cache_lookups_total``, ``executor_cache_size``).
+  ``executor_cache_lookups_total``, ``executor_cache_size``, and per
+  capture ``executor_compile_total`` and ``executor_compile_seconds``).
+  Under ``torch.profiler`` an op that runs on the host runs inside a
+  ``paddle_op::<type>`` range (a replayed step has no host ops to
+  mark); with no profiler on, a run pays one check.
 
 Not ported, and each raises ``errors.Unimplemented`` naming its
 ``ROADMAP.md`` item: mesh and sharding-recipe programs and the pipeline
 (A10), compiled-program insight (xla_insight), the numerics sentinel,
 goodput and memwatch (A9). There is no per-op garbage-collection plan:
-the env holds a step's values until the step ends.
+a step holds its values until it ends.
 """
 from __future__ import annotations
 
@@ -44,6 +68,7 @@ from .. import monitor as _monitor
 from .. import profiler as _profiler
 from . import core, registry
 from . import errors as _errs
+from . import replay as _replay
 from .program import Program, Variable, default_main_program
 from .registry import GRAD_SUFFIX, OUT_PREFIX, LoweringContext
 from .scope import Scope, global_scope
@@ -63,6 +88,13 @@ _M_RUN_T = _monitor.histogram(
     "fetches to numpy)")
 _M_CACHE_SIZE = _monitor.gauge(
     "executor_cache_size", "analysed programs resident in the run cache")
+_M_COMPILE = _monitor.counter(
+    "executor_compile_total",
+    "program block compiles: captures of a step as a CUDA graph")
+_M_COMPILE_T = _monitor.histogram(
+    "executor_compile_seconds",
+    "latency of the run that captures a block (capture + first replay)",
+    buckets=(0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0))
 
 
 def _unported(what: str, item: str) -> _errs.UnimplementedError:
@@ -98,11 +130,23 @@ def lower_op(ctx: LoweringContext, op, env: Dict[str, Any],
             env[name] = val
 
 
+# the torch.profiler range each op runs in while a profiler is on
+OP_RANGE = "paddle_op::"
+
+
 def lower_block(ctx: LoweringContext, block, env: Dict[str, Any]
                 ) -> Dict[str, Any]:
-    """Run every op of ``block`` in program order through ``env``."""
+    """Run every op of ``block`` in program order through ``env``. Under
+    an active ``torch.profiler`` each op runs inside a range named
+    ``OP_RANGE + op.type``, so a trace attributes device time to ops."""
+    traced = torch.autograd._profiler_enabled()
     for i, op in enumerate(block.ops):
-        if op.type not in _STRUCTURAL_OPS:
+        if op.type in _STRUCTURAL_OPS:
+            continue
+        if traced:
+            with torch.profiler.record_function(OP_RANGE + op.type):
+                lower_op(ctx, op, env, op_idx=i)
+        else:
             lower_op(ctx, op, env, op_idx=i)
     return env
 
@@ -125,13 +169,68 @@ def _gather(op, env, op_idx) -> Dict[str, List[Any]]:
 
 class _Analysed:
     """A cache entry: the block's scope reads and persistable writes,
-    and the autograd plan of its generic grad ops."""
+    the autograd plan of its generic grad ops, and, on the compiled
+    route, its compiled step."""
 
     def __init__(self, param_names, updated_names, tape, grad_of):
         self.param_names = param_names
         self.updated_names = updated_names
         self.tape = tape  # forward op idx -> input slots to differentiate
         self.grad_of = grad_of  # generic grad op idx -> forward op idx
+        self.compiled: Optional[_CompiledStep] = None
+
+
+class _CompiledStep:
+    """The counterpart of the reference's ``_CompiledBlock``: one
+    analysed block's step as a body over static buffers, run through
+    ``replay.Captured`` (warm-up, capture, replay).
+
+    ``feeds`` are the static buffers of the feeds and the learning rate;
+    ``bound`` the persistables the block reads, at the addresses the
+    graph was captured on; ``outputs`` the persistables the block writes
+    without reading them. :meth:`body` runs the block on them, copies an
+    out-of-place write of a bound persistable back into it, and returns
+    the fetches and the outputs."""
+
+    def __init__(self, exe: "Executor", program: Program, entry: _Analysed,
+                 feed_vals, fetch_names, scope: Scope, warmup: int):
+        self.block = program.global_block()
+        self.seed = (program.random_seed if program.random_seed is not None
+                     else 0)
+        self.entry = entry
+        self.device = exe.device
+        self.step = 0  # the executor's step count, set before each run
+        self.feeds = {n: torch.empty(v.shape, dtype=v.dtype,
+                                     device=exe.device)
+                      for n, v in feed_vals.items()}
+        self.bound = {n: exe._scope_value(scope, n)
+                      for n in entry.param_names}
+        self.ptrs = {n: t.data_ptr() for n, t in self.bound.items()}
+        self.fetch_names = list(fetch_names)
+        self.outputs = [n for n in entry.updated_names
+                        if n not in self.bound]
+        self.run = _replay.Captured(self.body, exe.device, warmup=warmup)
+
+    def bound_to(self, scope: Scope) -> bool:
+        """Whether every persistable the block reads is still the tensor,
+        at the address, that this step was captured on."""
+        return all(scope.get(n) is t and t.data_ptr() == self.ptrs[n]
+                   for n, t in self.bound.items())
+
+    def body(self, replayed: bool):
+        env: Dict[str, Any] = dict(self.bound)
+        env.update(self.feeds)
+        ctx = LoweringContext(device=self.device, seed=self.seed,
+                              step=self.step, tape=self.entry.tape,
+                              grad_of=self.entry.grad_of, replayed=replayed)
+        with torch.no_grad():
+            lower_block(ctx, self.block, env)
+            for n in self.entry.updated_names:
+                dst = self.bound.get(n)
+                if dst is not None and env[n] is not dst:
+                    dst.copy_(env[n])
+        return ([env[n] for n in self.fetch_names],
+                [env[n] for n in self.outputs])
 
 
 class Executor:
@@ -145,6 +244,14 @@ class Executor:
         self.device = core.resolve_device(self.place)
         self._cache: Dict[Tuple, _Analysed] = {}
         self._step = 0
+        # take the compiled route on the CPU too, with the captured body
+        # called directly (tests); the card takes it unless
+        # PADDLE_TPU_EAGER is set
+        self.staged = False
+        # runs by phase of the compiled route: "eager" (warm-ups),
+        # "capture" (each ran the body once on the host, then replayed
+        # it) and "replay" (the host launched nothing but the graph)
+        self.phases = {"eager": 0, "capture": 0, "replay": 0}
 
     # -- public API ----------------------------------------------------
     def run(self, program: Optional[Program] = None,
@@ -173,12 +280,19 @@ class Executor:
         scope = scope or global_scope()
         fetch_names = [v.name if isinstance(v, Variable) else str(v)
                        for v in (fetch_list or [])]
-        feed_vals = {k: self._to_device(v) for k, v in feed.items()}
+        compiled = _replay.replays(self.device, self.staged)
+        # the compiled route copies host values into its static buffers
+        # straight from the host
+        place = _host_tensor if compiled else self._to_device
+        feed_vals = {k: place(v) for k, v in feed.items()}
         for n, fn in (getattr(program, "_extra_feeds", None) or {}).items():
             if n not in feed_vals:
-                feed_vals[n] = self._to_device(np.asarray(fn()))
+                feed_vals[n] = place(np.asarray(fn()))
 
         entry = self._get_analysed(program, feed_vals, fetch_names, scope)
+        if compiled:
+            return self._run_compiled(program, entry, feed_vals,
+                                      fetch_names, scope, return_numpy)
         env: Dict[str, Any] = {n: self._scope_value(scope, n)
                                for n in entry.param_names}
         env.update(feed_vals)
@@ -194,6 +308,31 @@ class Executor:
         if return_numpy:
             return [_to_numpy(t) for t in fetches]
         return fetches
+
+    def _run_compiled(self, program, entry: _Analysed, feed_vals,
+                      fetch_names, scope: Scope, return_numpy: bool):
+        step = entry.compiled
+        if step is None or not step.bound_to(scope):
+            # a scope value replaced since the capture: capture again on
+            # the new tensors (the warm-up was this entry's first run)
+            step = entry.compiled = _CompiledStep(
+                self, program, entry, feed_vals, fetch_names, scope,
+                warmup=1 if step is None else 0)
+        for n, v in feed_vals.items():
+            step.feeds[n].copy_(v)
+        step.step = self._step
+        t0 = time.perf_counter()
+        (fetches, outputs), phase = step.run()
+        if phase == "capture":
+            _M_COMPILE.inc()
+            _M_COMPILE_T.observe(time.perf_counter() - t0)
+        self.phases[phase] += 1
+        self._step += 1
+        for n, t in zip(step.outputs, outputs):
+            scope.set(n, t.clone())
+        if return_numpy:
+            return [_to_numpy(t) for t in fetches]
+        return [t.clone() for t in fetches]
 
     def _refuse_unported(self, program) -> None:
         if getattr(program, "_pipeline_meta", None) is not None:
@@ -214,13 +353,7 @@ class Executor:
 
     # -- helpers -------------------------------------------------------
     def _to_device(self, value: Any) -> torch.Tensor:
-        if isinstance(value, torch.Tensor):
-            return value.to(self.device)
-        arr = np.asarray(value)
-        if arr.dtype.name == "bfloat16":  # ml_dtypes: widen exactly
-            return torch.from_numpy(arr.astype(np.float32)).to(
-                self.device, torch.bfloat16)
-        return torch.from_numpy(np.array(arr, order="C")).to(self.device)
+        return _host_tensor(value).to(self.device)
 
     def _scope_value(self, scope: Scope, name: str) -> torch.Tensor:
         val = scope.get(name)
@@ -313,6 +446,18 @@ class Executor:
                 if var is not None and var.persistable and name not in updated:
                     updated.append(name)
         return param_names, updated
+
+
+def _host_tensor(value: Any) -> torch.Tensor:
+    """A fed value as a tensor: a tensor as it is, an array as a CPU
+    tensor of its values (ml_dtypes bfloat16 widened exactly and cast
+    back)."""
+    if isinstance(value, torch.Tensor):
+        return value
+    arr = np.asarray(value)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, order="C"))
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -3,7 +3,8 @@
 Port of ``paddle_tpu/framework/registry.py``. An op registers one
 *lowering rule*: a function ``fn(ctx, ins, attrs) -> {slot: tensor}``
 on torch tensors. The executor runs the rules of a block in program
-order, eagerly.
+order: eagerly, or once while a CUDA graph records them, which later
+steps replay (``replay.py``).
 
 Two subsystems of the JAX package change shape here:
 
@@ -63,27 +64,42 @@ class LoweringContext:
     seeded from them and the op's ``_rng_id``), and the step's autograd
     plan and records: ``tape`` maps a forward op's index to the input
     slots to differentiate, ``grad_of`` a generic grad op's index to its
-    forward op's (both built by the executor)."""
+    forward op's (both built by the executor). ``replayed`` marks a run
+    that is captured for replay as a CUDA graph (``replay.py``)."""
 
     def __init__(self, device: Any = "cpu", seed: int = 0, step: int = 0,
                  tape: Optional[Dict[int, Sequence[str]]] = None,
-                 grad_of: Optional[Dict[int, int]] = None):
+                 grad_of: Optional[Dict[int, int]] = None,
+                 replayed: bool = False):
         self.device = torch.device(device)
         self.seed = int(seed)
         self.step = int(step)
         self.tape = tape or {}
         self.grad_of = grad_of or {}
+        self.replayed = bool(replayed)
         self._records: Dict[int, _Record] = {}
         self._pending: Optional[_Record] = None
 
-    def generator(self, rng_id: int) -> Optional[torch.Generator]:
-        """A generator seeded from (program seed, step, op rng id): the
-        same op draws the same numbers at the same step of a seeded
-        program. None on the meta device (shape inference draws
-        nothing)."""
+    def generator(self, rng_id: int, seed: int = 0
+                  ) -> Optional[torch.Generator]:
+        """A generator seeded from ``seed`` where the op fixes one, else
+        from (program seed, step, op rng id): the same op draws the same
+        numbers at the same step of a seeded program. None on the meta
+        device (shape inference draws nothing). A replayed run refuses
+        to draw: the seed is set on the host, so a captured graph would
+        repeat one draw every step."""
         if self.device.type == "meta":
             return None
+        if self.replayed:
+            raise _errs.errors.Unimplemented(
+                "a random draw in a step replayed as a CUDA graph (its "
+                "generator is seeded on the host, so every replay would "
+                "repeat the captured draw); set PADDLE_TPU_EAGER=1 to run "
+                "this program eagerly (ROADMAP.md queue A, item A4)")
         g = torch.Generator(device=self.device)
+        if seed:
+            g.manual_seed(int(seed))
+            return g
         mixed = (self.seed * 1_000_003 + self.step) * 1_000_033 + int(rng_id)
         g.manual_seed(mixed & 0x7FFF_FFFF_FFFF_FFFF)
         return g

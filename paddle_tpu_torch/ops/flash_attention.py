@@ -62,6 +62,20 @@ TPU's finite stand-in for -inf, and a masked entry contributes 0). A row
 that sees no key at all (causal with Tq > Tk) gives out = 0 and
 lse = -1e30, as the TPU kernel gives where such a row's whole block is
 skipped.
+
+Under a CUDA graph (``framework/replay.py``; the card's default for a
+training step and the serving programs) the wrappers need nothing of
+their own: they launch on ``torch.cuda.current_stream``, which is the
+capture stream (a backward runs on its forward's stream), and allocate
+outputs and scratch through torch, so both land in the graph's memory
+pool. The TMA tensor maps are encoded on the host from the operands'
+addresses when a launch is recorded and replayed as recorded; that is
+safe only because the pool keeps every captured address fixed for the
+graph's life. ``cudaFuncSetAttribute`` (a kernel's dynamic shared-memory
+limit) runs at each launch, first in the eager warm-up before any
+capture. The launch counters count Python calls: a capture adds one
+call's launches, a replay none, although the graph relaunches the
+recorded kernels.
 """
 from __future__ import annotations
 

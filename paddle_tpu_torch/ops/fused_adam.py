@@ -19,6 +19,15 @@ and how the design answers that).
 Unlike the TPU kernel, whose dispatch (``supported``) keeps 1-D and
 unaligned params on the jnp path for the TPU's (8, 128) tiling, every
 floating param of any shape goes through this kernel.
+
+Under a CUDA graph (``framework/replay.py``; the card's default for a
+training step) the wrapper needs nothing of its own: it launches on
+``torch.cuda.current_stream``, which is the capture stream, and
+allocates nothing (p, m and v are updated in place). The kernel reads lr
+and the beta powers from device memory, so a replay picks up the values
+staged for it. The launch counter counts Python calls: a capture adds
+one call's launches, a replay none, although the graph relaunches the
+recorded kernels.
 """
 from __future__ import annotations
 

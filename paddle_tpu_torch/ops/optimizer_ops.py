@@ -8,7 +8,12 @@ kernel only for tile-aligned 2-D params on a TPU; the port's take the
 fused CUDA kernel (``ops/fused_adam.py``) for every param, so no plain
 update runs on the card, and the beta-pow updates stay here, in the
 lowering, as in ``_adam_fused_maybe``. The kernel updates p and the
-moments in place and the op returns those same tensors.
+moments in place, the lowering multiplies the beta powers in place after
+the kernel has read them (in order on one stream), and the op returns
+those same tensors. In place is what a step replayed as a CUDA graph
+needs: the graph reads each persistable at its captured address, so a
+new tensor returned for ``Beta1PowOut`` would never reach the next step
+(the executor would have to copy it back, two launches a parameter).
 """
 from __future__ import annotations
 
@@ -58,7 +63,7 @@ def _adam_fused(ins, attrs, weight_decay):
         b1p.float(), b2p.float(), beta1=b1, beta2=b2,
         eps=attrs.get("epsilon", 1e-8), weight_decay=weight_decay)
     return {"ParamOut": p_out, "Moment1Out": m1_out, "Moment2Out": m2_out,
-            "Beta1PowOut": b1p * b1, "Beta2PowOut": b2p * b2}
+            "Beta1PowOut": b1p.mul_(b1), "Beta2PowOut": b2p.mul_(b2)}
 
 
 # an update op's outputs are its inputs' vars: nothing to infer, and the

@@ -24,12 +24,7 @@ def _shape_attr(ins, attrs):
 
 
 def _generator(ctx, attrs):
-    seed = attrs.get("seed", 0)
-    if seed and ctx.device.type != "meta":
-        g = torch.Generator(device=ctx.device)
-        g.manual_seed(int(seed))
-        return g
-    return ctx.generator(attrs.get("_rng_id", 0))
+    return ctx.generator(attrs.get("_rng_id", 0), seed=attrs.get("seed", 0))
 
 
 @register_op("gaussian_random", stop_gradient=True, uses_rng=True)

@@ -44,6 +44,15 @@ Threading: ``start()`` runs the scheduler on a daemon thread (the
 serve_bench / replica mode); without ``start()`` the engine is driven
 synchronously (``run_until_idle`` / ``drive``), which is how tests and
 the predictor get deterministic behavior with the same code path.
+
+Compiled programs (the card's default, ``serving/model.py``): the
+model's prefill and decode graphs are bound to the pages tensor they
+were captured on, and the model returns the pages it was given, so
+``self.pages`` stays that one tensor for the engine's life. ``warm()``
+captures them on these pages before traffic, from the calling thread;
+an engine that serves unwarmed captures on its first ticks, on the
+scheduler thread (the capture's error mode is thread-local, so other
+threads go on undisturbed).
 """
 from __future__ import annotations
 
@@ -397,6 +406,12 @@ class ServingEngine:
                                         name="paddle-tpu-serve",
                                         daemon=True)
         self._thread.start()
+
+    def warm(self, full: bool = False) -> None:
+        """Run the model's programs ahead of traffic on this engine's own
+        pages (``DecodeModel.warm``): on the card that captures them, so
+        requests only replay. The calls write only the scratch block 0."""
+        self.model.warm(full=full, pages=self.pages)
 
     def stop(self, flush: bool = True) -> None:
         self._stop = True

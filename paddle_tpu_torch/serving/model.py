@@ -14,10 +14,24 @@ eagerly in PyTorch on one device:
   kernel (``ops/lmhead_ce.py``), so the [tokens, vocab] logits are never
   written to device memory.
 
-The JAX package jit-compiles each of these and captures its XLA cost
-plan; here they run eagerly, so there is no compile step and no cost
-insight (``insights`` stays empty and :meth:`decode_roofline` returns
-None). Multi-device recipes are not ported: any recipe raises.
+The JAX package jit-compiles each of these per bucket (``_jit_for``) and
+captures its XLA cost plan. The port's counterpart of that compile is
+the CUDA graph (``framework/replay.py``): on the card each program --
+decode at ``max_batch``, prefill and score per bucket -- is a body over
+static device buffers that runs eagerly once, is then captured and
+replayed. The host arrays each call takes (tokens, block tables,
+positions, the prompt's length) are copied into the program's buffers
+before the replay, and the host reads (the next tokens, the NLL) come
+after it. Prefill and decode write the pages they were captured on, so
+their programs are bound to one pages tensor: a call with another pages
+tensor drops them and warms and captures anew (:meth:`warm` does both
+ahead of traffic). A model's programs never run at once and each
+output is read right after its replay, so they share one graph memory
+pool. ``PADDLE_TPU_EAGER=1`` runs the same bodies eagerly; the CPU
+always does, unless ``staged`` (tests: the same staging, the body called
+directly). No XLA cost plan exists here: ``insights`` stays empty and
+:meth:`decode_roofline` returns None. Multi-device recipes are not
+ported: any recipe raises.
 
 Numerical contract the engine's tests lean on: every per-row computation
 in decode depends only on that row's inputs and that request's own cache
@@ -43,6 +57,7 @@ import torch.nn.functional as F
 
 from .. import flags as _flags
 from ..framework import errors as _errors
+from ..framework.replay import Captured, replays
 from ..models.gpt import GPTConfig
 from ..ops.lmhead_ce import lmhead_ce
 from ..weights import params_from_numpy, torch_dtype
@@ -205,6 +220,11 @@ class DecodeModel:
         host = params if params is not None else init_params(cfg, seed)
         self.params = self._place(host)
         self.insights: Dict[str, Any] = {}
+        # the compiled route on the CPU, the body called directly (tests)
+        self.staged = False
+        self._programs: Dict[Any, "_Program"] = {}
+        self._bound_pages: Optional[Tuple[torch.Tensor, int]] = None
+        self._pool = None
 
     def _place(self, params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         out = {}
@@ -241,6 +261,41 @@ class DecodeModel:
         (int32 on the JAX side; torch indexes with int64)."""
         return torch.as_tensor(np.asarray(a, np.int64), dtype=dtype,
                                device=self.device)
+
+    # -- programs -------------------------------------------------------
+
+    def _run(self, key, body, pages, **host):
+        """``body(pages, **inputs)``, each host array of ``host`` an
+        int64 tensor on the device: eagerly, or on the compiled route
+        through the program ``key`` (its static buffers filled first).
+        Returns the body's outputs (on the compiled route the program's
+        own, which its next replay overwrites)."""
+        ins = {k: torch.as_tensor(np.asarray(a, np.int64))
+               for k, a in host.items()}
+        if not replays(self.device, self.staged):
+            return body(pages, **{k: t.to(self.device)
+                                  for k, t in ins.items()})
+        prog = self._program(key, body, pages, ins)
+        for k, t in ins.items():
+            prog.inputs[k].copy_(t)
+        return prog.run()[0]
+
+    def _program(self, key, body, pages, ins) -> "_Program":
+        bound = self._bound_pages
+        if pages is not None and (bound is None or bound[0] is not pages
+                                  or bound[1] != pages.data_ptr()):
+            # a graph writes the pages it was captured on: the programs
+            # bound to other pages go, and are never replayed on these
+            self._programs = {k: p for k, p in self._programs.items()
+                              if p.pages is None}
+            self._bound_pages = (pages, pages.data_ptr())
+        prog = self._programs.get(key)
+        if prog is None:
+            if self._pool is None and self.device.type == "cuda":
+                self._pool = torch.cuda.graph_pool_handle()
+            prog = self._programs[key] = _Program(
+                body, pages, ins, self.device, self._pool)
+        return prog
 
     # -- shared forward pieces -----------------------------------------
 
@@ -320,16 +375,24 @@ class DecodeModel:
         # padded positions all write scratch block 0, slot 0 (duplicate
         # writes there leave an arbitrary winner, which nothing reads)
         pos = np.arange(L)
-        blk = self._ids(np.where(pos < n, ids[pos // BS], 0))
-        slot = self._ids(np.where(pos < n, pos % BS, 0))
+        blk = np.where(pos < n, ids[pos // BS], 0)
+        slot = np.where(pos < n, pos % BS, 0)
+        tok = self._run(("prefill", L), self._prefill_body, pages,
+                        tokens=padded, blk=blk, slot=slot, last=[(n - 1) % L])
+        return pages, int(tok)
+
+    def _prefill_body(self, pages, tokens, blk, slot, last):
+        """Prefill on device inputs: the [1, L] padded prompt, each
+        position's block and slot, and the last prompt position [1].
+        Returns the first token (0-d)."""
 
         def scatter_kv(i, k, v):
             pages[i, 0, blk, slot] = k[0]
             pages[i, 1, blk, slot] = v[0]
 
-        x = self._prompt_trunk(self._ids(padded), L, on_kv=scatter_kv)
-        logits = x[0, n - 1] @ self.params["gpt.wte"].t()  # [V]
-        return pages, int(torch.argmax(logits))
+        x = self._prompt_trunk(tokens, tokens.shape[1], on_kv=scatter_kv)
+        h = x[0].index_select(0, last)[0]  # [D], indexed on the device
+        return torch.argmax(h @ self.params["gpt.wte"].t())
 
     # -- prompt scoring -------------------------------------------------
 
@@ -344,14 +407,20 @@ class DecodeModel:
         L = self._bucket_or_raise(n)
         padded = np.zeros((1, L), np.int64)
         padded[0, :n] = toks[:n]
-        t = self._ids(padded)
-        x = self._prompt_trunk(t, L)
-        # positions 0..L-2 predict tokens 1..L-1; padded tail masked
-        nll = lmhead_ce(x[0, :L - 1], self.params["gpt.wte"], t[0, 1:])
-        valid = torch.arange(L - 1, device=self.device) < (n - 1)
-        nll = torch.where(valid, nll, torch.zeros_like(nll))
-        total = nll.sum()
+        nll, total = self._run(("score", L), self._score_body, None,
+                               tokens=padded, count=[n])
         return nll.cpu().numpy()[:max(0, n - 1)], float(total)
+
+    def _score_body(self, pages, tokens, count):
+        """Scoring on device inputs: the [1, L] padded prompt and its
+        length [1]. Returns (nll [L - 1], padded tail zeroed; its sum)."""
+        L = tokens.shape[1]
+        x = self._prompt_trunk(tokens, L)
+        # positions 0..L-2 predict tokens 1..L-1; padded tail masked
+        nll = lmhead_ce(x[0, :L - 1], self.params["gpt.wte"], tokens[0, 1:])
+        valid = torch.arange(L - 1, device=self.device) < (count - 1)
+        nll = torch.where(valid, nll, torch.zeros_like(nll))
+        return nll, nll.sum()
 
     # -- decode ---------------------------------------------------------
 
@@ -362,13 +431,19 @@ class DecodeModel:
         ``pages`` in place. Inactive slots carry all-zero tables (reads
         masked, writes land in the scratch block). Returns
         (pages, next[B] np.int32)."""
+        nxt = self._run("decode", self._decode_body, pages,
+                        tables=block_tables, pos=context_lens, toks=tokens)
+        return pages, nxt.cpu().numpy().astype(np.int32)
+
+    def _decode_body(self, pages, tables, pos, toks):
+        """A decode tick on device inputs: block tables [B, MAXB], each
+        slot's new position [B] and token [B]. Returns the next tokens
+        [B]."""
         cfg, p, BS = self.cfg, self.params, self.block_size
         B, H, hd = self.max_batch, cfg.n_head, cfg.head_dim
         S = self.gather_len
         scale = 1.0 / math.sqrt(hd)
-        tables = self._ids(block_tables)  # [B, MAXB]
-        pos = self._ids(context_lens)  # [B]: the new token's position
-        x = p["gpt.wte"][self._ids(tokens)] + p["gpt.wpe"][pos]  # [B, D]
+        x = p["gpt.wte"][toks] + p["gpt.wpe"][pos]  # [B, D]
         blk = tables[torch.arange(B, device=self.device), pos // BS]
         slot = pos % BS
         valid = (torch.arange(S, device=self.device)[None, :]
@@ -392,24 +467,31 @@ class DecodeModel:
             x = x + self._mlp(self._ln(x, f"{ln}.ln2"), ln)
         x = self._ln(x, "gpt.lnf")
         logits = x @ p["gpt.wte"].t()  # [B, V]
-        nxt = torch.argmax(logits, dim=-1)
-        return pages, nxt.cpu().numpy().astype(np.int32)
+        return torch.argmax(logits, dim=-1)
 
     @torch.no_grad()
-    def warm(self, full: bool = False) -> None:
-        """Run decode (and the smallest prefill bucket; every bucket when
-        ``full``) once ahead of traffic, so the first request does not
-        pay the device's one-time library and kernel loading. Runs on a
-        one-block scratch page set: every write of these calls lands in
-        block 0, so the engine's cache is untouched."""
-        scratch = self.init_pages(n_blocks=1)
+    def warm(self, full: bool = False,
+             pages: Optional[torch.Tensor] = None) -> None:
+        """Run decode and the smallest prefill bucket (every prefill and
+        score bucket when ``full``) ahead of traffic, so the first
+        request does not pay the device's one-time library and kernel
+        loading. On ``pages`` (the engine's own) each program runs twice
+        on the compiled route, its warm-up and its capture, so traffic
+        only replays; with no pages they run once on a one-block scratch
+        set. Every write of these calls lands in block 0, the scratch
+        block that nothing reads, so a cache is left untouched."""
+        target = pages if pages is not None else self.init_pages(n_blocks=1)
+        calls = 1 + (pages is not None and replays(self.device, self.staged))
         B = self.max_batch
-        self.decode(scratch, np.zeros((B, self.max_blocks_per_req)),
-                    np.zeros(B), np.zeros(B))
         buckets = (self.prefill_buckets if full
                    else self.prefill_buckets[:1])
-        for L in buckets:
-            self.prefill(scratch, np.zeros(L), L, [])
+        for _ in range(calls):
+            self.decode(target, np.zeros((B, self.max_blocks_per_req)),
+                        np.zeros(B), np.zeros(B))
+            for L in buckets:
+                self.prefill(target, np.zeros(L), L, [])
+                if full:
+                    self.score(np.zeros(L))
         self.synchronize()
 
     # -- reference path (tests) ----------------------------------------
@@ -456,3 +538,17 @@ class DecodeModel:
                             else float(v) for k, v in calib.items()},
             "program": ins.key_hash,
         }
+
+
+class _Program:
+    """One serving program on the compiled route: its static input
+    buffers, the pages it is bound to (None for scoring) and its body
+    run through ``replay.Captured``."""
+
+    def __init__(self, body, pages, ins: Dict[str, torch.Tensor], device,
+                 pool):
+        self.pages = pages
+        self.inputs = {k: torch.empty(t.shape, dtype=t.dtype, device=device)
+                       for k, t in ins.items()}
+        self.run = Captured(lambda replayed: body(pages, **self.inputs),
+                            device, pool=pool)

@@ -42,7 +42,15 @@ in for the kernels.
   fp64 and read last column to first lie inside the band that Y (bf16,
   plain CE) sets around T (fp32); a CE forward that drops one 128-column
   vocabulary tile lies outside. ``_plain_ce`` is undone on exit and fails
-  if a CE kernel launch was counted inside it."""
+  if a CE kernel launch was counted inside it.
+- Replay against eager (``_replay_agrees``), on a tiny fp32 GPT trained 5
+  steps on the CPU through ``_leg`` from one start, the learning rate
+  changed at the last step: the staged compiled route (the card's
+  replay with its body called directly) passes against eager, bit for
+  bit; three broken replays fail -- the capture step never applied (the
+  state restored after it), the learning rate frozen at the captured
+  step's, and beta1's power one step ahead; a difference in a loss or a
+  persistable passes only where a second eager run shares it."""
 import os
 import sys
 
@@ -624,3 +632,116 @@ def test_plain_ce_swap_is_undone_and_counts_nothing():
             ce.dx_launches += 1
     assert (ce._launch, ce._launch_dx, ce._launch_dw) == kernels
     ce.reset_launches()
+
+
+# -- replay against eager (_replay_agrees) --------------------------------
+
+_REPLAY = dict(vocab_size=128, n_layer=2, n_head=2, d_model=32,
+               max_seq_len=16, dtype="float32")
+_REPLAY_LRS = [1e-3, 1e-3, 1e-3, 1e-3, 5e-4]
+
+
+@pytest.fixture(scope="module")
+def replay_start():
+    """(program, start, feed, b1p0): a tiny fp32 GPT train program (the
+    smoke's ``_train_program``), its initial persistables, a fixed batch
+    and the initial beta1 power, on the CPU."""
+    from paddle_tpu_torch.framework import Scope
+
+    program = chip_smoke._train_program(_REPLAY, 2, 16)
+    scope = Scope()
+    chip_smoke._executor("cpu").run(program[1], scope=scope)
+    start = {v.name: scope.get(v.name).detach().clone()
+             for v in program[0].list_vars() if v.persistable}
+    feed = chip_smoke._fixed_batch(torch, 128, 2, 16, "cpu")
+    b1p0 = float(start[next(n for n in start
+                            if n.startswith("gpt.wte_beta1_pow"))])
+    return program, start, feed, b1p0
+
+
+def _replay_leg(replay_start, staged, start=None):
+    program, start0, feed, _ = replay_start
+    return chip_smoke._leg(program, start or start0, feed, "cpu",
+                           _REPLAY_LRS, staged=staged)
+
+
+def test_replay_check_passes_equal_trajectories(replay_start):
+    """The staged compiled route (the card's replay, its body called
+    directly) against eager: bit for bit, the schedule read back, beta1's
+    power once a step."""
+    e = _replay_leg(replay_start, staged=False)
+    r = _replay_leg(replay_start, staged=True)
+    assert r["phases"] == {"eager": 1, "capture": 1, "replay": 3}
+    report = chip_smoke._replay_agrees(r, e, _REPLAY_LRS, replay_start[3])
+    assert report["bit_identical"] and report["persistables"] > 0
+    assert chip_smoke._lr_schedule(3) == [chip_smoke._LR] * 2 + [
+        chip_smoke._LAST_LR]
+
+
+@pytest.mark.parametrize("broken,match", [
+    ("skips_the_capture_step", "beta1 power"),
+    ("freezes_the_learning_rate", "learning rates"),
+    ("beta_pow_off_by_one", "beta1 power")])
+def test_replay_check_rejects_a_broken_replay(replay_start, monkeypatch,
+                                              broken, match):
+    """Three replays gone wrong: the step on which the graph is captured
+    never applied (the capture recorded it, nothing replayed it), the
+    learning rate frozen at the captured step's, and Adam's beta powers
+    one step ahead."""
+    from paddle_tpu_torch.framework import executor as texec
+
+    e = _replay_leg(replay_start, staged=False)
+    start = None
+    if broken == "skips_the_capture_step":
+        real = texec._CompiledStep.body
+
+        def body(self, replayed):
+            if not replayed or self.run.calls["replay"]:
+                return real(self, replayed)
+            saved = {n: t.clone() for n, t in self.bound.items()}
+            out = real(self, replayed)
+            for n, t in saved.items():  # the state never moved
+                self.bound[n].copy_(t)
+            return out
+
+        monkeypatch.setattr(texec._CompiledStep, "body", body)
+    elif broken == "freezes_the_learning_rate":
+        feeds = replay_start[0][0]._extra_feeds
+        (name, rate), = feeds.items()
+        seen = []
+
+        def frozen():  # from the capture (run 2) on, the captured rate
+            seen.append(rate())
+            return seen[min(len(seen), 2) - 1]
+
+        monkeypatch.setitem(feeds, name, frozen)
+    else:
+        start = {n: t * 0.9 if "_pow_" in n else t
+                 for n, t in replay_start[1].items()}
+    r = _replay_leg(replay_start, staged=True, start=start)
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke._replay_agrees(r, e, _REPLAY_LRS, replay_start[3])
+
+
+def test_replay_check_names_only_what_eager_shares(replay_start):
+    """A loss and a persistable that differ pass only where a second
+    eager run differs from the first in the same places."""
+    e = _replay_leg(replay_start, staged=False)
+    r = _replay_leg(replay_start, staged=True)
+
+    def shifted(t):
+        out = dict(t, losses=t["losses"][:-1] + [t["losses"][-1] + 1e-6],
+                   state=dict(t["state"]))
+        out["state"]["gpt.wte"] = t["state"]["gpt.wte"] + 1e-6
+        return out
+
+    with pytest.raises(AssertionError, match="no second eager run"):
+        chip_smoke._replay_agrees(shifted(r), e, _REPLAY_LRS,
+                                  replay_start[3])
+    with pytest.raises(AssertionError, match="do not share"):
+        chip_smoke._replay_agrees(shifted(r), e, _REPLAY_LRS,
+                                  replay_start[3], again=e)
+    report = chip_smoke._replay_agrees(shifted(r), e, _REPLAY_LRS,
+                                       replay_start[3], again=shifted(e))
+    assert not report["bit_identical"] and "run-to-run" in report["cause"]
+    assert report["loss_steps_differing"] == [len(_REPLAY_LRS)]
