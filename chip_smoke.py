@@ -61,6 +61,25 @@ Phases (any failure raises, and the script exits non-zero with no result):
    full-context reference, prompt scoring through the fused lm-head + CE
    kernel (its launch counter must rise), and a traced window of decode
    ticks, eager and replayed; tick wall, tokens/s and TTFT side by side;
+   then the front tier (phase ``serve_tier``, ``_serve_tier``): two
+   replica processes (``tools/torch_serve_replica.py``, the same seed-0
+   params from one ``.npz``, each on a free loopback status port) behind
+   a ``Router`` of ``HttpReplica``s; the 8 prompts at once (twice: cold,
+   then warm) must give the replayed leg's tokens bit for bit, with no
+   bit-match mismatch; again with replica 1 SIGKILLed while requests are
+   out on it, stopped (SIGSTOP) before they are sent so they stay out
+   (every request completes on replica 0 with the same tokens;
+   re-dispatches and detection time printed); replica 1 respawned on its
+   port and drained through ``Router.drain_replica`` while it holds
+   admitted work (that work finishes there, new work goes to replica 0,
+   its /healthz says drained); each replica's /status roofline: the
+   analytic cost record, the legs on ``calibrate``'s numbers and on the
+   data sheet's, the tick floor, the replayed tick's device ms and its
+   ratio to the floor, the ledger's reconciliation (a tick beating a
+   floor, or a rate above the prediction, by more than 1.5x fails);
+   ``capacity.plan`` over the router's telemetry, uncalibrated; one
+   ``Autoscaler.step`` scaling 2 -> 1, drain first, on real replicas
+   while requests are out (none lost); every child killed at the end;
 6. training at full width: bench.py's gpt2s config (vocab 32768,
    12 x 768, bf16, batch 8) through build_train_program, Adam.minimize
    and Executor.run, at seq 512 (phase ``train``: attention takes the
@@ -107,6 +126,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -121,6 +141,11 @@ _PEAK_BYTES_PER_S = 3.35e12
 _PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tfloat32": 494.7e12}
 
 _SERVE_D, _SERVE_V = 768, 32000
+# the serving config (12 x 768, vocab 32000) and its engine's envelope
+_SERVE_CFG = dict(vocab_size=_SERVE_V, n_layer=12, n_head=12,
+                  d_model=_SERVE_D, max_seq_len=1024)
+_SERVE_ENV = dict(max_batch=8, n_blocks=320, block_size=16,
+                  prefill_buckets=[32, 128, 512])
 # bench.py's headline training config (gpt2s @ seq 512)
 _TRAIN = dict(vocab_size=32768, n_layer=12, n_head=12, d_model=768,
               max_seq_len=512, dtype="bfloat16")
@@ -2004,13 +2029,10 @@ def _serve(torch, card):
                                           ServingEngine, init_params)
     from paddle_tpu_torch.weights import params_from_numpy
 
-    cfg = GPTConfig(vocab_size=_SERVE_V, n_layer=12, n_head=12,
-                    d_model=_SERVE_D, max_seq_len=1024)
+    cfg = GPTConfig(**_SERVE_CFG)
     t0 = time.perf_counter()
     params = params_from_numpy(init_params(cfg, seed=0), "cuda")
-    model = DecodeModel(cfg, params=params, device="cuda", max_batch=8,
-                        n_blocks=320, block_size=16,
-                        prefill_buckets=[32, 128, 512])
+    model = DecodeModel(cfg, params=params, device="cuda", **_SERVE_ENV)
     model.warm(full=True)
     n_params = sum(p.numel() for p in model.params.values())
     _say(phase="serve_setup", params=n_params,
@@ -2111,7 +2133,7 @@ def _serve(torch, card):
          busy_note="device ms of a traced tick over the median untraced "
          "engine tick (which also holds the host's staging and readback)",
          card=card)
-    return launches
+    return launches, prompts, batched, profiles["replayed"]
 
 
 def _profile_decode(torch, model, card, leg, ticks=5):
@@ -2161,6 +2183,479 @@ def _profile_decode(torch, model, card, leg, ticks=5):
     return report
 
 
+_ROOT = os.path.dirname(os.path.abspath(__file__))
+# serve_tier: a replica's boot, a leg's requests and a replica's SIGTERM
+# each get this long before the phase fails
+_TIER_BOOT_S, _TIER_LEG_S, _TIER_TERM_S = 300.0, 180.0, 30.0
+_TIER_HEADROOM = 1.5  # serving/ledger.py reconcile_roofline's headroom
+
+
+class _Replica:
+    """One ``tools/torch_serve_replica.py`` process on the card: its
+    status port, its log (stdout and stderr) and, once booted, its
+    ``READY`` document."""
+
+    def __init__(self, index, params_path, work, port=None,
+                 device="cuda"):
+        from paddle_tpu_torch.status import free_port
+
+        self.name = f"replica{index}"
+        self.port = port or free_port()
+        self.url = f"http://127.0.0.1:{self.port}"
+        self.log_path = os.path.join(work, f"{self.name}.{time.time()}.log")
+        env = dict(os.environ, PADDLE_TPU_SERVE_PARAMS=params_path)
+        for k in ("PADDLE_TPU_STATUS_PORT", "PADDLE_TPU_EAGER",
+                  "PADDLE_TPU_SERVE_DIR", "PADDLE_TPU_CHAOS_SITES"):
+            env.pop(k, None)
+        cfg, eng = _SERVE_CFG, _SERVE_ENV
+        cmd = [sys.executable,
+               os.path.join(_ROOT, "tools", "torch_serve_replica.py"),
+               "--device", device, "--port", str(self.port),
+               "--rank", str(index), "--seed", "0",
+               "--vocab", str(cfg["vocab_size"]),
+               "--n-layer", str(cfg["n_layer"]),
+               "--n-head", str(cfg["n_head"]),
+               "--d-model", str(cfg["d_model"]),
+               "--max-seq-len", str(cfg["max_seq_len"]),
+               "--max-batch", str(eng["max_batch"]),
+               "--kv-blocks", str(eng["n_blocks"]),
+               "--block-size", str(eng["block_size"]),
+               "--prefill-buckets",
+               ",".join(str(b) for b in eng["prefill_buckets"]),
+               "--slo-s", "120"]
+        with open(self.log_path, "w") as log:
+            self.proc = subprocess.Popen(cmd, env=env, stdout=log,
+                                         stderr=subprocess.STDOUT)
+        self.t_spawn = time.perf_counter()
+        self.ready = None
+
+    def tail(self, n=30) -> str:
+        with open(self.log_path, errors="replace") as f:
+            return "".join(f.readlines()[-n:])
+
+    def poll_ready(self):
+        """The READY document once printed; raises if the process died."""
+        with open(self.log_path, errors="replace") as f:
+            for line in f:
+                if line.startswith("READY "):
+                    self.ready = json.loads(line[len("READY "):])
+                    self.ready["wall_to_ready_s"] = (time.perf_counter()
+                                                     - self.t_spawn)
+                    return self.ready
+        if self.proc.poll() is not None:
+            raise AssertionError(
+                f"{self.name} exited with {self.proc.returncode} before "
+                f"READY; log tail:\n{self.tail()}")
+        return None
+
+    def get(self, path):
+        import urllib.request
+
+        with urllib.request.urlopen(self.url + path, timeout=30) as r:
+            return json.loads(r.read().decode())
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=_TIER_TERM_S)
+
+
+def _boot(replicas):
+    """Wait for every replica's READY line (booting in parallel)."""
+    deadline = time.perf_counter() + _TIER_BOOT_S
+    while not all(r.ready for r in replicas):
+        for r in replicas:
+            if not r.ready:
+                r.poll_ready()
+        if time.perf_counter() > deadline:
+            late = [r for r in replicas if not r.ready]
+            raise AssertionError(
+                f"{[r.name for r in late]} not READY within {_TIER_BOOT_S}s;"
+                f" log tail:\n{late[0].tail()}")
+        time.sleep(0.2)
+    return replicas
+
+
+def _dispatches(router) -> int:
+    return sum(r["dispatches"]
+               for r in router.snapshot()["replicas"].values())
+
+
+def _dispatch_all(router, prompts, tag, during=None):
+    """The prompts through ``router.dispatch`` together, one thread each.
+    Each is sent once the one before it is out on a replica (the router's
+    dispatch count has risen, or the request is done): the router counts
+    a replica's in-flight request only when the attempt starts on its
+    pool, so requests sent together would all see the same load and pick
+    one replica. ``during(futures)``, if given, runs on this thread while
+    they are out. Returns the request records in prompt order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    futs = []
+    with ThreadPoolExecutor(len(prompts)) as pool:
+        for i, p in enumerate(prompts):
+            sent = _dispatches(router)
+            futs.append(pool.submit(router.dispatch, p,
+                                    max_new_tokens=_NEW_TOKENS,
+                                    request_id=f"{tag}-{i}"))
+            while _dispatches(router) <= sent and not futs[-1].done():
+                time.sleep(0.0005)
+        if during is not None:
+            during(futs)
+        return [f.result(timeout=_TIER_LEG_S) for f in futs]
+
+
+def _hold_tokens(recs, want, leg):
+    """Every request completed with the in-process replayed leg's
+    tokens, bit for bit."""
+    bad = [(r["request_id"], r.get("error")) for r in recs if not r["ok"]]
+    if bad:
+        raise AssertionError(f"serve_tier {leg}: requests failed: {bad}")
+    off = [r["request_id"] for r, w in zip(recs, want) if r["tokens"] != w]
+    if off:
+        raise AssertionError(f"serve_tier {leg}: tokens differ from the "
+                             f"in-process replayed leg's for {off}")
+
+
+def _wait_inflight(router, name, futs):
+    """Until the router has a request out on replica ``name``; fails once
+    every request of ``futs`` is done without one."""
+    while router.snapshot()["replicas"][name]["inflight"] < 1:
+        if all(f.done() for f in futs):
+            raise AssertionError(f"no request was out on {name}")
+        time.sleep(0.0005)
+
+
+def _wait_admitted(replica, futs):
+    """Until ``replica``'s engine holds admitted work (its /healthz);
+    fails once every request of ``futs`` is done without that."""
+    while True:
+        srv = replica.get("/healthz").get("serving") or {}
+        if srv.get("active", 0) + srv.get("queued", 0) >= 1:
+            return
+        if all(f.done() for f in futs):
+            raise AssertionError(f"{replica.name} never held admitted work")
+        time.sleep(0.002)
+
+
+def _router_overhead_ms(recs):
+    """Router wall minus the winning attempt's engine_e2e_s, a request."""
+    out = []
+    for r in recs:
+        win = next(a for a in reversed(r["attempts"]) if a.get("ok"))
+        out.append((r["latency_s"] - float(win["engine_e2e_s"])) * 1e3)
+    return out
+
+
+def _counter(name, **labels) -> float:
+    from paddle_tpu_torch import monitor
+
+    fam = monitor.snapshot().get("metrics", {}).get(name, {})
+    return sum(float(s.get("value", 0.0)) for s in fam.get("series", [])
+               if all(s.get("labels", {}).get(k) == v
+                      for k, v in labels.items()))
+
+
+def _tier_roofline(replica, decode_profile):
+    """One replica's decode bound, read from its /status: the cost record
+    (the READY line's, held against /status), the legs on calibrate's
+    numbers and on the data sheet's, the tick floor, the replayed tick's
+    device ms beside it, and the ledger's reconciliation. Fails where the
+    card beats a floor by more than ``_TIER_HEADROOM``: the bound would be
+    wrong."""
+    serving = replica.get("/status")["serving"]
+    roof, rec = serving["roofline"], serving["roofline_reconciliation"]
+    cost = replica.ready["decode_cost"]
+    if (roof["flops"], roof["bytes_accessed"], roof["program"]) != (
+            cost["flops"], cost["bytes_accessed"], cost["key_hash"]):
+        raise AssertionError(f"{replica.name}: /status roofline {roof} is "
+                             f"not its cost record {cost}")
+    sheet = {"compute_s": cost["flops"] / _PEAK_FLOPS["float32"],
+             "memory_s": cost["bytes_accessed"] / _PEAK_BYTES_PER_S,
+             "dispatch_s": roof["legs"]["dispatch_s"]}
+    floors = {"calibrate": roof["tick_seconds_floor"],
+              "data_sheet": max(sheet.values())}
+    device_ms = decode_profile["device_ms_per_tick"]
+    for what, floor in floors.items():
+        if device_ms / 1e3 < floor / _TIER_HEADROOM:
+            raise AssertionError(
+                f"{replica.name}: the replayed tick's {device_ms} device ms "
+                f"beats the {what} floor {floor * 1e3} ms by more than "
+                f"{_TIER_HEADROOM}x")
+    ratio = rec.get("ratio")
+    if ratio is not None and ratio > _TIER_HEADROOM:
+        raise AssertionError(f"{replica.name}: measured decode rate is "
+                             f"{ratio}x the roofline's prediction")
+    return {"cost": cost, "legs_calibrate": roof["legs"],
+            "bound_by_calibrate": roof["bound_by"],
+            "legs_data_sheet": sheet,
+            "bound_by_data_sheet": max(sheet, key=sheet.get),
+            "tick_floor_ms": {k: v * 1e3 for k, v in floors.items()},
+            "calibration": roof["calibration"],
+            "replayed_decode_device_ms_per_tick": device_ms,
+            "device_ms_over_floor": {k: device_ms / (v * 1e3)
+                                     for k, v in floors.items()},
+            "roofline_reconciliation": rec,
+            "finding": ("the replayed tick lies beyond the roofline's "
+                        "bound factor" if rec.get("verdict")
+                        == "outside_bound" else None)}
+
+
+def _serve_tier(torch, card, prompts, want, decode_profile, device="cuda"):
+    """The serving front tier on the card: two replica processes
+    (``tools/torch_serve_replica.py``, the serving config's seed-0
+    params from one ``.npz``) behind a ``Router`` of ``HttpReplica``s.
+    The 8 prompts at once must give the in-process replayed leg's tokens
+    (``want``) bit for bit, with no bit-match mismatch; again with
+    replica 1 SIGKILLed while requests are out (every request completes,
+    with the same tokens, on replica 0; replica 1 is stopped with SIGSTOP
+    before they are sent, so the requests it is given stay out until the
+    kill); replica 1 respawned on its port
+    and drained while it holds admitted work (that work finishes there,
+    new work goes to replica 0, /healthz says drained); each replica's
+    decode roofline read from /status beside the replayed tick
+    (``_tier_roofline``); ``capacity.plan`` over the router's telemetry
+    and the card's roofline, uncalibrated; then one ``Autoscaler.step``
+    over a quiet window that scales 2 -> 1, drain first, while requests
+    are out (none lost). Every child is killed in a ``finally``.
+    ``device`` is the replicas' (the CPU in tests, at a tiny config)."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.serving import (GPTConfig, HttpReplica, Router,
+                                          capacity, init_params)
+    from paddle_tpu_torch.serving.router import DEAD, TrafficTelemetry
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(_ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="serve_tier_", dir=os.path.join(_ROOT,
+                                                                    "build"))
+    params_path = os.path.join(work, "params.npz")
+    np.savez(params_path, **init_params(GPTConfig(**_SERVE_CFG), seed=0))
+    reps = {}
+    router = None
+    try:
+        for i in (0, 1):
+            reps[i] = _Replica(i, params_path, work, device=device)
+        _boot(list(reps.values()))
+        boots = {r.name: {k: r.ready[k] for k in (
+            "boot_seconds", "wall_to_ready_s", "params_source", "device")}
+            for r in reps.values()}
+        router = Router([HttpReplica(r.name, r.url) for r in reps.values()],
+                        retries=3, backoff_ms=20.0, hedge_ms=0.0,
+                        default_slo_s=120.0, seed=0,
+                        health_interval_s=0.25, health_timeout_s=2.0)
+        mismatch0 = _counter("serve_router_bitmatch_total",
+                             verdict="mismatch")
+
+        # traffic: both replicas, the replayed leg's tokens; twice, as
+        # the first requests of each process pay one-time costs (the
+        # HTTP client's and server's first connections and lazy imports)
+        overhead = {}
+        for leg in ("cold", "warm"):
+            recs = _dispatch_all(router, prompts, leg)
+            _hold_tokens(recs, want, f"traffic ({leg})")
+            ms = _router_overhead_ms(recs)
+            overhead[leg] = {"mean": statistics.mean(ms), "max": max(ms),
+                             "latency_s_max": max(r["latency_s"]
+                                                  for r in recs)}
+        by_replica = {r.name: sum(1 for x in recs if x["replica"] == r.name)
+                      for r in reps.values()}
+
+        # failover: SIGKILL replica 1 while requests are out on it. It is
+        # stopped (SIGSTOP) before they are sent, so those it is given
+        # stay out until the kill, however fast it would serve them
+        router.start_health()
+        t_kill = {}
+
+        def kill_replica1(futs):
+            _wait_inflight(router, "replica1", futs)
+            from paddle_tpu_torch import profiler
+
+            t_kill["unix"] = profiler.span_clock_unix()
+            reps[1].proc.kill()
+
+        stats0 = dict(router.snapshot()["stats"])
+        reps[1].proc.send_signal(signal.SIGSTOP)
+        recs_fail = _dispatch_all(router, prompts, "failover",
+                                  during=kill_replica1)
+        reps[1].proc.wait(timeout=_TIER_TERM_S)
+        _hold_tokens(recs_fail, want, "failover")
+        stats1 = router.snapshot()["stats"]
+        redispatched = [r["request_id"] for r in recs_fail if r["failover"]]
+        if not redispatched:
+            raise AssertionError("serve_tier failover: no request was out "
+                                 "on replica 1 when it was killed")
+        if any(r["replica"] != "replica0" for r in recs_fail
+               if r["request_id"] in redispatched):
+            raise AssertionError("a re-dispatched request did not complete "
+                                 "on replica 0")
+        deaths = [e for e in router.health_events if e["replica"] ==
+                  "replica1" and e["to"] == DEAD and e["time_unix"]
+                  >= t_kill["unix"]]
+        if not deaths:
+            raise AssertionError("the router never marked replica 1 dead")
+        failover = {
+            "killed": "replica1", "requests": len(recs_fail),
+            "redispatched": len(redispatched),
+            "retries": stats1["retries"] - stats0["retries"],
+            "failovers": stats1["failovers"] - stats0["failovers"],
+            "detection_ms": (deaths[0]["time_unix"] - t_kill["unix"]) * 1e3,
+            "detected_by": deaths[0]["reason"],
+            "router_overhead_ms_mean": statistics.mean(
+                _router_overhead_ms(recs_fail)),
+            "latency_s_max": max(r["latency_s"] for r in recs_fail)}
+
+        # drain: respawn replica 1 on its port (replica 2, for the
+        # autoscale step, boots beside it), then drain replica 1 while it
+        # holds admitted work
+        reps[1] = _Replica(1, params_path, work, port=reps[1].port,
+                           device=device)
+        reps[2] = _Replica(2, params_path, work, device=device)
+        _boot([reps[1], reps[2]])
+        deadline = time.perf_counter() + _TIER_LEG_S
+        while router.probe_once()["replica1"] != "healthy":
+            if time.perf_counter() > deadline:
+                raise AssertionError("the respawned replica 1 never "
+                                     "rejoined the rotation")
+            time.sleep(0.1)
+        drained = {}
+
+        def drain_replica1(futs):
+            _wait_admitted(reps[1], futs)
+            drained["ok"] = router.drain_replica("replica1",
+                                                 timeout_s=_TIER_LEG_S)
+
+        recs_drain = _dispatch_all(router, prompts, "drain",
+                                   during=drain_replica1)
+        _hold_tokens(recs_drain, want, "drain")
+        if not drained.get("ok"):
+            raise AssertionError("replica 1 never reported drained")
+        # what replica 1 had admitted finished there; a request that
+        # reached it after the drain began was bounced (typed 503) and
+        # re-dispatched to replica 0
+        on1 = [r["request_id"] for r in recs_drain
+               if r["replica"] == "replica1"]
+        bounced = [r["request_id"] for r in recs_drain if r["failover"]]
+        if not on1:
+            raise AssertionError("drain: no admitted work finished on "
+                                 "replica 1")
+        after = _dispatch_all(router, prompts[:2], "after-drain")
+        _hold_tokens(after, want[:2], "after drain")
+        if any(r["replica"] != "replica0" for r in after):
+            raise AssertionError("new work went to the drained replica")
+        health1 = reps[1].get("/healthz")["serving"]
+        if not health1.get("drained"):
+            raise AssertionError(f"replica 1's /healthz: {health1}")
+        drain = {"completed_on_replica1": len(on1),
+                 "bounced_to_replica0": len(bounced),
+                 "new_work_on": sorted({r["replica"] for r in after}),
+                 "healthz": {k: health1[k] for k in (
+                     "draining", "drained", "active", "queued")},
+                 "respawn_wall_to_ready_s": reps[1].ready["wall_to_ready_s"]}
+
+        # roofline: each replica's /status beside the replayed tick
+        roofs = {r.name: _tier_roofline(r, decode_profile)
+                 for r in (reps[0], reps[1])}
+        reps[1].proc.terminate()  # drained: its SIGTERM stops it cleanly
+        if reps[1].proc.wait(timeout=_TIER_TERM_S) != 0:
+            raise AssertionError(f"replica 1 exited "
+                                 f"{reps[1].proc.returncode} on SIGTERM")
+        router.remove_replica("replica1")
+
+        # plan over the router's live telemetry and the card's roofline:
+        # replica 0's, at the occupancy its cost record describes (a
+        # decode tick always runs max_batch rows; score_config scales the
+        # compute leg by max_batch over mean_active)
+        roof0 = reps[0].get("/status")["serving"]["roofline"]
+        mb = float(_SERVE_ENV["max_batch"])
+        roofline = dict(roof0, mean_active=mb, predicted_tokens_per_sec=(
+            mb / roof0["tick_seconds_floor"]))
+        report = capacity.plan(router.telemetry.snapshot(), roofline,
+                               device_budget=2, tp_degrees=(1,),
+                               max_batches=(_SERVE_ENV["max_batch"],),
+                               tokens_per_request=_NEW_TOKENS)
+        decision = report["decision"]
+        plan = {"roofline_mean_active": mb,
+                "verdict": decision["verdict"],
+                "pick": (decision["pick"] or {}).get("spec"),
+                "demand_tokens_per_sec": decision["demand_tokens_per_sec"],
+                "rejected_tally": decision["rejected_tally"],
+                "calibration": report["calibration"],
+                "text": capacity.render_plan_text(report)}
+
+        # one autoscale step, 2 -> 1, drain first, while the prompts are
+        # out on replica 2; its window is a quiet one (the router's rate
+        # EMAs move only on arrivals, so it starts a fresh telemetry once
+        # the prompts have arrived)
+        router.add_replica(HttpReplica(reps[2].name, reps[2].url))
+        router.probe_once()
+        stopped = {}
+
+        def stop_replica(name):
+            r = next(x for x in reps.values() if x.name == name)
+            r.proc.terminate()
+            stopped[name] = r.proc.wait(timeout=_TIER_TERM_S)
+
+        auto = capacity.Autoscaler(
+            router, roofline, spawn_replica=None, stop_replica=stop_replica,
+            device_budget=2, tp=1, max_batch=_SERVE_ENV["max_batch"],
+            min_replicas=1, max_replicas=2, cooldown_s=0.0,
+            tokens_per_request=_NEW_TOKENS)
+        step = {}
+
+        def autoscale_step(futs):
+            _wait_admitted(reps[2], futs)
+            router.telemetry = TrafficTelemetry()  # every arrival noted
+            step["rec"] = auto.step()
+
+        recs_auto = _dispatch_all(router, prompts, "autoscale",
+                                  during=autoscale_step)
+        _hold_tokens(recs_auto, want, "autoscale")
+        rec = step["rec"] or {}
+        actions = [d["action"] for d in auto.decisions]
+        on2 = [r["request_id"] for r in recs_auto
+               if r["replica"] == "replica2"]
+        if (rec.get("action") != "scale_down" or not rec.get("drained")
+                or actions != ["drain_start", "scale_down"]
+                or stopped != {"replica2": 0}
+                or router.replica_names() != ["replica0"] or not on2):
+            raise AssertionError(
+                f"autoscale: {rec}, actions {actions}, stopped {stopped}, "
+                f"replicas {router.replica_names()}, on replica 2 {on2}")
+        autoscale = {"actions": actions, "drained": rec["drained"],
+                     "failovers": sum(1 for r in recs_auto
+                                      if r["failover"]),
+                     "from_replicas": auto.decisions[0]["from_replicas"],
+                     "to_replicas": rec["to_replicas"],
+                     "plan": auto.current_plan,
+                     "completed_on_replica2": len(on2),
+                     "requests_lost": 0, "stopped_exit_codes": stopped}
+
+        mismatch = _counter("serve_router_bitmatch_total",
+                            verdict="mismatch") - mismatch0
+        if mismatch:
+            raise AssertionError(f"{mismatch} bit-match mismatches")
+        _say(phase="serve_tier", replicas_booted=boots,
+             requests=len(prompts), new_tokens=_NEW_TOKENS,
+             tokens_equal_in_process_replayed=True,
+             bitmatch_mismatch=mismatch,
+             bitmatch_checked=router.snapshot()["stats"]["bitmatch_checked"],
+             traffic={"by_replica": by_replica,
+                      "router_overhead_ms": overhead,
+                      "overhead_note": "router wall minus the winning "
+                      "attempt's engine_e2e_s, a request"},
+             failover=failover, health_events=router.health_events,
+             drain=drain, roofline=roofs, plan=plan, autoscale=autoscale,
+             seconds=time.perf_counter() - t_phase, card=card)
+    finally:
+        if router is not None:
+            router.stop()
+        for r in reps.values():
+            r.kill()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def _kernel_row(name, replaces, source, launches, err, t, card, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -2187,7 +2682,8 @@ def main() -> int:
     serve_times = _time_kernel(torch, card)
     times = _time_training_kernels(torch, card)
     times.update(_time_flash(torch, card))
-    serve_launches = _serve(torch, card)
+    serve_launches, prompts, tokens, decode_profile = _serve(torch, card)
+    _serve_tier(torch, card, prompts, tokens, decode_profile)
     train, traced = _train(torch, card, _TRAIN, _TRAIN_B, _TRAIN_T, "train",
                            0, band=True)
     train_long, traced_long = _train(torch, card, _LONG, _LONG_B, _LONG_T,

@@ -1,8 +1,10 @@
 """Runtime env-flag registry: the PADDLE_TPU_* variables the port reads.
 
 Port of ``paddle_tpu/flags.py``, cut to the flags this package reads:
-the serving engine's ``PADDLE_TPU_SERVE_*`` knobs, the monitor and
-profiler switches, the chaos sites and ``PADDLE_TPU_EAGER`` (the port's
+the serving engine's and its front tier's ``PADDLE_TPU_SERVE_*`` knobs
+(router, capacity planner, autoscaler), the status server's port and
+host, the goodput journal, the monitor and profiler switches, the chaos
+sites and ``PADDLE_TPU_EAGER`` (the port's
 own: the card replays CUDA graphs unless it is set). The other variable
 names are the JAX package's own, so one deployment's environment drives
 either package.
@@ -156,6 +158,112 @@ define_env_flag(
     "per-request latency-attribution residual bound: "
     "|sum(buckets) - e2e| / e2e at the median must stay below this for "
     "the attribution reconciliation verdict to read within_bound")
+
+# -- serving front tier: router, capacity planner, autoscaler -----------------
+define_env_flag(
+    "PADDLE_TPU_SERVE_RETRIES", 2,
+    "serving router (serving/router.py): re-dispatch a failed request "
+    "up to this many times on another replica, with exponential backoff "
+    "+ deterministic jitter between attempts; every attempt carries the "
+    "same request_id (idempotent re-dispatch, bit-identical greedy "
+    "tokens); 0 fails on the first error")
+define_env_flag(
+    "PADDLE_TPU_SERVE_BACKOFF_MS", 50.0,
+    "base of the router's retry backoff: re-dispatch k waits "
+    "base*2^k ms (capped at 2000ms), jittered into [1/2, 1) of the raw "
+    "delay by a per-(request_id, attempt) hash")
+define_env_flag(
+    "PADDLE_TPU_SERVE_HEDGE_MS", 0.0,
+    "deadline-aware hedging: a dispatch still outstanding after this "
+    "many ms whose SLO is at risk (remaining budget below the router's "
+    "latency EMA) is duplicated onto a second replica — first success "
+    "wins, both results are bit-match audited; 0 disables hedging")
+define_env_flag(
+    "PADDLE_TPU_SERVE_DRAIN_S", 10.0,
+    "connection-draining budget: Router.drain_replica stops routing to "
+    "a replica, asks its engine to finish all admitted work "
+    "(new submissions rejected with typed Unavailable) and waits up to "
+    "this many seconds for it to report drained")
+define_env_flag(
+    "PADDLE_TPU_SERVE_SLO_CLASSES",
+    "interactive:slo=2,weight=3,hedge=1;batch:slo=30,weight=1,hedge=0",
+    "multi-tenant SLO classes for the serving plane "
+    "(serving/capacity.py): 'name:slo=<s>,weight=<w>,hedge=<0|1>' "
+    "entries joined by ';' — slo is the class's default dispatch "
+    "deadline and the attainment target the autoscale round grades, "
+    "weight its admission share under the router's cap, hedge whether "
+    "its SLO-at-risk requests may duplicate onto a second replica")
+define_env_flag(
+    "PADDLE_TPU_SERVE_TELEMETRY_HORIZONS", "1,10,60",
+    "traffic-telemetry EMA horizons in seconds (comma-separated): the "
+    "router tracks request-rate EMAs at each horizon per traffic class "
+    "— the arrival-rate forecast inputs the serving planner reads")
+define_env_flag(
+    "PADDLE_TPU_SERVE_TELEMETRY_SERIES", 512,
+    "max retained samples in the router's queue-depth / in-flight "
+    "time series (ring buffer; oldest samples drop first)")
+define_env_flag(
+    "PADDLE_TPU_SERVE_TRACE", True,
+    "cross-process request tracing on the serving plane: the router "
+    "opens a root span per dispatch, pre-mints one span id per attempt "
+    "and ships trace_id:span_id as __trace__ on every /generate POST "
+    "and LocalReplica call; replicas parent their request-lifecycle "
+    "spans under the inbound context (one connected flow per request "
+    "in timeline.py --serve). Only active while profiler tracing is on "
+    "(PADDLE_TPU_TRACE); 0 strips the propagation")
+define_env_flag(
+    "PADDLE_TPU_SERVE_PARAMS", "",
+    "warm-restart parameter source for serving replicas: an .npz of "
+    "named GPT parameters (models/gpt.py naming) every replica loads at "
+    "boot — identical params across replicas is what makes router "
+    "re-dispatch bit-identical, and reloading beats re-initializing on "
+    "respawn; unset = seeded random init")
+define_env_flag(
+    "PADDLE_TPU_SERVE_AUTOSCALE_INTERVAL_S", 2.0,
+    "seconds between autoscaler ticks (forecast -> decide -> at most "
+    "one scale action)")
+define_env_flag(
+    "PADDLE_TPU_SERVE_AUTOSCALE_COOLDOWN_S", 3.0,
+    "minimum seconds between consecutive scale ACTIONS (plan changes "
+    "still journal during cooldown): long enough for a warm-booted "
+    "replica's capacity to show up in the measured rates before the "
+    "next decision, so the loop cannot flap")
+define_env_flag(
+    "PADDLE_TPU_SERVE_AUTOSCALE_HEADROOM", 0.15,
+    "capacity headroom the serving planner reserves: a configuration "
+    "is feasible only when the CV-widened demand fits inside "
+    "(1 - headroom) of its calibrated tokens/s — the burst absorber "
+    "between forecast and reality")
+define_env_flag(
+    "PADDLE_TPU_SERVE_AUTOSCALE_CV_WIDEN", 1.0,
+    "demand-forecast burst widening: the planning upper bound is the "
+    "blended rate EMA times (1 + cv_widen * interarrival_cv), so a "
+    "bursty class (CV >> 1) plans more slack than a metronome one; "
+    "0 plans the mean rate")
+define_env_flag(
+    "PADDLE_TPU_SERVE_AUTOSCALE_MAX_REPLICAS", 4,
+    "autoscaler replica ceiling — the warm-restart spawn path is "
+    "bounded by this even when the planner's pick asks for more "
+    "(the device budget is the other bound)")
+
+# -- status server + goodput ----------------------------------------------------
+define_env_flag(
+    "PADDLE_TPU_STATUS_PORT", 0,
+    "serve /status, /metrics and /healthz on this HTTP port (stdlib "
+    "server, one per process; a replica takes its own port); 0 disables")
+define_env_flag(
+    "PADDLE_TPU_STATUS_HOST", "127.0.0.1",
+    "interface the status server binds; loopback by default (the "
+    "endpoints are unauthenticated) — set 0.0.0.0 to let external "
+    "scrapers reach /metrics")
+define_env_flag(
+    "PADDLE_TPU_GOODPUT_DIR", "",
+    "persist the per-rank goodput ledger journal "
+    "(goodput.rank<k>.json, atomic writes) into this directory; a "
+    "restarted rank resumes its cumulative totals from it")
+define_env_flag(
+    "PADDLE_TPU_GOODPUT_FLUSH_STEPS", 50,
+    "flush the goodput journal every N closed steps (plus once at exit)")
 
 # -- chaos -------------------------------------------------------------------
 define_env_flag(

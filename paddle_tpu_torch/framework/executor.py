@@ -51,7 +51,8 @@ captures a steady step as a CUDA graph and replays it
 Not ported, and each raises ``errors.Unimplemented`` naming its
 ``ROADMAP.md`` item: mesh and sharding-recipe programs and the pipeline
 (A10), compiled-program insight (xla_insight), the numerics sentinel,
-goodput and memwatch (A9). There is no per-op garbage-collection plan:
+the executor's goodput hook and memwatch (A9; ``goodput.py`` itself is
+ported). There is no per-op garbage-collection plan:
 a step holds its values until it ends.
 """
 from __future__ import annotations
@@ -346,10 +347,13 @@ class Executor:
         if os.environ.get("PADDLE_TPU_XLA_DUMP_DIR"):
             raise _unported("compiled-program dumps "
                             "(PADDLE_TPU_XLA_DUMP_DIR)", "A9")
-        for var in ("PADDLE_TPU_GOODPUT_DIR", "PADDLE_TPU_MEMWATCH_DIR"):
-            if os.environ.get(var):
-                raise _unported(f"goodput and memwatch journals ({var})",
-                                "A9")
+        if os.environ.get("PADDLE_TPU_GOODPUT_DIR"):
+            raise _unported("the executor's goodput hook, which charges "
+                            "each step's compile and device windows to "
+                            "goodput.py (PADDLE_TPU_GOODPUT_DIR)", "A9")
+        if os.environ.get("PADDLE_TPU_MEMWATCH_DIR"):
+            raise _unported("memwatch journals (PADDLE_TPU_MEMWATCH_DIR)",
+                            "A9")
 
     # -- helpers -------------------------------------------------------
     def _to_device(self, value: Any) -> torch.Tensor:

@@ -47,6 +47,7 @@ the card captures.
 """
 from __future__ import annotations
 
+import gc
 from typing import Any, Callable, Dict, Optional
 
 import torch
@@ -128,10 +129,17 @@ class Captured:
             raise
 
     def _record(self):
-        """Capture the body into a CUDA graph, then replay it once."""
+        """Capture the body into a CUDA graph, then replay it once. The
+        garbage collector runs first: an unreachable object in a reference
+        cycle that holds another graph would otherwise wait for the
+        collector's next pass, which may come inside this capture, on this
+        thread, and a graph's destruction during a capture invalidates it.
+        (The serving programs hold no such cycle; see
+        ``serving.model._Program``.)"""
         graph = torch.cuda.CUDAGraph()
         failure: Optional[BaseException] = None
         out = None
+        gc.collect()
         try:
             with torch.cuda.device(self.device), torch.cuda.graph(
                     graph, pool=self.pool, capture_error_mode="thread_local"):

@@ -1,8 +1,9 @@
 """Serving goodput ledger: where does each serving second actually go.
 
 Port of ``paddle_tpu/serving/ledger.py``; it holds no device code, so
-only its imports changed. The journal schema is the JAX package's, so
-tools that read one package's journals read the other's.
+only its imports changed, and :func:`status` also carries the installed
+roofline and its reconciliation. The journal schema is the JAX
+package's, so tools that read one package's journals read the other's.
 
 The serving-plane counterpart of ``paddle_tpu/goodput.py``: the engine
 (``serving/engine.py``) attributes every closed scheduler tick's wall
@@ -715,7 +716,11 @@ def summary() -> Dict[str, Any]:
 def status() -> Dict[str, Any]:
     """The /status `serving` section: inert ({available: False}) until
     an engine has closed a tick or finished a request — importing the
-    package must not fabricate a serving plane."""
+    package must not fabricate a serving plane. Once a decode roofline
+    is installed the section also carries it and its
+    measured-vs-roofline reconciliation (the port's addition: the JAX
+    package reads them from the journal only), so a replica's decode
+    bound can be read over HTTP."""
     doc = totals()
     if doc["ticks"] == 0 and not any(doc["requests"].values()):
         return {"available": False}
@@ -733,6 +738,9 @@ def status() -> Dict[str, Any]:
     if (doc.get("attribution") or {}).get("n_requests"):
         out["request_attribution"] = attribution_summary(doc)
         out["attribution_reconciliation"] = reconcile_attribution(doc)
+    if doc.get("roofline"):
+        out["roofline"] = doc["roofline"]
+        out["roofline_reconciliation"] = reconcile_roofline(doc)
     return out
 
 

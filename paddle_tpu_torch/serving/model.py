@@ -29,9 +29,11 @@ ahead of traffic). A model's programs never run at once and each
 output is read right after its replay, so they share one graph memory
 pool. ``PADDLE_TPU_EAGER=1`` runs the same bodies eagerly; the CPU
 always does, unless ``staged`` (tests: the same staging, the body called
-directly). No XLA cost plan exists here: ``insights`` stays empty and
-:meth:`decode_roofline` returns None. Multi-device recipes are not
-ported: any recipe raises.
+directly). No XLA cost plan exists here. In its place the model installs
+an analytic cost record of its decode program, :func:`decode_cost`, as
+``insights["decode"]`` when it is built, so :meth:`decode_roofline`
+answers on every device. Multi-device recipes are not ported: any recipe
+raises.
 
 Numerical contract the engine's tests lean on: every per-row computation
 in decode depends only on that row's inputs and that request's own cache
@@ -47,8 +49,11 @@ assigns it back as the JAX engine does.
 """
 from __future__ import annotations
 
+import hashlib
 import math
 import time
+import weakref
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -63,7 +68,8 @@ from ..ops.lmhead_ce import lmhead_ce
 from ..weights import params_from_numpy, torch_dtype
 from .kv_cache import blocks_for_tokens
 
-__all__ = ["GPTConfig", "DecodeModel", "init_params", "calibrate"]
+__all__ = ["GPTConfig", "DecodeModel", "DecodeCost", "init_params",
+           "calibrate", "decode_cost"]
 
 _NEG = -1e30  # finite mask value: garbage behind it stays non-NaN
 
@@ -124,46 +130,174 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _copy_elems(copy_mb: int, l2_bytes: int = 0) -> int:
+    """fp32 elements of the bandwidth probe's buffer: ``copy_mb`` MiB,
+    or twice the card's L2 when that is larger, so that neither the
+    buffer read nor the one written can stay in the cache between the
+    probe's calls. On an H100 (50 MB of L2) the JAX package's 16 MiB
+    probe is a kernel of a few microseconds, whose rate is set by its
+    launch and ramp rather than by the memory."""
+    return max(int(copy_mb) << 20, 2 * int(l2_bytes)) // 4
+
+
+# the matmul probe's side doubles until one product takes this long, or
+# the side reaches the cap: a product of a few microseconds is set by its
+# launch, not by the arithmetic
+_MM_PROBE_MIN_S = 1e-3
+_MM_PROBE_MAX_N = 8192
+
+
+def _matmul_probe(n: int, dev: torch.device) -> Tuple[int, float]:
+    """The matmul probe's side and its seconds (:func:`_best`): an fp32
+    product of two ``n`` x ``n`` matrices of ones, ``n`` doubled until it
+    takes at least ``_MM_PROBE_MIN_S`` or reaches ``_MM_PROBE_MAX_N``. On
+    an H100 the JAX package's 384 x 384 product is launch-bound and reads
+    a few TFLOP/s of the 67 the card's fp32 does; the side grows to a few
+    thousand there, and stays at 384 on most CPUs."""
+    while True:
+        a = torch.ones(n, n, device=dev)
+        t = _best(torch.matmul, (a, a), dev)
+        if t >= _MM_PROBE_MIN_S or n >= _MM_PROBE_MAX_N:
+            return n, t
+        n = min(2 * n, _MM_PROBE_MAX_N)
+
+
+def _best(fn, args, dev: torch.device, host: bool = False) -> float:
+    """Seconds of ``fn(*args)``, the best of 3 after a warm call: on a
+    card between two CUDA events (device time), unless ``host``; on the
+    host's clock otherwise, from an idle device to the device done with
+    the call (``torch.cuda.synchronize`` on a card)."""
+    fn(*args)  # warm
+    ts = []
+    for _ in range(3):
+        if dev.type == "cuda" and not host:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(*args)
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end) / 1e3)
+        else:
+            _sync(dev)
+            t0 = time.perf_counter()
+            fn(*args)
+            _sync(dev)
+            ts.append(time.perf_counter() - t0)
+    return min(ts)
+
+
 def calibrate(n: int = 384, copy_mb: int = 16,
               device=None) -> Dict[str, float]:
     """Measure this device's achievable matmul FLOPs/s, memory bandwidth
     and per-op dispatch floor -- the denominators of the decode roofline.
-    Best of 3 warm runs, timed with CUDA events on a card and with the
-    host clock on the CPU; deliberately coarse (a roofline is a bound,
-    not a benchmark)."""
+    Best of 3 warm runs; deliberately coarse (a roofline is a bound, not
+    a benchmark). On a card the matmul and the copy are timed with CUDA
+    events (device time); the matmul grows until it is not launch-bound
+    (:func:`_matmul_probe`) and the copy's buffer is sized beyond the L2
+    (:func:`_copy_elems`). The dispatch leg is the host's wall clock
+    around one tiny op and the wait for it (``torch.cuda.synchronize``),
+    as the JAX package times a jitted op and ``block_until_ready``: the
+    host cost of launching work and seeing it done, which the roofline and
+    ``capacity.score_config`` treat as host-side."""
     dev = _resolve_device(device)
-
-    def best(fn, *args):
-        fn(*args)  # warm
-        ts = []
-        for _ in range(3):
-            if dev.type == "cuda":
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                fn(*args)
-                end.record()
-                end.synchronize()
-                ts.append(start.elapsed_time(end) / 1e3)
-            else:
-                t0 = time.perf_counter()
-                fn(*args)
-                ts.append(time.perf_counter() - t0)
-        return min(ts)
-
-    gen = torch.Generator(device="cpu").manual_seed(0)
-    a = torch.randn(n, n, generator=gen).to(dev)
-    t_mm = best(torch.matmul, a, a)
-    m = (copy_mb << 20) // 4
+    n, t_mm = _matmul_probe(n, dev)
+    l2 = (torch.cuda.get_device_properties(dev).L2_cache_size
+          if dev.type == "cuda" else 0)
+    m = _copy_elems(copy_mb, l2)
     x = torch.ones(m, device=dev)
-    t_cp = best(torch.mul, x, 1.0000001)
+    t_cp = _best(torch.mul, (x, 1.0000001), dev)
     s = torch.ones((), device=dev)
-    t_disp = best(torch.add, s, 1.0)
+    t_disp = _best(torch.add, (s, 1.0), dev, host=True)
     return {
         "flops_per_sec": (2.0 * n ** 3) / max(t_mm, 1e-9),
         "bytes_per_sec": (2.0 * m * 4) / max(t_cp, 1e-9),
         "dispatch_s": t_disp,
     }
+
+
+@dataclass
+class DecodeCost:
+    """The decode program's cost record, in the fields the roofline reads
+    from the JAX package's XLA cost analysis (``flops``,
+    ``bytes_accessed``, ``key_hash``), plus the traffic of the program
+    as written and each term of both counts."""
+
+    key_hash: str
+    flops: float
+    bytes_accessed: float
+    bytes_as_written: float
+    terms: Dict[str, float] = field(default_factory=dict)
+
+
+def decode_cost(cfg: GPTConfig, max_batch: int, n_blocks: int,
+                block_size: int, elem_bytes: int,
+                param_bytes: float) -> DecodeCost:
+    """Analytic cost of one decode tick (``DecodeModel._decode_body``) at
+    ``max_batch`` rows B, each attending over its whole gather window S
+    (``max_blocks_per_req * block_size``), with D = d_model, F = the MLP
+    width, L layers, V the vocabulary and e bytes an element.
+
+    FLOPs are the products, 2 per multiply-add (what
+    ``torch.utils.flop_counter.FlopCounterMode`` counts; the layer norms,
+    softmax, gelu and masking are not products):
+
+    - ``flops_proj``: q, k, v and the output projection, L * 4 * 2BD^2;
+    - ``flops_mlp``: fc_in and fc_out, L * 2 * 2BDF;
+    - ``flops_attn``: q.K^T and a.V over the window, L * 2 * 2BSD;
+    - ``flops_lm_head``: the logits x.wte^T, 2BDV.
+
+    ``bytes_accessed`` is the least traffic a tick needs, each byte moved
+    once:
+
+    - ``bytes_weights``: every parameter read whole (the layers, the
+      final layer norm and ``wte``, which the lm head reads whole and
+      whose B embedding rows it covers), except ``wpe``;
+    - ``bytes_wpe_rows``: the B rows of ``wpe`` at the slots' positions;
+    - ``bytes_kv_read``: each layer's gathered K and V, 2LBSD e;
+    - ``bytes_kv_write``: each layer's new K and V, 2LBD e;
+    - ``bytes_io``: the host inputs (block tables, positions, tokens; int64)
+      and the next tokens.
+
+    ``bytes_as_written`` adds what the program as written also moves:
+
+    - ``bytes_kv_gather_copy``: ``pages[i, 0][tables]`` copies each
+      layer's gather into a contiguous [B, S, H, hd] tensor, which the
+      attention products then read again, a write and a read of 2LBSD e
+      beyond the gather's own read;
+    - ``bytes_logits``: the [B, V] logits written and read by the argmax.
+
+    The activations between the products (B x D or B x F values a layer)
+    are left out of both."""
+    B, D, F, L = int(max_batch), cfg.d_model, cfg.ffn_dim, cfg.n_layer
+    V, e = cfg.vocab_size, int(elem_bytes)
+    S = blocks_for_tokens(cfg.max_seq_len, block_size) * block_size
+    maxb = S // block_size
+    t: Dict[str, float] = {
+        "flops_proj": L * 4 * 2.0 * B * D * D,
+        "flops_mlp": L * 2 * 2.0 * B * D * F,
+        "flops_attn": L * 2 * 2.0 * B * S * D,
+        "flops_lm_head": 2.0 * B * D * V,
+        "bytes_weights": float(param_bytes) - cfg.max_seq_len * D * e,
+        "bytes_wpe_rows": float(B * D * e),
+        "bytes_kv_read": 2.0 * L * B * S * D * e,
+        "bytes_kv_write": 2.0 * L * B * D * e,
+        "bytes_io": 8.0 * (B * maxb + 3 * B),
+        "bytes_kv_gather_copy": 2 * 2.0 * L * B * S * D * e,
+        "bytes_logits": 2.0 * B * V * e,
+    }
+    flops = sum(v for k, v in t.items() if k.startswith("flops_"))
+    least = sum(t[k] for k in ("bytes_weights", "bytes_wpe_rows",
+                               "bytes_kv_read", "bytes_kv_write",
+                               "bytes_io"))
+    written = least + t["bytes_kv_gather_copy"] + t["bytes_logits"]
+    # the JAX package's key of its decode program (no recipe), hashed as
+    # its xla_insight.key_hash does: one program, one key in both packages
+    key = repr(("serve", "decode", None, B, int(n_blocks), int(block_size),
+                L, cfg.n_head, D, V, cfg.max_seq_len, None))
+    return DecodeCost(key_hash=hashlib.sha1(key.encode()).hexdigest()[:12],
+                      flops=flops, bytes_accessed=least,
+                      bytes_as_written=written, terms=t)
 
 
 class DecodeModel:
@@ -219,7 +353,10 @@ class DecodeModel:
 
         host = params if params is not None else init_params(cfg, seed)
         self.params = self._place(host)
-        self.insights: Dict[str, Any] = {}
+        self.insights: Dict[str, Any] = {"decode": decode_cost(
+            cfg, self.max_batch, self.n_blocks, self.block_size,
+            torch.empty((), dtype=self.dtype).element_size(),
+            sum(p.nbytes for p in self.params.values()))}
         # the compiled route on the CPU, the body called directly (tests)
         self.staged = False
         self._programs: Dict[Any, "_Program"] = {}
@@ -509,10 +646,11 @@ class DecodeModel:
     def decode_roofline(self, mean_active: float,
                         calibration: Optional[Dict[str, float]] = None
                         ) -> Optional[Dict[str, Any]]:
-        """The decode program's tokens/s ceiling from its cost record:
-        per-tick lower bounds for the compute, memory and dispatch legs,
-        the binding one named. The port runs eagerly and records no cost
-        insight yet, so this returns None until one is installed."""
+        """The decode program's tokens/s ceiling from its cost record
+        (``insights["decode"]``, :func:`decode_cost`): per-tick lower
+        bounds for the compute, memory and dispatch legs, the binding one
+        named, and the implied rate at the observed occupancy. The
+        document is the JAX package's."""
         ins = self.insights.get("decode")
         if ins is None or not ins.flops:
             return None
@@ -543,12 +681,19 @@ class DecodeModel:
 class _Program:
     """One serving program on the compiled route: its static input
     buffers, the pages it is bound to (None for scoring) and its body
-    run through ``replay.Captured``."""
+    (a method of the model) run through ``replay.Captured``. The body is
+    held weakly and the closure holds nothing of the program, so neither
+    the program nor its model is in a reference cycle: a program dropped
+    (bound to other pages, or its model gone) frees its CUDA graph when
+    its last reference goes, not when the cyclic collector next runs,
+    which may be inside another graph's capture."""
 
     def __init__(self, body, pages, ins: Dict[str, torch.Tensor], device,
                  pool):
         self.pages = pages
-        self.inputs = {k: torch.empty(t.shape, dtype=t.dtype, device=device)
-                       for k, t in ins.items()}
-        self.run = Captured(lambda replayed: body(pages, **self.inputs),
+        self.inputs = inputs = {
+            k: torch.empty(t.shape, dtype=t.dtype, device=device)
+            for k, t in ins.items()}
+        method = weakref.WeakMethod(body)
+        self.run = Captured(lambda replayed: method()(pages, **inputs),
                             device, pool=pool)

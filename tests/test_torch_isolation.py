@@ -16,6 +16,9 @@ _FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
 def _port_files():
     out = [os.path.join(_REPO, "chip_smoke.py")]
+    out += [os.path.join(_REPO, "tools", f)
+            for f in os.listdir(os.path.join(_REPO, "tools"))
+            if f.startswith("torch_") and f.endswith(".py")]
     for root, _, files in os.walk(os.path.join(_REPO, "paddle_tpu_torch")):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -39,7 +42,9 @@ def _imported_roots(path):
 
 def test_no_jax_or_paddle_tpu_import_anywhere_in_the_port():
     files = _port_files()
-    assert len(files) > 10 and os.path.exists(files[0])
+    assert len(files) > 10 and all(os.path.exists(f) for f in files[:2])
+    assert any(f.endswith(os.path.join("tools", "torch_serve_replica.py"))
+               for f in files)
     assert any(f.endswith(os.path.join("ops", "flash_attention.py"))
                for f in files)
     bad = [(os.path.relpath(f, _REPO), name) for f in files

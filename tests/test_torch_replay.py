@@ -288,6 +288,54 @@ def test_captured_runs_warm_up_capture_and_replay(monkeypatch):
     assert replay.replays(torch.device("cuda")) is False
 
 
+def test_capture_collects_the_garbage_first(monkeypatch):
+    """A capture first collects the garbage (an unreachable graph in a
+    reference cycle, destroyed by the collector mid-capture, would
+    invalidate the capture), leaves the collector as it was, and ends the
+    capture before it raises the body's error. CUDA's graph calls are
+    stubbed: the CPU has none."""
+    import contextlib
+    import gc
+
+    events = []
+
+    class Graph:
+        def replay(self):
+            events.append("replay")
+
+    @contextlib.contextmanager
+    def graph(g, pool=None, capture_error_mode="global"):
+        events.append(("begin", capture_error_mode))
+        yield
+        events.append("end")
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(replay.gc, "collect",
+                        lambda: events.append("collect"))
+    assert gc.isenabled()
+
+    def body(replayed):
+        events.append(("body", replayed))
+        return 7
+
+    assert replay.Captured(body, torch.device("cpu"))._record() == 7
+    assert events == ["collect", ("begin", "thread_local"),
+                      ("body", True), "end", "replay"]
+    assert gc.isenabled()
+
+    def broken(replayed):
+        raise ValueError("refused")
+
+    events.clear()
+    with pytest.raises(ValueError, match="refused"):
+        replay.Captured(broken, torch.device("cpu"))._record()
+    assert events == ["collect", ("begin", "thread_local"), "end"]
+    assert gc.isenabled()
+
+
 # -- serving ------------------------------------------------------------
 
 _SCFG = dict(vocab_size=128, n_layer=2, n_head=2, d_model=32, max_seq_len=64)
@@ -365,6 +413,36 @@ def test_staged_serving_equals_eager_and_matches_jax():
     assert phases["decode"] == {"eager": 1, "capture": 1, "replay": 2}
     assert phases["('score', 16)"] == {"eager": 1, "capture": 0,
                                        "replay": 0}
+
+
+def test_a_dropped_program_frees_its_graph_without_the_collector():
+    """Neither a serving program nor its model is in a reference cycle:
+    with the cyclic collector off, a program bound to other pages, and
+    then the model with its programs, are freed (with their graphs) when
+    their last reference goes."""
+    import gc
+    import weakref
+
+    model = tserving.DecodeModel(tserving.GPTConfig(**_SCFG),
+                                 params=_rich_params(), device="cpu", **_ENV)
+    model.staged = True
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        _serve(model, [np.arange(1, 14, dtype=np.int32)], ticks=2)
+        bound = [weakref.ref(p.run) for p in model._programs.values()
+                 if p.pages is not None]
+        assert len(bound) == 2  # decode and one prefill bucket
+        _serve(model, [np.arange(1, 14, dtype=np.int32)], ticks=2)  # new pages
+        assert all(r() is None for r in bound)
+        kept = [weakref.ref(p.run) for p in model._programs.values()]
+        gone = weakref.ref(model)
+        del model
+        assert gone() is None
+        assert all(r() is None for r in kept)
+    finally:
+        if collecting:
+            gc.enable()
 
 
 def test_programs_are_bound_to_one_pages_tensor():
