@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of paddle_tpu_torch on one CUDA card: build, check, time,
-serve, train.
+serve, train, observe.
 
 Run from the root of a checkout, with no arguments:
 
@@ -104,6 +104,34 @@ Phases (any failure raises, and the script exits non-zero with no result):
    parameters in fp32 (T) and in bf16 with the CE kernels replaced by
    their plain versions (Y); R (K) must lie within 2 max |Y - T| + 1e-3
    of T at every step (``_loss_band``);
+   then ``train_observed`` (``_train_observed``): the seq-2048 step
+   again with every step-side observability flag on (the goodput,
+   memwatch and dynamics journals and the program dumps under
+   ``build/observed/``, ``PADDLE_TPU_CHECK_NUMERICS=1``), replayed 6
+   steps, each fetching every gradient, feeding dynamics
+   (``grad_health``) and closing a goodput step; its losses must equal
+   the same steps with every flag off bit for bit, and an eager run's
+   with the sentinel on; its launches (counted from 0) show the seven
+   kernels on the warm-up and the capture; goodput charges exactly
+   those two runs to ``compile`` and the replays to ``device_compute``;
+   memwatch's peak lies within 1% of ``torch.cuda.max_memory_allocated``
+   with no leak episode and one journal record a step; dynamics keeps
+   one record and journal line a step; ``compiled_insights()`` has one
+   record whose FLOPs lie within 1% of the step's analytic count, and
+   the dump holds the op list, the captured graph's DOT and cost.json,
+   written last; one ``inf`` in ``gpt.wte`` raises the sentinel's typed
+   error naming the first op that reads it, replayed and eagerly;
+   ``TrainEpochRange`` over 2 epochs of 3 steps, crashed at epoch 1 and
+   resumed on a fresh executor and scope, equals the uninterrupted loop
+   bit for bit, and ``recovery.drift_audit`` passes on the journals
+   across the restart; a status server's /status serves ``memory`` and
+   ``dynamics``; the sentinel's and memwatch's cost a step are printed;
+   then the sentinel's replayed seq-512 step against its eager one
+   (``_sentinel_seq512``), and the OOM autopsy in a child process
+   (``python3 chip_smoke.py --oom-child``): under a memory cap, once at
+   the warm-up and once at the capture, the step must raise memwatch's
+   typed ``ResourceExhausted`` naming the op that raised, with the
+   footprint and a post-mortem JSON;
 7. CPU against card: tiny fp32 configs train 2 steps from the same numpy
    values on the CPU (plain versions, eager) and on the card (kernels;
    step 1 the warm-up, step 2 captured and replayed): one at seq 16
@@ -2656,6 +2684,717 @@ def _serve_tier(torch, card, prompts, want, decode_profile, device="cuda"):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# train_observed: the seq-2048 step with the step-side observability on
+# ---------------------------------------------------------------------------
+
+_OBSERVED_STEPS = 6
+_EPOCHS, _EPOCH_STEPS = 2, 3
+# compiled_insights()'s FLOPs over the analytic count of the step: the
+# products are counted exactly on both sides and the kernels report the
+# same formulas, so only a product outside the analytic count (or one
+# counted twice) moves the ratio
+_FLOPS_BAND = (0.99, 1.01)
+_WATERMARK_REL = 0.01  # memwatch's peak against the allocator's own
+_OBSERVED_DIR = os.path.join(_ROOT, "build", "observed")
+
+
+def _observed_dirs(root) -> dict:
+    return {"PADDLE_TPU_GOODPUT_DIR": os.path.join(root, "goodput"),
+            "PADDLE_TPU_MEMWATCH_DIR": os.path.join(root, "memwatch"),
+            "PADDLE_TPU_DYNAMICS_DIR": os.path.join(root, "dynamics"),
+            "PADDLE_TPU_XLA_DUMP_DIR": os.path.join(root, "dump")}
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """The environment with ``values`` set (None: unset), restored on
+    exit."""
+    saved = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _fresh_ledgers(dirs=None) -> None:
+    """goodput's, memwatch's and dynamics' ledgers emptied, each journal
+    persisted under ``dirs`` (``_observed_dirs``) or nowhere."""
+    from paddle_tpu_torch import dynamics, goodput, memwatch
+
+    for mod, key in ((goodput, "PADDLE_TPU_GOODPUT_DIR"),
+                     (memwatch, "PADDLE_TPU_MEMWATCH_DIR"),
+                     (dynamics, "PADDLE_TPU_DYNAMICS_DIR")):
+        mod.disable_persistence()
+        mod.reset()
+        if dirs is not None:
+            os.makedirs(dirs[key], exist_ok=True)
+            mod.configure(dir=dirs[key])
+
+
+@contextlib.contextmanager
+def _observed(root):
+    """Every A9 flag on: the three journals and the program dumps under
+    ``root``, the numerics sentinel; the ledgers fresh on entry and
+    again on exit (persistence off)."""
+    dirs = _observed_dirs(root)
+    with _env(PADDLE_TPU_CHECK_NUMERICS="1", PADDLE_TPU_XLA_INSIGHT="1",
+              PADDLE_TPU_MEMWATCH="1", PADDLE_TPU_DYNAMICS="1", **dirs):
+        _fresh_ledgers(dirs)
+        try:
+            yield dirs
+        finally:
+            _fresh_ledgers()
+
+
+def _flags_off():
+    """Every A9 flag off: no sentinel, insight, memwatch or dynamics, no
+    journal or dump."""
+    return _env(PADDLE_TPU_CHECK_NUMERICS=None, PADDLE_TPU_XLA_INSIGHT="0",
+                PADDLE_TPU_MEMWATCH="0", PADDLE_TPU_DYNAMICS="0",
+                **{k: None for k in _observed_dirs("")})
+
+
+def _grad_names(main) -> list:
+    """The gradient of each parameter, in the program's parameter order."""
+    block = main.global_block()
+    names = [p.name + "@GRAD" for p in main.all_parameters()]
+    return [n for n in names if block._find_var_recursive(n) is not None]
+
+
+def _observed_steps(torch, exe, scope, program, feed, steps, first=0,
+                    close=True):
+    """``steps`` steps of ``program`` (main, startup, io), each fetching
+    the loss and every gradient. With ``close``, each step then feeds
+    dynamics (the loss, ``grad_health`` over the fetched gradients, the
+    learning rate) and closes the goodput step (which closes memwatch's
+    and dynamics' too), numbered from ``first``. Returns the losses, the
+    run's host wall and, on the card, its CUDA-event ms, the closed
+    goodput steps and each run's phase."""
+    from paddle_tpu_torch import dynamics, goodput
+
+    main, _, io = program
+    names = _grad_names(main)
+    cuda = exe.device.type == "cuda"
+    out = {"losses": [], "run_ms": [], "event_ms": [], "closed": [],
+           "phases": [], "grad_norms": [], "nonfinite_grads": []}
+    lr = float(io["optimizer"]._learning_rate)
+    for i in range(steps):
+        before = dict(exe.phases)
+        t0 = time.perf_counter()
+        if cuda:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        got = exe.run(main, feed=feed, fetch_list=[io["loss"]] + names,
+                      scope=scope, return_numpy=False)
+        if cuda:
+            ev[1].record()
+        loss = float(got[0])  # the host read: synced
+        run_s = time.perf_counter() - t0
+        out["losses"].append(loss)
+        out["run_ms"].append(run_s * 1e3)
+        if cuda:
+            out["event_ms"].append(ev[0].elapsed_time(ev[1]))
+        # the eager route (the CPU, PADDLE_TPU_EAGER) counts no phase
+        out["phases"].append(next((k for k in exe.phases
+                                   if exe.phases[k] != before[k]), "eager"))
+        if close:
+            norm, bad = dynamics.grad_health(zip(names, got[1:]))
+            dynamics.feed(loss=loss, grad_norm=norm, lr=lr)
+            out["grad_norms"].append(norm)
+            out["nonfinite_grads"].append(bad)
+            out["closed"].append(goodput.end_step(
+                time.perf_counter() - t0,
+                samples=float(feed["tokens"].numel()), step=first + i))
+    return out
+
+
+def _goodput_split(closed, phases) -> dict:
+    """Holds each closed goodput step against the executor's phase of its
+    run: a run that built (the warm-up, "eager", and the capture) is
+    charged to ``compile`` and nothing to ``device_compute``; a replay
+    the other way round. Raises at the first step that breaks this;
+    returns the compile and device seconds by phase."""
+    if len(closed) != len(phases):
+        raise AssertionError(f"goodput: {len(closed)} closed steps for "
+                             f"{len(phases)} runs")
+    by = {}
+    for i, (c, phase) in enumerate(zip(closed, phases)):
+        built = phase in ("eager", "capture")
+        comp, dev = c.get("compile", 0.0), c.get("device_compute", 0.0)
+        if built != (comp > 0) or built == (dev > 0):
+            raise AssertionError(
+                f"goodput: step {i} ran as {phase!r} but was charged "
+                f"{comp:.6f} s to compile and {dev:.6f} s to "
+                f"device_compute")
+        row = by.setdefault(phase, {"compile_s": 0.0, "device_compute_s": 0.0})
+        row["compile_s"] += comp
+        row["device_compute_s"] += dev
+    return by
+
+
+def _analytic_step_flops(config, batch, seq, n_params, flash=True,
+                         plain=False) -> dict:
+    """The FLOPs of one training step of the GPT program, from the
+    config: each layer's q, k, v, projection and two MLP matmuls (24 N D^2
+    forward, twice that backward); the lm head + CE (2NVD forward, 4NVD
+    each for dx and dW); attention, 2 Dh FLOPs per score for each of its
+    products per head and layer (flash: 2 forward + 3 dq + 4 dk/dv;
+    einsum: 2 forward + 4 backward), over the visible causal scores as
+    the kernels count them, or over all T^2 as the plain versions compute
+    them (``plain``, the CPU); Adam's 15 FLOPs an element as its kernel
+    reports them (none where ``plain``: the plain Adam has no product)."""
+    n, d = batch * seq, config["d_model"]
+    layers, heads = config["n_layer"], config["n_head"]
+    v = config["vocab_size"]
+    dh = d // heads
+    scores = seq * seq if plain or not flash else seq * (seq + 1) // 2
+    terms = {"matmul": 72.0 * n * d * d * layers,
+             "lmhead_ce": 10.0 * n * v * d,
+             "attention": ((9 if flash else 6) * 2.0 * dh * batch * heads
+                           * scores * layers),
+             "adam": 0.0 if plain else 15.0 * n_params}
+    terms["total"] = sum(terms.values())
+    return terms
+
+
+def _insight_agrees(insights, analytic, band=_FLOPS_BAND) -> dict:
+    """One record for the one entry, its FLOPs within ``band`` of the
+    analytic count; returns the ratio and the record's parts."""
+    if len(insights) != 1:
+        raise AssertionError(f"insight: {len(insights)} records for one "
+                             f"program entry")
+    rec = insights[0]
+    ratio = rec["flops"] / analytic["total"]
+    if not band[0] <= ratio <= band[1]:
+        raise AssertionError(f"insight: {rec['flops']:.6g} FLOPs, "
+                             f"{ratio:.4f}x the analytic {analytic}, "
+                             f"outside {band}")
+    return {"ratio": ratio, "flops": rec["flops"],
+            "product_flops": rec["cost_raw"].get("product flops"),
+            "kernel_flops": rec["cost_raw"].get("kernel flops"),
+            "peak_bytes": rec["peak_bytes"], "key_hash": rec["key_hash"]}
+
+
+def _memwatch_agrees(totals, max_allocated, steps) -> dict:
+    """memwatch's lifetime peak within ``_WATERMARK_REL`` of the
+    allocator's, no leak episode, one journal record a step."""
+    peak = totals["lifetime_peak_bytes"]
+    rel = abs(peak - max_allocated) / max_allocated
+    if rel > _WATERMARK_REL:
+        raise AssertionError(f"memwatch: peak {peak} vs the allocator's "
+                             f"{max_allocated} ({rel:.4f} apart)")
+    if totals["leak_events"]:
+        raise AssertionError(f"memwatch: {totals['leak_events']} leak "
+                             f"episodes over {steps} steps")
+    if totals["steps"] != steps or len(totals["step_series"]) != steps:
+        raise AssertionError(f"memwatch: {totals['steps']} steps, "
+                             f"{len(totals['step_series'])} records, "
+                             f"for {steps} steps")
+    return {"lifetime_peak_bytes": peak, "max_memory_allocated":
+            max_allocated, "rel": rel, "leak_events": 0, "steps": steps}
+
+
+def _names_op(err, op_idx, op_type, typed=True) -> dict:
+    """The sentinel's error names the op: typed InvalidArgument with the
+    op's provenance (index and type) and its index and type in the
+    message (``typed``), or the legacy flag's FloatingPointError."""
+    from paddle_tpu_torch.framework import errors
+
+    msg = str(err)
+    want = f"op #{op_idx} {op_type!r}"
+    if typed:
+        prov = getattr(err, "op_provenance", None)
+        if (not isinstance(err, errors.InvalidArgumentError) or prov is None
+                or prov.op_idx != op_idx or prov.op_type != op_type
+                or want not in msg):
+            raise AssertionError(f"sentinel: {type(err).__name__}: {msg} "
+                                 f"does not name {want}")
+    elif not isinstance(err, FloatingPointError) or want not in msg:
+        raise AssertionError(f"FLAGS_check_nan_inf: {type(err).__name__}: "
+                             f"{msg} does not name {want}")
+    return {"op_idx": op_idx, "op_type": op_type,
+            "error": type(err).__name__}
+
+
+def _first_reader(main, name):
+    """(index, type) of the first op of the block that reads ``name``."""
+    for i, op in enumerate(main.global_block().ops):
+        if name in op.input_arg_names():
+            return i, op.type
+    raise AssertionError(f"no op reads {name!r}")
+
+
+def _poisoned(torch, exe, scope, program, feed, name, row) -> dict:
+    """One step (``_observed_steps``' fetches, so a replay where that
+    step was captured) after one ``inf`` is written into ``scope``'s
+    ``name`` (in place, at [row, 0]) must raise the sentinel's error
+    naming the first op that reads it."""
+    main, _, io = program
+    with torch.no_grad():
+        scope.get(name)[row, 0] = float("inf")
+    op_idx, op_type = _first_reader(main, name)
+    phases = dict(exe.phases)
+    try:
+        exe.run(main, feed=feed, fetch_list=[io["loss"]] + _grad_names(main),
+                scope=scope)
+    except Exception as e:  # noqa: BLE001 - held by _names_op
+        got = _names_op(e, op_idx, op_type)
+    else:
+        raise AssertionError(f"sentinel: the poisoned step of {name!r} "
+                             f"raised nothing")
+    # the eager route (the CPU, PADDLE_TPU_EAGER) counts no phase
+    got["phase"] = next((k for k in exe.phases if exe.phases[k] !=
+                         phases[k]), "eager")
+    return got
+
+
+def _epochs(torch, exe_of, program, start, feed, ckpt, name, stop_at=None,
+            resume=False, first=0):
+    """``TrainEpochRange(_EPOCHS, name)`` over ``_EPOCH_STEPS`` steps an
+    epoch, on a fresh executor and scope from ``start`` (or, resumed,
+    from the checkpoint alone), closing a goodput step each; stops when
+    the range yields ``stop_at`` (a crash at that epoch's start). Returns
+    the losses."""
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.incubate.checkpoint.auto_checkpoint import (
+        TrainEpochRange)
+
+    exe, scope = exe_of(), Scope()
+    if not resume:
+        for n, t in start.items():
+            scope.set(n, t.clone())
+    losses = []
+    for epoch in TrainEpochRange(_EPOCHS, name, checkpoint_dir=ckpt,
+                                 exe=exe, program=program[0], scope=scope,
+                                 resume=resume):
+        if epoch == stop_at:
+            break
+        out = _observed_steps(torch, exe, scope, program, feed,
+                              _EPOCH_STEPS,
+                              first=first + epoch * _EPOCH_STEPS)
+        losses += out["losses"]
+    return losses
+
+
+def _recovery(torch, exe_of, program, start, feed, root) -> dict:
+    """The epoch loop uninterrupted, then crashed at epoch 1's start and
+    restarted on a fresh executor and scope, with the ledgers re-resumed
+    from their journals as a restarted process would: the losses must
+    equal bit for bit, and ``recovery.drift_audit`` must pass on the
+    goodput and dynamics documents before the crash and after."""
+    from paddle_tpu_torch import dynamics, goodput, recovery
+
+    dirs = _observed_dirs(os.path.join(root, "epochs"))
+    _fresh_ledgers()
+    whole = _epochs(torch, exe_of, program, start, feed,
+                    os.path.join(root, "ckpt"), "whole")
+    _fresh_ledgers(dirs)
+    crashed = _epochs(torch, exe_of, program, start, feed,
+                      os.path.join(root, "ckpt"), "crash", stop_at=1)
+    before = {"goodput": goodput.load_journal(goodput.flush()),
+              "dynamics": dynamics.load_journal(dynamics.flush())}
+    _fresh_ledgers(dirs)  # the restarted process resumes its journals
+    resumed = _epochs(torch, exe_of, program, start, feed,
+                      os.path.join(root, "ckpt"), "crash", resume=True)
+    after = {"goodput": goodput.load_journal(goodput.flush()),
+             "dynamics": dynamics.load_journal(dynamics.flush())}
+    _fresh_ledgers()
+    if crashed + resumed != whole:
+        raise AssertionError(f"TrainEpochRange: resumed losses "
+                             f"{crashed + resumed} vs uninterrupted {whole}")
+    audit = recovery.drift_audit(
+        goodput_before=before["goodput"], goodput_after=after["goodput"],
+        dynamics_before=before["dynamics"],
+        dynamics_after=after["dynamics"])
+    if not audit["ok"]:
+        raise AssertionError(f"drift audit: {recovery.render_audit(audit)}")
+    return {"losses": whole, "bit_identical": True,
+            "audit": [c["check"] for c in audit["checks"] if c["ok"]]}
+
+
+def _sentinel_agrees(torch, program, start, feed, device, steps) -> dict:
+    """The sentinel on, replayed (the staged route on the CPU) and eager
+    from one start: the losses must equal bit for bit."""
+    from paddle_tpu_torch.framework import Scope
+
+    runs = {}
+    with _env(PADDLE_TPU_CHECK_NUMERICS="1"):
+        for leg in ("replayed", "eager"):
+            scope = Scope()
+            for n, t in start.items():
+                scope.set(n, t.clone())
+            exe = _executor(device)
+            exe.staged = leg == "replayed" and device == "cpu"
+            with _eager() if leg == "eager" else contextlib.nullcontext():
+                runs[leg] = _observed_steps(torch, exe, scope, program, feed,
+                                            steps, close=False)
+            del exe, scope
+    if runs["replayed"]["losses"] != runs["eager"]["losses"]:
+        raise AssertionError(f"sentinel: replayed losses "
+                             f"{runs['replayed']['losses']} vs eager "
+                             f"{runs['eager']['losses']}")
+    return {"losses": runs["eager"]["losses"], "bit_identical": True,
+            "phases": runs["replayed"]["phases"]}
+
+
+def _sentinel_seq512(torch, card, config=_TRAIN, batch=_TRAIN_B,
+                     seq=_TRAIN_T, device="cuda", steps=4) -> dict:
+    """``_sentinel_agrees`` on the seq-512 step (the seq-2048 one is in
+    ``_train_observed``)."""
+    from paddle_tpu_torch.framework import Scope
+
+    t0 = time.perf_counter()
+    program = _train_program(config, batch, seq)
+    scope = Scope()
+    _executor(device).run(program[1], scope=scope)
+    start = {v.name: scope.get(v.name).detach().clone()
+             for v in program[0].list_vars() if v.persistable}
+    del scope
+    feed = _fixed_batch(torch, config["vocab_size"], batch, seq, device)
+    got = _sentinel_agrees(torch, program, start, feed, device, steps)
+    _say(phase="train_observed_seq512", seq=seq, steps=steps,
+         seconds=time.perf_counter() - t0, card=card, **got)
+    return got
+
+
+def _status_sections() -> dict:
+    """A status server's /status: ``memory`` and ``dynamics`` are the
+    ported modules' documents; ``comms`` is still not ported."""
+    import urllib.request
+
+    from paddle_tpu_torch import dynamics, memwatch, status
+
+    status.start_status_server(port=0)
+    try:
+        url = f"http://127.0.0.1:{status.server_port()}/status"
+        with urllib.request.urlopen(url, timeout=30) as r:
+            doc = json.loads(r.read())
+    finally:
+        status.stop_status_server()
+    if (doc["memory"].get("schema") != memwatch.SCHEMA
+            or doc["dynamics"].get("schema") != dynamics.SCHEMA
+            or doc["comms"] != {"available": False, "not_ported": "A12"}):
+        raise AssertionError(f"/status sections: memory "
+                             f"{doc['memory']}, dynamics {doc['dynamics']}, "
+                             f"comms {doc['comms']}")
+    return {"memory_steps": doc["memory"]["steps"],
+            "dynamics_steps": doc["dynamics"]["steps"]}
+
+
+def _sample_ms(torch, device, calls=20) -> float:
+    """Median host ms of one memwatch sample on ``device``."""
+    from paddle_tpu_torch import memwatch
+
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        memwatch.sample(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _train_observed(torch, card, config=_LONG, batch=_LONG_B, seq=_LONG_T,
+                    device="cuda", steps=_OBSERVED_STEPS, root=_OBSERVED_DIR):
+    """bench.py's gpt2s step at seq 2048 with every A9 flag on (journals
+    and dumps under ``root``, the numerics sentinel), replayed for
+    ``steps`` steps, each fetching every gradient, feeding dynamics and
+    closing a goodput step; beside the same steps with every flag off.
+    Checks: the losses equal bit for bit; the kernels' launches (from 0:
+    the warm-up and the capture); goodput's compile and device split
+    (``_goodput_split``); memwatch against the allocator
+    (``_memwatch_agrees``); one dynamics record and journal line a step;
+    ``compiled_insights`` against the analytic FLOPs
+    (``_insight_agrees``) and its dump (cost.json, the op list, the
+    captured graph's DOT on the card); a poisoned weight raising the
+    sentinel's error at the op that reads it, replayed and eagerly; the
+    epoch loop's recovery (``_recovery``); /status's sections. Prints
+    the sentinel's and memwatch's cost a step; returns the launches."""
+    import gc
+
+    from paddle_tpu_torch import dynamics, memwatch
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.framework import xla_insight as insight
+    from paddle_tpu_torch.ops import flash_attention as fl
+    from paddle_tpu_torch.ops import fused_adam as fa
+    from paddle_tpu_torch.ops import lmhead_ce as ce
+
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    if os.path.isdir(root):
+        shutil.rmtree(root)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    program = _train_program(config, batch, seq)
+    main, startup, io = program
+    scope = Scope()
+    staged = not cuda
+
+    def exe_of():
+        exe = _executor(device)
+        exe.staged = staged
+        return exe
+
+    exe_of().run(startup, scope=scope)
+    start = {v.name: scope.get(v.name).detach().clone()
+             for v in main.list_vars() if v.persistable}
+    del scope
+    feed = _fixed_batch(torch, config["vocab_size"], batch, seq, device)
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+
+    def leg():
+        s = Scope()
+        for n, t in start.items():
+            s.set(n, t.clone())
+        return exe_of(), s
+
+    with _flags_off():
+        exe, scope = leg()
+        off = _observed_steps(torch, exe, scope, program, feed, steps,
+                              close=False)
+    del exe, scope
+    gc.collect()
+
+    flash = seq >= int(os.environ.get("PADDLE_TPU_FLASH_MIN_SEQ", 1024))
+    per_step = {"lmhead_ce_fwd": 1, "lmhead_ce_dx": 1, "lmhead_ce_dw": 1,
+                "fused_adam": _ADAM_PER_STEP,
+                "flash_attention_fwd": config["n_layer"] if flash else 0,
+                "flash_attention_dq": config["n_layer"] if flash else 0,
+                "flash_attention_dkv": config["n_layer"] if flash else 0}
+    with _observed(root) as dirs:
+        exe, scope = leg()
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        # the main path, counted: every count starts from 0 here
+        ce.reset_launches()
+        fa.reset_launches()
+        fl.reset_launches()
+        on = _observed_steps(torch, exe, scope, program, feed, steps)
+        launches = {"lmhead_ce_fwd": ce.launches,
+                    "lmhead_ce_dx": ce.dx_launches,
+                    "lmhead_ce_dw": ce.dw_launches,
+                    "fused_adam": fa.launches,
+                    "flash_attention_fwd": fl.fwd_launches,
+                    "flash_attention_dq": fl.dq_launches,
+                    "flash_attention_dkv": fl.dkv_launches}
+        if on["losses"] != off["losses"]:
+            raise AssertionError(f"train_observed: losses with every flag "
+                                 f"on {on['losses']} vs off {off['losses']}")
+        want_phases = ["eager", "capture"] + ["replay"] * (steps - 2)
+        if on["phases"] != want_phases or off["phases"] != want_phases:
+            raise AssertionError(f"train_observed: phases on "
+                                 f"{on['phases']}, off {off['phases']}")
+        # the CPU runs the plain versions, which launch nothing
+        want = {k: 2 * n if cuda else 0 for k, n in per_step.items()}
+        if launches != want:
+            raise AssertionError(f"train_observed: launches {launches}, "
+                                 f"expected {want} over the warm-up and "
+                                 f"the capture")
+        split = _goodput_split(on["closed"], on["phases"])
+        if any(on["nonfinite_grads"]):
+            raise AssertionError(f"train_observed: non-finite gradients "
+                                 f"{on['nonfinite_grads']}")
+        max_alloc = (torch.cuda.max_memory_allocated() if cuda else
+                     memwatch.totals()["lifetime_peak_bytes"])
+        mem = _memwatch_agrees(memwatch.totals(), max_alloc, steps)
+        mem_journal = memwatch.load_journal(memwatch.flush())
+        dyn = dynamics.totals()
+        dyn_journal = dynamics.flush()
+        with open(dyn_journal) as f:
+            dyn_lines = sum(1 for line in f if line.strip()) - 1
+        if (dyn["steps"] != steps or len(dyn["series"]) != steps
+                or dyn_lines != steps or len(mem_journal["step_series"])
+                != steps):
+            raise AssertionError(f"train_observed: dynamics {dyn['steps']} "
+                                 f"steps, {len(dyn['series'])} records, "
+                                 f"{dyn_lines} journal lines; memwatch "
+                                 f"journal {len(mem_journal['step_series'])}"
+                                 f" records, for {steps} steps")
+        if [r.get("loss") for r in dyn["series"]] != on["losses"]:
+            raise AssertionError("train_observed: dynamics' losses are not "
+                                 "the steps'")
+        analytic = _analytic_step_flops(config, batch, seq, n_params, flash,
+                                        plain=not cuda)
+        ins = _insight_agrees(exe.compiled_insights(), analytic)
+        probes = sum(len(e.probes.sites) for e in exe._cache.values()
+                     if e.probes is not None)
+        dumped = insight.load_dump_dir(dirs["PADDLE_TPU_XLA_DUMP_DIR"])
+        kinds = ("ops", "dot") if cuda else ("ops",)
+        rec = dumped.get(exe.compiled_insights()[0]["key_hash"])
+        if rec is None or any(k not in rec["artifacts"] for k in kinds):
+            raise AssertionError(f"train_observed: dump {dumped}")
+        cost = os.path.join(dirs["PADDLE_TPU_XLA_DUMP_DIR"],
+                            f"program.{rec['key_hash']}.cost.json")
+        if any(os.path.getmtime(rec["artifacts"][k]) > os.path.getmtime(cost)
+               for k in kinds):
+            raise AssertionError("train_observed: cost.json not written last")
+        status_doc = _status_sections()
+        sample_ms = _sample_ms(torch, exe.device)
+        row = int(feed["tokens"].reshape(-1)[0])
+        poisoned = {"replayed": _poisoned(torch, exe, scope, program, feed,
+                                          "gpt.wte", row)}
+        if poisoned["replayed"]["phase"] != "replay":
+            raise AssertionError(f"train_observed: the poisoned step ran as "
+                                 f"{poisoned['replayed']['phase']!r}")
+        del exe, scope
+        gc.collect()
+        with _eager():
+            exe, scope = leg()
+            exe.staged = False
+            poisoned["eager"] = _poisoned(torch, exe, scope, program, feed,
+                                          "gpt.wte", row)
+        del exe, scope
+        gc.collect()
+        recovery = _recovery(torch, exe_of, program, start, feed, root)
+    sentinel = _sentinel_agrees(torch, program, start, feed, device, steps)
+    if sentinel["losses"] != on["losses"]:
+        raise AssertionError(f"train_observed: sentinel legs "
+                             f"{sentinel['losses']} vs {on['losses']}")
+    replays = slice(2, None)
+    cost_ms = {
+        "run_ms_off": statistics.median(off["run_ms"][replays]),
+        "run_ms_on": statistics.median(on["run_ms"][replays]),
+        "memwatch_sample_ms": sample_ms,
+        "memwatch_ms_per_step": sample_ms,
+        "note": "run_ms: Executor.run's host wall of a replayed step "
+                "(median of the replays), which fetches the loss and "
+                "every gradient; on - off is the sentinel's cost (the "
+                "insight, goodput and memwatch add nothing to a replayed "
+                "run below the sampling cadence); memwatch samples once "
+                "a closed step (its end_step), memwatch_sample_ms each"}
+    cost_ms["sentinel_ms_per_step"] = cost_ms["run_ms_on"] - \
+        cost_ms["run_ms_off"]
+    if cuda:
+        cost_ms["event_ms_off"] = statistics.median(off["event_ms"][replays])
+        cost_ms["event_ms_on"] = statistics.median(on["event_ms"][replays])
+        cost_ms["sentinel_device_ms_per_step"] = (cost_ms["event_ms_on"]
+                                                  - cost_ms["event_ms_off"])
+    report = dict(phase="train_observed", config=config, batch=batch,
+                  seq=seq, steps=steps, losses=on["losses"],
+                  bit_identical_to_flags_off=True, launches=launches,
+                  goodput_by_phase=split, memwatch=mem,
+                  dynamics={"steps": dyn["steps"], "journal_lines":
+                            dyn_lines, "grad_norms": on["grad_norms"]},
+                  insight=ins, analytic_flops=analytic, probes=probes,
+                  poisoned=poisoned, recovery=recovery, status=status_doc,
+                  sentinel_replayed_vs_eager=sentinel,
+                  cost_ms=cost_ms, seconds=time.perf_counter() - t_phase,
+                  card=card)
+    _say(**report)
+    return launches
+
+
+def _autopsy(err, exe) -> dict:
+    """The OOM post-mortem contract: typed ResourceExhausted, a blamed op
+    (provenance), a footprint by layer, a post-mortem JSON on disk that
+    blames the same op."""
+    from paddle_tpu_torch import memwatch
+    from paddle_tpu_torch.framework import errors
+
+    prov = getattr(err, "op_provenance", None)
+    report = getattr(err, "memory_report", None) or {}
+    path = getattr(err, "postmortem_path", None)
+    doc = None
+    if path and os.path.exists(path):
+        with open(path) as f:
+            doc = json.load(f)
+    cause = err.__cause__
+    got = {"typed": isinstance(err, errors.ResourceExhaustedError),
+           "blamed_op": prov and prov.op_type, "blamed_idx": prov and
+           prov.op_idx,
+           "footprint_bytes": (report.get("footprint") or {}).get(
+               "total_bytes"),
+           "postmortem": path,
+           "postmortem_blame": (doc or {}).get("blame", {}).get("op_type"),
+           "in_capture": any("capturing" in n for n in
+                             getattr(cause, "__notes__", ())),
+           "phases": dict(exe.phases), "message": str(err)[:300]}
+    got["ok"] = bool(got["typed"] and got["blamed_op"]
+                     and got["footprint_bytes"] and doc is not None
+                     and doc.get("schema") == memwatch.POSTMORTEM_SCHEMA
+                     and got["postmortem_blame"] == got["blamed_op"])
+    return got
+
+
+def _oom_child() -> int:
+    """``chip_smoke.py --oom-child``: the seq-2048 step under a memory
+    cap it cannot fit, twice: the cap below the warm-up's need ("run"),
+    then the warm-up run uncapped and the cap at what the process holds,
+    so the capture's own pool cannot grow ("capture"). Each must raise
+    memwatch's typed error (``_autopsy``). Prints one JSON line; exits 0
+    only if both did."""
+    import gc
+
+    import torch
+
+    from paddle_tpu_torch.framework import Scope
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    dump = os.path.join(_OBSERVED_DIR, "oom")
+    os.makedirs(dump, exist_ok=True)
+    os.environ["PADDLE_TPU_XLA_DUMP_DIR"] = dump
+    program = _train_program(_LONG, _LONG_B, _LONG_T)
+    main, startup, io = program
+    feed = _fixed_batch(torch, _LONG["vocab_size"], _LONG_B, _LONG_T)
+    scope = Scope()
+    _executor("cuda").run(startup, scope=scope)
+    cases = {}
+
+    def capped(extra):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.set_per_process_memory_fraction(
+            min(1.0, (torch.cuda.memory_reserved() + extra) / total))
+
+    for case in ("run", "capture"):
+        exe = _executor("cuda")
+        if case == "capture":  # the warm-up, uncapped
+            exe.run(main, feed=feed, fetch_list=[io["loss"]], scope=scope)
+        capped(256 << 20 if case == "run" else 64 << 20)
+        try:
+            exe.run(main, feed=feed, fetch_list=[io["loss"]], scope=scope)
+        except Exception as e:  # noqa: BLE001 - the expected error, held
+            cases[case] = _autopsy(e, exe)
+        else:
+            cases[case] = {"ok": False, "raised": None,
+                           "phases": dict(exe.phases)}
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        del exe
+    ok = all(c["ok"] for c in cases.values())
+    _say(phase="oom_child", ok=ok, cases=cases,
+         total_memory=total)
+    return 0 if ok else 1
+
+
+def _oom_autopsy(card) -> dict:
+    """Runs ``_oom_child`` in a child process (a capture that fails may
+    leave its stream unusable) and holds its verdict."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--oom-child"], cwd=_ROOT, capture_output=True,
+                          text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    doc = json.loads(lines[-1]) if lines else {}
+    if proc.returncode != 0 or not doc.get("ok"):
+        raise AssertionError(f"oom child: exit {proc.returncode}, {doc}; "
+                             f"stderr tail {proc.stderr[-3000:]}")
+    _say(phase="train_observed_oom", cases=doc["cases"],
+         seconds=time.perf_counter() - t0, card=card)
+    return doc
+
+
 def _kernel_row(name, replaces, source, launches, err, t, card, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -2688,6 +3427,9 @@ def main() -> int:
                            0, band=True)
     train_long, traced_long = _train(torch, card, _LONG, _LONG_B, _LONG_T,
                                      "train_long", _LAYERS)
+    observed = _train_observed(torch, card)
+    _sentinel_seq512(torch, card)
+    _oom_autopsy(card)
     for case in _CPU_VS_CARD:
         _cpu_vs_card(torch, *case)
 
@@ -2699,7 +3441,7 @@ def main() -> int:
 
     def by_path(name, **more):
         return {"train": train[name], "train_long": train_long[name],
-                **more}
+                "train_observed": observed[name], **more}
 
     def replayed(name):  # the device trace's launches per replayed step
         return {"train": traced["path_kernels"][name]["calls"],
@@ -2783,4 +3525,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--oom-child"]:
+        sys.exit(_oom_child())
     sys.exit(main())

@@ -3,21 +3,77 @@
 Port of ``paddle_tpu/flags.py``, cut to the flags this package reads:
 the serving engine's and its front tier's ``PADDLE_TPU_SERVE_*`` knobs
 (router, capacity planner, autoscaler), the status server's port and
-host, the goodput journal, the monitor and profiler switches, the chaos
-sites and ``PADDLE_TPU_EAGER`` (the port's
-own: the card replays CUDA graphs unless it is set). The other variable
-names are the JAX package's own, so one deployment's environment drives
-either package.
+host, the goodput, memwatch and dynamics journals and their detectors,
+the compiled-program insight and its dump directory, the numerics
+sentinel, the monitor and profiler switches, the chaos sites and
+``PADDLE_TPU_EAGER`` (the port's own: the card replays CUDA graphs
+unless it is set). The other variable names are the JAX package's own,
+so one deployment's environment drives either package.
 
 Every variable is declared here once (name, typed default, help) and
 read through :func:`env_flag`. Flags are read live from ``os.environ``:
 tests flip them with monkeypatch.setenv and the next read sees the new
 value.
+
+The core ``FLAGS_*`` tier (``define_flag``, ``get_flags``,
+``set_flags``: Paddle's ``paddle.set_flags``) carries the core flags the
+ported executor honors, ``FLAGS_check_nan_inf``. Each initializes from
+the environment variable of its name and can be flipped at run time; the
+executor reads it at each run.
 """
 from __future__ import annotations
 
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Iterable, Union
+
+_DEFS: Dict[str, dict] = {}
+_VALUES: Dict[str, Any] = {}
+
+
+def _coerce(value, proto):
+    if isinstance(proto, bool):
+        if isinstance(value, str):
+            return value.lower() in ("1", "true", "yes", "on")
+        return bool(value)
+    if isinstance(proto, int) and not isinstance(proto, bool):
+        return int(value)
+    if isinstance(proto, float):
+        return float(value)
+    return str(value)
+
+
+def define_flag(name: str, default: Any, help_str: str = "") -> None:
+    """Register a core flag (Paddle's DEFINE_bool/int32/... in flags.cc)."""
+    if not name.startswith("FLAGS_"):
+        name = "FLAGS_" + name
+    _DEFS[name] = {"default": default, "help": help_str}
+    env = os.environ.get(name)
+    _VALUES[name] = _coerce(env, default) if env is not None else default
+
+
+def get_flags(flags: Union[str, Iterable[str]]):
+    """``paddle.get_flags``: a name gives its value, a list {name: value}."""
+    if isinstance(flags, str):
+        name = flags if flags.startswith("FLAGS_") else "FLAGS_" + flags
+        if name not in _DEFS:
+            raise KeyError(f"unknown flag {name!r}")
+        return _VALUES[name]
+    return {f: get_flags(f) for f in flags}
+
+
+def set_flags(flags: Dict[str, Any]) -> None:
+    """``paddle.set_flags({name: value})``."""
+    for name, value in flags.items():
+        if not name.startswith("FLAGS_"):
+            name = "FLAGS_" + name
+        if name not in _DEFS:
+            raise KeyError(f"unknown flag {name!r}")
+        _VALUES[name] = _coerce(value, _DEFS[name]["default"])
+
+
+def all_flags() -> Dict[str, Any]:
+    return dict(_VALUES)
+
 
 _ENV_DEFS: Dict[str, dict] = {}
 
@@ -265,6 +321,76 @@ define_env_flag(
     "PADDLE_TPU_GOODPUT_FLUSH_STEPS", 50,
     "flush the goodput journal every N closed steps (plus once at exit)")
 
+# -- step-side observability: memwatch, dynamics, compiled-program insight ----
+define_env_flag(
+    "PADDLE_TPU_XLA_INSIGHT", True,
+    "record each executor cache entry's cost on its first eager run "
+    "(products counted by torch.utils.flop_counter plus the hand-written "
+    "kernels' own counts, allocator peak bytes) and export "
+    "program_flops / program_peak_bytes metrics; 0 skips the record")
+define_env_flag(
+    "PADDLE_TPU_XLA_DUMP_DIR", "",
+    "dump per-program artifacts (program.<hash>.{ops,dot,cost.json}: the "
+    "op list, the captured CUDA graph's DOT, the cost record, written "
+    "last) into this directory")
+define_env_flag(
+    "PADDLE_TPU_MEMWATCH", True,
+    "live device-memory accounting (hbm_* gauges, per-step watermarks, "
+    "leak detector, OOM post-mortem enrichment); 0 disables sampling")
+define_env_flag(
+    "PADDLE_TPU_MEMWATCH_DIR", "",
+    "persist the per-rank memory ledger journal (memwatch.rank<k>.json, "
+    "atomic writes) into this directory; a restarted rank resumes its "
+    "lifetime peak from it")
+define_env_flag(
+    "PADDLE_TPU_MEMWATCH_FLUSH_STEPS", 50,
+    "flush the memwatch journal every N closed steps (plus once at exit)")
+define_env_flag(
+    "PADDLE_TPU_MEMWATCH_LEAK_STEPS", 30,
+    "steady-state leak detector: this many consecutive closed steps of "
+    "monotonic bytes_in_use growth raise a leak-suspect event")
+define_env_flag(
+    "PADDLE_TPU_MEMWATCH_LEAK_MIN_MB", 8.0,
+    "minimum total growth (MB) across the leak window before a "
+    "leak-suspect event fires (filters allocator jitter)")
+define_env_flag(
+    "PADDLE_TPU_MEMWATCH_SAMPLE_RUNS", 10,
+    "executor memory sampling cadence: query allocator stats every N "
+    "steady-state Executor.run calls (compiling runs and explicitly fed "
+    "samples are always recorded); 1 queries on every run")
+define_env_flag(
+    "PADDLE_TPU_DYNAMICS", True,
+    "training-dynamics telemetry (per-step loss/grad-norm series, "
+    "anomaly detectors); 0 disables recording")
+define_env_flag(
+    "PADDLE_TPU_DYNAMICS_DIR", "",
+    "persist the per-rank training-dynamics journal "
+    "(dynamics.rank<k>.jsonl: header line + one JSON line per closed "
+    "step, atomic writes) into this directory; a restarted rank resumes "
+    "its trajectory from it")
+define_env_flag(
+    "PADDLE_TPU_DYNAMICS_FLUSH_STEPS", 50,
+    "flush the dynamics journal every N closed steps (plus once at exit)")
+define_env_flag(
+    "PADDLE_TPU_DYNAMICS_SAMPLE", 25,
+    "per-layer-prefix grad/weight/update norm breakdown cadence in steps "
+    "(one fused reduction per sample) for a step loop that samples it; "
+    "0 disables the breakdown")
+define_env_flag(
+    "PADDLE_TPU_DYNAMICS_SPIKE_Z", 6.0,
+    "loss-spike detector: a step whose loss sits more than this many "
+    "EMA standard deviations above the loss EMA starts a loss_spike "
+    "episode")
+define_env_flag(
+    "PADDLE_TPU_DYNAMICS_DIVERGE_STEPS", 25,
+    "sustained-divergence detector: the loss EMA staying >1% above its "
+    "best value for this many consecutive steps starts a divergence "
+    "episode")
+define_env_flag(
+    "PADDLE_TPU_DYNAMICS_PLATEAU_STEPS", 200,
+    "plateau detector: this many consecutive steps without a loss-EMA "
+    "improvement starts a plateau episode (informational)")
+
 # -- chaos -------------------------------------------------------------------
 define_env_flag(
     "PADDLE_TPU_CHAOS_SITES", "",
@@ -300,5 +426,15 @@ define_env_flag(
     "lax-loop path) is not ported and raises at run time")
 define_env_flag(
     "PADDLE_TPU_CHECK_NUMERICS", False,
-    "numerics sentinel of the JAX executor; not ported: a run with it "
-    "set raises errors.Unimplemented")
+    "numerics sentinel: probe every float op output right after its op "
+    "(inside the captured graph on the card) and raise a typed "
+    "InvalidArgument naming the first op that produced nan/inf (op "
+    "provenance attached)")
+
+
+# -- core flag set (the subset of flags.cc the port's executor honors) -------
+define_flag(
+    "FLAGS_check_nan_inf", False,
+    "executor debug mode: after every op, check that all float outputs "
+    "are finite and report the first offending op as FloatingPointError "
+    "(Paddle's operator.cc CheckNanInf)")

@@ -82,6 +82,9 @@ class Captured:
         self.device = torch.device(device)
         self.warmup = int(warmup)
         self.pool = pool
+        # a path set before the capture: the captured graph is kept (in
+        # debug mode) and its DOT written there (``CUDAGraph.debug_dump``)
+        self.dump_dot: Optional[str] = None
         self.graph = None
         self.outputs: Any = None
         self.calls: Dict[str, int] = {"eager": 0, "capture": 0, "replay": 0}
@@ -136,7 +139,13 @@ class Captured:
         thread, and a graph's destruction during a capture invalidates it.
         (The serving programs hold no such cycle; see
         ``serving.model._Program``.)"""
-        graph = torch.cuda.CUDAGraph()
+        if self.dump_dot:
+            # the raw graph is kept past the capture so its DOT can be
+            # printed (it is instantiated below instead)
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            graph.enable_debug_mode()
+        else:
+            graph = torch.cuda.CUDAGraph()
         failure: Optional[BaseException] = None
         out = None
         gc.collect()
@@ -152,5 +161,8 @@ class Captured:
         if failure is not None:
             raise failure
         self.graph, self.outputs = graph, out
+        if self.dump_dot:
+            graph.instantiate()
+            graph.debug_dump(self.dump_dot)
         graph.replay()
         return out

@@ -3,11 +3,21 @@
 Copy of ``paddle_tpu/framework/scope.py``. Values are torch tensors; the
 executor writes each updated persistable back after a run, and an op that
 updates in place (the fused Adam kernel) hands back the very tensor the
-scope already holds.
+scope already holds. Every live scope is listed in a weak set
+(:func:`live_scopes`), which the CPU's synthetic memory statistics read
+(``device.memory_stats``).
 """
 from __future__ import annotations
 
+import weakref
 from typing import Any, Dict, Iterator, List, Optional
+
+_LIVE: "weakref.WeakSet[Scope]" = weakref.WeakSet()
+
+
+def live_scopes() -> List["Scope"]:
+    """Every scope not yet collected."""
+    return list(_LIVE)
 
 
 class Scope:
@@ -15,6 +25,7 @@ class Scope:
         self._parent = parent
         self._vars: Dict[str, Any] = {}
         self._kids: List["Scope"] = []
+        _LIVE.add(self)
 
     def new_scope(self) -> "Scope":
         kid = Scope(self)

@@ -2,13 +2,16 @@
 
 Port of ``paddle_tpu/goodput.py``. It holds no device code, so the
 ledger, its journal and its views are the JAX package's; the port
-differs in its producers. The JAX package's executor, fit loop,
-DataLoader and collectives feed it; the port's executor does not yet
-(its goodput hook is refused under ROADMAP A9), and the memory,
-training-dynamics and interconnect ledgers that ``end_step`` closes
-beside it there (memwatch, dynamics, commswatch) are not ported, so
-here ``end_step`` closes the goodput step alone. A step loop of the
-port's own calls ``add``/``end_step`` directly.
+differs in its producers. The port's executor feeds it as the JAX
+package's does: a run that builds a fresh program (a cache miss, the
+compiled route's eager warm-up and its capture) adds its wall time to
+``compile``, a replayed or steady eager run to ``device_compute``. The
+fit loop, DataLoader and collectives that also feed it there are not
+ported (ROADMAP A8, A10); a step loop of the port's own calls
+``add``/``end_step`` directly. ``end_step`` closes the memory and
+training-dynamics ledgers (``memwatch.py``, ``dynamics.py``) beside the
+goodput step, as there; the interconnect ledger (commswatch) waits for
+A12.
 
 The ledger decomposes each step's wall time into typed buckets and
 keeps a cumulative **goodput ledger** (productive seconds vs. badput by
@@ -294,8 +297,22 @@ def end_step(wall_seconds: float, samples: Optional[float] = None,
     if not _monitor.enabled():
         return None
     closed = _LEDGER.end_step(wall_seconds, samples=samples, step=step)
-    # the JAX package closes its memory, dynamics and comms ledgers here
-    # too; those modules are not ported (ROADMAP A9, A12)
+    # the memory and dynamics ledgers share the step boundary: every
+    # loop that closes a goodput step closes the memory watermark and the
+    # training-dynamics record too, with no second hook to forget (the
+    # JAX package's comms ledger waits for ROADMAP A12)
+    try:
+        from . import memwatch as _memwatch
+
+        _memwatch.end_step(step=step)
+    except Exception:
+        pass  # memory accounting must never take down a step loop
+    try:
+        from . import dynamics as _dynamics
+
+        _dynamics.end_step(step=step)
+    except Exception:
+        pass  # dynamics accounting must never take down a step loop
     for b, v in closed.items():
         if v > 0:
             _M_BUCKET_S.labels(bucket=b).inc(v)
@@ -400,6 +417,23 @@ def disable_persistence() -> None:
     global _JOURNAL_DIR
     _JOURNAL_DIR = None
 
+
+def _rank_changed() -> None:
+    """monitor.set_trainer_rank() notification: the resumed base (if
+    any) belongs to the OLD rank's journal — drop it, and re-resume
+    against the new identity while the ledger is still pristine. Keeps
+    custom rank wiring (profiler.set_rank after import) from counting
+    another rank's lifetime totals as this rank's."""
+    if _JOURNAL_DIR is None:
+        return
+    _LEDGER.base = None
+    if _LEDGER.steps == 0 and _LEDGER.mark() == 0.0:
+        path = journal_path()
+        if os.path.exists(path):
+            try:
+                _LEDGER.base = load_journal(path)
+            except (OSError, ValueError):
+                _LEDGER.base = None
 
 def _flush_at_exit() -> None:
     try:

@@ -1,8 +1,8 @@
 """Runtime telemetry: typed metrics registry + legacy stat gauges.
 
-Port of ``paddle_tpu/monitor.py`` (no device code; the journals of the
-goodput/memwatch/dynamics/commswatch modules, which that file re-anchors
-on a rank change, are not ported yet).
+Port of ``paddle_tpu/monitor.py`` (no device code). A rank change
+re-anchors the rank-keyed journals of goodput, memwatch and dynamics,
+as there; the interconnect ledger (commswatch) waits for ROADMAP A12.
 
 Counterpart of Paddle's paddle/fluid/platform/monitor.h:76
 (StatRegistry + STAT_ADD/STAT_RESET macros, used for GPU memory gauges),
@@ -660,7 +660,27 @@ def set_trainer_rank(rank: int) -> None:
     so traces, journals, flight dumps and the status endpoints all agree
     on one identity)."""
     global _RANK_OVERRIDE
+    changed = _RANK_OVERRIDE != int(rank)
     _RANK_OVERRIDE = int(rank)
+    if changed:
+        try:  # the goodput journal is rank-keyed: re-anchor its resume
+            from . import goodput as _goodput
+
+            _goodput._rank_changed()
+        except Exception:
+            pass
+        try:  # the memwatch journal shares the rank-keyed contract
+            from . import memwatch as _memwatch
+
+            _memwatch._rank_changed()
+        except Exception:
+            pass
+        try:  # so does the training-dynamics journal
+            from . import dynamics as _dynamics
+
+            _dynamics._rank_changed()
+        except Exception:
+            pass
 
 
 def trainer_rank() -> int:

@@ -76,6 +76,13 @@ limit) runs at each launch, first in the eager warm-up before any
 capture. The launch counters count Python calls: a capture adds one
 call's launches, a replay none, although the graph relaunches the
 recorded kernels.
+
+Each launch also reports its analytic cost to the program insight
+(``framework/xla_insight.note_kernel``; counted only while the executor
+records a program's first run): 2 D FLOPs per visible score for each
+product of the kernel's own algorithm (2 forward: scores, P V; 3 dq:
+scores, dP, dS K; 4 dk/dv: scores, dP, P^T dO, dS^T Q), and each input
+read once and each output written once.
 """
 from __future__ import annotations
 
@@ -84,6 +91,8 @@ import math
 from typing import Optional, Tuple
 
 import torch
+
+from ..framework import xla_insight as _insight
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_dq",
            "flash_attention_dkv", "flash_attention_delta", "tma_geometry",
@@ -114,6 +123,27 @@ _LAYOUTS = ("BHTD", "BTHD")
 def reset_launches() -> None:
     global fwd_launches, dq_launches, dkv_launches
     fwd_launches = dq_launches = dkv_launches = 0
+
+
+def visible_scores(tq: int, tk: int, causal: bool) -> int:
+    """Scores a (batch, head) computes: all Tq x Tk, or, with the causal
+    mask aligned bottom-right, Tk - Tq + i + 1 (at least 0) in row i:
+    the sum of m .. Tk for m = max(1, Tk - Tq + 1)."""
+    if not causal:
+        return tq * tk
+    if not tq or not tk:
+        return 0
+    m = max(1, tk - tq + 1)
+    return (tk * (tk + 1) - (m - 1) * m) // 2
+
+
+def _note(name: str, products: int, q, k, layout, causal, *operands):
+    if not _insight.active():
+        return
+    b, h, tq, tk, d = _dims(q, k, layout)
+    _insight.note_kernel(
+        name, 2.0 * d * products * b * h * visible_scores(tq, tk, causal),
+        sum(t.numel() * t.element_size() for t in operands))
 
 
 def _dims(q: torch.Tensor, k: torch.Tensor, layout: str):
@@ -349,6 +379,7 @@ def _launch_fwd(q, k, v, causal, scale, layout):
     launch = _launch_fwd_sm90 if _tensor_cores(q) else _launch_fwd_simt
     out, lse = launch(_build.load(), q, k, v, causal, scale, layout)
     fwd_launches += 1
+    _note("flash_attention_fwd", 2, q, k, layout, causal, q, k, v, out, lse)
     return out, lse
 
 
@@ -388,6 +419,8 @@ def _launch_dq(q, k, v, dout, lse, delta, causal, scale, layout):
     _launch_bwd("flash_attn_dq", "dq", (dq,), q, k, v, dout, lse, delta,
                 causal, scale, layout)
     dq_launches += 1
+    _note("flash_attention_dq", 3, q, k, layout, causal, q, k, v, dout, lse,
+          delta, dq)
     return dq
 
 
@@ -397,6 +430,8 @@ def _launch_dkv(q, k, v, dout, lse, delta, causal, scale, layout):
     _launch_bwd("flash_attn_dkv", "dk/dv", (dk, dv), q, k, v, dout, lse,
                 delta, causal, scale, layout)
     dkv_launches += 1
+    _note("flash_attention_dkv", 4, q, k, layout, causal, q, k, v, dout, lse,
+          delta, dk, dv)
     return dk, dv
 
 

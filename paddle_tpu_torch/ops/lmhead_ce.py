@@ -66,12 +66,20 @@ limit) runs at each launch, first in the eager warm-up before any
 capture. The launch counters count Python calls: a capture adds one
 call's launches, a replay none, although the graph relaunches the
 recorded kernels.
+
+Each launch also reports its analytic cost to the program insight
+(``framework/xla_insight.note_kernel``; counted only while the executor
+records a program's first run), by the JAX package's own estimates
+(``fused_lmhead_ce.py:82-95``): 2NVD FLOPs for the forward, 4NVD for dx
+and for dW, and each input read once and each output written once.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+
+from ..framework import xla_insight as _insight
 
 __all__ = ["lmhead_ce", "lmhead_ce_fwd", "lmhead_ce_dx", "lmhead_ce_dw",
            "lmhead_ce_bwd", "lmhead_ce_plain", "lmhead_ce_dx_plain",
@@ -108,6 +116,19 @@ _DTYPES = (torch.float32, torch.bfloat16)
 def reset_launches() -> None:
     global launches, dx_launches, dw_launches
     launches = dx_launches = dw_launches = 0
+
+
+def _nbytes(*ts: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _note(name: str, products: int, x2d, w, labels, *rest) -> None:
+    """One launch's cost to the program insight: ``products`` N x V x D
+    products of 2 FLOPs, and the bytes of its operands ``x2d``, ``w``,
+    ``labels`` and ``rest`` (the others it reads and what it writes)."""
+    n, d = x2d.shape
+    _insight.note_kernel(name, 2.0 * products * n * w.shape[0] * d,
+                         _nbytes(x2d, w, labels, *rest))
 
 
 def _check(x2d: torch.Tensor, w: torch.Tensor, labels: torch.Tensor) -> None:
@@ -284,6 +305,7 @@ def _launch(x2d: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
         raise RuntimeError(f"lmhead_ce_combine launch failed: CUDA error "
                            f"{err} (n={n}, chunks={chunks})")
     launches += 1
+    _note("lmhead_ce_fwd", 1, x2d, w, lbl, nll, lse)
     return nll, lse
 
 
@@ -391,6 +413,7 @@ def _launch_dx(x2d, w, labels, lse, g) -> torch.Tensor:
                           True, torch.cuda.current_stream(x2d.device)
                           .cuda_stream)
     dx_launches += 1
+    _note("lmhead_ce_dx", 2, x2d, w, labels, lse, g, dx)
     return dx
 
 
@@ -405,6 +428,7 @@ def _launch_dw(x2d, w, labels, lse, g) -> torch.Tensor:
                           False, torch.cuda.current_stream(x2d.device)
                           .cuda_stream)
     dw_launches += 1
+    _note("lmhead_ce_dw", 2, x2d, w, labels, lse, g, dw)
     return dw
 
 

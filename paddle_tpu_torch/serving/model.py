@@ -49,7 +49,6 @@ assigns it back as the JAX engine does.
 """
 from __future__ import annotations
 
-import hashlib
 import math
 import time
 import weakref
@@ -62,6 +61,7 @@ import torch.nn.functional as F
 
 from .. import flags as _flags
 from ..framework import errors as _errors
+from ..framework import xla_insight as _insight
 from ..framework.replay import Captured, replays
 from ..models.gpt import GPTConfig
 from ..ops.lmhead_ce import lmhead_ce
@@ -291,11 +291,12 @@ def decode_cost(cfg: GPTConfig, max_batch: int, n_blocks: int,
                                "bytes_kv_read", "bytes_kv_write",
                                "bytes_io"))
     written = least + t["bytes_kv_gather_copy"] + t["bytes_logits"]
-    # the JAX package's key of its decode program (no recipe), hashed as
-    # its xla_insight.key_hash does: one program, one key in both packages
-    key = repr(("serve", "decode", None, B, int(n_blocks), int(block_size),
-                L, cfg.n_head, D, V, cfg.max_seq_len, None))
-    return DecodeCost(key_hash=hashlib.sha1(key.encode()).hexdigest()[:12],
+    # the JAX package's key of its decode program (no recipe), hashed by
+    # the same key_hash: one program, one key in both packages
+    key = _insight.key_hash(("serve", "decode", None, B, int(n_blocks),
+                             int(block_size), L, cfg.n_head, D, V,
+                             cfg.max_seq_len, None))
+    return DecodeCost(key_hash=key,
                       flops=flops, bytes_accessed=least,
                       bytes_as_written=written, terms=t)
 

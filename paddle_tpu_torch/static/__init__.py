@@ -12,5 +12,15 @@ from ..framework import (
     gradients,
     program_guard,
 )
-from . import nn
+from . import io, nn
+from .io import (
+    load_inference_model,
+    load_params,
+    load_persistables,
+    load_vars,
+    save_inference_model,
+    save_params,
+    save_persistables,
+    save_vars,
+)
 from .nn import data

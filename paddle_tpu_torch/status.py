@@ -26,13 +26,16 @@ thread), with zero extra dependencies. The endpoints:
              section (serving.ledger.status(): SLO table — tokens/s,
              TTFT/latency p50/p99 — batch occupancy, KV utilization,
              serving goodput buckets, span and roofline
-             reconciliations; {available: false} until an engine runs)
+             reconciliations; {available: false} until an engine runs),
+             a `memory` section (memwatch.status(): live bytes,
+             lifetime peak, per-step watermark tail, leak events) and a
+             `dynamics` section (dynamics.status(): loss/grad EMA,
+             anomaly counts, trajectory tail)
 
-The JAX package's /status also carries a `memory` section (memwatch), a
-`dynamics` section (dynamics) and a `comms` section (commswatch). Those
-modules are not ported yet, so here each of the three sections reads
+The JAX package's /status also carries a `comms` section (commswatch),
+which is not ported yet, so here it reads
 ``{"available": false, "not_ported": "<ROADMAP item>"}`` (:data:`NOT_PORTED`)
-rather than raising: a 500 would hide the `serving` section.
+rather than raising: a 500 would hide the other sections.
 
 Enable with PADDLE_TPU_STATUS_PORT=<port> (declared in flags.py; 0 =
 off), or call :func:`start_status_server`. Serving must never interfere
@@ -49,8 +52,10 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from . import dynamics as _dynamics
 from . import flags as _flags
 from . import goodput as _goodput
+from . import memwatch as _memwatch
 from . import monitor as _monitor
 from .serving import ledger as _serving_ledger
 
@@ -59,7 +64,7 @@ __all__ = ["start_status_server", "stop_status_server", "server_port",
 
 # the JAX package's /status sections whose modules are not ported yet,
 # each with the ROADMAP item that brings it
-NOT_PORTED = {"memory": "A9", "dynamics": "A9", "comms": "A12"}
+NOT_PORTED = {"comms": "A12"}
 
 _ENDPOINTS = ("/status", "/metrics", "/healthz", "/generate", "/drain")
 
@@ -104,6 +109,8 @@ class _StatusHandler(BaseHTTPRequestHandler):
                 self._send_json(200, doc)
             elif path == "/status":
                 doc = _goodput.status()
+                doc["memory"] = _memwatch.status()
+                doc["dynamics"] = _dynamics.status()
                 for section, item in NOT_PORTED.items():
                     doc[section] = {"available": False, "not_ported": item}
                 doc["serving"] = _serving_ledger.status()

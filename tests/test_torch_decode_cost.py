@@ -159,17 +159,25 @@ def test_decode_roofline_answers_on_the_cpu():
     assert np.isfinite(roof["predicted_tokens_per_sec"])
 
 
+_TIGHT_S = 5.0  # the cold-start test's one deadline
+
+
 def test_cold_start_shed_seeded_from_roofline(monkeypatch):
     """The reference's cold-start test (tests/test_serving.py) on the
     port, seeded from the port's own roofline: with an empty retirement
     EMA the shedder's estimate is the installed per-tick floor x the
-    token budget."""
+    token budget. Both legs send the same request, deadline ``_TIGHT_S``
+    (5 s): with no roofline (estimate 0) it is admitted; with the
+    10-s-a-tick roofline (estimate 40 s) it is shed. The deadline is far
+    above a loaded worker's admission delay, so neither leg races the
+    clock (at 1 ms, the first leg's request was shed by the clock once
+    a busy worker took 11 ms to admit it)."""
     monkeypatch.setenv("PADDLE_TPU_SERVE_SHED", "1")
     m = _model("tiny")
     eng = serving.ServingEngine(m)
     assert eng._service_ema == 0.0
     # no roofline installed: estimate 0, the tight request is admitted
-    h0 = eng.submit([1, 2, 3], max_new_tokens=4, deadline_s=0.001)
+    h0 = eng.submit([1, 2, 3], max_new_tokens=4, deadline_s=_TIGHT_S)
     eng.run_until_idle()
     assert len(h0.result(timeout=10)) == 4
     serving_ledger.reset()
@@ -182,7 +190,8 @@ def test_cold_start_shed_seeded_from_roofline(monkeypatch):
     serving_ledger.set_roofline(roof)
     assert eng2._service_estimate(serving.ServeRequest(
         request_id="x", max_new_tokens=4)) == pytest.approx(4 * floor)
-    tight = eng2.submit([1, 2, 3], max_new_tokens=4, deadline_s=0.5)
+    assert 4 * floor > _TIGHT_S
+    tight = eng2.submit([1, 2, 3], max_new_tokens=4, deadline_s=_TIGHT_S)
     eng2.run_until_idle()
     with pytest.raises(errors.Unavailable, match="shed"):
         tight.result(timeout=1)

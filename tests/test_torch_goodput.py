@@ -181,3 +181,35 @@ def test_span_attribution_alike(name, cat):
         jgoodput.classify_span(name, cat)
     assert goodput.attribute_events(events) == \
         jgoodput.attribute_events(events)
+
+
+def test_rank_change_reanchors_journal_resume(tmp_path):
+    """ROADMAP C5: the JAX package's own sequence
+    (``tests/test_goodput.py::test_rank_change_reanchors_journal_resume``)
+    on both packages. A late rank change (``profiler.set_rank`` after
+    import) must drop rank 0's resumed journal: 0 steps after the change
+    and a rank-3 journal of 1 step, equal on both."""
+    got = []
+    for (g, m), name in zip(_PACKAGES, ("port", "reference")):
+        d = tmp_path / name
+        d.mkdir()
+        g.configure(dir=str(d))
+        g.end_step(1.0)
+        g.flush()  # goodput.rank0.json exists
+        g.reset()
+        g.configure(dir=str(d))  # resumes rank 0's journal
+        resumed = g.totals()["steps"]
+        m.set_trainer_rank(3)  # late identity: rank 3 has no journal
+        try:
+            after = g.totals()["steps"]
+            g.end_step(1.0)
+            doc = g.load_journal(g.flush())
+        finally:
+            m.set_trainer_rank(0)
+            g.disable_persistence()
+        got.append({"resumed": resumed, "after_change": after,
+                    "journal": _stable(doc)})
+    assert got[0] == got[1]
+    assert got[0]["resumed"] == 1 and got[0]["after_change"] == 0
+    assert got[0]["journal"]["rank"] == 3
+    assert got[0]["journal"]["steps"] == 1

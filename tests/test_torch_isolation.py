@@ -199,3 +199,67 @@ def test_unported_paths_raise():
             {"impl": "chunked"})
     with pytest.raises(errors.Unimplemented, match="recompute"):
         append_backward_with_checkpoints(None, [])
+
+
+_A9_MODULES = ("device", "memwatch", "dynamics", "recovery",
+               "framework/xla_insight", "static/io",
+               "incubate/checkpoint/auto_checkpoint")
+
+
+def test_step_observability_stands_alone():
+    """The step-side observability modules are in the scan above, and a
+    training step with every one of their hooks on runs where jax and
+    paddle_tpu cannot be imported."""
+    files = _port_files()
+    for mod in _A9_MODULES:
+        path = os.path.join(_REPO, "paddle_tpu_torch", mod + ".py")
+        assert path in files, mod
+    code = textwrap.dedent("""
+        import os, sys, tempfile
+        for name in ("jax", "jaxlib", "paddle_tpu"):
+            sys.modules[name] = None  # any import of them now fails
+        tmp = tempfile.mkdtemp()
+        os.environ["PADDLE_TPU_CHECK_NUMERICS"] = "1"
+        os.environ["PADDLE_TPU_XLA_DUMP_DIR"] = tmp
+        import torch
+        from paddle_tpu_torch import (device, dynamics, goodput, memwatch,
+                                      recovery, static, status)
+        from paddle_tpu_torch.framework import (CPUPlace, Executor, Scope,
+                                                program_guard, unique_name,
+                                                xla_insight)
+        from paddle_tpu_torch.incubate.checkpoint import auto_checkpoint
+        from paddle_tpu_torch.models.gpt import (GPTConfig,
+                                                 build_train_program)
+        from paddle_tpu_torch.optimizer import Adam
+        with unique_name.guard():
+            main, startup, io = build_train_program(GPTConfig(
+                vocab_size=64, n_layer=1, n_head=2, d_model=16,
+                max_seq_len=8), batch=2, seq=8)
+            with program_guard(main, startup):
+                Adam(learning_rate=1e-3).minimize(io["loss"])
+        scope, exe = Scope(), Executor(CPUPlace())
+        exe.run(startup, scope=scope)
+        feed = {k: torch.randint(0, 64, (2, 8)) for k in ("tokens",
+                                                          "labels")}
+        for epoch in auto_checkpoint.train_epoch_range(
+                1, "iso", checkpoint_dir=tmp, exe=exe, program=main,
+                scope=scope):
+            loss, = exe.run(main, feed=feed, fetch_list=[io["loss"]],
+                            scope=scope)
+            dynamics.feed(loss=float(loss), grad_norm=dynamics.grad_health(
+                [("w", scope.get("gpt.wte"))])[0])
+            goodput.end_step(0.1)
+        assert memwatch.totals()["steps"] == 1
+        assert dynamics.totals()["steps"] == 1
+        assert len(exe.compiled_insights()) == 2
+        assert xla_insight.load_dump_dir(tmp)
+        assert device.memory_stats("cpu")["source"] == "synthetic"
+        assert not any(k.split(".")[0] in ("jax", "paddle_tpu")
+                       for k, v in sys.modules.items() if v is not None)
+        print("ISOLATED_OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "ISOLATED_OK" in out.stdout

@@ -145,10 +145,13 @@ def test_executor_refuses_what_is_not_ported(monkeypatch):
     exe = Executor(CPUPlace())
     with pytest.raises(errors.PreconditionNotMet, match="startup"):
         exe.run(main, feed=_feed(), fetch_list=[io["loss"]], scope=Scope())
-    with pytest.raises(errors.Unimplemented, match="A9"):
-        with monkeypatch.context() as m:
-            m.setenv("PADDLE_TPU_CHECK_NUMERICS", "1")
-            exe.run(startup, scope=Scope())
+    # A9's flags are ported: the numerics sentinel runs, it no longer
+    # refuses
+    with monkeypatch.context() as m:
+        m.setenv("PADDLE_TPU_CHECK_NUMERICS", "1")
+        scope = Scope()
+        exe.run(startup, scope=scope)
+        assert scope.has(main.all_parameters()[0].name)
     main._pipeline_meta = object()
     with pytest.raises(errors.Unimplemented, match="A10"):
         exe.run(main, scope=Scope())

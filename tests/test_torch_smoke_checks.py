@@ -745,3 +745,125 @@ def test_replay_check_names_only_what_eager_shares(replay_start):
                                        replay_start[3], again=shifted(e))
     assert not report["bit_identical"] and "run-to-run" in report["cause"]
     assert report["loss_steps_differing"] == [len(_REPLAY_LRS)]
+
+
+# ---------------------------------------------------------------------------
+# train_observed (the step-side observability phase): its checks, and the
+# whole phase at a tiny config on the CPU's staged route
+# ---------------------------------------------------------------------------
+
+_OBS_TINY = dict(vocab_size=64, n_layer=1, n_head=2, d_model=16,
+                 max_seq_len=32)
+
+
+def _closed(compile_s, device_s):
+    return {"compile": compile_s, "device_compute": device_s,
+            "host_other": 0.001}
+
+
+def test_goodput_split_passes_the_executor_buckets():
+    phases = ["eager", "capture", "replay", "replay"]
+    closed = [_closed(0.5, 0.0), _closed(0.7, 0.0), _closed(0.0, 0.08),
+              _closed(0.0, 0.09)]
+    got = chip_smoke._goodput_split(closed, phases)
+    assert got["eager"]["compile_s"] == 0.5
+    assert got["replay"]["device_compute_s"] == pytest.approx(0.17)
+
+
+@pytest.mark.parametrize("fault", ["replay_as_compile", "capture_as_device",
+                                   "warmup_as_both", "one_step_short"])
+def test_goodput_split_rejects_misfiled_runs(fault):
+    phases = ["eager", "capture", "replay", "replay"]
+    closed = [_closed(0.5, 0.0), _closed(0.7, 0.0), _closed(0.0, 0.08),
+              _closed(0.0, 0.09)]
+    if fault == "replay_as_compile":
+        closed[3] = _closed(0.09, 0.0)
+    elif fault == "capture_as_device":
+        closed[1] = _closed(0.0, 0.7)
+    elif fault == "warmup_as_both":
+        closed[0] = _closed(0.4, 0.1)
+    else:
+        closed = closed[:3]
+    with pytest.raises(AssertionError, match="goodput"):
+        chip_smoke._goodput_split(closed, phases)
+
+
+def _observed_program():
+    from paddle_tpu_torch.framework import Scope
+
+    program = chip_smoke._train_program(_OBS_TINY, 2, 8)
+    scope, exe = Scope(), chip_smoke._executor("cpu")
+    exe.run(program[1], scope=scope)
+    feed = chip_smoke._fixed_batch(torch, _OBS_TINY["vocab_size"], 2, 8,
+                                   "cpu")
+    return program, scope, exe, feed
+
+
+@pytest.mark.parametrize("name", ["gpt.wpe", "gpt.h0.attn.q.w"])
+def test_probe_vector_names_the_first_bad_op(name, monkeypatch):
+    """The staged route: two clean runs (the warm-up and the capture),
+    then the poisoned one, a replay; the probe vector read after it
+    names the first op that reads the poisoned weight, and ``_names_op``
+    holds the error to it and rejects another op."""
+    monkeypatch.setenv("PADDLE_TPU_CHECK_NUMERICS", "1")
+    program, scope, exe, feed = _observed_program()
+    exe.staged = True
+    chip_smoke._observed_steps(torch, exe, scope, program, feed, 2,
+                               close=False)
+    got = chip_smoke._poisoned(torch, exe, scope, program, feed, name, 0)
+    idx, op_type = chip_smoke._first_reader(program[0], name)
+    assert got == {"op_idx": idx, "op_type": op_type,
+                   "error": "InvalidArgumentError", "phase": "replay"}
+    (entry,) = [e for e in exe._cache.values() if e.probes is not None
+                and e.compiled is not None]
+    assert entry.probes.first_bad()[:2] == (idx, op_type)
+    # the next run (the state is poisoned now) raises again: _names_op
+    # holds it to the op the probes name, and rejects another op or the
+    # legacy flag's error type
+    with pytest.raises(Exception) as info:
+        exe.run(program[0], feed=feed, fetch_list=[program[2]["loss"]]
+                + chip_smoke._grad_names(program[0]), scope=scope)
+    first = entry.probes.first_bad()
+    chip_smoke._names_op(info.value, first[0], first[1])
+    with pytest.raises(AssertionError, match="sentinel"):
+        chip_smoke._names_op(info.value, first[0] + 1, first[1])
+    with pytest.raises(AssertionError, match="FLAGS_check_nan_inf"):
+        chip_smoke._names_op(info.value, first[0], first[1], typed=False)
+
+
+def test_memwatch_and_insight_checks_reject_faults():
+    totals = {"lifetime_peak_bytes": 1000, "leak_events": 0, "steps": 6,
+              "step_series": [{}] * 6}
+    assert chip_smoke._memwatch_agrees(totals, 1005, 6)["rel"] < 0.01
+    for bad, alloc in ((dict(totals, lifetime_peak_bytes=900), 1000),
+                       (dict(totals, leak_events=1), 1000),
+                       (dict(totals, step_series=[{}] * 5), 1000)):
+        with pytest.raises(AssertionError, match="memwatch"):
+            chip_smoke._memwatch_agrees(bad, alloc, 6)
+    rec = {"flops": 1.0e12, "cost_raw": {}, "peak_bytes": None,
+           "key_hash": "x"}
+    assert chip_smoke._insight_agrees([rec], {"total": 1.0e12})["ratio"] == 1
+    with pytest.raises(AssertionError, match="insight"):
+        chip_smoke._insight_agrees([rec], {"total": 1.03e12})
+    with pytest.raises(AssertionError, match="insight"):
+        chip_smoke._insight_agrees([rec, rec], {"total": 1.0e12})
+
+
+def test_train_observed_phase_on_the_cpu(tmp_path, capsys):
+    """The whole phase at a tiny config on the CPU's staged route (the
+    card's capture with the body called directly): the flags-off losses
+    bit for bit, goodput's split, memwatch, dynamics, the insight against
+    the analytic count of the plain versions, the dump, the poisoned
+    step (replayed and eager), the resumed epoch loop and /status."""
+    launches = chip_smoke._train_observed(
+        torch, "cpu", config=_OBS_TINY, batch=2, seq=8, device="cpu",
+        steps=6, root=str(tmp_path))
+    assert launches == {k: 0 for k in launches}  # the CPU launches none
+    import json
+
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["phase"] == "train_observed"
+    assert report["insight"]["ratio"] == 1.0
+    assert report["poisoned"]["replayed"]["phase"] == "replay"
+    assert report["recovery"]["bit_identical"]
+    assert report["probes"] > 0 and report["memwatch"]["leak_events"] == 0

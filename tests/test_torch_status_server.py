@@ -26,7 +26,10 @@ from paddle_tpu import monitor as jmonitor
 from paddle_tpu import serving as jserving
 from paddle_tpu import status as jstatus
 from paddle_tpu.serving import ledger as jledger
-from paddle_tpu_torch import goodput, monitor, serving, status
+from paddle_tpu import dynamics as jdynamics
+from paddle_tpu import memwatch as jmemwatch
+from paddle_tpu_torch import (dynamics, goodput, memwatch, monitor, serving,
+                              status)
 from paddle_tpu_torch.serving import ledger as serving_ledger
 from paddle_tpu_torch.serving import router as rt
 from test_torch_serving_model import rich_params
@@ -199,18 +202,22 @@ def test_drain_equal_then_503_while_draining(servers):
 
 
 def test_status_marks_unported_sections(servers):
-    """The port's /status: goodput's document, the three sections whose
-    modules are not ported marked with their ROADMAP item (never a 500,
+    """The port's /status: goodput's document, the memory and dynamics
+    sections of the ported memwatch and dynamics (their ``status()``
+    documents, as the JAX package serves them), the one section whose
+    module is not ported marked with its ROADMAP item (never a 500,
     which would hide the serving section), and a live serving section."""
     port, _ = servers["port"]
     _call(port, "/generate", {"prompt": [3, 4, 5], "max_new_tokens": 3})
     code, doc = _call(port, "/status")
     assert code == 200
-    assert doc["memory"] == {"available": False, "not_ported": "A9"}
-    assert doc["dynamics"] == {"available": False, "not_ported": "A9"}
+    assert doc["memory"]["schema"] == memwatch.SCHEMA
+    assert "step_tail" in doc["memory"] and "not_ported" not in doc["memory"]
+    assert doc["dynamics"]["schema"] == dynamics.SCHEMA
+    assert "trajectory_tail" in doc["dynamics"]
+    assert "not_ported" not in doc["dynamics"]
     assert doc["comms"] == {"available": False, "not_ported": "A12"}
-    assert status.NOT_PORTED == {"memory": "A9", "dynamics": "A9",
-                                 "comms": "A12"}
+    assert status.NOT_PORTED == {"comms": "A12"}
     assert doc["schema"] == goodput.SCHEMA
     assert doc["serving"]["available"] is True
     jcode, jdoc = _call(servers["reference"][0], "/status")
@@ -294,3 +301,40 @@ def test_replica_process_boots_serves_and_stops():
             proc.kill()
             proc.wait(timeout=30)
         proc.stdout.close()
+
+
+def _untimed(doc):
+    """``doc`` without the closed steps' clock field ``t``."""
+    if isinstance(doc, dict):
+        return {k: _untimed(v) for k, v in doc.items() if k != "t"}
+    if isinstance(doc, list):
+        return [_untimed(v) for v in doc]
+    return doc
+
+
+def test_status_memory_and_dynamics_sections_match_reference(servers):
+    """The same memory samples and training telemetry fed to both
+    packages' ledgers give the same /status ``memory`` and ``dynamics``
+    sections (clock, pid and host fields aside)."""
+    docs = []
+    for name, mw, dyn in (("port", memwatch, dynamics),
+                          ("reference", jmemwatch, jdynamics)):
+        mw.reset()
+        dyn.reset()
+        for i, loss in enumerate((3.0, 2.5, 2.25)):
+            mw.sample(stats={"bytes_in_use": 1000 + 10 * i,
+                             "peak_bytes_in_use": 1500 + 10 * i,
+                             "bytes_limit": 80_000, "source": "synthetic"})
+            dyn.feed(loss=loss, grad_norm=1.0 / (i + 1), lr=1e-3)
+            mw.end_step(step=i)
+            dyn.end_step(step=i)
+        code, doc = _call(servers[name][0], "/status")
+        assert code == 200
+        docs.append({k: _untimed(_stable(doc[k]))
+                     for k in ("memory", "dynamics")})
+        mw.reset()
+        dyn.reset()
+    assert docs[0] == docs[1]
+    assert docs[0]["memory"]["lifetime_peak_bytes"] == 1520
+    assert [r["loss"] for r in docs[0]["dynamics"]["trajectory_tail"]] == [
+        3.0, 2.5, 2.25]
