@@ -32,7 +32,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
    bf16 ulp plus 2^-6; fp32 (FMA units) at N = 511, ragged and at
    D = 1000, at 1e-4; the CE kernels' peak added memory at the training
    shape (no [N, V] buffer); fused Adam(W) on bf16, fp32, 1-D and odd
-   shapes; the flash attention forward (out, lse), dq and dk/dv over
+   shapes, and on a bf16 p with the fp32 gradient a global-norm clip
+   gives; the flash attention forward (out, lse), dq and dk/dv over
    ``_FLASH_CASES``: the seq-2048 training shape (bf16, causal, BTHD),
    fp32 and bf16 in both layouts causal and not, D = 128 and 256, Tq !=
    Tk (causal, bottom-right; rows that see no key give out 0 and lse
@@ -132,6 +133,26 @@ Phases (any failure raises, and the script exits non-zero with no result):
    the warm-up and once at the capture, the step must raise memwatch's
    typed ``ResourceExhausted`` naming the op that raised, with the
    footprint and a post-mortem JSON;
+   then ``train_recipe`` (``_train_recipe``): the seq-2048 step as a team
+   pretrains it: attention dropout 0.1 under a program seed, recompute
+   with one checkpoint a layer (``RecomputeOptimizer``), AdamW (lr 1e-4,
+   decay 0.01) behind ``ClipGradByGlobalNorm(1.0)``, replayed; 13 steps
+   eagerly and 13 replayed (the main path, counted from 0) from one
+   start must equal bit for bit (losses, global norms, clip scales,
+   every persistable and the executor's (seed, step) tensor), and the
+   same replayed steps without recompute must give the same losses;
+   each step's dropout keeps 0.9 of the first layer's outputs within 5
+   sigma, with a new mask each step; the clip's scale is min(1, 1 /
+   norm) each step and the norm exceeds 1 at least once; the captured
+   peak over three replays with recompute lies below the one without by
+   at least half of 11 layers' tape bytes (``_segment_bytes``, reckoned
+   from one eager step at 256 tokens); a traced replayed step launches
+   the flash forward 24 times (12 recomputed), dq and dk/dv 12, the CE
+   kernels once and Adam 196 times; the dropout hash's device ms; each
+   of the eight other optimizers (Momentum, Adagrad, Adamax, centered
+   RMSProp, Adadelta, Lamb, LARS, DGC) takes the seq-512 step eagerly
+   and replayed, bit for bit; and the chunked lm-head CE's seq-512 loss
+   lies within 2e-2 of the fused kernels' on the same weights;
 7. CPU against card: tiny fp32 configs train 2 steps from the same numpy
    values on the CPU (plain versions, eager) and on the card (kernels;
    step 1 the warm-up, step 2 captured and replayed): one at seq 16
@@ -200,7 +221,12 @@ _NEW_TOKENS = 32
 _REPEATS = 30
 
 
+_SAID = {}  # the last report printed for each phase
+
+
 def _say(**kw) -> None:
+    if "phase" in kw:
+        _SAID[kw["phase"]] = kw
     print(json.dumps(kw), flush=True)
 
 
@@ -702,12 +728,17 @@ def _check_training_kernels(torch):
                  max_abs_err=err, excess_over_rtol=_excess(
                      got, ref, _CE_GRAD_TOL[dtype_name][0]), sms=sms, **grid)
 
-    shapes = [((v, d), torch.bfloat16), ((d, 4 * d), torch.float32),
-              ((d,), torch.float32), ((7, 100), torch.float32)]
-    for i, (shape, dtype) in enumerate(shapes):
+    # the last case: a bf16 p with the fp32 gradient a global-norm clip
+    # hands over (the recipe's path)
+    shapes = [((v, d), torch.bfloat16, None), ((d, 4 * d), torch.float32,
+                                                None),
+              ((d,), torch.float32, None), ((7, 100), torch.float32, None),
+              ((v, d), torch.bfloat16, torch.float32)]
+    for i, (shape, dtype, g_dtype) in enumerate(shapes):
         for wd in (0.0, 0.5):
             p, g, m, vv, lr, b1p, b2p = _adam_inputs(torch, shape, dtype,
-                                                     seed=70 + i)
+                                                     seed=70 + i,
+                                                     g_dtype=g_dtype)
             ref = fa.fused_adam_plain(p, g, m, vv, lr, b1p, b2p,
                                       weight_decay=wd)
             got = fa.fused_adam(p.clone(), g, m.clone(), vv.clone(), lr, b1p,
@@ -723,21 +754,23 @@ def _check_training_kernels(torch):
             err = max(_err(a, b) for a, b in zip(got, ref))
             worst["fused_adam"] = max(worst["fused_adam"], err)
             _say(phase="kernel_check", kernel="fused_adam", shape=list(shape),
-                 dtype=str(dtype).replace("torch.", ""), weight_decay=wd,
-                 max_abs_err=err, **report)
+                 dtype=str(dtype).replace("torch.", ""),
+                 grad_dtype=str(g.dtype).replace("torch.", ""),
+                 weight_decay=wd, max_abs_err=err, **report)
     return worst
 
 
-def _adam_inputs(torch, shape, dtype, seed, device="cuda"):
-    """p ~ N(0, 1) in p's dtype, g ~ 0.1 N(0, 1), m ~ 0.01 N(0, 1),
-    v ~ (0.01 N(0, 1))^2, lr 0.1, beta powers at step 3: the update is
-    several bf16 ulps of p, and lr * wd * p at wd 0.5 is 5% of p."""
+def _adam_inputs(torch, shape, dtype, seed, device="cuda", g_dtype=None):
+    """p ~ N(0, 1) in p's dtype, g ~ 0.1 N(0, 1) in ``g_dtype`` (p's by
+    default), m ~ 0.01 N(0, 1), v ~ (0.01 N(0, 1))^2, lr 0.1, beta powers
+    at step 3: the update is several bf16 ulps of p, and lr * wd * p at
+    wd 0.5 is 5% of p."""
     r = np.random.RandomState(seed)
     host = [r.randn(*shape), 0.1 * r.randn(*shape), 0.01 * r.randn(*shape),
             np.square(0.01 * r.randn(*shape))]
     p, g, m, v = (torch.from_numpy(a.astype(np.float32)).to(device)
                   for a in host)
-    return (p.to(dtype), g.to(dtype), m, v,
+    return (p.to(dtype), g.to(g_dtype or dtype), m, v,
             torch.tensor(0.1, device=device),
             torch.tensor([0.9 ** 3], device=device),
             torch.tensor([0.999 ** 3], device=device))
@@ -1796,7 +1829,7 @@ def _op_family(op_type) -> str:
 
 
 def _profile_step(torch, exe, main, feed, fetch_list, scope, card, phase,
-                  per_step=None) -> dict:
+                  per_step=None, return_numpy=True) -> dict:
     """One traced training step: host wall, device kernel time, launches,
     each of the port's kernels' device calls and ms (``path_kernels``),
     the other kernels' device time by kernel family (``families``), the
@@ -1820,7 +1853,9 @@ def _profile_step(torch, exe, main, feed, fetch_list, scope, card, phase,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        exe.run(main, feed=feed, fetch_list=fetch_list, scope=scope)
+        exe.run(main, feed=feed, fetch_list=fetch_list, scope=scope,
+                return_numpy=return_numpy)
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     if per_step is not None and exe.phases["replay"] != replays + 1:
         raise AssertionError(f"{phase}: the traced step was not a replay "
@@ -3395,6 +3430,604 @@ def _oom_autopsy(card) -> dict:
     return doc
 
 
+# -- train_recipe: the GPT pretraining recipe -------------------------------
+
+# bench.py's gpt2s at seq 2048 run the way a team pretrains it: attention
+# dropout 0.1 under a program seed, recompute with one checkpoint a layer,
+# AdamW (lr 1e-4, decoupled decay 0.01) behind a global-norm clip at 1.0
+_RECIPE = dict(_LONG, dropout=0.1)
+_RECIPE_SEED = 2024
+_RECIPE_CLIP = 1.0
+_RECIPE_WD = 0.01
+_RECIPE_STEPS = 13
+_RECIPE_SIGMAS = 5.0  # the keep share's band around 1 - p, in sigmas
+_RECOMPUTE_RTOL = 1e-5  # tests/test_recompute.py:55,102
+_CHUNKED_RTOL = 2e-2  # bf16 rounding of the two loss routes
+# the seq-512 step of each remaining optimizer: (class, keywords)
+_RECIPE_OPTIMIZERS = [
+    ("Momentum", dict(learning_rate=1e-3, momentum=0.9)),
+    ("Adagrad", dict(learning_rate=1e-3)),
+    ("Adamax", dict(learning_rate=1e-4)),
+    ("RMSProp", dict(learning_rate=1e-4, centered=True, momentum=0.5)),
+    ("Adadelta", dict(learning_rate=1.0)),
+    ("Lamb", dict(learning_rate=1e-4)),
+    ("LarsMomentum", dict(learning_rate=1e-2)),
+    ("DGCMomentumOptimizer", dict(learning_rate=1e-3, momentum=0.9,
+                                  rampup_begin_step=1)),
+]
+_OPTIMIZER_STEPS = 3
+
+
+def _gpt_program(config, batch, seq, make_opt, checkpoints=False,
+                 seed=None):
+    """(main, startup, io): bench.py's GPT training program built under a
+    fresh unique-name generator, ``make_opt()`` (its optimizer, in
+    ``io["optimizer"]``) minimizing the loss, through a
+    ``RecomputeOptimizer`` over one checkpoint a layer where
+    ``checkpoints``; ``seed`` the program's random seed."""
+    from paddle_tpu_torch.distributed.fleet import RecomputeOptimizer
+    from paddle_tpu_torch.framework import program_guard, unique_name
+    from paddle_tpu_torch.models.gpt import GPTConfig, build_train_program
+
+    with unique_name.guard():
+        main, startup, io = build_train_program(GPTConfig(**config),
+                                                batch=batch, seq=seq)
+        main.random_seed = seed
+        with program_guard(main, startup):
+            io["optimizer"] = opt = make_opt()
+            if checkpoints:
+                opt = RecomputeOptimizer(opt, {"checkpoints": [
+                    v.name for v in io["checkpoints"]]})
+            opt.minimize(io["loss"])
+    return main, startup, io
+
+
+def _recipe_program(config, batch, seq, recompute=True,
+                    clip_norm=_RECIPE_CLIP):
+    """The recipe's program (``_RECIPE``'s optimizer and clip, recompute
+    where ``recompute``), with the global norm and the clip's scale
+    (``io["global_norm"]``, ``io["clip_scale"]``: the outputs of the
+    clip's one ``sqrt`` and one ``elementwise_div``) and the first
+    layer's attention output after dropout (``io["attention"]``)."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    program = _gpt_program(
+        config, batch, seq, lambda: AdamW(
+            learning_rate=_LR, weight_decay=_RECIPE_WD,
+            grad_clip=ClipGradByGlobalNorm(clip_norm)),
+        checkpoints=recompute, seed=_RECIPE_SEED)
+    main, _, io = program
+    ops = main.global_block().ops
+
+    def out(op_type, slot="Out"):
+        hits = [op.output(slot)[0] for op in ops if op.type == op_type]
+        return hits[0]
+
+    io["global_norm"] = out("sqrt")
+    io["clip_scale"] = out("elementwise_div")
+    io["attention"] = out("fused_attention_tpu")
+    if io["lm_head_impl"] != "pallas":
+        raise AssertionError(f"recipe loss path {io['lm_head_impl']!r}")
+    return program
+
+
+def _recipe_trajectory(torch, exe, scope, program, feed, steps) -> dict:
+    """``steps`` steps of the recipe, each fetching the loss, the global
+    norm, the clip's scale and the first layer's attention output after
+    dropout: each step's loss, norm and scale, the dropout's keep share
+    (the output's non-zero share), whether its mask differs from the last
+    step's, and the host wall; then every persistable of ``scope`` and
+    the executor's (seed, step) tensor (``state``) and the runs by
+    phase."""
+    main, _, io = program
+    fetch = [io["loss"], io["global_norm"], io["clip_scale"],
+             io["attention"]]
+    before = dict(exe.phases)
+    out = {"losses": [], "norms": [], "scales": [], "keep": [],
+           "masks_differ": [], "step_s": []}
+    last = None
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss, norm, scale, attn = exe.run(main, feed=feed, scope=scope,
+                                          fetch_list=fetch,
+                                          return_numpy=False)
+        out["losses"].append(float(loss))  # the host read: synced
+        out["step_s"].append(time.perf_counter() - t0)
+        out["norms"].append(float(norm))
+        out["scales"].append(float(scale))
+        mask = attn != 0
+        out["keep"].append(float(mask.float().mean()))
+        if last is not None:
+            out["masks_differ"].append(bool((mask != last).any()))
+        last = mask
+    out["mask_elements"] = int(last.numel())
+    out["state"] = {n: scope.get(n) for n in sorted(scope.local_var_names())}
+    out["state"]["(seed, step)"] = exe.seed_step.clone()
+    out["phases"] = {k: exe.phases[k] - before[k] for k in before}
+    return out
+
+
+def _keep_share_ok(keep, p, n, sigmas=_RECIPE_SIGMAS) -> dict:
+    """Each step's keep share within ``sigmas`` binomial standard
+    deviations of 1 - p over ``n`` elements; raises otherwise."""
+    sd = (p * (1.0 - p) / n) ** 0.5
+    off = [abs(k - (1.0 - p)) / sd for k in keep]
+    if not all(np.isfinite(off)) or max(off) > sigmas:
+        raise AssertionError(f"dropout keeps {keep} of {n} elements a "
+                             f"step, {max(off):.2f} sigma from {1 - p} "
+                             f"(band {sigmas} sigma, sigma {sd:.3g})")
+    return {"keep_share": keep, "sigma": sd, "worst_sigmas": max(off),
+            "band_sigmas": sigmas}
+
+
+def _clip_agrees(norms, scales, clip) -> dict:
+    """Each step's clip scale is clip / max(norm, clip) as the program
+    computes it (the norm widened to fp32, an fp32 division: equal to the
+    last bit), so min(1, clip / norm); and the norm exceeded the clip at
+    least once, so that the clip path ran. Raises otherwise."""
+    want = [float(np.float32(clip) / np.float32(max(np.float32(n),
+                                                   np.float32(clip))))
+            for n in norms]
+    if scales != want:
+        raise AssertionError(f"clip scales {scales}, expected "
+                             f"min(1, {clip}/norm) = {want} for norms "
+                             f"{norms}")
+    clipped = sum(n > clip for n in norms)
+    if not clipped:
+        raise AssertionError(f"the global norm {norms} never exceeded the "
+                             f"clip norm {clip}: the clip path did not run")
+    return {"global_norm": norms, "scale": scales, "clip_norm": clip,
+            "steps_clipped": clipped}
+
+
+def _recompute_agrees(r, n, first_differing=None) -> dict:
+    """The recomputed trajectory ``r`` against ``n``, the same replayed
+    steps without recompute: losses equal bit for bit, or (naming the
+    first differing op, ``first_differing()``) within
+    ``_RECOMPUTE_RTOL``; raises otherwise."""
+    if r["losses"] == n["losses"]:
+        return {"bit_identical": True}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], n["losses"]))
+    report = {"bit_identical": False, "max_rel_loss_diff": rel,
+              "first_differing": first_differing() if first_differing
+              else None}
+    if not rel <= _RECOMPUTE_RTOL:
+        raise AssertionError(f"recompute vs none: losses {r['losses']} vs "
+                             f"{n['losses']}: {report}")
+    return report
+
+
+def _peaks_agree(b, c, reckoned) -> dict:
+    """The captured step's peak with recompute (``c``) below the one
+    without (``b``) by at least half of ``reckoned``, the activation
+    bytes the recompute should free; raises otherwise."""
+    freed = b - c
+    if not (c < b and freed >= 0.5 * reckoned):
+        raise AssertionError(f"recompute frees {freed} B of the captured "
+                             f"peak ({b} -> {c}), less than half of the "
+                             f"reckoned {reckoned} B")
+    return {"without": b, "with": c, "freed": freed, "reckoned": reckoned,
+            "freed_over_reckoned": freed / reckoned}
+
+
+def _segment_bytes(torch, config, device, batch=1, seq=256) -> dict:
+    """The activation bytes the tape holds for one layer's segment of the
+    recipe without recompute, reckoned at ``batch`` x ``seq`` tokens from
+    one eager step: the distinct storages that the records of the
+    segment's forward ops hold (the tensors their autograd graphs save,
+    their leaf inputs and their outputs), less parameters, feeds and the
+    checkpoints (which either way stay). Flash attention runs at this
+    ``seq`` as at the recipe's. Every such tensor grows with the tokens,
+    so ``per_token`` scales it to another batch and length."""
+    from paddle_tpu_torch.framework import Scope, registry
+
+    cfg = dict(config, n_layer=2, max_seq_len=seq)
+    with _env(PADDLE_TPU_FLASH_MIN_SEQ=str(seq)):
+        program = _recipe_program(cfg, batch, seq, recompute=False)
+        main, startup, io = program
+        scope, exe = Scope(), _executor(device)
+        exe.run(startup, scope=scope)
+        held = {}
+        real = registry.LoweringContext.record
+
+        def record(self, fwd_idx, opdef, ins, attrs, diff_slots):
+            saved = []
+
+            def pack(t):
+                saved.append(t)
+                return t
+
+            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                outs = real(self, fwd_idx, opdef, ins, attrs, diff_slots)
+            rec = self._records[fwd_idx]
+            tensors = saved + [t for lv in rec.leaves.values() for t in lv
+                               if t is not None]
+            tensors += [t for ov in rec.outs.values() for t in ov
+                        if isinstance(t, torch.Tensor)]
+            held[fwd_idx] = {(t.untyped_storage().data_ptr(),
+                              t.untyped_storage().nbytes())
+                             for t in tensors}
+            return outs
+
+        registry.LoweringContext.record = record
+        try:
+            exe.run(main, feed=_fixed_batch(torch, cfg["vocab_size"], batch,
+                                            seq, device),
+                    fetch_list=[io["loss"]], scope=scope)
+        finally:
+            registry.LoweringContext.record = real
+    ops = main.global_block().ops
+    produced = {n: i for i, op in enumerate(ops)
+                for n in op.output_arg_names()}
+    ck = [produced[v.name] for v in io["checkpoints"]]
+    keep = {(scope.get(n).untyped_storage().data_ptr())
+            for n in scope.local_var_names()}
+    segment = set()
+    for i, storages in held.items():
+        if ck[0] < i <= ck[1]:
+            segment |= storages
+    # the checkpoints' storages stay either way
+    ck_ptrs = set()
+    for i in ck:
+        for s in held.get(i, ()):
+            ck_ptrs.add(s[0])
+    nbytes = sum(size for ptr, size in segment
+                 if ptr not in keep and ptr not in ck_ptrs)
+    return {"bytes": nbytes, "tokens": batch * seq,
+            "per_token": nbytes / (batch * seq), "records": sum(
+                1 for i in held if ck[0] < i <= ck[1])}
+
+
+def _recipe_peak(torch, program, start, feed, replays=3) -> dict:
+    """The recipe's peak device memory in a fresh executor and scope from
+    ``start``: the eager warm-up's, then the capture's and ``replays``
+    replays' (``torch.cuda.max_memory_allocated`` and memwatch's reading
+    of the allocator)."""
+    from paddle_tpu_torch import memwatch
+    from paddle_tpu_torch.framework import Scope
+
+    main, _, io = program
+    scope, exe = Scope(), _executor("cuda")
+    for n, t in start.items():
+        scope.set(n, t.clone())
+
+    def step():
+        exe.run(main, feed=feed, fetch_list=[io["loss"]], scope=scope)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    warm = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(1 + replays):
+        step()
+    torch.cuda.synchronize()
+    with _env(PADDLE_TPU_MEMWATCH="1"):
+        mw = memwatch.sample(exe.device)
+    out = {"eager_warmup_peak": warm,
+           "captured_peak": torch.cuda.max_memory_allocated(),
+           "memwatch_peak": mw and mw["peak_bytes_in_use"],
+           "phases": dict(exe.phases)}
+    if out["phases"] != {"eager": 1, "capture": 1, "replay": replays}:
+        raise AssertionError(f"recipe peak run phases {out['phases']}")
+    if out["memwatch_peak"] != out["captured_peak"]:
+        raise AssertionError(f"memwatch's peak {out['memwatch_peak']} is "
+                             f"not the allocator's {out['captured_peak']}")
+    del exe, scope
+    return out
+
+
+def _optimizer_steps(torch, name, kw, config, batch, seq) -> dict:
+    """The seq-512 step under the optimizer ``name`` (its keywords
+    ``kw``): ``_OPTIMIZER_STEPS`` steps eagerly and as many on the card's
+    compiled route (warm-up, capture, replays) from one start, equal bit
+    for bit (losses and every persistable), the losses finite."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.framework import Scope
+
+    program = _gpt_program(config, batch, seq,
+                           lambda: getattr(topt, name)(**kw))
+    main, startup, io = program
+    scope = Scope()
+    _executor("cuda").run(startup, scope=scope)
+    start = {n: scope.get(n).clone() for n in scope.local_var_names()}
+    feed = _fixed_batch(torch, config["vocab_size"], batch, seq)
+    legs = {}
+    for leg in ("E", "R"):
+        s, exe = Scope(), _executor("cuda")
+        for n, t in start.items():
+            s.set(n, t.clone())
+        with (_eager() if leg == "E" else contextlib.nullcontext()):
+            losses = [float(exe.run(main, feed=feed, fetch_list=[io["loss"]],
+                                    scope=s)[0])
+                      for _ in range(_OPTIMIZER_STEPS)]
+        legs[leg] = {"losses": losses, "phases": dict(exe.phases),
+                     "state": {n: s.get(n) for n in s.local_var_names()}}
+        del exe, s
+    r, e = legs["R"], legs["E"]
+    off = _unequal(r["state"], e["state"])
+    if (r["losses"] != e["losses"] or off
+            or not all(np.isfinite(r["losses"]))
+            or r["phases"] != {"eager": 1, "capture": 1,
+                               "replay": _OPTIMIZER_STEPS - 2}):
+        raise AssertionError(f"{name}: replayed {r['losses']} "
+                             f"({r['phases']}) vs eager {e['losses']}, "
+                             f"persistables differing {off[:5]}")
+    return {"losses": r["losses"], "persistables": len(e["state"]),
+            "bit_identical": True}
+
+
+def _chunked_vs_pallas(torch, config, batch, seq) -> dict:
+    """One seq-512 step's loss through ``fused_lm_head="chunked"`` and
+    through the fused kernels (``"pallas"``) from the same weights:
+    within ``_CHUNKED_RTOL``."""
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.optimizer import Adam
+
+    losses, start = {}, None
+    for impl in ("pallas", "chunked"):
+        program = _gpt_program(dict(config, fused_lm_head=impl), batch, seq,
+                               lambda: Adam(learning_rate=_LR))
+        main, startup, io = program
+        if io["lm_head_impl"] != impl:
+            raise AssertionError(f"loss path {io['lm_head_impl']!r}, not "
+                                 f"{impl!r}")
+        scope, exe = Scope(), _executor("cuda")
+        if start is None:
+            exe.run(startup, scope=scope)
+            start = {n: scope.get(n).clone()
+                     for n in scope.local_var_names()}
+        else:
+            for n, t in start.items():
+                scope.set(n, t.clone())
+        losses[impl] = float(exe.run(
+            main, feed=_fixed_batch(torch, config["vocab_size"], batch, seq),
+            fetch_list=[io["loss"]], scope=scope)[0])
+        del exe, scope
+    rel = abs(losses["chunked"] - losses["pallas"]) / abs(losses["pallas"])
+    if not rel <= _CHUNKED_RTOL:
+        raise AssertionError(f"chunked CE loss {losses['chunked']} vs the "
+                             f"kernels' {losses['pallas']}: {rel:.3g} apart")
+    return {"losses": losses, "rel": rel, "rtol": _CHUNKED_RTOL}
+
+
+def _hash_ms(torch, config, batch, seq) -> float:
+    """Device ms of one layer's dropout draw on the card at the recipe's
+    shape: the counter-based hash of the (seed, step) tensor
+    (``LoweringContext.uniform``) and the keep test."""
+    from paddle_tpu_torch.framework.registry import LoweringContext
+
+    shape = (batch, seq, config["n_head"],
+             config["d_model"] // config["n_head"])
+    seed_step = torch.tensor([_RECIPE_SEED, 0], device="cuda")
+
+    def draw():
+        LoweringContext("cuda", seed_step=seed_step).uniform(3, shape) < (
+            1.0 - config["dropout"])
+
+    return _device_ms(torch, draw)
+
+
+def _first_differing_grad(torch, r_program, n_program, start, feed):
+    """Where recompute and no recompute first part: one eager step of
+    each from ``start``, fetching every parameter's final gradient; the
+    first parameter, in the order the backward reaches them, whose
+    gradients differ, and the op that produced it."""
+    from paddle_tpu_torch.framework import Scope
+
+    def grads(program):
+        main, _, io = program
+        block = main.global_block()
+        names = {}
+        for op in block.ops:
+            if op.type in ("adamw", "adam"):
+                names[op.input("Param")[0]] = op.input("Grad")[0]
+        scope, exe = Scope(), _executor("cuda")
+        for n, t in start.items():
+            scope.set(n, t.clone())
+        with _eager():
+            got = exe.run(main, feed=feed, scope=scope,
+                          fetch_list=list(names.values()),
+                          return_numpy=False)
+        producer = {n: op.type for op in block.ops
+                    for n in op.output_arg_names()}
+        return {p: (g, producer[n]) for (p, n), g in zip(names.items(), got)}
+
+    a, b = grads(r_program), grads(n_program)
+    for p in reversed(list(a)):
+        if not a[p][0].equal(b[p][0]):
+            return {"param": p, "op": a[p][1]}
+    return None
+
+
+def _train_recipe(torch, card, config=_RECIPE, batch=_LONG_B, seq=_LONG_T,
+                  plain_peak=None) -> dict:
+    """bench.py's gpt2s pretraining step at seq 2048 run as a team runs
+    it (``_RECIPE``): dropout 0.1 under a program seed, recompute with one
+    checkpoint a layer, AdamW (lr 1e-4, decay 0.01) behind a global-norm
+    clip at 1.0, replayed as a CUDA graph. Checks, in order:
+
+    1. 13 steps eagerly (E) and 13 replayed (R, the main path, its
+       launches counted from 0) from one start: losses, global norms,
+       clip scales and every persistable (the (seed, step) tensor too)
+       equal bit for bit;
+    2. the same 13 replayed steps without recompute (N): the losses R's
+       bit for bit (else within 1e-5, the first differing gradient
+       named, ``_recompute_agrees``);
+    3. dropout: each step's keep share over the first layer's mask within
+       5 sigma of 0.9, and each step's mask differs from the last's;
+    4. the clip: each step's scale min(1, 1 / norm) and the norm above 1
+       at least once (``_clip_agrees``);
+    5. memory: the captured peak over three replays without recompute (b)
+       and with it (c), each with memwatch's reading; c < b and b - c at
+       least half of 11 segments' tape bytes (``_segment_bytes`` scaled
+       to the recipe's tokens);
+    6. one traced replayed step: flash forward 24 (12 + 12 recomputed),
+       dq and dk/dv 12 each, the CE forward, dx and dW once, Adam 196;
+       the dropout hash's device ms;
+    7. each of the eight other optimizers at the seq-512 step, eager and
+       replayed, bit for bit (``_optimizer_steps``);
+    8. the chunked CE's seq-512 loss against the kernels'
+       (``_chunked_vs_pallas``).
+
+    ``plain_peak``: the plain seq-2048 step's peak (phase
+    ``train_observed``), printed beside. Returns the launches."""
+    import gc
+
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.ops import attention
+    from paddle_tpu_torch.ops import flash_attention as fl
+    from paddle_tpu_torch.ops import fused_adam as fa
+    from paddle_tpu_torch.ops import lmhead_ce as ce
+
+    t_phase = time.perf_counter()
+    p = config["dropout"]
+    reckoned = _segment_bytes(torch, config, "cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    program = _recipe_program(config, batch, seq, recompute=True)
+    plain = _recipe_program(config, batch, seq, recompute=False)
+    build_s = time.perf_counter() - t0
+    main, startup, io = program
+    scope = Scope()
+    _executor("cuda").run(startup, scope=scope)
+    start = {n: scope.get(n).clone() for n in scope.local_var_names()}
+    del scope
+    feed = _fixed_batch(torch, config["vocab_size"], batch, seq)
+    steps = _RECIPE_STEPS
+
+    def leg(prog, eager=False, counted=False):
+        s, exe = Scope(), _executor("cuda")
+        for n, t in start.items():
+            s.set(n, t.clone())
+        if counted:  # the main path: every count starts from 0 here
+            ce.reset_launches()
+            fa.reset_launches()
+            fl.reset_launches()
+        with (_eager() if eager else contextlib.nullcontext()):
+            out = _recipe_trajectory(torch, exe, s, prog, feed, steps)
+        return out, exe, s
+
+    e, exe, s = leg(program, eager=True)
+    del exe, s
+    dispatched = attention.FLASH_DISPATCH_COUNT
+    r, r_exe, r_scope = leg(program, counted=True)
+    dispatched = attention.FLASH_DISPATCH_COUNT - dispatched
+    launches = {"lmhead_ce_fwd": ce.launches, "lmhead_ce_dx": ce.dx_launches,
+                "lmhead_ce_dw": ce.dw_launches, "fused_adam": fa.launches,
+                "flash_attention_fwd": fl.fwd_launches,
+                "flash_attention_dq": fl.dq_launches,
+                "flash_attention_dkv": fl.dkv_launches}
+    layers = config["n_layer"]
+    per_step = {"lmhead_ce_fwd": 1, "lmhead_ce_dx": 1, "lmhead_ce_dw": 1,
+                "fused_adam": _ADAM_PER_STEP,
+                "flash_attention_fwd": 2 * layers,
+                "flash_attention_dq": layers, "flash_attention_dkv": layers}
+    if r["phases"] != {"eager": 1, "capture": 1, "replay": steps - 2}:
+        raise AssertionError(f"train_recipe: runs by phase {r['phases']}")
+    want = {k: 2 * n for k, n in per_step.items()}
+    if launches != want or dispatched != 2 * 2 * layers:
+        raise AssertionError(f"train_recipe launches {launches} and "
+                             f"{dispatched} flash dispatches, expected "
+                             f"{want} and {4 * layers} over the warm-up and "
+                             f"the capture")
+    # 1. replay = eager, bit for bit
+    off = _unequal(r["state"], e["state"])
+    for key in ("losses", "norms", "scales", "keep"):
+        if r[key] != e[key]:
+            off.append(key)
+    if off:
+        raise AssertionError(f"train_recipe: replayed vs eager differ in "
+                             f"{off[:8]}: losses {r['losses']} vs "
+                             f"{e['losses']}")
+    if not all(np.isfinite(r["losses"])) or not r["losses"][-1] < \
+            r["losses"][0]:
+        raise AssertionError(f"train_recipe: loss not finite and falling: "
+                             f"{r['losses']}")
+    # 6. one traced replayed step (the trajectory's fetches: its entry)
+    fetch = [io["loss"], io["global_norm"], io["clip_scale"],
+             io["attention"]]
+    traced = _profile_step(torch, r_exe, main, feed, fetch, r_scope, card,
+                           "train_recipe_profile", per_step=per_step,
+                           return_numpy=False)
+    r_wall = statistics.median(r["step_s"][_WARM_STEPS:]) * 1e3
+    del r_exe, r_scope
+    gc.collect()
+    # 2. recompute = no recompute
+    n, exe, s = leg(plain)
+    del exe, s
+    gc.collect()
+    rec = _recompute_agrees(r, n, lambda: _first_differing_grad(
+        torch, program, plain, start, feed))
+    # 3. dropout; 4. the clip
+    drop = _keep_share_ok(r["keep"], p, r["mask_elements"])
+    if not all(r["masks_differ"]):
+        raise AssertionError(f"train_recipe: a step's dropout mask equals "
+                             f"the last step's: {r['masks_differ']}")
+    clip = _clip_agrees(r["norms"], r["scales"], _RECIPE_CLIP)
+    # 5. memory
+    torch.cuda.empty_cache()
+    peaks = {"b": _recipe_peak(torch, plain, start, feed)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    peaks["c"] = _recipe_peak(torch, program, start, feed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    segment_full = reckoned["per_token"] * batch * seq
+    mem = _peaks_agree(peaks["b"]["captured_peak"],
+                       peaks["c"]["captured_peak"],
+                       (config["n_layer"] - 1) * segment_full)
+    hash_ms = _hash_ms(torch, config, batch, seq)
+    _say(phase="train_recipe", config=config, batch=batch, seq=seq,
+         seed=_RECIPE_SEED, clip_norm=_RECIPE_CLIP, weight_decay=_RECIPE_WD,
+         lr=_LR, steps=steps, build_s=build_s, losses=r["losses"],
+         step_ms_median=r_wall,
+         step_ms_all=[x * 1e3 for x in r["step_s"]],
+         eager_step_ms_median=statistics.median(
+             e["step_s"][_WARM_STEPS:]) * 1e3,
+         no_recompute_step_ms_median=statistics.median(
+             n["step_s"][_WARM_STEPS:]) * 1e3,
+         tokens_per_s=batch * seq / (r_wall / 1e3),
+         device_busy_share=traced["device_ms"] / r_wall,
+         traced_device_ms=traced["device_ms"],
+         replay_vs_eager={"bit_identical": True,
+                          "persistables": len(e["state"])},
+         recompute_vs_none=rec, dropout=drop, clip=clip,
+         memory=dict(mem, b=peaks["b"], c=peaks["c"],
+                     segment_reckoning=reckoned,
+                     segment_bytes_at_recipe=segment_full,
+                     plain_seq2048_peak_train_observed=plain_peak,
+                     plain_seq2048_peak_before_liveness=18675405312),
+         launches=launches, launches_per_replayed_step={
+             k: v["calls"] for k, v in traced["path_kernels"].items()},
+         path_kernels=traced["path_kernels"], flash_dispatches=dispatched,
+         dropout_hash_ms={"per_draw": hash_ms,
+                          "draws_per_step": 2 * layers,
+                          "per_step": 2 * layers * hash_ms},
+         seconds=time.perf_counter() - t_phase, card=card,
+         note="one smoke run, not a benchmark; launches are the wrappers' "
+         "host counts (the warm-up and the capture)")
+    # 7. the other optimizers; 8. the chunked CE
+    t_opt = time.perf_counter()
+    optimizers = {name: _optimizer_steps(torch, name, kw, _TRAIN, _TRAIN_B,
+                                         _TRAIN_T)
+                  for name, kw in _RECIPE_OPTIMIZERS}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_chunked = time.perf_counter()
+    chunked = _chunked_vs_pallas(torch, _TRAIN, _TRAIN_B, _TRAIN_T)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _say(phase="train_recipe_seq512", config=_TRAIN, batch=_TRAIN_B,
+         seq=_TRAIN_T, optimizers=optimizers,
+         optimizers_s=t_chunked - t_opt, chunked_ce=chunked,
+         chunked_s=time.perf_counter() - t_chunked, card=card)
+    return launches
+
+
 def _kernel_row(name, replaces, source, launches, err, t, card, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -3430,6 +4063,8 @@ def main() -> int:
     observed = _train_observed(torch, card)
     _sentinel_seq512(torch, card)
     _oom_autopsy(card)
+    recipe = _train_recipe(torch, card, plain_peak=_SAID["train_observed"][
+        "memwatch"]["max_memory_allocated"])
     for case in _CPU_VS_CARD:
         _cpu_vs_card(torch, *case)
 
@@ -3441,7 +4076,8 @@ def main() -> int:
 
     def by_path(name, **more):
         return {"train": train[name], "train_long": train_long[name],
-                "train_observed": observed[name], **more}
+                "train_observed": observed[name],
+                "train_recipe": recipe[name], **more}
 
     def replayed(name):  # the device trace's launches per replayed step
         return {"train": traced["path_kernels"][name]["calls"],

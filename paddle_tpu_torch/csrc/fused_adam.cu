@@ -8,7 +8,11 @@
 //     denom = sqrt(v) / sqrt(1 - b2p) + eps
 //     step = lr * (m / denom) / (1 - b1p)   (+ lr * wd * p for AdamW)
 //     p = p - step, cast to p's dtype
-// with p and g in bf16 or fp32, m and v in fp32, all arithmetic in fp32.
+// with p in bf16 or fp32, g in p's dtype or (bf16 p) in fp32, m and v in
+// fp32, all arithmetic in fp32. An fp32 g beside a bf16 p is what a
+// global-norm clip hands over: it scales each bf16 gradient by an fp32
+// factor, and the product is fp32 (the JAX package's promotion), which
+// the TPU kernel reads as it is.
 // lr, b1p and b2p are read from device memory (the learning rate arrives
 // as a device feed each step and the beta powers are device state), so a
 // step makes no host read per parameter.
@@ -68,9 +72,9 @@ __device__ __forceinline__ void adam_one(float& p, float g, float& m,
   p = p - step;
 }
 
-template <typename T>
+template <typename T, typename G>
 __global__ void __launch_bounds__(THREADS)
-adam_kernel(T* __restrict__ p, const T* __restrict__ g, float* __restrict__ m,
+adam_kernel(T* __restrict__ p, const G* __restrict__ g, float* __restrict__ m,
             float* __restrict__ v, const float* __restrict__ lr_ptr,
             const float* __restrict__ b1p_ptr,
             const float* __restrict__ b2p_ptr, long long n, Coef k,
@@ -118,22 +122,25 @@ adam_kernel(T* __restrict__ p, const T* __restrict__ g, float* __restrict__ m,
 
 extern "C" {
 
-// One Adam(W) step over n elements, in place on p, m and v. p and g are
-// bf16 (is_bf16) or fp32; m and v fp32; lr, b1p and b2p point to one fp32
-// each on the device. wd = 0 is Adam, wd > 0 AdamW. c1 = 1 - b1 and
-// c2 = 1 - b2 come from the host, computed in double.
+// One Adam(W) step over n elements, in place on p, m and v. p is bf16
+// (is_bf16 bit 0) or fp32; g is bf16 (bit 1) or fp32: both bits, p and g
+// bf16; bit 0 alone, a bf16 p with an fp32 g; neither, both fp32. m and
+// v fp32; lr, b1p and b2p point to one fp32 each on the device. wd = 0
+// is Adam, wd > 0 AdamW. c1 = 1 - b1 and c2 = 1 - b2 come from the host,
+// computed in double.
 int fused_adam_step(void* p, const void* g, void* m, void* v, const void* lr,
                     const void* b1p, const void* b2p, long long n, float b1,
                     float c1, float b2, float c2, float eps, float wd,
                     int is_bf16, int sms, void* stream) {
   if (n <= 0) return 0;
   const Coef k{b1, c1, b2, c2, eps, wd};
-  const int elem = is_bf16 ? 2 : 4;
+  const bool p_bf16 = is_bf16 & 1, g_bf16 = (is_bf16 >> 1) & 1;
+  if (g_bf16 && !p_bf16) return static_cast<int>(cudaErrorInvalidValue);
   const int vec4 =
       (reinterpret_cast<size_t>(m) % 16 == 0) &&
       (reinterpret_cast<size_t>(v) % 16 == 0) &&
-      (reinterpret_cast<size_t>(p) % (4 * elem) == 0) &&
-      (reinterpret_cast<size_t>(g) % (4 * elem) == 0);
+      (reinterpret_cast<size_t>(p) % (4 * (p_bf16 ? 2 : 4)) == 0) &&
+      (reinterpret_cast<size_t>(g) % (4 * (g_bf16 ? 2 : 4)) == 0);
   const long long work = vec4 ? (n + 3) / 4 : n;
   long long blocks = (work + THREADS - 1) / THREADS;
   const long long cap = 8LL * (sms > 0 ? sms : 132);
@@ -142,9 +149,14 @@ int fused_adam_step(void* p, const void* g, void* m, void* v, const void* lr,
   const float* lr_f = static_cast<const float*>(lr);
   const float* b1p_f = static_cast<const float*>(b1p);
   const float* b2p_f = static_cast<const float*>(b2p);
-  if (is_bf16) {
+  if (p_bf16 && g_bf16) {
     adam_kernel<<<(int)blocks, THREADS, 0, s>>>(
         static_cast<__nv_bfloat16*>(p), static_cast<const __nv_bfloat16*>(g),
+        static_cast<float*>(m), static_cast<float*>(v), lr_f, b1p_f, b2p_f, n,
+        k, vec4);
+  } else if (p_bf16) {
+    adam_kernel<<<(int)blocks, THREADS, 0, s>>>(
+        static_cast<__nv_bfloat16*>(p), static_cast<const float*>(g),
         static_cast<float*>(m), static_cast<float*>(v), lr_f, b1p_f, b2p_f, n,
         k, vec4);
   } else {

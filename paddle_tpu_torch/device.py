@@ -1,7 +1,8 @@
 """Device enumeration and the one place device memory is read.
 
 Port of ``paddle_tpu/device.py``'s counting and memory half (its
-``set_device``/``get_device`` wait for ROADMAP A1). :func:`memory_stats`
+``set_device``/``get_device`` are ``framework/core.py``'s, as in the JAX
+package). :func:`memory_stats`
 normalizes the CUDA caching allocator's statistics
 (``torch.cuda.memory_stats``) into the JAX package's fixed schema, so
 ``memwatch.py`` reads the card as the reference reads a TPU's PJRT
@@ -27,8 +28,11 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["device_count", "get_device_properties", "memory_stats",
-           "reset_peak_memory_stats", "synchronize"]
+from .framework.core import get_device, set_device  # noqa: F401
+
+__all__ = ["device_count", "get_device", "get_device_properties",
+           "memory_stats", "reset_peak_memory_stats", "set_device",
+           "synchronize"]
 
 # the normalized name <- the CUDA caching allocator's key
 _CUDA_KEYS = (

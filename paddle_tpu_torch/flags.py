@@ -413,6 +413,11 @@ define_env_flag(
 
 # -- static-graph training ---------------------------------------------------
 define_env_flag(
+    "PADDLE_TPU_DEFAULT_DEVICE", "",
+    "the default place before any set_device call (framework/core.py): "
+    "'gpu', 'cuda' or 'tpu' (optionally ':<index>') for the card, 'cpu' "
+    "for the host; unset = CUDAPlace(0)")
+define_env_flag(
     "PADDLE_TPU_OP_CALLSTACK", True,
     "record the Python build-site callstack on every Operator (op "
     "provenance on errors); 0 skips the capture")
@@ -422,8 +427,8 @@ define_env_flag(
     "'pallas' lower the tied lm-head + cross-entropy as the fused kernels "
     "that never write the [tokens, vocab] logits (on the card: "
     "csrc/lmhead_ce.cu); 'off' the materialized-logits "
-    "softmax_with_cross_entropy path; 'on'/'chunked' (the JAX package's "
-    "lax-loop path) is not ported and raises at run time")
+    "softmax_with_cross_entropy path; 'on'/'chunked' the token-chunked "
+    "path that recomputes each chunk's logits in the backward")
 define_env_flag(
     "PADDLE_TPU_CHECK_NUMERICS", False,
     "numerics sentinel: probe every float op output right after its op "

@@ -5,7 +5,8 @@ JAX package's (``Program``, ``program_guard``, ``Executor``, ``Scope``).
 """
 from . import core, registry, unique_name
 from .backward import append_backward, calc_gradient, gradients
-from .core import CPUPlace, CUDAPlace, Place, convert_dtype, default_place
+from .core import (CPUPlace, CUDAPlace, Place, convert_dtype, default_place,
+                   get_device, set_device)
 from .executor import Executor, lower_block, lower_op
 from .initializer import (
     ConstantInitializer,

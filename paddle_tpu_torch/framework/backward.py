@@ -7,15 +7,25 @@ gradients (``_GradAccumulator``; the tied ``gpt.wte`` gets one partial
 from the embedding lookup and one from the lm head). The op list is the
 JAX package's op for op. Grad ops take the generic rule of
 ``registry.py``, which differentiates the forward op's taped run instead
-of recomputing it. ``append_backward_with_checkpoints`` (recompute) is
-not ported yet and raises.
+of recomputing it.
+
+``append_backward_with_checkpoints`` is activation recompute, the JAX
+package's op for op: only the checkpoints are kept from the forward;
+each segment between two checkpoints is re-emitted (``_clone_segment``:
+clones with renamed outputs, every input read through a
+``recompute_barrier``) right before that segment's grad ops, which read
+the clones. In the port the grad ops take the clones' taped records, so
+the original forward ops of a segment run off the tape and the
+executor's liveness frees their outputs after their last forward
+reader; a grad op whose forward op the clone skips (every output a
+checkpoint) runs its forward rule again on the recomputed inputs
+(``executor.Executor._forward_of``).
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 from . import core, registry, unique_name
-from . import errors as _errs
 from .program import Block, Parameter, Variable
 from .registry import GRAD_SUFFIX, OUT_PREFIX, grad_var_name
 
@@ -148,11 +158,117 @@ def append_backward(loss: Variable, parameter_list: Optional[Sequence] = None,
     return [(p, g) for p, g in zip(params, grads) if g is not None]
 
 
-def append_backward_with_checkpoints(loss, checkpoints, parameter_list=None,
-                                     no_grad_set=None):
-    raise _errs.errors.Unimplemented(
-        "append_backward_with_checkpoints (activation recompute) is not "
-        "ported yet (ROADMAP queue A, item A4)")
+def append_backward_with_checkpoints(loss: Variable, checkpoints: Sequence,
+                                     parameter_list: Optional[Sequence] = None,
+                                     no_grad_set: Optional[Set[str]] = None
+                                     ) -> List[Tuple[Parameter, Variable]]:
+    """``append_backward`` with activation recomputation between
+    checkpoints (see the module docstring). No checkpoint that the block
+    produces means the plain backward."""
+    block = loss.block
+    params, no_grad = _resolve_params_and_no_grad(loss, parameter_list,
+                                                  no_grad_set)
+    fwd_ops = list(block.ops)
+    produced_at: Dict[str, int] = {}
+    for i, op in enumerate(fwd_ops):
+        for n in op.output_arg_names():
+            produced_at[n] = i
+    ck_names = [c.name if isinstance(c, Variable) else str(c)
+                for c in checkpoints]
+    ck_names = [c for c in ck_names if c in produced_at]
+    ck_names.sort(key=lambda c: produced_at[c])
+    if not ck_names:
+        return append_backward(loss, parameter_list, no_grad_set)
+    saved = set(ck_names)
+
+    leaf_names = {p.name for p in params}
+    grad_needed = _compute_grad_needed(block, leaf_names, no_grad)
+    influencing = {loss.name}
+    for op in reversed(fwd_ops):
+        if any(n in influencing for n in op.output_arg_names()):
+            influencing.update(op.input_arg_names())
+
+    acc = _GradAccumulator(block)
+    acc.set_final(loss.name, _seed_target_grad(block, loss))
+
+    # the tail after the last checkpoint: the plain backward
+    last = produced_at[ck_names[-1]]
+    _backward_over_ops(block, fwd_ops[last + 1:], acc, grad_needed, no_grad,
+                       influencing)
+
+    # segment i covers fwd_ops[bounds[i]:bounds[i + 1]]; ck_names[i] is
+    # produced by its last op
+    bounds = [0] + [produced_at[c] + 1 for c in ck_names]
+    for i in reversed(range(len(bounds) - 1)):
+        seg_ops = fwd_ops[bounds[i]:bounds[i + 1]]
+        dep = acc.finalize(ck_names[i])  # the cotangent entering the segment
+        var_subst = _clone_segment(block, seg_ops, saved, dep)
+        _backward_over_ops(block, seg_ops, acc, grad_needed, no_grad,
+                           influencing, var_subst=var_subst)
+
+    grads = [acc.finalize(p.name) for p in params]
+    return [(p, g) for p, g in zip(params, grads) if g is not None]
+
+
+def _clone_segment(block: Block, seg_ops, saved: Set[str],
+                   dep: Optional[Variable]) -> Dict[str, Variable]:
+    """Re-emit ``seg_ops`` with renamed outputs, each boundary input read
+    through a ``recompute_barrier`` (with ``Dep``, the segment's incoming
+    cotangent, unless the input is a parameter or persistable). Returns
+    original name -> clone (checkpoints stay on their saved originals: a
+    clone's copy of one goes to a throwaway). An op whose every output is
+    saved is not cloned. A random op's clone keeps its attrs (its
+    ``_rng_id``), so it redraws the forward's numbers."""
+    subst: Dict[str, Variable] = {}
+    barriered: Dict[str, Variable] = {}
+    internal = set()
+    for op in seg_ops:
+        internal.update(op.output_arg_names())
+
+    def boundary(v: Variable) -> Variable:
+        if v.name in barriered:
+            return barriered[v.name]
+        out = block.create_var(
+            name=unique_name.generate(v.name + "@RECOMPUTE.in"),
+            shape=v.shape, dtype=v.dtype, stop_gradient=True)
+        ins = {"X": [v]}
+        if dep is not None and not (isinstance(v, Parameter)
+                                    or v.persistable):
+            ins["Dep"] = [dep]
+        block.append_op("recompute_barrier", inputs=ins,
+                        outputs={"Out": [out]})
+        barriered[v.name] = out
+        return out
+
+    for op in seg_ops:
+        if all(n in saved for n in op.output_arg_names()):
+            continue
+        new_inputs: Dict[str, List[Variable]] = {}
+        for slot, vs in op._input_vars.items():
+            vals = []
+            for v in vs:
+                if v.name in subst:
+                    vals.append(subst[v.name])
+                elif v.name in internal and v.name not in saved:
+                    vals.append(v)  # produced later in the segment
+                else:
+                    vals.append(boundary(v))
+            new_inputs[slot] = vals
+        new_outputs: Dict[str, List[Variable]] = {}
+        for slot, vs in op._output_vars.items():
+            vals = []
+            for v in vs:
+                suffix = "@RECOMPUTE.dup" if v.name in saved else "@RECOMPUTE"
+                nv = block.create_var(
+                    name=unique_name.generate(v.name + suffix),
+                    shape=v.shape, dtype=v.dtype, stop_gradient=True)
+                if v.name not in saved:
+                    subst[v.name] = nv
+                vals.append(nv)
+            new_outputs[slot] = vals
+        block.append_op(op.type, inputs=new_inputs, outputs=new_outputs,
+                        attrs=op.all_attrs())
+    return subst
 
 
 def gradients(targets, inputs, target_gradients=None, no_grad_set=None):
@@ -194,8 +310,18 @@ def calc_gradient(targets: Sequence[Variable], inputs: Sequence[Variable],
 
 def _backward_over_ops(block: Block, fwd_ops, acc: _GradAccumulator,
                        grad_needed: Set[str], no_grad: Set[str],
-                       influencing: Set[str]) -> None:
-    """Reverse-walk ``fwd_ops`` emitting grad ops into ``block``."""
+                       influencing: Set[str],
+                       var_subst: Optional[Dict[str, Variable]] = None
+                       ) -> None:
+    """Reverse-walk ``fwd_ops`` emitting grad ops into ``block``.
+    ``var_subst`` maps forward var names to the Variables the grad ops
+    read instead (a recomputed segment's clones), while the gradients
+    stay keyed on the original names."""
+    sub = var_subst or {}
+
+    def s(v: Variable) -> Variable:
+        return sub.get(v.name, v)
+
     for op in reversed(list(fwd_ops)):
         try:
             opdef = registry.get_op_def(op.type)
@@ -216,10 +342,10 @@ def _backward_over_ops(block: Block, fwd_ops, acc: _GradAccumulator,
         g_inputs: Dict[str, List[Variable]] = {}
         for slot, vs in op._input_vars.items():
             if vs:
-                g_inputs[slot] = list(vs)
+                g_inputs[slot] = [s(v) for v in vs]
         for slot, vs in op._output_vars.items():
             if vs:
-                g_inputs[OUT_PREFIX + slot] = list(vs)
+                g_inputs[OUT_PREFIX + slot] = [s(v) for v in vs]
         any_out_grad = False
         for slot, vs in op._output_vars.items():
             if not all(_is_float_var(v) for v in vs):
@@ -230,7 +356,7 @@ def _backward_over_ops(block: Block, fwd_ops, acc: _GradAccumulator,
                 if g is None:
                     g = _create_grad_var(block, v, unique_name.generate(
                         grad_var_name(v.name) + "@ZERO"))
-                    block.append_op("fill_zeros_like", inputs={"X": v},
+                    block.append_op("fill_zeros_like", inputs={"X": s(v)},
                                     outputs={"Out": g})
                 else:
                     any_out_grad = True

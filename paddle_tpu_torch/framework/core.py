@@ -4,18 +4,20 @@ Port of ``paddle_tpu/framework/core.py``. A dtype is a ``torch.dtype``;
 the program descs keep the JAX package's dtype *names* ('float32',
 'bfloat16', 'int64', ...), so the same attrs read the same in both
 packages. A Place names a torch device: :class:`CUDAPlace` (the default)
-or :class:`CPUPlace`.
+or :class:`CPUPlace`. :func:`set_device` / :func:`get_device` choose and
+name the default place, as the JAX package's do (``"tpu"`` names the
+card too, so the reference's scripts keep working).
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
 from . import errors as _errs
 
-__all__ = ["Place", "CPUPlace", "CUDAPlace", "default_place", "convert_dtype",
-           "dtype_name", "is_floating"]
+__all__ = ["Place", "CPUPlace", "CUDAPlace", "default_place", "set_device",
+           "get_device", "convert_dtype", "dtype_name", "is_floating"]
 
 _NAME_TO_TORCH = {
     "bool": torch.bool,
@@ -100,10 +102,52 @@ class CUDAPlace(Place):
     device_type = "cuda"
 
 
+_default_place: Optional[Place] = None
+
+# device names of set_device: the card's (the JAX package's "tpu" and
+# "gpu" among them) and the host's
+_CARD_NAMES = ("gpu", "cuda", "tpu")
+
+
+def set_device(device: str) -> Place:
+    """``paddle.set_device``: ``"gpu"``, ``"cuda"`` or ``"tpu"`` (with an
+    optional ``":<i>"``) make ``CUDAPlace(i)`` the default place, ``"cpu"``
+    ``CPUPlace``. Returns the place. Nothing is checked here: with no card,
+    an entry point on the default place raises ``errors.Unavailable``."""
+    global _default_place
+    name, _, idx = str(device).strip().lower().partition(":")
+    idx = int(idx) if idx else 0
+    if name in _CARD_NAMES:
+        _default_place = CUDAPlace(idx)
+    elif name == "cpu":
+        _default_place = CPUPlace(idx)
+    else:
+        raise _errs.errors.InvalidArgument(
+            f"unknown device {device!r}: expected gpu, cuda, tpu (each "
+            f"with an optional :<index>) or cpu")
+    return _default_place
+
+
+def get_device() -> str:
+    """The default place's name: ``"gpu:<i>"`` or ``"cpu"``."""
+    p = default_place()
+    return "cpu" if isinstance(p, CPUPlace) else f"gpu:{p.device_id}"
+
+
 def default_place() -> Place:
-    """``CUDAPlace(0)``: entry points run on the card unless the caller
-    passes a CPU place."""
-    return CUDAPlace(0)
+    """The place :func:`set_device` chose, else ``PADDLE_TPU_DEFAULT_DEVICE``
+    (read once, as the JAX package reads it), else ``CUDAPlace(0)``: entry
+    points run on the card unless the caller asks for the CPU. There is no
+    fallback to the CPU when no card is present."""
+    if _default_place is None:
+        from .. import flags as _flags
+
+        forced = _flags.env_flag("PADDLE_TPU_DEFAULT_DEVICE")
+        if forced:
+            set_device(forced)
+        else:
+            return CUDAPlace(0)
+    return _default_place
 
 
 def resolve_device(place: Place) -> torch.device:

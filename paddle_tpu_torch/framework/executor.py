@@ -34,11 +34,22 @@ captures a steady step as a CUDA graph and replays it
   the step capture again on the new tensors; a persistable written out
   of place is copied back into its bound tensor inside the graph;
   fetches and persistables the block only writes are cloned out of the
-  graph's pool, so a later step never changes what a run returned. A
-  random draw refuses to be captured (``LoweringContext.generator``):
-  such a program raises ``errors.Unimplemented`` at its capture unless
-  ``PADDLE_TPU_EAGER`` is set. ``Executor.staged`` takes this route on
-  the CPU, with the body called directly (tests).
+  graph's pool, so a later step never changes what a run returned.
+  ``Executor.staged`` takes this route on the CPU, with the body called
+  directly (tests).
+- **Random draws.** The executor holds (program seed, step) as two int64
+  values on the device (:attr:`Executor.seed_step`, the JAX executor's
+  ``_seed_step``); every run's body advances the step in place after its
+  ops, inside a captured graph too, and every draw is a counter-based
+  hash of that pair, the op's ``_rng_id`` and the element index
+  (``registry.draw_bits``). So eager and replayed steps draw the same
+  numbers, each step draws new ones, and a recomputed clone of an op
+  redraws its forward's mask.
+- **Liveness.** Each value leaves the step's environment right after the
+  last op that reads or writes it (:func:`liveness`), unless it is
+  fetched, fed, read from the scope or persistable; on the card its
+  memory returns to the allocator (under capture, to the graph's pool),
+  as XLA's buffer assignment frees a value after its last reader.
 - **Observability.** Each run is an ``executor/run`` span of the ported
   ``profiler`` and counts on the ported ``monitor``
   (``executor_run_total``, ``executor_cache_lookups_total``,
@@ -77,8 +88,8 @@ captures a steady step as a CUDA graph and replays it
 
 Not ported, and each raises ``errors.Unimplemented`` naming its
 ``ROADMAP.md`` item: mesh and sharding-recipe programs and the pipeline
-(A10). There is no per-op garbage-collection plan: a step holds its
-values until it ends.
+(A10). Every ported op is a device op, so the JAX executor's eager path
+for blocks with host ops has nothing to run yet (A11).
 """
 from __future__ import annotations
 
@@ -141,7 +152,8 @@ def lower_op(ctx: LoweringContext, op, env: Dict[str, Any],
              op_idx: Optional[int] = None) -> None:
     """Run one op's lowering on the values in ``env`` and store its
     outputs there. A forward op in ``ctx.tape`` runs on the autograd
-    tape; a generic grad op first takes its forward op's record."""
+    tape; a generic grad op first takes its forward op's record, or, in
+    ``ctx.regrad``, runs its forward rule again on its own inputs."""
     try:
         opdef = registry.get_op_def(op.type)
     except NotImplementedError as e:
@@ -152,7 +164,10 @@ def lower_op(ctx: LoweringContext, op, env: Dict[str, Any],
             outs = ctx.record(op_idx, opdef, ins, op.desc.attrs,
                               ctx.tape[op_idx])
         else:
-            if opdef.is_generic_grad:
+            if op_idx in ctx.regrad:
+                ctx.rerecord(op_idx, registry.get_op_def(
+                    op.type[: -len("_grad")]), ins, op.desc.attrs)
+            elif opdef.is_generic_grad:
                 ctx.use_record(op_idx)
             outs = registry.run_lowering(opdef, ctx, ins, op.desc.attrs)
     except _errs.EnforceError as e:
@@ -169,11 +184,16 @@ OP_RANGE = "paddle_op::"
 
 
 def lower_block(ctx: LoweringContext, block, env: Dict[str, Any],
-                probes: Optional["Probes"] = None) -> Dict[str, Any]:
+                probes: Optional["Probes"] = None,
+                drop: Optional[Dict[int, Sequence[str]]] = None
+                ) -> Dict[str, Any]:
     """Run every op of ``block`` in program order through ``env``. Under
     an active ``torch.profiler`` each op runs inside a range named
     ``OP_RANGE + op.type``, so a trace attributes device time to ops.
-    ``probes`` checks each op's float outputs right after it."""
+    ``probes`` checks each op's float outputs right after it; then the
+    values that ``drop`` lists for the op (its last readers: see
+    :func:`liveness`) leave ``env``, so the step frees each one as soon
+    as nothing else holds it."""
     traced = torch.autograd._profiler_enabled()
     if probes is not None:
         probes.begin()
@@ -187,9 +207,37 @@ def lower_block(ctx: LoweringContext, block, env: Dict[str, Any],
             lower_op(ctx, op, env, op_idx=i)
         if probes is not None:
             probes.after(i, op, env)
+        if drop:
+            for name in drop.get(i, ()):
+                env.pop(name, None)
     if probes is not None:
         probes.end()
     return env
+
+
+def liveness(block, keep) -> Dict[int, List[str]]:
+    """op index -> the values that die right after that op: each value
+    that an op of ``block`` reads or writes, at the last op that reads or
+    writes it, unless it is in ``keep`` (fetches, feeds, the scope's
+    values) or persistable. The counterpart of the JAX executor's
+    ``native.gc_plan`` (and of XLA's buffer assignment, which frees a
+    buffer after its last reader): without it a step would hold every
+    activation and activation gradient until it ends. A value a record of
+    the autograd tape still holds (``registry.py``) lives on until the
+    grad op takes the record."""
+    last: Dict[str, int] = {}
+    for i, op in enumerate(block.ops):
+        if op.type in _STRUCTURAL_OPS:
+            continue
+        for name in op.input_arg_names() + op.output_arg_names():
+            last[name] = i
+    plan: Dict[int, List[str]] = {}
+    for name, i in last.items():
+        var = block._find_var_recursive(name)
+        if name in keep or (var is not None and var.persistable):
+            continue
+        plan.setdefault(i, []).append(name)
+    return plan
 
 
 class Probes:
@@ -275,14 +323,18 @@ def _gather(op, env, op_idx) -> Dict[str, List[Any]]:
 
 class _Analysed:
     """A cache entry: the block's scope reads and persistable writes,
-    the autograd plan of its generic grad ops, and, on the compiled
-    route, its compiled step."""
+    the autograd plan of its generic grad ops, the values each op is the
+    last to touch, and, on the compiled route, its compiled step."""
 
-    def __init__(self, param_names, updated_names, tape, grad_of):
+    def __init__(self, param_names, updated_names, tape, grad_of, regrad,
+                 drop):
         self.param_names = param_names
         self.updated_names = updated_names
         self.tape = tape  # forward op idx -> input slots to differentiate
         self.grad_of = grad_of  # generic grad op idx -> forward op idx
+        # generic grad op idx -> input slots of the forward rule it reruns
+        self.regrad = regrad
+        self.drop = drop  # op idx -> values that die after it (liveness)
         self.compiled: Optional[_CompiledStep] = None
         self.runs = 0  # runs of this entry
         # the numerics probes (either check flag on), the legacy flag's
@@ -311,11 +363,11 @@ class _CompiledStep:
     def __init__(self, exe: "Executor", program: Program, entry: _Analysed,
                  feed_vals, fetch_names, scope: Scope, warmup: int):
         self.block = program.global_block()
-        self.seed = (program.random_seed if program.random_seed is not None
-                     else 0)
         self.entry = entry
         self.device = exe.device
-        self.step = 0  # the executor's step count, set before each run
+        # the executor's (seed, step) tensor: read by every draw and
+        # advanced in place by the body, inside the graph
+        self.seed_step = exe._seed_step_for(program)
         self.feeds = {n: torch.empty(v.shape, dtype=v.dtype,
                                      device=exe.device)
                       for n, v in feed_vals.items()}
@@ -336,11 +388,14 @@ class _CompiledStep:
     def body(self, replayed: bool):
         env: Dict[str, Any] = dict(self.bound)
         env.update(self.feeds)
-        ctx = LoweringContext(device=self.device, seed=self.seed,
-                              step=self.step, tape=self.entry.tape,
-                              grad_of=self.entry.grad_of, replayed=replayed)
+        ctx = LoweringContext(device=self.device, seed_step=self.seed_step,
+                              tape=self.entry.tape,
+                              grad_of=self.entry.grad_of,
+                              regrad=self.entry.regrad, replayed=replayed)
         with torch.no_grad():
-            lower_block(ctx, self.block, env, self.entry.probes)
+            lower_block(ctx, self.block, env, self.entry.probes,
+                        self.entry.drop)
+            self.seed_step[1:].add_(1)
             for n in self.entry.updated_names:
                 dst = self.bound.get(n)
                 if dst is not None and env[n] is not dst:
@@ -360,6 +415,13 @@ class Executor:
         self.device = core.resolve_device(self.place)
         self._cache: Dict[Tuple, _Analysed] = {}
         self._step = 0
+        # (program seed, step) as two int64 values on the device: every
+        # random draw reads it (registry.LoweringContext.uniform) and
+        # every run advances its step in place, inside a captured graph
+        # too, so replays draw anew; set from the host only when the
+        # program's seed changes (the JAX executor's _seed_step)
+        self._seed_step: Optional[torch.Tensor] = None
+        self._seed: Optional[int] = None
         self._last_run_compiled = False  # telemetry: the last run built
         self._runs_since_sample = 0  # memwatch allocator-query cadence
         # take the compiled route on the CPU too, with the captured body
@@ -372,6 +434,12 @@ class Executor:
         self.phases = {"eager": 0, "capture": 0, "replay": 0}
 
     # -- public API ----------------------------------------------------
+    @property
+    def seed_step(self) -> Optional[torch.Tensor]:
+        """The device's (seed, step) pair that the random draws read (None
+        before the first run)."""
+        return self._seed_step
+
     def run(self, program: Optional[Program] = None,
             feed: Optional[Dict[str, Any]] = None,
             fetch_list: Optional[Sequence] = None,
@@ -450,20 +518,37 @@ class Executor:
         env: Dict[str, Any] = {n: self._scope_value(scope, n)
                                for n in entry.param_names}
         env.update(feed_vals)
-        seed = program.random_seed if program.random_seed is not None else 0
-        ctx = LoweringContext(device=self.device, seed=seed, step=self._step,
-                              tape=entry.tape, grad_of=entry.grad_of)
+        seed_step = self._seed_step_for(program)
+        ctx = LoweringContext(device=self.device, seed_step=seed_step,
+                              tape=entry.tape, grad_of=entry.grad_of,
+                              regrad=entry.regrad)
         if entry.runs == 0:
             self._last_run_compiled = True
         with self._counted(program, entry, env) as outs:
             with torch.no_grad():
-                lower_block(ctx, program.global_block(), env, entry.probes)
+                lower_block(ctx, program.global_block(), env, entry.probes,
+                            entry.drop)
+                seed_step[1:].add_(1)
             fetches = [env[n] for n in fetch_names]
             outs.extend(fetches + [env[n] for n in entry.updated_names])
         self._step += 1
         for n in entry.updated_names:
             scope.set(n, env[n])
         return fetches
+
+    def _seed_step_for(self, program) -> torch.Tensor:
+        """The executor's (seed, step) tensor, set to (the program's seed,
+        the executor's step) from the host where the seed differs from the
+        last run's; otherwise as the last run left it."""
+        seed = program.random_seed if program.random_seed is not None else 0
+        if self._seed_step is None or self._seed != seed:
+            host = torch.tensor([int(seed), self._step], dtype=torch.int64)
+            if self._seed_step is None:
+                self._seed_step = host.to(self.device)
+            else:
+                self._seed_step.copy_(host)
+            self._seed = seed
+        return self._seed_step
 
     def _run_compiled(self, program, entry: _Analysed, feed_vals,
                       fetch_names, scope: Scope) -> List[torch.Tensor]:
@@ -477,7 +562,7 @@ class Executor:
             self._dot_at_capture(entry, step)
         for n, v in feed_vals.items():
             step.feeds[n].copy_(v)
-        step.step = self._step
+        self._seed_step_for(program)  # reseeded in place where it changed
         warm = step.run.calls["eager"] < step.run.warmup
         with self._counted(program, entry, dict(step.bound, **step.feeds),
                            on=warm) as outs:
@@ -610,7 +695,9 @@ class Executor:
                                                    scope)
         tape: Dict[int, Tuple[str, ...]] = {}
         grad_of: Dict[int, int] = {}
+        regrad: Dict[int, Tuple[str, ...]] = {}
         producer: Dict[str, int] = {}
+        same: Dict[str, str] = {}  # a recompute_barrier's Out -> its X
         for i, op in enumerate(block.ops):
             if op.type in _STRUCTURAL_OPS:
                 continue
@@ -618,24 +705,23 @@ class Executor:
                 opdef = registry.get_op_def(op.type)
             except NotImplementedError as e:
                 raise _errs.attach_op_provenance(e, op, op_idx=i)
+            if op.type == "recompute_barrier":  # the identity on X
+                x = dict(op.desc.inputs).get("X", [None])[0]
+                for n in op.output_arg_names():
+                    same[n] = same.get(x, x)
             if opdef.is_generic_grad:
-                outs = [n for slot, args in op.desc.inputs
-                        if slot.startswith(OUT_PREFIX) for n in args]
-                fwd = producer.get(outs[0]) if outs else None
-                if fwd is None or fwd in tape:
-                    raise _errs.attach_op_provenance(
-                        _errs.errors.PreconditionNotMet(
-                            f"grad op {op.type!r} finds no forward op "
-                            f"producing {outs[:1]} earlier in the block "
-                            f"that no other grad op differentiates"),
-                        op, op_idx=i)
-                grad_of[i] = fwd
-                tape[fwd] = tuple(slot[: -len(GRAD_SUFFIX)]
-                                  for slot, _ in op.desc.outputs
-                                  if slot.endswith(GRAD_SUFFIX))
+                fwd, slots = self._forward_of(block, i, op, producer, tape,
+                                              same)
+                if fwd is None:
+                    regrad[i] = slots
+                else:
+                    grad_of[i] = fwd
+                    tape[fwd] = slots
             for n in op.output_arg_names():
                 producer[n] = i
-        entry = _Analysed(param_names, updated, tape, grad_of)
+        keep = set(fetch_names) | set(feed_vals) | set(param_names)
+        entry = _Analysed(param_names, updated, tape, grad_of, regrad,
+                          liveness(block, keep))
         entry.fetch_names = tuple(fetch_names)
         if check_nan:
             entry.probes = Probes()
@@ -649,6 +735,36 @@ class Executor:
         self._cache[key] = entry
         _M_CACHE_SIZE.set(len(self._cache))
         return entry
+
+    @staticmethod
+    def _forward_of(block, i, op, producer, tape, same):
+        """The autograd plan of generic grad op ``i``: (the forward op
+        whose taped record it takes, the input slots to differentiate).
+        The forward op is the producer of the grad op's ``__out__`` values
+        (for a recomputed segment, the clone), and it is taped only if the
+        grad op reads that op's own inputs; otherwise (a forward op whose
+        outputs the recompute keeps, while its grad reads the recomputed
+        inputs) the forward op is None and the grad op reruns the forward
+        rule on what it reads (``regrad``), so the original forward op
+        runs off the tape and its inputs can die."""
+        slots = tuple(slot[: -len(GRAD_SUFFIX)]
+                      for slot, _ in op.desc.outputs
+                      if slot.endswith(GRAD_SUFFIX))
+        outs = [n for slot, args in op.desc.inputs
+                if slot.startswith(OUT_PREFIX) for n in args]
+        fwd = producer.get(outs[0]) if outs else None
+        if fwd is None or fwd in tape:
+            raise _errs.attach_op_provenance(
+                _errs.errors.PreconditionNotMet(
+                    f"grad op {op.type!r} finds no forward op producing "
+                    f"{outs[:1]} earlier in the block that no other grad "
+                    f"op differentiates"), op, op_idx=i)
+        reads = {slot: list(args) for slot, args in op.desc.inputs
+                 if not slot.startswith(OUT_PREFIX)
+                 and not slot.endswith(GRAD_SUFFIX)}
+        fwd_reads = {slot: [same.get(n, n) for n in args]
+                     for slot, args in block.ops[fwd].desc.inputs if args}
+        return (fwd if reads == fwd_reads else None), slots
 
     @staticmethod
     def _analyze_block(block, feed_names: Sequence[str], scope: Scope):

@@ -3,8 +3,9 @@
 Port of ``paddle_tpu/framework/initializer.py``: each initializer appends
 an init op for the parameter to the *startup program*, which the executor
 runs once to fill the scope. The ops and their attrs are the JAX
-package's; the random ops draw from ``torch.Generator``s, so the two
-packages give different numbers from one seed (tests hand both the same
+package's; the random ops draw from the port's counter-based hash of
+the seed and step (``registry.draw_bits``), so the two packages give
+different numbers from one seed (tests hand both the same
 numpy values instead, ``weights.scope_from_numpy``).
 """
 from __future__ import annotations

@@ -58,51 +58,126 @@ class _Record:
         self.outs = outs
 
 
-class LoweringContext:
-    """Per-run state handed to lowering rules: the device, the step's
-    seed and step number (random ops draw from a ``torch.Generator``
-    seeded from them and the op's ``_rng_id``), and the step's autograd
-    plan and records: ``tape`` maps a forward op's index to the input
-    slots to differentiate, ``grad_of`` a generic grad op's index to its
-    forward op's (both built by the executor). ``replayed`` marks a run
-    that is captured for replay as a CUDA graph (``replay.py``)."""
+_M32 = 0xFFFF_FFFF
 
-    def __init__(self, device: Any = "cpu", seed: int = 0, step: int = 0,
+
+def _signed32(c: int) -> int:
+    """A 32-bit constant as the signed value with the same low 32 bits,
+    so that its product with a value below 2^32 stays inside int64."""
+    return c - (1 << 32) if c >= (1 << 31) else c
+
+
+_MIX1, _MIX2 = _signed32(0x7FEB352D), _signed32(0x846CA68B)
+
+
+def mix32(x):
+    """A 32-bit integer hash (the "lowbias32" xorshift-multiply mix) of
+    ``x``, a Python int or an int64 tensor holding values in [0, 2^32).
+    Every product is of a value below 2^32 and a constant below 2^31 in
+    magnitude, so nothing overflows int64, and ``& 0xFFFFFFFF`` keeps the
+    low 32 bits (two's complement for a negative product): the same bits
+    on the CPU and the card, with no unsigned arithmetic."""
+    x = x ^ (x >> 16)
+    x = (x * _MIX1) & _M32
+    x = x ^ (x >> 15)
+    x = (x * _MIX2) & _M32
+    return x ^ (x >> 16)
+
+
+def step_key(seed_step):
+    """The hash chain over the four 32-bit halves of seed and step:
+    ``seed_step`` is an int64 tensor of two values (the result is a 0-dim
+    tensor beside it: no host read) or a pair of ints (an int)."""
+    if isinstance(seed_step, torch.Tensor):
+        halves = [seed_step[0] & _M32, (seed_step[0] >> 32) & _M32,
+                  seed_step[1] & _M32, (seed_step[1] >> 32) & _M32]
+    else:
+        seed, step = (int(v) for v in seed_step)
+        halves = [seed & _M32, (seed >> 32) & _M32, step & _M32,
+                  (step >> 32) & _M32]
+    h = 0x9E3779B9
+    for word in halves:
+        h = mix32(h ^ word)
+    return h
+
+
+def draw_bits(key, rng_id: int, shape, device) -> torch.Tensor:
+    """32 random bits per element of ``shape`` (an int64 tensor of values
+    in [0, 2^32)), a pure function of the step's ``key`` (``step_key``),
+    the op's ``rng_id`` and the element's index: a counter-based
+    generator. Element i draws ``mix32((i * (a | 1) + b) mod 2^32)`` for
+    the two words a, b that the key and the rng id hash to. Draws of one
+    op at one step are the same wherever they are made (the op, its grad,
+    a recomputed clone), and differ across steps and ops."""
+    h = mix32(key ^ (int(rng_id) & _M32))
+    # Python constants only: a host tensor would be a copy to the device,
+    # which a capture refuses
+    a, b = mix32(h ^ 0x85EBCA6B) | 1, mix32(h ^ 0xC2B2AE35)
+    a = a - ((a >> 31) << 32)  # signed, so i * a stays inside int64
+    n = 1
+    for d in shape:
+        n *= int(d)
+    if n > (1 << 32):
+        raise _errs.errors.InvalidArgument(
+            f"a random draw of {n} elements: the counter covers 2^32")
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    return mix32((idx * a + b) & _M32).reshape(tuple(shape))
+
+
+class LoweringContext:
+    """Per-run state handed to lowering rules: the device; ``seed_step``,
+    the run's (program seed, step) pair as an int64 tensor of two values
+    on the device (the executor's, which each run's body advances in
+    place; see :meth:`uniform`); and the step's autograd plan and
+    records: ``tape`` maps a forward op's index to the input slots to
+    differentiate, ``grad_of`` a generic grad op's index to its forward
+    op's, ``regrad`` a generic grad op's index to the input slots of a
+    forward op that the grad op runs again on its own inputs (a forward op
+    whose outputs a recomputed segment keeps, while its grad op reads the
+    recomputed inputs; all three built by the executor). ``replayed``
+    marks a run that is captured for replay as a CUDA graph
+    (``replay.py``)."""
+
+    def __init__(self, device: Any = "cpu",
+                 seed_step: Optional[torch.Tensor] = None,
                  tape: Optional[Dict[int, Sequence[str]]] = None,
                  grad_of: Optional[Dict[int, int]] = None,
+                 regrad: Optional[Dict[int, Sequence[str]]] = None,
                  replayed: bool = False):
         self.device = torch.device(device)
-        self.seed = int(seed)
-        self.step = int(step)
+        self.seed_step = seed_step
         self.tape = tape or {}
         self.grad_of = grad_of or {}
+        self.regrad = regrad or {}
         self.replayed = bool(replayed)
         self._records: Dict[int, _Record] = {}
         self._pending: Optional[_Record] = None
+        self._key = None  # step_key(seed_step), made at the run's first draw
 
-    def generator(self, rng_id: int, seed: int = 0
-                  ) -> Optional[torch.Generator]:
-        """A generator seeded from ``seed`` where the op fixes one, else
-        from (program seed, step, op rng id): the same op draws the same
-        numbers at the same step of a seeded program. None on the meta
-        device (shape inference draws nothing). A replayed run refuses
-        to draw: the seed is set on the host, so a captured graph would
-        repeat one draw every step."""
+    def uniform(self, rng_id: int, shape, seed: int = 0) -> torch.Tensor:
+        """fp32 numbers in [0, 1) of ``shape``: the top 24 of 32 random
+        bits an element (``draw_bits``), each exactly representable; from
+        ``(seed, 0)`` where the op fixes a seed (the same numbers at every
+        step and in every op of that seed), else from the run's (program
+        seed, step) tensor and the op's ``rng_id``. Made on the device
+        from device values, so a captured step draws anew at every replay
+        (the executor advances the step inside the graph), and an eager
+        run and a replay of the same step draw the same numbers. A meta
+        tensor on the meta device (shape inference draws nothing)."""
         if self.device.type == "meta":
-            return None
-        if self.replayed:
-            raise _errs.errors.Unimplemented(
-                "a random draw in a step replayed as a CUDA graph (its "
-                "generator is seeded on the host, so every replay would "
-                "repeat the captured draw); set PADDLE_TPU_EAGER=1 to run "
-                "this program eagerly (ROADMAP.md queue A, item A4)")
-        g = torch.Generator(device=self.device)
+            return torch.empty(tuple(shape), dtype=torch.float32,
+                               device="meta")
         if seed:
-            g.manual_seed(int(seed))
-            return g
-        mixed = (self.seed * 1_000_003 + self.step) * 1_000_033 + int(rng_id)
-        g.manual_seed(mixed & 0x7FFF_FFFF_FFFF_FFFF)
-        return g
+            key, rng_id = step_key((int(seed), 0)), 0
+        else:
+            if self._key is None:
+                if self.seed_step is None:
+                    self.seed_step = torch.zeros(2, dtype=torch.int64,
+                                                 device=self.device)
+                self._key = step_key(self.seed_step)
+            key = self._key
+        bits = draw_bits(key, rng_id, shape, self.device)
+        return (bits >> 8).to(torch.float32) * (2.0 ** -24)
 
     # -- autograd records (the generic grad's tape) ---------------------
     def record(self, fwd_idx: int, opdef: "OpDef", ins, attrs,
@@ -133,6 +208,20 @@ class LoweringContext:
         """Hand the generic grad op ``grad_idx`` its forward op's record
         (taken out of the step's records: each is differentiated once)."""
         self._pending = self._records.pop(self.grad_of.get(grad_idx), None)
+
+    def rerecord(self, grad_idx: int, fwd: "OpDef", ins, attrs) -> None:
+        """Run the forward rule ``fwd`` of the generic grad op ``grad_idx``
+        again, on the tape, on the forward inputs the grad op reads (its
+        ``regrad`` entry names the slots to differentiate), and hand the
+        grad op that record: the JAX package's generic grad, which takes
+        the VJP of the forward rule on the grad op's own inputs. A random
+        op draws the same numbers again (same ``_rng_id``, same step)."""
+        fwd_ins = {slot: vals for slot, vals in ins.items()
+                   if not slot.startswith(OUT_PREFIX)
+                   and not slot.endswith(GRAD_SUFFIX)}
+        self.record(-1 - grad_idx, fwd, fwd_ins, attrs,
+                    self.regrad[grad_idx])
+        self._pending = self._records.pop(-1 - grad_idx)
 
 
 InsDict = Dict[str, List[Any]]

@@ -24,9 +24,10 @@ addresses and none of the host's per-call work:
   whose addresses stay fixed; it writes lasting state in place;
 - it makes **no host read** of a device value (``.item()``,
   ``.tolist()``, ``.cpu()``) and no host-side per-call choice (a
-  generator seeded on the host would replay one draw forever: the body
-  is told it is being captured, ``replayed=True``, and refuses such a
-  draw);
+  generator seeded on the host would replay one draw forever, so the
+  executor's draws hash a (seed, step) tensor on the device that the
+  body advances in place; the body is told it is being captured,
+  ``replayed=True``);
 - its outputs live in the graph's memory pool and the next replay
   overwrites them: owners copy them out (``clone``, ``.cpu()``).
 
@@ -42,8 +43,8 @@ an eager run on its own.
 
 On the CPU there are no graphs. An owner that stages on the CPU (the
 tests) runs the same three phases with the body called directly, so the
-staging into static buffers, the copy-back and the refusals are the ones
-the card captures.
+staging into static buffers and the copy-back are the ones the card
+captures.
 """
 from __future__ import annotations
 

@@ -180,8 +180,9 @@ def build_forward(cfg: GPTConfig, tokens, batch: int, seq: int,
 def resolve_lm_head_impl(cfg: GPTConfig) -> str:
     """The training loss path for this config: "pallas" (the fused
     kernels -- on the card ``csrc/lmhead_ce.cu`` -- the default),
-    "chunked" (the JAX package's lax-loop path, which the port's op
-    refuses at run time) or "off" (materialized logits). Resolution order:
+    "chunked" (the JAX package's lax-loop path: token chunks whose
+    logits the backward recomputes, ``ops/fused_ops.py``) or "off"
+    (materialized logits). Resolution order:
     ``cfg.fused_lm_head`` when set (bools keep their historical chunked/
     off meaning), else the ``PADDLE_TPU_FUSED_LMHEAD`` env flag
     (auto/on/off/pallas/chunked). Either fused path requires tied

@@ -9,6 +9,7 @@ lowerings sit the hand-written CUDA kernels' wrappers
 """
 from . import (  # noqa: F401
     attention,
+    control_flow_ops,
     fused_ops,
     math_ops,
     nn_ops,

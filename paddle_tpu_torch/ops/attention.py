@@ -20,6 +20,12 @@ pallas is unavailable on its backend, which has no counterpart here, so
 a kernel that fails to build or launch raises. Ring attention (a
 ``sequence_parallel_axis``) raises: the port has no device mesh yet.
 
+Dropout (``dropout_p`` > 0, not ``is_test``) keeps an element where the
+lowering context's counter-based draw (``LoweringContext.uniform``: the
+step's seed and step tensor on the device, the op's ``_rng_id``, the
+element's index) is below ``1 - p``, and scales it by ``1 / (1 - p)``, as
+the JAX op does; a recomputed clone of the op draws the same mask.
+
 The op registers an ``infer=`` rule, so builder-time inference never
 hands a meta tensor to a kernel wrapper.
 """
@@ -111,8 +117,7 @@ def _fused_attention_tpu(ctx, ins, attrs):
         out = _sdpa_einsum(q, k, v, mask, is_causal, layout=layout)
     p = attrs.get("dropout_p", 0.0)
     if p and not attrs.get("is_test", False):
-        keep = torch.rand(out.shape, generator=ctx.generator(
-            attrs.get("_rng_id", 0)), device=out.device) < (1.0 - p)
+        keep = ctx.uniform(attrs.get("_rng_id", 0), out.shape) < (1.0 - p)
         out = torch.where(keep, out / (1.0 - p),
                           torch.zeros_like(out)).to(out.dtype)
     return {"Out": out}

@@ -8,7 +8,8 @@ route as the package's other kernels; its header states what bounds it
 and how the design answers that).
 
 - :func:`fused_adam` -- one Adam(W) step, in place on ``p``, ``m`` and
-  ``v``; returns them. ``lr``, ``beta1_pow`` and ``beta2_pow`` are
+  ``v``; returns them. ``g`` is in p's dtype, or fp32 beside a bf16 p
+  (a global-norm clip's fp32 product, as the JAX package promotes it). ``lr``, ``beta1_pow`` and ``beta2_pow`` are
   one-element fp32 tensors on p's device: the kernel reads them from
   device memory, so a step makes no host read per parameter;
 - :func:`fused_adam_plain` -- the plain PyTorch version of the same
@@ -52,9 +53,9 @@ def reset_launches() -> None:
 
 
 def _check(p, g, m, v, lr, b1p, b2p) -> None:
-    if p.dtype not in _P_DTYPES or g.dtype != p.dtype:
-        raise TypeError(f"fused_adam takes fp32 or bf16 p and g of one "
-                        f"dtype, got {p.dtype} and {g.dtype}")
+    if p.dtype not in _P_DTYPES or g.dtype not in (p.dtype, torch.float32):
+        raise TypeError(f"fused_adam takes fp32 or bf16 p and g in p's "
+                        f"dtype or fp32, got {p.dtype} and {g.dtype}")
     if m.dtype != torch.float32 or v.dtype != torch.float32:
         raise TypeError(f"fused_adam takes fp32 moments, got {m.dtype} and "
                         f"{v.dtype}")
@@ -100,7 +101,8 @@ def _launch(p, g, m, v, lr, b1p, b2p, beta1, beta2, eps, wd) -> None:
         p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
         lr.data_ptr(), b1p.data_ptr(), b2p.data_ptr(), p.numel(),
         float(beta1), float(1.0 - beta1), float(beta2), float(1.0 - beta2),
-        float(eps), float(wd), int(p.dtype == torch.bfloat16),
+        float(eps), float(wd), int(p.dtype == torch.bfloat16)
+        | (int(g.dtype == torch.bfloat16) << 1),
         torch.cuda.get_device_properties(dev).multi_processor_count,
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
@@ -119,8 +121,8 @@ def _launch(p, g, m, v, lr, b1p, b2p, beta1, beta2, eps, wd) -> None:
 def fused_adam(p, g, m, v, lr, beta1_pow, beta2_pow, *, beta1=0.9,
                beta2=0.999, eps=1e-8, weight_decay=0.0
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One Adam(W) step in place: p (bf16/fp32), g (p's dtype), m, v
-    (fp32); returns (p, m, v), the same tensors. CPU tensors take the
+    """One Adam(W) step in place: p (bf16/fp32), g (p's dtype or fp32),
+    m, v (fp32); returns (p, m, v), the same tensors. CPU tensors take the
     plain version; CUDA tensors launch the kernel (or raise); other
     devices raise."""
     _check(p, g, m, v, lr, beta1_pow, beta2_pow)

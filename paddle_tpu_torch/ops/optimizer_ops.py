@@ -1,4 +1,6 @@
-"""Optimizer op lowerings: ``sgd``, ``adam`` and ``adamw``.
+"""Optimizer op lowerings: ``sgd``, ``momentum``, ``adagrad``, ``adam``,
+``adamw``, ``adamax``, ``rmsprop``, ``adadelta``, ``lamb``,
+``lars_momentum``, ``dgc_clip_by_norm``, ``dgc_momentum`` and ``dgc``.
 
 Port of ``paddle_tpu/ops/optimizer_ops.py``. ``register_optimizer`` keeps
 the JAX package's fp32 master arithmetic: inputs are widened to fp32 for
@@ -14,8 +16,26 @@ those same tensors. In place is what a step replayed as a CUDA graph
 needs: the graph reads each persistable at its captured address, so a
 new tensor returned for ``Beta1PowOut`` would never reach the next step
 (the executor would have to copy it back, two launches a parameter).
+
+The other rules are plain torch, as they are plain ``jnp`` in the JAX
+package (none has a TPU kernel), written to survive capture as a CUDA
+graph: no host read of a device value and no Python branch on one.
+Lamb's and LARS's trust ratios and DGC's rampup test against its step
+variable on the device are ``torch.where``; DGC's top-k takes a k fixed
+by the gradient's size. Their outputs are new tensors, which the
+executor copies back into the persistables (inside the graph on the
+card).
+
+``dgc_momentum`` returns ``ParamOut`` and ``VelocityOut`` in their
+inputs' dtypes, as every ``register_optimizer`` rule does. The JAX rule
+returns the promotion of a bf16 parameter and the fp32 sparse gradient
+(fp32), which its executor stores, so the parameter turns fp32 after the
+first step; a step replayed at fixed addresses cannot change a tensor's
+dtype, and an eager run must match it (``tests/test_torch_clip_optimizers.py``).
 """
 from __future__ import annotations
+
+import torch
 
 from ..framework.registry import register_op
 from . import fused_adam as _fa
@@ -51,6 +71,22 @@ def _sgd(ctx, ins, attrs):
     return {"ParamOut": p - _lr(ins) * g}
 
 
+@register_optimizer("momentum")
+def _momentum(ctx, ins, attrs):
+    p, g, v = ins["Param"][0], ins["Grad"][0], ins["Velocity"][0]
+    mu = attrs.get("mu", 0.9)
+    lr = _lr(ins)
+    rd = attrs.get("regularization_coeff", 0.0)
+    if attrs.get("regularization_method", "") == "l2_decay" and rd:
+        g = g + rd * p
+    v_out = mu * v + g
+    if attrs.get("use_nesterov", False):
+        p_out = p - (g + mu * v_out) * lr
+    else:
+        p_out = p - lr * v_out
+    return {"ParamOut": p_out, "VelocityOut": v_out}
+
+
 def _adam_fused(ins, attrs, weight_decay):
     """One fused Adam(W) step through the kernel wrapper (in place)."""
     p, g = ins["Param"][0], ins["Grad"][0]
@@ -77,3 +113,163 @@ def _adam(ctx, ins, attrs):
 def _adamw(ctx, ins, attrs):
     coeff = attrs.get("coeff", 0.01) if attrs.get("with_decay", True) else 0.0
     return _adam_fused(ins, attrs, coeff)
+
+
+@register_optimizer("adamax")
+def _adamax(ctx, ins, attrs):
+    p, g = ins["Param"][0], ins["Grad"][0]
+    m, inf = ins["Moment"][0], ins["InfNorm"][0]
+    b1p = ins["Beta1Pow"][0]
+    b1 = attrs.get("beta1", 0.9)
+    b2 = attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-8)
+    m_out = b1 * m + (1 - b1) * g
+    inf_out = torch.maximum(b2 * inf, torch.abs(g) + eps)
+    p_out = p - (_lr(ins) / (1 - b1p.reshape(()))) * (m_out / inf_out)
+    return {"ParamOut": p_out, "MomentOut": m_out, "InfNormOut": inf_out}
+
+
+@register_optimizer("adagrad")
+def _adagrad(ctx, ins, attrs):
+    p, g, mom = ins["Param"][0], ins["Grad"][0], ins["Moment"][0]
+    eps = attrs.get("epsilon", 1e-6)
+    mom_out = mom + torch.square(g)
+    p_out = p - _lr(ins) * g / (torch.sqrt(mom_out) + eps)
+    return {"ParamOut": p_out, "MomentOut": mom_out}
+
+
+@register_optimizer("rmsprop")
+def _rmsprop(ctx, ins, attrs):
+    p, g = ins["Param"][0], ins["Grad"][0]
+    ms, mom = ins["MeanSquare"][0], ins["Moment"][0]
+    rho = attrs.get("decay", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    momentum = attrs.get("momentum", 0.0)
+    lr = _lr(ins)
+    ms_out = rho * ms + (1 - rho) * torch.square(g)
+    if attrs.get("centered", False):
+        mg_out = rho * ins["MeanGrad"][0] + (1 - rho) * g
+        mom_out = momentum * mom + lr * g / torch.sqrt(
+            ms_out - torch.square(mg_out) + eps)
+        return {"ParamOut": p - mom_out, "MeanSquareOut": ms_out,
+                "MeanGradOut": mg_out, "MomentOut": mom_out}
+    mom_out = momentum * mom + lr * g / torch.sqrt(ms_out + eps)
+    return {"ParamOut": p - mom_out, "MeanSquareOut": ms_out,
+            "MomentOut": mom_out}
+
+
+@register_optimizer("adadelta")
+def _adadelta(ctx, ins, attrs):
+    p, g = ins["Param"][0], ins["Grad"][0]
+    avg_sq, avg_up = ins["AvgSquaredGrad"][0], ins["AvgSquaredUpdate"][0]
+    rho = attrs.get("rho", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    sq_out = rho * avg_sq + (1 - rho) * torch.square(g)
+    update = -torch.sqrt((avg_up + eps) / (sq_out + eps)) * g
+    up_out = rho * avg_up + (1 - rho) * torch.square(update)
+    return {"ParamOut": p + update, "AvgSquaredGradOut": sq_out,
+            "AvgSquaredUpdateOut": up_out}
+
+
+@register_optimizer("lamb")
+def _lamb(ctx, ins, attrs):
+    p, g = ins["Param"][0], ins["Grad"][0]
+    m1, m2 = ins["Moment1"][0], ins["Moment2"][0]
+    b1p, b2p = ins["Beta1Pow"][0], ins["Beta2Pow"][0]
+    b1 = attrs.get("beta1", 0.9)
+    b2 = attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-6)
+    wd = attrs.get("weight_decay", 0.01)
+    m1_out = b1 * m1 + (1 - b1) * g
+    m2_out = b2 * m2 + (1 - b2) * torch.square(g)
+    m1_hat = m1_out / (1 - b1p.reshape(()))
+    m2_hat = m2_out / (1 - b2p.reshape(()))
+    r = m1_hat / (torch.sqrt(m2_hat) + eps) + wd * p
+    w_norm = torch.linalg.vector_norm(p)
+    r_norm = torch.linalg.vector_norm(r)
+    trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
+                        torch.ones_like(w_norm))
+    return {"ParamOut": p - _lr(ins) * trust * r, "Moment1Out": m1_out,
+            "Moment2Out": m2_out, "Beta1PowOut": b1p * b1,
+            "Beta2PowOut": b2p * b2}
+
+
+@register_optimizer("lars_momentum")
+def _lars_momentum(ctx, ins, attrs):
+    p, g, v = ins["Param"][0], ins["Grad"][0], ins["Velocity"][0]
+    mu = attrs.get("mu", 0.9)
+    coeff = attrs.get("lars_coeff", 0.001)
+    wd = attrs.get("lars_weight_decay", 0.0005)
+    eps = attrs.get("epsilon", 0.0)
+    lr = _lr(ins)
+    p_norm = torch.linalg.vector_norm(p)
+    g_norm = torch.linalg.vector_norm(g)
+    local_lr = torch.where((p_norm > 0) & (g_norm > 0),
+                           lr * coeff * p_norm / (g_norm + wd * p_norm + eps),
+                           lr)
+    v_out = mu * v + local_lr * (g + wd * p)
+    return {"ParamOut": p - v_out, "VelocityOut": v_out}
+
+
+@register_op("dgc_clip_by_norm", stop_gradient=True)
+def _dgc_clip_by_norm(ctx, ins, attrs):
+    """clip_by_norm gated on the DGC rampup step: before
+    ``rampup_begin_step`` the input passes through."""
+    v = ins["X"][0]
+    step = ins["current_step"][0].reshape(())
+    begin = attrs.get("rampup_begin_step", 0.0)
+    max_norm = attrs.get("max_norm", 1.0)
+    norm = torch.sqrt(torch.sum(v.float() ** 2))
+    clipped = v * torch.clamp(max_norm / torch.clamp(norm, min=1e-10),
+                              max=1.0).to(v.dtype)
+    return {"Out": torch.where(step < begin, v, clipped)}
+
+
+@register_op("dgc_momentum", stop_gradient=True)
+def _dgc_momentum(ctx, ins, attrs):
+    """Momentum before ``rampup_begin_step``, plain SGD from it on (the
+    momentum then lives in the dgc op's U accumulator)."""
+    p, g, vel = ins["Param"][0], ins["Grad"][0], ins["Velocity"][0]
+    lr = _lr(ins)
+    step = ins["current_step"][0].reshape(())
+    mu = attrs.get("mu", 0.9)
+    begin = attrs.get("rampup_begin_step", 0.0)
+    vel_new = mu * vel + g
+    p_mom = p - lr * (g + mu * vel_new if attrs.get("use_nesterov", False)
+                      else vel_new)
+    p_sgd = p - lr * g
+    use_momentum = step < begin
+    # each output in its persistable's dtype (a bf16 parameter beside the
+    # fp32 sparse gradient would otherwise come back fp32; see the module
+    # docstring)
+    return {"ParamOut": torch.where(use_momentum, p_mom, p_sgd).to(p.dtype),
+            "VelocityOut": torch.where(use_momentum, vel_new,
+                                       vel).to(vel.dtype)}
+
+
+@register_op("dgc", stop_gradient=True)
+def _dgc(ctx, ins, attrs):
+    """Deep gradient compression: momentum-correct locally (U),
+    accumulate (V), keep the top ``ratio`` of |V| (the threshold from a
+    top-k of fixed k), emit that sparse gradient and keep the rest as
+    error feedback; before ``rampup_begin_step`` the gradient passes
+    through and U, V stay."""
+    u, v, g = ins["U"][0], ins["V"][0], ins["Grad"][0]
+    step = ins["current_step"][0].reshape(())
+    m = attrs.get("m", 0.9)
+    ratio = attrs.get("ratio", 0.001)
+    begin = attrs.get("rampup_begin_step", 0.0)
+    k = max(1, int(ratio * g.numel()))
+    u_new = m * u + g if attrs.get("use_local_momentum", True) else u + g
+    v_new = v + u_new
+    thr = torch.topk(torch.abs(v_new.reshape(-1)), k).values[-1]
+    mask = torch.abs(v_new) >= thr
+    zero = torch.zeros_like(v_new)
+    encoded = torch.where(mask, v_new, zero)
+    active = step >= begin
+    return {"U_out": torch.where(active, torch.where(mask, zero, u_new), u),
+            "V_out": torch.where(active, torch.where(mask, zero, v_new), v),
+            "EncodeGrad": torch.where(active, encoded, g),
+            "Grad_out": torch.where(active, encoded, g),
+            "GatherBuff": torch.zeros_like(g),
+            "k": torch.full((), float(k), device=g.device)}

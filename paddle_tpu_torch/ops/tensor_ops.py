@@ -1,9 +1,10 @@
 """Tensor creation and layout op lowerings (the GPT training subset).
 
 Port of ``paddle_tpu/ops/tensor_ops.py``: ``fill_constant``,
-``fill_zeros_like``, ``assign_value``, ``cast``, ``reshape2``/``reshape``,
-``transpose2``/``transpose`` and ``slice``, with the JAX package's
-semantics (reshape's 0 copies the input dim, slice clamps its bounds).
+``fill_zeros_like``, ``recompute_barrier``, ``assign_value``, ``cast``,
+``reshape2``/``reshape``, ``transpose2``/``transpose`` and ``slice``,
+with the JAX package's semantics (reshape's 0 copies the input dim,
+slice clamps its bounds).
 """
 from __future__ import annotations
 
@@ -30,6 +31,19 @@ def _fill_constant(ctx, ins, attrs):
 @register_op("fill_zeros_like", stop_gradient=True)
 def _fill_zeros_like(ctx, ins, attrs):
     return {"Out": torch.zeros_like(x(ins))}
+
+
+@register_op("recompute_barrier", stop_gradient=True, no_grad_inputs=("Dep",))
+def _recompute_barrier(ctx, ins, attrs):
+    """The identity on X (``append_backward_with_checkpoints`` reads every
+    input of a recomputed segment through it). In the JAX package it is an
+    optimization barrier that keeps XLA from merging the recomputed clones
+    with the forward and orders them after the ``Dep`` cotangent; the
+    port's executor runs ops in program order and merges nothing, so X
+    passes as it is. ``Dep`` is still an input of the op, so the program's
+    op order and the values' lifetimes (``executor.liveness``) are the
+    desc's."""
+    return {"Out": x(ins)}
 
 
 @register_op("assign_value", stop_gradient=True)

@@ -1,5 +1,9 @@
 """Optimizers of the port (mirrors ``paddle_tpu/optimizer``)."""
 from . import lr
-from .optimizer import SGD, Adam, AdamW, Optimizer
+from .optimizer import (SGD, Adadelta, Adagrad, Adam, Adamax, AdamW,
+                        DGCMomentumOptimizer, Lamb, LarsMomentum, Momentum,
+                        Optimizer, RMSProp)
 
-__all__ = ["lr", "SGD", "Adam", "AdamW", "Optimizer"]
+__all__ = ["lr", "SGD", "Momentum", "Adagrad", "Adam", "AdamW", "Adamax",
+           "RMSProp", "Adadelta", "Lamb", "LarsMomentum",
+           "DGCMomentumOptimizer", "Optimizer"]

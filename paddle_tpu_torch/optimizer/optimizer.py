@@ -1,17 +1,22 @@
 """Optimizers: minimize = append_backward + update ops.
 
 Port of ``paddle_tpu/optimizer/optimizer.py`` (static graph): ``Optimizer``,
-``SGD``, ``Adam``, ``AdamW`` and ``state_dict``/``set_state_dict``. The
+``SGD``, ``Momentum``, ``Adagrad``, ``Adam``, ``AdamW``, ``Adamax``,
+``RMSProp``, ``Adadelta``, ``Lamb``, ``LarsMomentum``,
+``DGCMomentumOptimizer`` and ``state_dict``/``set_state_dict``. The
 update rules are op lowerings (``ops/optimizer_ops.py``; Adam and AdamW
-run the fused CUDA kernel). The learning rate is an auto-feed of the
+run the fused CUDA kernel, the others plain torch, as they are plain
+``jnp`` in the JAX package). The learning rate is an auto-feed of the
 program: ``Executor.run`` copies the current value to the device each
 step, so an LR scheduler adds no ops. Accumulators of bf16/fp16 params
-are fp32.
+are fp32, under the JAX package's names (``<param>_<name>_<k>``).
+``apply_gradients`` first adds the ``weight_decay`` regularizers' terms
+(``regularizer.py``), then clips (``grad_clip``, ``nn/clip.py``), as the
+JAX package's ``_apply_decay_and_clip`` does.
 
-Not ported yet, and each raises ``errors.Unimplemented``: ``grad_clip``,
-``weight_decay`` regularizers (AdamW's decoupled ``weight_decay`` is the
-update op's own and is ported), the dygraph ``step``, and the
-data-parallel comms residuals of the optimizer checkpoint.
+Not ported yet, and each raises ``errors.Unimplemented``: the dygraph
+``step`` (A8) and the data-parallel comms residuals of the optimizer
+checkpoint (A10).
 """
 from __future__ import annotations
 
@@ -41,13 +46,11 @@ class Optimizer:
     def __init__(self, learning_rate=0.001,
                  parameters: Optional[Sequence] = None, weight_decay=None,
                  grad_clip=None, name: Optional[str] = None):
-        if weight_decay is not None:
-            raise _unported("weight_decay regularizers", "A5")
-        if grad_clip is not None:
-            raise _unported("grad_clip", "A5")
         self._learning_rate = learning_rate
         self._parameter_list = (list(parameters) if parameters is not None
                                 else None)
+        self._weight_decay = weight_decay
+        self._grad_clip = grad_clip
         self._name = name or unique_name.generate(
             self.__class__.__name__.lower())
         self._accumulators: Dict[str, Dict[str, framework.Variable]] = {}
@@ -106,12 +109,22 @@ class Optimizer:
                                no_grad_set=no_grad_set)
 
     def apply_gradients(self, params_grads: List[Tuple]):
+        params_grads = self._apply_decay_and_clip(params_grads)
         main = params_grads[0][0].block.program
         lr_var = self._create_global_learning_rate(main)
         block = main.global_block()
         for p, g in params_grads:
             self._append_optimize_op(block, (p, g), lr_var)
         return params_grads
+
+    def _apply_decay_and_clip(self, params_grads):
+        """The regularizers' decay terms first, then the clip."""
+        from ..nn.clip import append_gradient_clip
+        from ..regularizer import append_regularization_grads
+
+        params_grads = append_regularization_grads(params_grads,
+                                                   self._weight_decay)
+        return append_gradient_clip(params_grads, self._grad_clip)
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
@@ -176,6 +189,44 @@ class SGD(Optimizer):
                         outputs={"ParamOut": p})
 
 
+class Momentum(Optimizer):
+    def __init__(self, learning_rate=0.001, momentum=0.9,
+                 use_nesterov=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _append_optimize_op(self, block, pg, lr_var):
+        p, g = pg
+        vel = self._add_accumulator("velocity", p)
+        block.append_op(
+            "momentum",
+            inputs={"Param": p, "Grad": g, "Velocity": vel,
+                    "LearningRate": lr_var},
+            outputs={"ParamOut": p, "VelocityOut": vel},
+            attrs={"mu": self._momentum,
+                   "use_nesterov": self._use_nesterov})
+
+
+class Adagrad(Optimizer):
+    def __init__(self, learning_rate=0.001, epsilon=1e-6,
+                 initial_accumulator_value=0.0, **kw):
+        super().__init__(learning_rate, **kw)
+        self._epsilon = epsilon
+        self._init_acc = initial_accumulator_value
+
+    def _append_optimize_op(self, block, pg, lr_var):
+        p, g = pg
+        moment = self._add_accumulator("moment", p,
+                                       fill_value=self._init_acc)
+        block.append_op(
+            "adagrad",
+            inputs={"Param": p, "Grad": g, "Moment": moment,
+                    "LearningRate": lr_var},
+            outputs={"ParamOut": p, "MomentOut": moment},
+            attrs={"epsilon": self._epsilon})
+
+
 class Adam(Optimizer):
     _update_op = "adam"
 
@@ -229,3 +280,187 @@ class AdamW(Adam):
         self._append_update(block, p, g, lr_var,
                             {**self._op_attrs(), "coeff": coeff,
                              "with_decay": bool(coeff)})
+
+
+class Adamax(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kw):
+        super().__init__(learning_rate, **kw)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _append_optimize_op(self, block, pg, lr_var):
+        p, g = pg
+        m = self._add_accumulator("moment", p)
+        inf = self._add_accumulator("inf_norm", p)
+        b1p = self._add_accumulator("beta1_pow", p, fill_value=self._beta1,
+                                    shape=[1])
+        block.append_op(
+            "adamax",
+            inputs={"Param": p, "Grad": g, "LearningRate": lr_var,
+                    "Moment": m, "InfNorm": inf, "Beta1Pow": b1p},
+            outputs={"ParamOut": p, "MomentOut": m, "InfNormOut": inf},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon})
+        block.append_op("scale", inputs={"X": b1p}, outputs={"Out": b1p},
+                        attrs={"scale": self._beta1})
+
+
+class RMSProp(Optimizer):
+    def __init__(self, learning_rate=0.001, rho=0.95, epsilon=1e-6,
+                 momentum=0.0, centered=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._rho, self._epsilon = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+
+    def _append_optimize_op(self, block, pg, lr_var):
+        p, g = pg
+        ms = self._add_accumulator("mean_square", p)
+        mom = self._add_accumulator("momentum_acc", p)
+        inputs = {"Param": p, "Grad": g, "LearningRate": lr_var,
+                  "MeanSquare": ms, "Moment": mom}
+        outputs = {"ParamOut": p, "MeanSquareOut": ms, "MomentOut": mom}
+        if self._centered:
+            mg = self._add_accumulator("mean_grad", p)
+            inputs["MeanGrad"] = mg
+            outputs["MeanGradOut"] = mg
+        block.append_op(
+            "rmsprop", inputs=inputs, outputs=outputs,
+            attrs={"decay": self._rho, "epsilon": self._epsilon,
+                   "momentum": self._momentum, "centered": self._centered})
+
+
+class Adadelta(Optimizer):
+    def __init__(self, learning_rate=0.001, rho=0.95, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self._rho, self._epsilon = rho, epsilon
+
+    def _append_optimize_op(self, block, pg, lr_var):
+        p, g = pg
+        sq = self._add_accumulator("avg_squared_grad", p)
+        up = self._add_accumulator("avg_squared_update", p)
+        block.append_op(
+            "adadelta",
+            inputs={"Param": p, "Grad": g, "LearningRate": lr_var,
+                    "AvgSquaredGrad": sq, "AvgSquaredUpdate": up},
+            outputs={"ParamOut": p, "AvgSquaredGradOut": sq,
+                     "AvgSquaredUpdateOut": up},
+            attrs={"rho": self._rho, "epsilon": self._epsilon})
+
+
+class Lamb(Optimizer):
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6,
+                 exclude_from_weight_decay_fn=None, **kw):
+        super().__init__(learning_rate, **kw)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+        self._wd = lamb_weight_decay
+        self._exclude_fn = exclude_from_weight_decay_fn
+
+    def _append_optimize_op(self, block, pg, lr_var):
+        p, g = pg
+        wd = 0.0 if (self._exclude_fn and self._exclude_fn(p)) else self._wd
+        m1 = self._add_accumulator("moment1", p)
+        m2 = self._add_accumulator("moment2", p)
+        b1p = self._add_accumulator("beta1_pow", p, fill_value=self._beta1,
+                                    shape=[1])
+        b2p = self._add_accumulator("beta2_pow", p, fill_value=self._beta2,
+                                    shape=[1])
+        block.append_op(
+            "lamb",
+            inputs={"Param": p, "Grad": g, "LearningRate": lr_var,
+                    "Moment1": m1, "Moment2": m2, "Beta1Pow": b1p,
+                    "Beta2Pow": b2p},
+            outputs={"ParamOut": p, "Moment1Out": m1, "Moment2Out": m2,
+                     "Beta1PowOut": b1p, "Beta2PowOut": b2p},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon, "weight_decay": wd})
+
+
+class LarsMomentum(Optimizer):
+    def __init__(self, learning_rate=0.001, momentum=0.9, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._lars_coeff = lars_coeff
+        self._lars_weight_decay = lars_weight_decay
+
+    def _append_optimize_op(self, block, pg, lr_var):
+        p, g = pg
+        vel = self._add_accumulator("velocity", p)
+        block.append_op(
+            "lars_momentum",
+            inputs={"Param": p, "Grad": g, "Velocity": vel,
+                    "LearningRate": lr_var},
+            outputs={"ParamOut": p, "VelocityOut": vel},
+            attrs={"mu": self._momentum, "lars_coeff": self._lars_coeff,
+                   "lars_weight_decay": self._lars_weight_decay})
+
+
+class DGCMomentumOptimizer(Optimizer):
+    """Deep Gradient Compression momentum: before ``rampup_begin_step``
+    plain momentum; from it on, each gradient passes through the ``dgc``
+    op (local momentum correction U, accumulation V, top-k sparsification
+    with error feedback) and ``dgc_momentum`` applies the sparse gradient
+    as SGD. The step counter is a persistable that an ``increment`` op
+    advances on the device, and the ops test it with ``torch.where``, so
+    a captured step switches at the right replay. As in the JAX package
+    the sparse gradient stays a dense masked tensor, and a sparsity ladder
+    (``rampup_step`` > 1 with several sparsities) raises."""
+
+    def __init__(self, learning_rate, momentum, rampup_begin_step,
+                 rampup_step=1, sparsity=(0.999,), use_nesterov=False,
+                 num_trainers=None, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+        self._rampup_begin_step = float(rampup_begin_step)
+        self._sparsity = list(sparsity)
+        if rampup_step and int(rampup_step) > 1 and len(self._sparsity) > 1:
+            raise NotImplementedError(
+                "DGCMomentumOptimizer: the sparsity warm-up schedule "
+                "(rampup_step > 1 with a sparsity ladder) is not "
+                "implemented; pass a single sparsity value")
+        self._step_var = None
+
+    def _get_step_var(self, block):
+        if self._step_var is None:
+            v = block.create_var(
+                name=unique_name.generate("@DGC.current_step"), shape=[1],
+                dtype="float32", persistable=True, stop_gradient=True)
+            ConstantInitializer(0.0)(v)
+            block.append_op("increment", inputs={"X": [v]},
+                            outputs={"Out": [v]}, attrs={"step": 1.0})
+            self._step_var = v
+        return self._step_var
+
+    def _append_optimize_op(self, block, pg, lr_var):
+        p, g = pg
+        step = self._get_step_var(block)
+        u = self._add_accumulator("dgc_u", p)
+        v = self._add_accumulator("dgc_v", p)
+        vel = self._add_accumulator("velocity", p)
+        ratio = 1.0 - self._sparsity[-1]
+        sparse_g = block.create_var(
+            name=unique_name.generate(g.name + "@DGC"), shape=g.shape,
+            dtype=g.dtype, stop_gradient=True)
+        gather = block.create_var(
+            name=unique_name.generate(g.name + "@DGC.gather"),
+            shape=g.shape, dtype=g.dtype, stop_gradient=True)
+        kvar = block.create_var(
+            name=unique_name.generate(g.name + "@DGC.k"), shape=[],
+            dtype="float32", stop_gradient=True)
+        block.append_op(
+            "dgc",
+            inputs={"U": [u], "V": [v], "Grad": [g], "current_step": [step]},
+            outputs={"U_out": [u], "V_out": [v], "EncodeGrad": [sparse_g],
+                     "Grad_out": [sparse_g], "GatherBuff": [gather],
+                     "k": [kvar]},
+            attrs={"m": self._momentum, "ratio": ratio,
+                   "rampup_begin_step": self._rampup_begin_step})
+        block.append_op(
+            "dgc_momentum",
+            inputs={"Param": [p], "Grad": [sparse_g], "Velocity": [vel],
+                    "LearningRate": [lr_var], "current_step": [step]},
+            outputs={"ParamOut": [p], "VelocityOut": [vel]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov,
+                   "rampup_begin_step": self._rampup_begin_step})

@@ -183,22 +183,96 @@ def test_attention_raises_where_the_reference_takes_flash(monkeypatch):
 
 
 def test_unported_paths_raise():
-    """The JAX package's chunked lm-head CE, recompute and serialization
-    wait for later slices and say so."""
+    """What still waits for a later slice says so: program serialization
+    (A12), mesh programs and the rest of fleet (A10). The chunked lm-head
+    CE and recompute, refused here until they were ported, now run (held
+    against the JAX package in tests/test_torch_recipe.py); the chunked
+    path's loss here is the materialized logits' CE."""
     from paddle_tpu_torch import errors
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework import CPUPlace, Executor, Program, Scope
     from paddle_tpu_torch.framework import registry
-    from paddle_tpu_torch.framework.backward import (
-        append_backward_with_checkpoints)
 
-    x = torch.zeros((1, 2, 4))
-    with pytest.raises(errors.Unimplemented, match="chunked"):
-        registry.get_op_def("fused_lm_head_ce").lower(
-            registry.LoweringContext("cpu"),
-            {"X": [x], "W": [torch.zeros((8, 4))],
-             "Label": [torch.zeros((1, 2), dtype=torch.int64)]},
-            {"impl": "chunked"})
-    with pytest.raises(errors.Unimplemented, match="recompute"):
-        append_backward_with_checkpoints(None, [])
+    with pytest.raises(errors.Unimplemented, match="A12"):
+        Program().serialize_to_string()
+    with pytest.raises(errors.Unimplemented, match="A12"):
+        Program.parse_from_string(b"")
+    mesh = Program()
+    mesh._mesh = object()
+    with pytest.raises(errors.Unimplemented, match="A10"):
+        Executor(CPUPlace()).run(mesh, scope=Scope())
+    with pytest.raises(errors.Unimplemented, match="A10"):
+        fleet.DistributedStrategy
+    assert fleet.RecomputeOptimizer.__name__ == "RecomputeOptimizer"
+
+    r = np.random.RandomState(0)
+    x = torch.from_numpy(r.randn(1, 3, 4).astype(np.float32))
+    w = torch.from_numpy(r.randn(8, 4).astype(np.float32))
+    lbl = torch.tensor([[1, 7, 0]])
+    loss = registry.get_op_def("fused_lm_head_ce").lower(
+        registry.LoweringContext("cpu"),
+        {"X": [x], "W": [w], "Label": [lbl]},
+        {"impl": "chunked", "chunk_size": 2})["Loss"]
+    logits = x[0] @ w.t()
+    want = torch.logsumexp(logits, -1) - logits[range(3), lbl[0]]
+    torch.testing.assert_close(loss.reshape(-1), want)
+
+
+_RECIPE_MODULES = ("nn/clip", "regularizer",
+                   "distributed/fleet/meta_optimizers",
+                   "ops/control_flow_ops")
+
+
+def test_pretraining_recipe_stands_alone():
+    """The recipe's modules are in the scan above, and a step of the
+    recipe (dropout, recompute, AdamW with weight decay and a global-norm
+    clip, replayed on the staged route) runs where jax and paddle_tpu
+    cannot be imported."""
+    files = _port_files()
+    for mod in _RECIPE_MODULES:
+        path = os.path.join(_REPO, "paddle_tpu_torch", mod + ".py")
+        assert path in files, mod
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "paddle_tpu"):
+            sys.modules[name] = None  # any import of them now fails
+        import torch
+        from paddle_tpu_torch.distributed.fleet import RecomputeOptimizer
+        from paddle_tpu_torch.framework import (CPUPlace, Executor, Scope,
+                                                program_guard, unique_name)
+        from paddle_tpu_torch.models.gpt import (GPTConfig,
+                                                 build_train_program)
+        from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+        from paddle_tpu_torch.optimizer import AdamW
+        with unique_name.guard():
+            main, startup, io = build_train_program(GPTConfig(
+                vocab_size=64, n_layer=2, n_head=2, d_model=16,
+                max_seq_len=8, dropout=0.1), batch=2, seq=8)
+            main.random_seed = 5
+            with program_guard(main, startup):
+                RecomputeOptimizer(AdamW(
+                    learning_rate=1e-3, weight_decay=0.01,
+                    grad_clip=ClipGradByGlobalNorm(1.0)), {"checkpoints": [
+                        v.name for v in io["checkpoints"]]}).minimize(
+                            io["loss"])
+        scope, exe = Scope(), Executor(CPUPlace())
+        exe.run(startup, scope=scope)
+        exe.staged = True
+        feed = {k: torch.randint(0, 64, (2, 8)) for k in ("tokens",
+                                                          "labels")}
+        for _ in range(3):
+            loss, = exe.run(main, feed=feed, fetch_list=[io["loss"]],
+                            scope=scope)
+        assert exe.phases == {"eager": 1, "capture": 1, "replay": 1}
+        assert not any(k.split(".")[0] in ("jax", "paddle_tpu")
+                       for k, v in sys.modules.items() if v is not None)
+        print("ISOLATED_OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "ISOLATED_OK" in out.stdout
 
 
 _A9_MODULES = ("device", "memwatch", "dynamics", "recovery",

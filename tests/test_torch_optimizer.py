@@ -26,6 +26,7 @@ from paddle_tpu_torch import errors, monitor, optimizer as topt, profiler
 from paddle_tpu_torch.framework import CPUPlace, Executor, Scope
 from paddle_tpu_torch.framework import program_guard, unique_name
 from paddle_tpu_torch.models import gpt as tgpt
+from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.weights import scope_from_numpy
 
 _CFG = dict(vocab_size=64, n_layer=1, n_head=2, d_model=16, max_seq_len=8,
@@ -155,5 +156,14 @@ def test_executor_refuses_what_is_not_ported(monkeypatch):
     main._pipeline_meta = object()
     with pytest.raises(errors.Unimplemented, match="A10"):
         exe.run(main, scope=Scope())
-    with pytest.raises(errors.Unimplemented, match="grad_clip"):
-        topt.Adam(grad_clip=object())
+    # grad_clip and weight_decay, refused until they were ported, now
+    # append their ops (held against the JAX package in
+    # tests/test_torch_clip_optimizers.py)
+    main, startup, io, _ = _torch_program(
+        "SGD", learning_rate=0.1, weight_decay=0.01,
+        grad_clip=ClipGradByGlobalNorm(1.0))
+    types = [op.type for op in main.global_block().ops]
+    assert {"squared_l2_norm", "sqrt", "elementwise_max", "elementwise_div",
+            "elementwise_mul", "scale"} <= set(types)
+    with pytest.raises(errors.Unimplemented, match="A8"):
+        topt.Adam().step()

@@ -19,9 +19,9 @@ phases (``framework/replay.py``) that the card records and replays.
   per step (in fp32), a parameter replaced in the scope between steps
   takes effect (a new capture binds it), a fetched tensor is not changed
   by the next step, a learning rate changed between steps reaches the
-  step, a random draw refuses to be captured (``errors.Unimplemented``
-  naming the op, not a frozen draw), and each capture counts on
-  ``executor_compile_total``.
+  step, a random draw advances every step under the staged route and
+  equals the eager draw (the device's (seed, step) tensor, not a frozen
+  draw), and each capture counts on ``executor_compile_total``.
 - Serving: staged prefill, decode and score give the eager tokens, pages
   and NLL bit for bit, and the JAX ``DecodeModel``'s tokens (pages at
   1e-5, NLL at 1e-4, as ``tests/test_torch_serving_model.py``) on the
@@ -41,7 +41,7 @@ from paddle_tpu.framework import unique_name as jnames
 from paddle_tpu.models import gpt as jgpt
 from paddle_tpu.optimizer import Adam as JAdam
 
-from paddle_tpu_torch import errors, monitor
+from paddle_tpu_torch import monitor
 from paddle_tpu_torch import serving as tserving
 from paddle_tpu_torch.framework import (CPUPlace, Executor, Program, Scope,
                                         UniformInitializer, program_guard,
@@ -237,28 +237,32 @@ def test_a_learning_rate_changed_between_steps_takes_effect():
 
 
 def test_a_random_draw_refuses_to_be_captured():
-    """A draw seeded on the host would repeat every replay: the capture
-    raises Unimplemented naming the op, after a warm-up that draws."""
+    """Once refused (a draw seeded on the host would repeat every
+    replay), a draw is now made on the device from the executor's (seed,
+    step) tensor, which each run advances: under the staged route the
+    startup's initializer draws anew at its warm-up, its capture and its
+    replay, each equal to an eager executor's draw at the same step."""
     startup = Program()
+    startup.random_seed = 11
     block = startup.global_block()
     UniformInitializer(-1.0, 1.0)(
         block.create_var(name="w", shape=(64,), dtype="float32",
                          persistable=True), block)
-    scope = Scope()
-    exe = Executor(CPUPlace())
-    exe.run(startup, scope=scope)  # eager: an initializer's draw
-    first = scope.get("w").clone()
-    exe.staged = True
-    exe.run(startup, scope=scope)  # the compiled route's warm-up draws
-    second = scope.get("w").clone()
-    assert not torch.equal(first, second)
-    with pytest.raises(errors.Unimplemented) as info:
-        exe.run(startup, scope=scope)
-    msg = str(info.value) + "".join(getattr(info.value, "__notes__", []))
-    assert "random" in msg and "PADDLE_TPU_EAGER" in msg
-    assert info.value.op_provenance is not None
-    assert info.value.op_provenance.op_type.endswith("random")
-    assert exe.phases == {"eager": 1, "capture": 0, "replay": 0}
+    draws = {}
+    for staged in (False, True):
+        scope, exe = Scope(), Executor(CPUPlace())
+        exe.staged = staged
+        draws[staged] = []
+        for _ in range(3):
+            exe.run(startup, scope=scope)
+            draws[staged].append(scope.get("w").clone())
+        assert exe.seed_step.tolist() == [11, 3]
+    assert exe.phases == {"eager": 1, "capture": 1, "replay": 1}
+    for eager, staged in zip(draws[False], draws[True]):
+        assert torch.equal(eager, staged)
+    first, second, third = draws[True]
+    assert not torch.equal(first, second) and not torch.equal(second, third)
+    assert -1.0 <= float(first.min()) and float(first.max()) < 1.0
 
 
 def test_each_capture_counts_as_a_compile(monkeypatch):

@@ -54,6 +54,7 @@ in for the kernels.
 import os
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -867,3 +868,104 @@ def test_train_observed_phase_on_the_cpu(tmp_path, capsys):
     assert report["poisoned"]["replayed"]["phase"] == "replay"
     assert report["recovery"]["bit_identical"]
     assert report["probes"] > 0 and report["memwatch"]["leak_events"] == 0
+
+
+# -- train_recipe (the pretraining recipe) ------------------------------------
+
+_RECIPE_TINY = dict(vocab_size=64, n_layer=2, n_head=2, d_model=16,
+                    max_seq_len=8, dtype="float32", dropout=0.1)
+
+
+def _recipe_leg(program, start, staged, steps=4):
+    from paddle_tpu_torch.framework import Scope
+
+    scope, exe = Scope(), chip_smoke._executor("cpu")
+    exe.staged = staged
+    for n, t in start.items():
+        scope.set(n, t.clone())
+    feed = chip_smoke._fixed_batch(torch, 64, 2, 8, "cpu")
+    return chip_smoke._recipe_trajectory(torch, exe, scope, program, feed,
+                                         steps)
+
+
+@pytest.fixture(scope="module")
+def recipe_legs():
+    """The recipe at a tiny fp32 config on the CPU from one start: eager
+    with recompute (E), staged with recompute (R) and staged without (N),
+    the clip at 0.05 so that it engages."""
+    from paddle_tpu_torch.framework import Scope
+
+    program = chip_smoke._recipe_program(_RECIPE_TINY, 2, 8, clip_norm=0.05)
+    plain = chip_smoke._recipe_program(_RECIPE_TINY, 2, 8, recompute=False,
+                                       clip_norm=0.05)
+    scope = Scope()
+    chip_smoke._executor("cpu").run(program[1], scope=scope)
+    start = {n: scope.get(n).clone() for n in scope.local_var_names()}
+    return {"E": _recipe_leg(program, start, False),
+            "R": _recipe_leg(program, start, True),
+            "N": _recipe_leg(plain, start, True), "program": program}
+
+
+def test_recipe_replays_equal_eager_and_no_recompute(recipe_legs):
+    r, e, n = recipe_legs["R"], recipe_legs["E"], recipe_legs["N"]
+    assert r["phases"] == {"eager": 1, "capture": 1, "replay": 2}
+    assert chip_smoke._unequal(r["state"], e["state"]) == []
+    assert r["state"]["(seed, step)"].tolist() == [chip_smoke._RECIPE_SEED,
+                                                   4]
+    for key in ("losses", "norms", "scales", "keep"):
+        assert r[key] == e[key]
+    assert chip_smoke._recompute_agrees(r, n) == {"bit_identical": True}
+    assert all(r["masks_differ"])
+    report = chip_smoke._keep_share_ok(r["keep"], 0.1, r["mask_elements"])
+    assert report["worst_sigmas"] <= chip_smoke._RECIPE_SIGMAS
+    clip = chip_smoke._clip_agrees(r["norms"], r["scales"], 0.05)
+    assert clip["steps_clipped"] == len(r["norms"])
+    main = recipe_legs["program"][0]
+    assert sum(op.type == "fused_attention_tpu"
+               for op in main.global_block().ops) == 2 * 2
+
+
+def test_recipe_checks_reject_what_they_must(recipe_legs):
+    r = recipe_legs["R"]
+    n = dict(r, losses=[x * (1 + 3e-5) for x in r["losses"]])
+    with pytest.raises(AssertionError, match="recompute"):
+        chip_smoke._recompute_agrees(r, n, lambda: {"param": "w"})
+    near = dict(r, losses=[x * (1 + 3e-6) for x in r["losses"]])
+    got = chip_smoke._recompute_agrees(r, near, lambda: {"param": "w"})
+    assert got["first_differing"] == {"param": "w"}
+    elems = 1_000_000
+    sd = (0.09 / elems) ** 0.5
+    chip_smoke._keep_share_ok([0.9 + 4 * sd, 0.9 - 4 * sd], 0.1, elems)
+    with pytest.raises(AssertionError, match="sigma"):
+        chip_smoke._keep_share_ok([0.9, 0.9 + 6 * sd], 0.1, elems)
+    with pytest.raises(AssertionError, match="sigma"):
+        chip_smoke._keep_share_ok([0.8], 0.1, elems)  # p dropped twice
+    norms = [2.5, 1.25, 0.5]
+    good = [float(np.float32(1.0) / np.float32(x)) for x in (2.5, 1.25, 1.0)]
+    chip_smoke._clip_agrees(norms, good, 1.0)
+    with pytest.raises(AssertionError, match="clip scales"):
+        chip_smoke._clip_agrees(norms, good[:2] + [2.0], 1.0)  # not min(1,.)
+    with pytest.raises(AssertionError, match="clip scales"):
+        chip_smoke._clip_agrees(norms, [0.4, 0.8, 1.0], 1.0)  # float64 math
+    with pytest.raises(AssertionError, match="never exceeded"):
+        chip_smoke._clip_agrees([0.5, 0.25], [1.0, 1.0], 1.0)
+    assert chip_smoke._peaks_agree(10, 4, 10)["freed"] == 6
+    with pytest.raises(AssertionError, match="half"):
+        chip_smoke._peaks_agree(10, 7, 10)
+    with pytest.raises(AssertionError, match="half"):
+        chip_smoke._peaks_agree(10, 10, 0)
+
+
+def test_segment_reckoning_grows_with_the_tokens():
+    """The tape's bytes for one layer's segment, reckoned on the CPU with
+    attention on the flash path (as at seq 2048), grow in proportion to
+    the tokens, batch or length alike (flash saves no [T, T] tensor), and
+    at least hold the layer's own outputs: the four [tokens, 4d] MLP
+    activations and the six [tokens, d] ones."""
+    cfg = dict(_RECIPE_TINY, d_model=128, max_seq_len=256)
+    one = chip_smoke._segment_bytes(torch, cfg, "cpu", batch=1, seq=128)
+    two = chip_smoke._segment_bytes(torch, cfg, "cpu", batch=2, seq=128)
+    long = chip_smoke._segment_bytes(torch, cfg, "cpu", batch=1, seq=256)
+    assert one["records"] == two["records"] == long["records"] > 10
+    assert two["bytes"] == long["bytes"] == 2 * one["bytes"]
+    assert one["per_token"] >= 4 * (4 * 128 * 4 + 6 * 128)
