@@ -153,17 +153,40 @@ Phases (any failure raises, and the script exits non-zero with no result):
    RMSProp, Adadelta, Lamb, LARS, DGC) takes the seq-512 step eagerly
    and replayed, bit for bit; and the chunked lm-head CE's seq-512 loss
    lies within 2e-2 of the fused kernels' on the same weights;
+   then ``train_eager`` (``_train_eager``), the eager API at full width:
+   a masked-LM encoder (vocab 32768, 12 pre-norm layers of 768, 12
+   heads, learned positions over seq 2048, dropout 0.1) written with the
+   port's ``nn`` layers, built on the card from a seed, trained by
+   ``Model.fit`` for 8 steps of batch 8 over a ``DataLoader`` (one batch,
+   15% of the positions masked) with Adam (lr 1e-4) inside
+   ``amp.auto_cast(dtype="bfloat16")``: finite, falling losses; the
+   wrappers' launches counted from 0 show flash forward, dq and dk/dv
+   (bf16, BHTD, non-causal) 12 a step and fused Adam 198 a step,
+   ``FLASH_DISPATCH_COUNT`` 12 a step; the first layer's attention-dropout
+   keep mask differs between steps 1 and 2, each keep share within 5
+   sigma of 0.9; a traced ``train_batch`` shows the same launches, its
+   device ms and the card's idle share beside the median step wall; the
+   peak memory beside the reckoning; a 2-layer copy fitted 8 steps with a
+   checkpoint every 4 (``PADDLE_TPU_CKPT_DIR``) and resumed from step 4
+   into a fresh model ends with the uninterrupted run's ``state_digest``;
+   then the flash kernels timed at the eager shape (BHTD, non-causal);
 7. CPU against card: tiny fp32 configs train 2 steps from the same numpy
    values on the CPU (plain versions, eager) and on the card (kernels;
    step 1 the warm-up, step 2 captured and replayed): one at seq 16
    (einsum attention), one at seq 128 with PADDLE_TPU_FLASH_MIN_SEQ=128
    (flash attention); loss and every persistable must agree at 1e-4, and
-   each Adam moment within 1e-4 of the largest moment of its kind;
-8. a ``{"kernels": [...]}`` line: per ported kernel, its launches on the
+   each Adam moment within 1e-4 of the largest moment of its kind; and
+   the eager encoder at 2 layers, d 128 and seq 1024 (flash on both
+   sides), one ``Model.train_batch`` in fp32 from the same numpy weights,
+   held the same way;
+8. a ``phase_seconds`` line: each phase's wall seconds, build included;
+   then a ``{"kernels": [...]}`` line: per ported kernel, its launches on the
    main paths (the wrapper's host count) and per replayed training step
    (the device trace's), its largest error against the plain version and
    its times at the training shape (the CE forward, dx and dW also at
-   N = 16384, under ``long_shape``); a kernel whose bf16 path runs on
+   N = 16384, under ``long_shape``; the flash kernels also at the eager
+   encoder's BHTD non-causal shape, under ``eager_shape``), its launches
+   by path including ``train_eager``; a kernel whose bf16 path runs on
    the tensor cores names that source, with the fp32 one beside it
    (``source_fp32``, ``source_d256``; the CE forward's fp32 source is its
    split-TF32 kernel, ``serve_shapes`` its times at the serving shapes);
@@ -848,8 +871,9 @@ _FLASH_TOL = {"float32": dict(out=(1e-4, 1e-4), lse=(1e-4, 1e-4),
 _FLASH_KERNEL = dict(out="flash_attention_fwd", lse="flash_attention_fwd",
                      dq="flash_attention_dq", dk="flash_attention_dkv",
                      dv="flash_attention_dkv")
-# (dtype, layout, causal, B, H, Tq, Tk, D): the seq-2048 training shape;
-# fp32 in both layouts, causal and not; D = 128 and 256; causal Tq != Tk
+# (dtype, layout, causal, B, H, Tq, Tk, D): the seq-2048 training shape
+# of the static GPT step (BTHD, causal) and of the eager encoder
+# (train_eager: BHTD, non-causal); fp32 in both layouts, causal and not; D = 128 and 256; causal Tq != Tk
 # (bottom-right; the first is tests/test_flash_attention.py:62-85's); and
 # sequence lengths that are not a multiple of the kernels' tiles. bf16 at
 # D = 64 and 128 runs the tensor-core forward, dq and dk/dv (both layouts
@@ -858,6 +882,7 @@ _FLASH_KERNEL = dict(out="flash_attention_fwd", lse="flash_attention_fwd",
 # ones
 _FLASH_CASES = [
     ("bfloat16", "BTHD", True, 8, 12, 2048, 2048, 64),
+    ("bfloat16", "BHTD", False, 8, 12, 2048, 2048, 64),
     ("float32", "BTHD", True, 2, 3, 256, 256, 64),
     ("float32", "BTHD", False, 2, 3, 256, 256, 64),
     ("float32", "BHTD", True, 2, 3, 256, 256, 64),
@@ -1206,50 +1231,55 @@ def _time_training_kernels(torch, card):
     return rows
 
 
-def _time_flash(torch, card):
+def _time_flash(torch, card, layout="BTHD", causal=True):
     """Kernel, plain, library and bound of the flash kernels at the
-    seq-2048 training shape (B = 8, T = 2048, H = 12, D = 64, bf16,
-    causal, BTHD). Library: F.scaled_dot_product_attention(is_causal=True)
-    on BHTD views for the forward, autograd.grad of that call for dq
-    alone and for (dk, dv) alone, with the time of all three beside them.
-    Bounds: each input read once, each output written once (lse and
-    delta fp32), and 2*D FLOPs per visible score entry for each product
-    of the kernel's own algorithm: 2 for the forward, 3 for dq (scores,
-    dP, dS k), 4 for dk/dv (scores, dP, P^T dO, dS^T q). Each row also
-    carries ``tflops`` (those FLOPs over its time) and ``over_library``
-    (its time over the library call's)."""
+    seq-2048 training shape (B = 8, T = 2048, H = 12, D = 64, bf16), in
+    ``layout``: causal BTHD is the static GPT step's, non-causal BHTD the
+    eager encoder's (``train_eager``). Library:
+    F.scaled_dot_product_attention on BHTD tensors (views of BTHD ones)
+    for the forward, autograd.grad of that call for dq alone and for (dk,
+    dv) alone, with the time of all three beside them. Bounds: each input
+    read once, each output written once (lse and delta fp32), and 2*D
+    FLOPs per visible score entry for each product of the kernel's own
+    algorithm: 2 for the forward, 3 for dq (scores, dP, dS k), 4 for
+    dk/dv (scores, dP, P^T dO, dS^T q). Each row also carries ``tflops``
+    (those FLOPs over its time) and ``over_library`` (its time over the
+    library call's)."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import flash_attention as fl
 
     b, h, t, d = _LONG_B, _LONG["n_head"], _LONG_T, _head_dim(_LONG)
     q, k, v, do = _flash_inputs(torch, b, h, t, t, d, torch.bfloat16,
-                                "BTHD", seed=90)
-    out, lse = fl.flash_attention_fwd(q, k, v, True, None, "BTHD")
-    delta = fl.flash_attention_delta(out, do, "BTHD")
-    args = (q, k, v, do, lse, delta, True, None, "BTHD")
+                                layout, seed=90)
+    out, lse = fl.flash_attention_fwd(q, k, v, causal, None, layout)
+    delta = fl.flash_attention_delta(out, do, layout)
+    args = (q, k, v, do, lse, delta, causal, None, layout)
+
+    def heads_first(x):
+        return x.transpose(1, 2) if layout == "BTHD" else x
 
     def sdpa(a, bb, c):
         return F.scaled_dot_product_attention(
-            a.transpose(1, 2), bb.transpose(1, 2), c.transpose(1, 2),
-            is_causal=True)
+            heads_first(a), heads_first(bb), heads_first(c),
+            is_causal=causal)
 
     qr, kr, vr = (x.detach().requires_grad_(True) for x in (q, k, v))
     lib_out = sdpa(qr, kr, vr)
 
     def library_grad(*wrt):
-        return lambda: torch.autograd.grad(lib_out, wrt, do.transpose(1, 2),
+        return lambda: torch.autograd.grad(lib_out, wrt, heads_first(do),
                                            retain_graph=True)
 
-    # FLOPs of one product: 2 D per score entry the causal mask leaves
-    # visible, T (T + 1) / 2 of them in each (batch, head)
-    product = 2.0 * d * b * h * t * (t + 1) // 2
+    # FLOPs of one product: 2 D per visible score entry, T (T + 1) / 2 of
+    # them in each (batch, head) under the causal mask, T^2 without it
+    product = 2.0 * d * b * h * (t * (t + 1) // 2 if causal else t * t)
     io = b * t * h * d * 2  # bytes of one bf16 q-sized tensor
     stats = b * h * t * 4   # bytes of one fp32 row-stat tensor
     specs = [  # name, kernel, plain, library, products, bytes
         ("flash_attention_fwd",
-         lambda: fl.flash_attention_fwd(q, k, v, True, None, "BTHD"),
-         lambda: fl.flash_attention_fwd_plain(q, k, v, True, None, "BTHD"),
+         lambda: fl.flash_attention_fwd(q, k, v, causal, None, layout),
+         lambda: fl.flash_attention_fwd_plain(q, k, v, causal, None, layout),
          lambda: sdpa(q, k, v), 2, 4 * io + stats),
         ("flash_attention_dq", lambda: fl.flash_attention_dq(*args),
          lambda: fl.flash_attention_dq_plain(*args), library_grad(qr), 3,
@@ -1263,7 +1293,7 @@ def _time_flash(torch, card):
     for name, kern, plain, library, products, nbytes in specs:
         bound, by = _bound_ms(nbytes, products * product, "bfloat16")
         row = dict(phase="kernel_time", kernel=name, b=b, t=t, h=h, d=d,
-                   dtype="bfloat16", layout="BTHD", causal=True,
+                   dtype="bfloat16", layout=layout, causal=causal,
                    kernel_ms=_median_ms(torch, kern),
                    plain_ms=_median_ms(torch, plain),
                    library_ms=_median_ms(torch, library), bound_ms=bound,
@@ -1272,8 +1302,8 @@ def _time_flash(torch, card):
         row["tflops"] = products * product / row["kernel_ms"] / 1e9
         row["over_library"] = row["kernel_ms"] / row["library_ms"]
         if name == "flash_attention_fwd":
-            row["library"] = ("F.scaled_dot_product_attention(is_causal=True) "
-                              "on BHTD views")
+            row["library"] = (f"F.scaled_dot_product_attention(is_causal="
+                              f"{causal}) on BHTD tensors")
         else:
             row["library"] = ("autograd.grad of F.scaled_dot_product_attention"
                               " for this pass's gradients alone")
@@ -1828,6 +1858,40 @@ def _op_family(op_type) -> str:
                  if base.startswith(prefixes)), "other")
 
 
+def _kernel_tally(torch, events):
+    """(kernels {name: (calls, ms)}, device ms, the port's kernels
+    {name: {calls, ms}} by ``_TRACE_NAMES``, the other kernels by family,
+    [(ms, name)] of the family "other") of a trace's events."""
+    from paddle_tpu_torch.framework.executor import OP_RANGE
+
+    kernels = {}
+    for e in events:
+        # an op's range also shows on the device timeline (the span of
+        # its kernels): not a kernel
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.name.startswith(OP_RANGE)):
+            n, t = kernels.get(e.name, (0, 0.0))
+            kernels[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+    device_ms = sum(t for _, t in kernels.values())
+    ours, claimed = {}, set()
+    for name, (counted, helpers) in _TRACE_NAMES.items():
+        hits = [k for k in kernels if any(p in k for p in counted)]
+        more = [k for k in kernels if any(p in k for p in helpers)]
+        claimed.update(hits + more)
+        ours[name] = {"calls": sum(kernels[k][0] for k in hits),
+                      "ms": sum(kernels[k][1] for k in hits + more)}
+    families, other = {}, []
+    for k, (n, t) in kernels.items():
+        if k in claimed:
+            continue
+        fam = families.setdefault(_family(k), {"calls": 0, "ms": 0.0})
+        fam["calls"] += n
+        fam["ms"] += t
+        if _family(k) == "other":
+            other.append((t, k[:80]))
+    return kernels, device_ms, ours, families, other
+
+
 def _profile_step(torch, exe, main, feed, fetch_list, scope, card, phase,
                   per_step=None, return_numpy=True) -> dict:
     """One traced training step: host wall, device kernel time, launches,
@@ -1846,8 +1910,6 @@ def _profile_step(torch, exe, main, feed, fetch_list, scope, card, phase,
     the report and returns it."""
     from torch.profiler import ProfilerActivity, profile
 
-    from paddle_tpu_torch.framework.executor import OP_RANGE
-
     replays = exe.phases["replay"]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1860,32 +1922,9 @@ def _profile_step(torch, exe, main, feed, fetch_list, scope, card, phase,
     if per_step is not None and exe.phases["replay"] != replays + 1:
         raise AssertionError(f"{phase}: the traced step was not a replay "
                              f"({exe.phases})")
-    kernels = {}
-    for e in prof.events():
-        # an op's range also shows on the device timeline (the span of
-        # its kernels): not a kernel
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and not e.name.startswith(OP_RANGE)):
-            n, t = kernels.get(e.name, (0, 0.0))
-            kernels[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
-    device_ms = sum(t for _, t in kernels.values())
+    kernels, device_ms, ours, families, other = _kernel_tally(
+        torch, prof.events())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]
-    ours, claimed = {}, set()
-    for name, (counted, helpers) in _TRACE_NAMES.items():
-        hits = [k for k in kernels if any(p in k for p in counted)]
-        more = [k for k in kernels if any(p in k for p in helpers)]
-        claimed.update(hits + more)
-        ours[name] = {"calls": sum(kernels[k][0] for k in hits),
-                      "ms": sum(kernels[k][1] for k in hits + more)}
-    families, other = {}, []
-    for k, (n, t) in kernels.items():
-        if k in claimed:
-            continue
-        fam = families.setdefault(_family(k), {"calls": 0, "ms": 0.0})
-        fam["calls"] += n
-        fam["ms"] += t
-        if _family(k) == "other":
-            other.append((t, k[:80]))
     if per_step is not None:
         seen = {k: v["calls"] for k, v in ours.items()}
         if seen != per_step:
@@ -1931,6 +1970,11 @@ _CPU_VS_CARD = [
     ("flash", dict(vocab_size=256, n_layer=2, n_head=2, d_model=128,
                    max_seq_len=128), 128, 128, 1e-3, 1e-5),
 ]
+# the eager encoder of train_eager at 2 layers, d 128 (head_dim 64) and
+# seq 1024, where attention takes flash on the card by default; one
+# Model.train_batch at Adam lr 1e-3, epsilon 1e-5 (``_cpu_vs_card_eager``)
+_EAGER_CPU_VS_CARD = dict(vocab=1024, seq=1024, d_model=128, n_head=2,
+                          n_layer=2, dropout=0.0)
 _TINY_TOL = 1e-4
 
 
@@ -3373,8 +3417,10 @@ def _oom_child() -> int:
 
     import torch
 
+    import paddle_tpu_torch
     from paddle_tpu_torch.framework import Scope
 
+    paddle_tpu_torch.enable_static()  # the step is a static program
     total = torch.cuda.get_device_properties(0).total_memory
     dump = os.path.join(_OBSERVED_DIR, "oom")
     os.makedirs(dump, exist_ok=True)
@@ -4028,6 +4074,382 @@ def _train_recipe(torch, card, config=_RECIPE, batch=_LONG_B, seq=_LONG_T,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# train_eager: the eager API (dygraph tracer, nn, amp, Model.fit) at full
+# width
+# ---------------------------------------------------------------------------
+
+# the slice's masked-LM encoder at bench.py's gpt2s widths: vocab 32768,
+# 12 pre-norm layers of 768 with 12 heads and an FFN of 3072, learned
+# positions over seq 2048, dropout 0.1; batch 8
+_EAGER = dict(vocab=32768, seq=2048, d_model=768, n_head=12, n_layer=12,
+              dropout=0.1)
+_EAGER_B = 8
+_EAGER_STEPS = 8
+_EAGER_SEED = 2026
+_EAGER_LR = 1e-4
+_EAGER_MASK = 0.15  # share of positions masked, as BERT masks
+# fused Adam launches a step: 2 embeddings, 16 parameters a layer x 12,
+# the final norm's 2 and the head's 2
+_EAGER_ADAM = 198
+# flash launches a step: one attention a layer
+_EAGER_FLASH = 12
+_EAGER_CKPT_STEPS = 4
+_EAGER_CKPT_DIR = os.path.join(_ROOT, "build", "eager_ckpt")
+# the peak the eager step was reckoned to need before its first run on the card
+# (PERF.md): 2.2 GB of parameters, gradients and Adam moments, 1.9
+# GB of tape a layer (about 38 fp32 [B*T, 768] tensors: activations, the
+# bf16 casts the autocast keeps for the backward, dropout masks) and 7.5
+# GB for the head and its cross-entropy ([B*T, 32768] logits in bf16,
+# then fp32 with the log-softmax and softmax), 4 GB of backward transients
+_EAGER_RECKONED_BYTES = 37e9
+
+
+def _masked_lm(pkg, vocab, seq, d_model, n_head, n_layer, dropout):
+    """The slice's model, written with ``pkg``'s nn API as a user of the
+    reference writes it (``pkg`` is paddle_tpu_torch here; its tests pass
+    the JAX package too): token and learned position embeddings, a
+    pre-norm ``TransformerEncoder``, a final ``LayerNorm`` and the
+    vocabulary head. Its parameters come from ``pkg``'s initializers on
+    the default place."""
+    nn = pkg.nn
+
+    class MaskedLM(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.tok = nn.Embedding(vocab, d_model)
+            self.pos = nn.Embedding(seq, d_model)
+            self.encoder = nn.TransformerEncoder(nn.TransformerEncoderLayer(
+                d_model=d_model, nhead=n_head, dim_feedforward=4 * d_model,
+                dropout=dropout, activation="gelu", normalize_before=True),
+                num_layers=n_layer)
+            self.norm = nn.LayerNorm(d_model)
+            self.head = nn.Linear(d_model, vocab)
+            self.positions = pkg.to_tensor(np.arange(seq, dtype=np.int64))
+
+        def forward(self, ids):
+            h = self.tok(ids) + self.pos(self.positions)
+            return self.head(self.norm(self.encoder(h)))
+
+    return MaskedLM()
+
+
+def _mlm_batch(vocab, batch, seq, seed, share=_EAGER_MASK):
+    """(ids, labels), int64 numpy: tokens from ``seed`` over the first
+    vocab - 1 ids (the last id is the mask id); ``share`` of the positions
+    masked: ids there replaced by the mask id, labels the original token
+    there and -100 (ignored) elsewhere."""
+    r = np.random.RandomState(seed)
+    tokens = r.randint(0, vocab - 1, (batch, seq)).astype(np.int64)
+    masked = r.rand(batch, seq) < share
+    return (np.where(masked, vocab - 1, tokens),
+            np.where(masked, tokens, -100).astype(np.int64))
+
+
+def _mlm_loss(pkg):
+    F = pkg.nn.functional
+    return lambda logits, labels: F.cross_entropy(logits, labels,
+                                                  ignore_index=-100)
+
+
+def _step_log(pkg):
+    """A fit-loop callback of ``pkg``: each step's loss (forced at the end,
+    so the loop's asynchronous loss stays asynchronous) and host clock."""
+
+    class StepLog(pkg.callbacks.Callback):
+        def __init__(self):
+            self.losses, self.t, self.t0 = [], [], None
+
+        def on_train_begin(self, logs=None):
+            self.t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(logs["loss"])
+            self.t.append(time.perf_counter())
+
+        def on_train_end(self, logs=None):
+            self.losses = [float(v) for v in self.losses]
+
+        def walls_ms(self):
+            t = [self.t0] + self.t
+            return [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+
+    return StepLog()
+
+
+def _eager_fit(pkg, net, ids, labels, steps, lr=_EAGER_LR, amp=True,
+               callbacks=()):
+    """(Model, its ``_step_log``): ``net`` trained ``steps`` steps of batch
+    ``len(ids)`` by ``Model.fit`` over a ``DataLoader`` that repeats the
+    batch, with Adam and the masked-LM cross-entropy, under
+    ``amp.auto_cast(dtype="bfloat16")`` (O1) when ``amp``."""
+    b = len(ids)
+    data = [(ids[i % b], labels[i % b]) for i in range(steps * b)]
+    loader = pkg.io.DataLoader(data, batch_size=b, shuffle=False)
+    model = pkg.Model(net)
+    model.prepare(pkg.optimizer.Adam(learning_rate=lr,
+                                     parameters=net.parameters()),
+                  _mlm_loss(pkg))
+    log = _step_log(pkg)
+    ctx = (pkg.amp.auto_cast(dtype="bfloat16") if amp
+           else contextlib.nullcontext())
+    with ctx:
+        model.fit(loader, epochs=1, verbose=0,
+                  callbacks=[log] + list(callbacks))
+    return model, log
+
+
+def _masks_differ(masks, p, sigmas=_RECIPE_SIGMAS) -> dict:
+    """Two consecutive steps' keep masks of one dropout (bool tensors of
+    one shape): they must differ, and each keep share must lie within
+    ``sigmas`` binomial standard deviations of 1 - p (``_keep_share_ok``).
+    Raises otherwise."""
+    if len(masks) != 2:
+        raise AssertionError(f"dropout: {len(masks)} keep masks, not 2")
+    a, b = masks
+    n = int(a.numel())
+    share = _keep_share_ok([float(m.float().mean()) for m in masks], p, n,
+                           sigmas)
+    differ = int((a != b).sum())
+    if differ == 0:
+        raise AssertionError(f"dropout drew the same keep mask at two "
+                             f"consecutive steps ({n} elements)")
+    return {**share, "elements": n, "differing": differ}
+
+
+def _launches_agree(launches, steps, per_step) -> dict:
+    """The wrappers' launch counts over ``steps`` steps against
+    ``per_step`` ({kernel: launches a step}): each path kernel launched
+    exactly ``per_step * steps`` times, none 0. Raises otherwise."""
+    want = {k: n * steps for k, n in per_step.items()}
+    got = {k: launches.get(k, 0) for k in per_step}
+    if got != want or not all(got.values()):
+        raise AssertionError(f"path kernels launched {got} times over "
+                             f"{steps} steps, not {want}")
+    return {"launches": got, "per_step": dict(per_step), "steps": steps}
+
+
+def _digests_agree(full, resumed) -> dict:
+    if full != resumed:
+        raise AssertionError(f"resumed fit's state digest {resumed} is not "
+                             f"the uninterrupted run's {full}")
+    return {"digest": full, "bit_identical": True}
+
+
+def _path_launches():
+    """{kernel: the wrapper's launch count} of the eager path's kernels."""
+    from paddle_tpu_torch.ops import flash_attention as fl
+    from paddle_tpu_torch.ops import fused_adam
+
+    return {"flash_attention_fwd": fl.fwd_launches,
+            "flash_attention_dq": fl.dq_launches,
+            "flash_attention_dkv": fl.dkv_launches,
+            "fused_adam": fused_adam.launches}
+
+
+def _eager_resume(pkg, config, batch, seed, steps, root) -> dict:
+    """``Model.fit`` of ``config`` for ``steps`` steps with
+    ``PADDLE_TPU_CKPT_DIR`` under ``root`` and a checkpoint every
+    ``_EAGER_CKPT_STEPS``; then again from the same start, its checkpoints
+    swept after the first, into a fresh model that resumes from it; the
+    two runs' final ``state_digest`` must be equal (``_digests_agree``)."""
+    from paddle_tpu_torch import checkpoint
+
+    ids, labels = _mlm_batch(config["vocab"], batch, config["seq"], seed)
+    shutil.rmtree(root, ignore_errors=True)
+    ck = checkpoint.TrainCheckpointer(root)
+    with _env(PADDLE_TPU_CKPT_DIR=root,
+              PADDLE_TPU_CKPT_STEPS=str(_EAGER_CKPT_STEPS),
+              PADDLE_TPU_CKPT_KEEP="4"):
+        pkg.seed(seed)
+        net = _masked_lm(pkg, **config)
+        start = net.state_dict()
+        full, log = _eager_fit(pkg, net, ids, labels, steps)
+        digest_full = ck.current_digest(full.network, full._optimizer)
+        kept = sorted(os.listdir(root))
+        for name in kept[1:]:  # the run dies after its first checkpoint
+            os.unlink(os.path.join(root, name))
+        pkg.seed(seed + 1)  # a respawned process draws from elsewhere
+        fresh = _masked_lm(pkg, **config)
+        fresh.set_state_dict(start)  # overwritten by the resume anyway
+        resumed, log2 = _eager_fit(pkg, fresh, ids, labels, steps)
+        digest_resumed = ck.current_digest(resumed.network,
+                                           resumed._optimizer)
+    shutil.rmtree(root, ignore_errors=True)
+    return {**_digests_agree(digest_full, digest_resumed),
+            "checkpoints": kept, "steps": steps,
+            "resumed_at": steps - len(log2.losses),
+            "losses_full": log.losses, "losses_resumed": log2.losses}
+
+
+def _cpu_vs_card_eager(torch, config, lr, eps) -> None:
+    """The eager encoder (``config``, fp32, dropout 0) takes one
+    ``Model.train_batch`` (Adam at ``lr``, ``eps``) from the same numpy
+    weights on the CPU (plain versions) and on the card (kernels;
+    attention takes flash at seq 1024 on both sides); the loss, every
+    parameter and every Adam moment must agree as ``_tiny_agree`` holds
+    the static legs (1e-4, the flash fp32 legs' tolerance, with each
+    moment within 1e-4 of the largest of its kind)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import dygraph
+    from paddle_tpu_torch.framework import core
+    from paddle_tpu_torch.ops import attention
+    from paddle_tpu_torch.weights import layer_from_numpy
+
+    ids, labels = _mlm_batch(config["vocab"], 2, config["seq"], seed=11)
+
+    def one_step(net):
+        model = pt.Model(net)
+        opt = pt.optimizer.Adam(learning_rate=lr, epsilon=eps,
+                                parameters=net.parameters())
+        model.prepare(opt, _mlm_loss(pt))
+        before = attention.FLASH_DISPATCH_COUNT
+        loss = model.train_batch([ids], labels)[0][0]
+        state = dict(net.state_dict())
+        for slot in ("moment1", "moment2"):
+            for qual, p in net.named_parameters():
+                acc = opt._accumulators[slot][p.name]._value
+                state[f"{qual}_{slot}_"] = acc.cpu().numpy()
+        return [loss], state, attention.FLASH_DISPATCH_COUNT - before
+
+    prev = core._default_place
+    try:
+        with dygraph.guard():
+            pt.set_device("cpu")
+            pt.seed(5)
+            cpu_net = _masked_lm(pt, **config)
+            start = cpu_net.state_dict()
+            cpu = one_step(cpu_net)
+            pt.set_device("gpu")
+            card_net = layer_from_numpy(_masked_lm(pt, **config), start)
+            card = one_step(card_net)
+    finally:
+        core._default_place = prev
+    dispatched = {"cpu": cpu[2], "cuda": card[2]}
+    if min(dispatched.values()) < config["n_layer"]:
+        raise AssertionError(f"cpu_vs_card eager: flash dispatches "
+                             f"{dispatched}")
+    worst = _tiny_agree(card, cpu, "cpu_vs_card eager")
+    _say(phase="cpu_vs_card", leg="eager", config=config, lr=lr, eps=eps,
+         steps=1, losses_cpu=cpu[0], losses_card=card[0],
+         flash_dispatches=dispatched, compared=len(cpu[1]),
+         max_abs_diff=worst, tolerance=_TINY_TOL,
+         moment_tolerance="1e-4 of the largest moment of its kind")
+
+
+def _train_eager(torch, card) -> dict:
+    """The eager main path at full width (``_EAGER``): the masked-LM
+    encoder built on the card from a seed, ``Model.fit`` for
+    ``_EAGER_STEPS`` steps over a DataLoader repeating one batch, Adam,
+    the whole fit under ``amp.auto_cast(dtype="bfloat16")``. Checks:
+    finite losses, the last below the first; the wrappers' launches
+    counted from 0 over the fit: flash forward, dq and dk/dv 12 a step
+    and fused Adam 198 (``_launches_agree``), ``FLASH_DISPATCH_COUNT`` 12
+    a step; the first layer's attention-dropout keep masks at steps 1 and
+    2 differ, each keep share within 5 sigma of 0.9 (``_masks_differ``);
+    a traced step (``train_batch`` under ``torch.profiler``) launches the
+    same kernels; and a 2-layer copy resumed from its step-4 checkpoint
+    ends bit-identical to the uninterrupted run (``_eager_resume``).
+    Reports the step wall (median of steps 3-8), the traced step's device
+    ms and the card's idle share, each path kernel's device ms and
+    launches, and the peak memory (memwatch's, the allocator's, and the
+    reckoning). Returns {kernel: launches over the fit}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import dygraph, memwatch
+    from paddle_tpu_torch.ops import attention
+    from paddle_tpu_torch.ops import flash_attention as fl
+    from paddle_tpu_torch.ops import fused_adam
+
+    cfg = _EAGER
+    with dygraph.guard():
+        pt.seed(_EAGER_SEED)
+        net = _masked_lm(pt, **cfg)
+        n_params = len(net.parameters())
+        if n_params != _EAGER_ADAM:
+            raise AssertionError(f"train_eager: {n_params} parameters, not "
+                                 f"{_EAGER_ADAM}")
+        ids, labels = _mlm_batch(cfg["vocab"], _EAGER_B, cfg["seq"],
+                                 _EAGER_SEED)
+        masks = []
+
+        def keep_mask(layer, args):  # out_proj's input: the dropped output
+            if len(masks) < 2:
+                masks.append(args[0]._value != 0)
+
+        hook = net.encoder.layers[0].self_attn.out_proj \
+            .register_forward_pre_hook(keep_mask)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        memwatch.reset()
+        fl.reset_launches()
+        fused_adam.reset_launches()
+        dispatched = attention.FLASH_DISPATCH_COUNT
+        model, log = _eager_fit(pt, net, ids, labels, _EAGER_STEPS)
+        launches = _path_launches()
+        dispatched = attention.FLASH_DISPATCH_COUNT - dispatched
+        torch.cuda.synchronize()
+        hook.remove()
+        max_alloc = torch.cuda.max_memory_allocated()
+        peak = memwatch.totals()["lifetime_peak_bytes"]
+        losses = log.losses
+        if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"train_eager: losses {losses}")
+        counted = _launches_agree(
+            launches, _EAGER_STEPS,
+            {"flash_attention_fwd": _EAGER_FLASH,
+             "flash_attention_dq": _EAGER_FLASH,
+             "flash_attention_dkv": _EAGER_FLASH,
+             "fused_adam": _EAGER_ADAM})
+        if dispatched != _EAGER_FLASH * _EAGER_STEPS:
+            raise AssertionError(f"train_eager: FLASH_DISPATCH_COUNT rose "
+                                 f"{dispatched} over {_EAGER_STEPS} steps")
+        dropout = _masks_differ(masks, cfg["dropout"])
+        del masks
+        walls = log.walls_ms()
+        wall_ms = statistics.median(walls[2:])
+
+        with pt.amp.auto_cast(dtype="bfloat16"):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                model.train_batch([ids], labels)
+                torch.cuda.synchronize()
+                traced_ms = (time.perf_counter() - t0) * 1e3
+        kernels, device_ms, ours, families, _ = _kernel_tally(
+            torch, prof.events())
+        del prof
+        seen = {k: ours[k]["calls"] for k in counted["per_step"]}
+        if seen != counted["per_step"]:
+            raise AssertionError(f"train_eager: the traced step launched "
+                                 f"{seen}, not {counted['per_step']}")
+        del model, net
+        resume = _eager_resume(pt, dict(cfg, n_layer=2), _EAGER_B,
+                               _EAGER_SEED, 2 * _EAGER_CKPT_STEPS,
+                               _EAGER_CKPT_DIR)
+    busy = device_ms / wall_ms
+    tokens = _EAGER_B * cfg["seq"]
+    _say(phase="train_eager", config=cfg, batch=_EAGER_B,
+         steps=_EAGER_STEPS, lr=_EAGER_LR, amp="bfloat16 O1",
+         losses=losses, loss_drop=losses[0] - losses[-1],
+         step_walls_ms=walls, wall_ms=wall_ms,
+         tokens_per_s=tokens / wall_ms * 1e3,
+         traced_step_ms=traced_ms, device_ms=device_ms, busy_share=busy,
+         idle_share=1.0 - busy, host_bound_ms=wall_ms - device_ms,
+         path_kernels=ours, families=families,
+         launches_traced=sum(n for n, _ in kernels.values()),
+         fit_launches=counted, flash_dispatches=dispatched,
+         dropout=dropout, memwatch_peak_bytes=peak,
+         max_memory_allocated=max_alloc,
+         reckoned_peak_bytes=_EAGER_RECKONED_BYTES,
+         resume=resume, card=card,
+         note="busy share: the traced step's device ms over the untraced "
+         "fit's median step wall (steps 3-8)")
+    return counted["launches"]
+
+
 def _kernel_row(name, replaces, source, launches, err, t, card, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -4044,29 +4466,60 @@ def main() -> int:
     import torch
 
     card = _environment(torch)
+    import paddle_tpu_torch
+
+    # each phase's seconds, said before the kernels line: the command's
+    # time is held to a budget, and these show which phase to cut
+    seconds, mark = {}, [time.monotonic()]
+
+    def lap(name):
+        now = time.monotonic()
+        seconds[name] = round(now - mark[0], 3)
+        mark[0] = now
+
+    # every phase but train_eager builds static programs; the port starts
+    # in dygraph mode (train_eager enters it with dygraph.guard())
+    paddle_tpu_torch.enable_static()
     # fp32 products in full fp32 on both sides of every comparison
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build()
+    lap("build")
     serve_err = _check_kernel(torch)
     errs = _check_training_kernels(torch)
     errs.update(_check_flash(torch))
+    lap("kernel_check")
     serve_times = _time_kernel(torch, card)
     times = _time_training_kernels(torch, card)
     times.update(_time_flash(torch, card))
+    lap("kernel_times")
     serve_launches, prompts, tokens, decode_profile = _serve(torch, card)
+    lap("serve")
     _serve_tier(torch, card, prompts, tokens, decode_profile)
+    lap("serve_tier")
     train, traced = _train(torch, card, _TRAIN, _TRAIN_B, _TRAIN_T, "train",
                            0, band=True)
+    lap("train")
     train_long, traced_long = _train(torch, card, _LONG, _LONG_B, _LONG_T,
                                      "train_long", _LAYERS)
+    lap("train_long")
     observed = _train_observed(torch, card)
+    lap("train_observed")
     _sentinel_seq512(torch, card)
     _oom_autopsy(card)
+    lap("sentinel_seq512_oom_autopsy")
     recipe = _train_recipe(torch, card, plain_peak=_SAID["train_observed"][
         "memwatch"]["max_memory_allocated"])
+    lap("train_recipe")
+    eager = _train_eager(torch, card)
+    lap("train_eager")
+    eager_times = _time_flash(torch, card, "BHTD", False)
+    lap("eager_kernel_times")
     for case in _CPU_VS_CARD:
         _cpu_vs_card(torch, *case)
+    _cpu_vs_card_eager(torch, _EAGER_CPU_VS_CARD, 1e-3, 1e-5)
+    lap("cpu_vs_card")
+    _say(phase="phase_seconds", seconds=seconds)
 
     csrc = "paddle_tpu_torch/csrc/"
     ce_src = csrc + "lmhead_ce.cu"
@@ -4077,7 +4530,8 @@ def main() -> int:
     def by_path(name, **more):
         return {"train": train[name], "train_long": train_long[name],
                 "train_observed": observed[name],
-                "train_recipe": recipe[name], **more}
+                "train_recipe": recipe[name],
+                "train_eager": eager.get(name, 0), **more}
 
     def replayed(name):  # the device trace's launches per replayed step
         return {"train": traced["path_kernels"][name]["calls"],
@@ -4145,6 +4599,11 @@ def main() -> int:
         else:
             extra["library_dq_dk_dv_ms"] = times[name]["library_dq_dk_dv_ms"]
             source = csrc + "flash_attention_bwd_sm90.cu"
+        extra["eager_shape"] = dict(
+            flash_shape, layout="BHTD", causal=False,
+            **{k: eager_times[name][k] for k in (
+                "kernel_ms", "plain_ms", "bound_ms", "library_ms",
+                "tflops", "over_library")})
         rows.append(_kernel_row(
             name, pallas + f"flash_attention.py:{bthd}", source,
             train_long[name], errs[name], times[name], card,

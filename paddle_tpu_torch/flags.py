@@ -5,7 +5,8 @@ the serving engine's and its front tier's ``PADDLE_TPU_SERVE_*`` knobs
 (router, capacity planner, autoscaler), the status server's port and
 host, the goodput, memwatch and dynamics journals and their detectors,
 the compiled-program insight and its dump directory, the numerics
-sentinel, the monitor and profiler switches, the chaos sites and
+sentinel, the fit loop's checkpoints and asynchronous loss, the monitor
+and profiler switches, the chaos sites and
 ``PADDLE_TPU_EAGER`` (the port's own: the card replays CUDA graphs
 unless it is set). The other variable names are the JAX package's own,
 so one deployment's environment drives either package.
@@ -435,6 +436,29 @@ define_env_flag(
     "(inside the captured graph on the card) and raise a typed "
     "InvalidArgument naming the first op that produced nan/inf (op "
     "provenance attached)")
+
+
+# -- the eager fit loop (hapi/model.py, checkpoint.py) -----------------------
+define_env_flag(
+    "PADDLE_TPU_CKPT_DIR", "",
+    "enable periodic atomic training checkpoints in the hapi fit loop: "
+    "params + optimizer state + step counter + data/RNG cursor persist to "
+    "<dir>/trainckpt.rank<k>.step<N>.pdz and a respawned rank "
+    "auto-resumes from the newest one")
+define_env_flag(
+    "PADDLE_TPU_CKPT_STEPS", 25,
+    "training-checkpoint cadence: write one every N closed fit steps")
+define_env_flag(
+    "PADDLE_TPU_CKPT_KEEP", 2,
+    "training-checkpoint retention window: newer writes sweep all but "
+    "the latest N checkpoints of this rank")
+define_env_flag(
+    "PADDLE_TPU_ASYNC_LOSS", True,
+    "pipelined fit-loop loss readback: each step's loss is copied to "
+    "pinned host memory behind a CUDA event and read a step later, so "
+    "the next step's dispatch overlaps the card finishing this one "
+    "(detectors and step logs run one step behind; the epoch tail is "
+    "flushed exactly); 0 restores the blocking per-step readback")
 
 
 # -- core flag set (the subset of flags.cc the port's executor honors) -------

@@ -17,7 +17,8 @@ import torch
 from . import errors as _errs
 
 __all__ = ["Place", "CPUPlace", "CUDAPlace", "default_place", "set_device",
-           "get_device", "convert_dtype", "dtype_name", "is_floating"]
+           "get_device", "convert_dtype", "dtype_name", "is_floating",
+           "host_numpy"]
 
 _NAME_TO_TORCH = {
     "bool": torch.bool,
@@ -66,6 +67,16 @@ def dtype_name(dtype: Any) -> str:
 
 def is_floating(dtype: Any) -> bool:
     return convert_dtype(dtype).is_floating_point
+
+
+def host_numpy(t: torch.Tensor):
+    """A tensor's values as a numpy array of their own on the host (never
+    a view of a CPU tensor that a later in-place update would change);
+    bfloat16 as its exact float32 (numpy has no bfloat16)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.to("cpu", copy=True).numpy()
 
 
 class Place:

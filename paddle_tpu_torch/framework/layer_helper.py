@@ -1,9 +1,10 @@
 """LayerHelper: shared plumbing for layer functions.
 
-Port of ``paddle_tpu/framework/layer_helper.py``, static graph only (the
-dygraph tracer is not ported): creates parameters (wiring their
-initializer ops into the startup program), temporary output variables,
-and appends ops to the current main-program block.
+Port of ``paddle_tpu/framework/layer_helper.py``: creates parameters
+(wiring their initializer ops into the startup program), temporary output
+variables, and appends ops to the current main-program block; in dygraph
+mode the same calls go to the tracer (eager parameters, placeholder
+tensors that the tracer fills, ops run as they are appended).
 """
 from __future__ import annotations
 
@@ -31,6 +32,9 @@ class LayerHelper:
         return framework.default_startup_program()
 
     def append_op(self, type, inputs=None, outputs=None, attrs=None):
+        if framework.in_dygraph_mode():
+            return framework._current_tracer().trace_op(
+                type, inputs or {}, outputs or {}, attrs or {})
         return self.main_program.current_block().append_op(
             type, inputs=inputs, outputs=outputs, attrs=attrs)
 
@@ -50,6 +54,11 @@ class LayerHelper:
         initializer = attr.initializer or default_initializer
         name = attr.name or unique_name.generate(
             f"{self.name}.w" if not is_bias else f"{self.name}.b")
+        if framework.in_dygraph_mode():
+            return framework._current_tracer().create_parameter(
+                name=name, shape=shape, dtype=dtype, initializer=initializer,
+                trainable=attr.trainable, regularizer=attr.regularizer,
+                need_clip=attr.need_clip)
         block = self.main_program.current_block()
         if block.program.global_block().has_var(name):
             return block.program.global_block().var(name)
@@ -62,6 +71,11 @@ class LayerHelper:
 
     def create_variable_for_type_inference(self, dtype="float32",
                                            stop_gradient=False):
+        if framework.in_dygraph_mode():
+            from ..dygraph.varbase import Tensor
+
+            # a placeholder: the tracer fills it when the op runs
+            return Tensor(stop_gradient=stop_gradient)
         block = self.main_program.current_block()
         return block.create_var(
             name=unique_name.generate(".".join([self.name, "tmp"])),

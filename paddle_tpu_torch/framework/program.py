@@ -28,9 +28,34 @@ __all__ = ["VarDesc", "OpDesc", "BlockDesc", "Variable",
            "Parameter", "Operator", "Block", "Program", "device_guard",
            "program_guard", "default_main_program",
            "default_startup_program", "switch_main_program",
-           "switch_startup_program"]
+           "switch_startup_program", "in_dygraph_mode"]
 
 DENSE_TENSOR = "dense_tensor"
+
+# ---------------------------------------------------------------------------
+# global mode switch: the dygraph tracer when eager mode is on, else None
+# (static graph building)
+# ---------------------------------------------------------------------------
+
+_dygraph_tracer_ = None
+
+
+def in_dygraph_mode() -> bool:
+    return _dygraph_tracer_ is not None
+
+
+def _current_tracer():
+    return _dygraph_tracer_
+
+
+def _switch_tracer(tracer):
+    """Make ``tracer`` the active one (None: static mode); returns the
+    previous one."""
+    global _dygraph_tracer_
+    old = _dygraph_tracer_
+    _dygraph_tracer_ = tracer
+    return old
+
 
 _current_device_guard: Optional[str] = None
 

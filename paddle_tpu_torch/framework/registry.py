@@ -181,12 +181,15 @@ class LoweringContext:
 
     # -- autograd records (the generic grad's tape) ---------------------
     def record(self, fwd_idx: int, opdef: "OpDef", ins, attrs,
-               diff_slots: Sequence[str]):
+               diff_slots: Sequence[str], prepare=None):
         """Run a forward rule on the tape: each differentiable input of
         ``diff_slots`` enters as a detached leaf that requires grad, the
         rule runs with grad enabled, and the record is kept under
-        ``fwd_idx`` until its grad op takes it. Returns the outputs,
-        detached, for the rest of the program."""
+        ``fwd_idx`` until its grad op takes it. ``prepare`` (the eager
+        API's autocast) maps the inputs to the ones the rule runs on,
+        inside the record, so a leaf's gradient comes back through the
+        cast in the leaf's own dtype. Returns the outputs, detached, for
+        the rest of the program."""
         leaves: Dict[str, List[Optional[torch.Tensor]]] = {}
         run_ins = dict(ins)
         for slot in diff_slots:
@@ -199,6 +202,8 @@ class LoweringContext:
             run_ins[slot] = [l if l is not None else v
                              for l, v in zip(lv, vals)]
         with torch.enable_grad():
+            if prepare is not None:
+                run_ins = prepare(run_ins)
             outs = run_lowering(opdef, self, run_ins, attrs)
         self._records[fwd_idx] = _Record(leaves, outs)
         return {k: [o.detach() if isinstance(o, torch.Tensor) else o
@@ -279,8 +284,22 @@ def get_op_def(type: str) -> OpDef:
             return gdef
     raise _errs.errors.Unimplemented(
         f"no lowering registered for op {type!r} in paddle_tpu_torch (the "
-        f"port registers the ops of the GPT training program; the rest "
-        f"wait in ROADMAP queue A)")
+        f"port registers the ops of the GPT training program and of the "
+        f"eager API's layers; this one waits in ROADMAP queue A, item "
+        f"{_queue_item(type)})")
+
+
+# the collective ops come with the multi-device item (A10); every other
+# unregistered op belongs to the remaining op families (A11)
+_COLLECTIVE_OPS = frozenset((
+    "allreduce", "mp_allreduce_sum", "barrier", "alltoall",
+    "collective_permute", "broadcast", "gen_nccl_id"))
+
+
+def _queue_item(type: str) -> str:
+    base = type[: -len("_grad")] if type.endswith("_grad") else type
+    return ("A10" if base.startswith("c_") or base in _COLLECTIVE_OPS
+            else "A11")
 
 
 _ops_loaded = False

@@ -230,7 +230,9 @@ def recording(device: torch.device):
 
 
 def value_bytes(value: Any) -> int:
-    """Device bytes of one tensor or array-like (params, accumulators)."""
+    """Device bytes of one tensor or array-like (params, accumulators; an
+    eager Tensor by the value it holds)."""
+    value = getattr(value, "_value", value)
     if isinstance(value, torch.Tensor):
         return int(value.element_size()) * int(value.numel())
     try:

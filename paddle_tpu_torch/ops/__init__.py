@@ -1,7 +1,8 @@
 """Operator library of the port.
 
 Importing this package registers every op lowering the port has (the
-GPT training program's; mirrors ``paddle_tpu/ops``). Beside the
+GPT training program's and the eager API's; mirrors ``paddle_tpu/ops``).
+``api.py`` is the functional API over them (eager or static). Beside the
 lowerings sit the hand-written CUDA kernels' wrappers
 (``lmhead_ce.py``, ``fused_adam.py``,
 ``flash_attention.py``) and the build that compiles them

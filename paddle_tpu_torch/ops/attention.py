@@ -88,6 +88,22 @@ def _flash_would_run(q, k, layout: str) -> bool:
             and any(tk % b == 0 for b in cand_k))
 
 
+def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
+                                 is_causal=False, training=True):
+    """The functional entry of ``nn.functional``: one
+    ``fused_attention_tpu`` op through ``ops.api.dispatch``, so the eager
+    tracer records it and a static program appends it."""
+    from .api import dispatch
+
+    ins = {"Q": q, "K": k, "V": v}
+    if attn_mask is not None:
+        ins["Mask"] = attn_mask
+    return dispatch("fused_attention_tpu", ins,
+                    {"dropout_p": float(dropout_p),
+                     "is_causal": bool(is_causal), "is_test": not training},
+                    ("Out",))
+
+
 def _infer(op) -> None:
     q, v = op._input_vars["Q"][0], op._input_vars["V"][0]
     for var in op._output_vars.get("Out", []):

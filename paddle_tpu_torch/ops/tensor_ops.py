@@ -1,10 +1,13 @@
-"""Tensor creation and layout op lowerings (the GPT training subset).
+"""Tensor creation and layout op lowerings.
 
 Port of ``paddle_tpu/ops/tensor_ops.py``: ``fill_constant``,
-``fill_zeros_like``, ``recompute_barrier``, ``assign_value``, ``cast``,
-``reshape2``/``reshape``, ``transpose2``/``transpose`` and ``slice``,
-with the JAX package's semantics (reshape's 0 copies the input dim,
-slice clamps its bounds).
+``fill_zeros_like``, ``fill_any_like``, ``recompute_barrier``,
+``assign``, ``assign_value``, ``cast``, ``reshape2``/``reshape``,
+``transpose2``/``transpose``, ``slice``, ``squeeze2``/``squeeze``,
+``unsqueeze2``/``unsqueeze``, ``flatten_contiguous_range``, ``concat``,
+``split``, ``stack`` and ``gather``, with the JAX package's
+semantics (reshape's 0 copies the input dim, slice clamps its bounds,
+squeeze drops only the listed axes of size 1).
 """
 from __future__ import annotations
 
@@ -115,3 +118,86 @@ def _slice(ctx, ins, attrs):
         keep = [d for i, d in enumerate(out.shape) if i not in set(decrease)]
         out = out.reshape(keep)
     return {"Out": out}
+
+
+@register_op("assign")
+def _assign(ctx, ins, attrs):
+    return {"Out": x(ins).clone()}
+
+
+@register_op("fill_any_like", stop_gradient=True)
+def _fill_any_like(ctx, ins, attrs):
+    v = x(ins)
+    dtype = attrs.get("dtype", None)
+    dt = v.dtype if dtype in (None, -1) else torch_dtype(dtype)
+    return {"Out": torch.full_like(v, attrs.get("value", 0.0), dtype=dt)}
+
+
+@register_op("squeeze2")
+def _squeeze2(ctx, ins, attrs):
+    v = x(ins)
+    axes = attrs.get("axes", [])
+    if not axes:
+        return {"Out": v.squeeze()}
+    keep = [d for i, d in enumerate(v.shape)
+            if not (d == 1 and i in {a % v.dim() for a in axes})]
+    return {"Out": v.reshape(keep)}
+
+
+register_op("squeeze")(_squeeze2)
+
+
+@register_op("unsqueeze2")
+def _unsqueeze2(ctx, ins, attrs):
+    v = x(ins)
+    for a in sorted(attrs.get("axes", [])):
+        v = v.unsqueeze(a)
+    return {"Out": v}
+
+
+register_op("unsqueeze")(_unsqueeze2)
+
+
+@register_op("flatten_contiguous_range")
+def _flatten_contiguous_range(ctx, ins, attrs):
+    v = x(ins)
+    start = attrs.get("start_axis", 1) % max(v.dim(), 1)
+    stop = attrs.get("stop_axis", -1) % max(v.dim(), 1)
+    return {"Out": v.reshape(tuple(v.shape[:start]) + (-1,)
+                             + tuple(v.shape[stop + 1:]))}
+
+
+@register_op("concat")
+def _concat(ctx, ins, attrs):
+    axis = int(maybe(ins, "AxisTensor", attrs.get("axis", 0)))
+    return {"Out": torch.cat(ins["X"], dim=axis)}
+
+
+@register_op("split")
+def _split(ctx, ins, attrs):
+    v = x(ins)
+    axis = int(maybe(ins, "AxisTensor", attrs.get("axis", 0)))
+    sections = list(attrs.get("sections", []))
+    if sections:
+        if -1 in sections:
+            known = sum(s for s in sections if s > 0)
+            sections[sections.index(-1)] = v.shape[axis] - known
+        outs = torch.split(v, sections, dim=axis)
+    else:
+        outs = torch.chunk(v, attrs.get("num", 1), dim=axis)
+    return {"Out": list(outs)}
+
+
+@register_op("stack")
+def _stack(ctx, ins, attrs):
+    return {"Y": torch.stack(ins["X"], dim=attrs.get("axis", 0))}
+
+
+@register_op("gather", no_grad_inputs=("Index",))
+def _gather(ctx, ins, attrs):
+    v, idx = ins["X"][0], ins["Index"][0]
+    axis = int(maybe(ins, "Axis", attrs.get("axis", 0)))
+    return {"Out": torch.index_select(v, axis, idx.reshape(-1).long())
+            .reshape(tuple(v.shape[:axis]) + tuple(idx.shape)
+                     + tuple(v.shape[axis + 1:]))}
+

@@ -14,9 +14,15 @@ are fp32, under the JAX package's names (``<param>_<name>_<k>``).
 (``regularizer.py``), then clips (``grad_clip``, ``nn/clip.py``), as the
 JAX package's ``_apply_decay_and_clip`` does.
 
-Not ported yet, and each raises ``errors.Unimplemented``: the dygraph
-``step`` (A8) and the data-parallel comms residuals of the optimizer
-checkpoint (A10).
+In dygraph mode (``parameters=`` given, the eager API) ``step`` emits
+the same update ops through the tracer (``dygraph/base.py:
+_apply_dygraph_update``; ``adam`` runs the fused kernel), the
+accumulators are eager Tensors on the parameter's device (fp32 under
+bf16/fp16 parameters), and ``state_dict``/``set_state_dict`` read and
+write their values.
+
+Not ported yet, and it raises ``errors.Unimplemented``: the
+data-parallel comms residuals of the optimizer checkpoint (A10).
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..framework import core
 from ..framework import errors as _errs
 from ..framework import program as framework
 from ..framework import unique_name
@@ -89,6 +96,17 @@ class Optimizer:
         # is far too coarse for the second moment and the beta powers)
         if dtype is None and param.dtype in (torch.bfloat16, torch.float16):
             dtype = "float32"
+        if framework.in_dygraph_mode():
+            from ..dygraph.varbase import Tensor
+
+            acc = Tensor(torch.full(
+                tuple(shape if shape is not None else param.shape),
+                fill_value, dtype=core.convert_dtype(dtype or param.dtype),
+                device=param.place),
+                name=unique_name.generate(f"{param.name}_{name}"),
+                persistable=True)
+            self._accumulators.setdefault(name, {})[param.name] = acc
+            return acc
         block = param.block.program.global_block()
         var = block.create_var(
             name=unique_name.generate(f"{param.name}_{name}"),
@@ -133,8 +151,23 @@ class Optimizer:
         self.apply_gradients(params_grads)
         return None, params_grads
 
+    # -- dygraph API ----------------------------------------------------
     def step(self):
-        raise _unported("the dygraph optimizer step", "A8")
+        from ..dygraph import base as dybase
+
+        params = self._parameter_list
+        if params is None:
+            raise ValueError("a dygraph optimizer needs `parameters`")
+        pg = [(p, p.grad) for p in params
+              if p.grad is not None and p.trainable]
+        if pg:
+            dybase._apply_dygraph_update(self, pg)
+
+    def clear_grad(self):
+        for p in self._parameter_list or ():
+            p.clear_grad()
+
+    clear_gradients = clear_grad
 
     def _append_optimize_op(self, block, param_and_grad, lr_var):
         raise NotImplementedError
@@ -147,13 +180,15 @@ class Optimizer:
         state = {}
         for per_param in self._accumulators.values():
             for var in per_param.values():
-                val = scope.get(var.name)
+                # an eager accumulator carries its value; a static one
+                # lives in the scope
+                val = getattr(var, "_value", None)
+                if val is None:
+                    val = scope.get(var.name)
                 if val is None:
                     continue
                 if isinstance(val, torch.Tensor):
-                    t = val.detach()
-                    val = (t.float() if t.dtype == torch.bfloat16 else t
-                           ).cpu().numpy()
+                    val = core.host_numpy(val)
                 state[var.name] = np.asarray(val)
         if isinstance(self._learning_rate, LRScheduler):
             state["LR_Scheduler"] = self._learning_rate.state_dict()
@@ -171,7 +206,9 @@ class Optimizer:
                 if var.name not in state:
                     continue
                 val = np.asarray(state[var.name])
-                cur = scope.get(var.name)
+                cur = getattr(var, "_value", None)
+                if cur is None:
+                    cur = scope.get(var.name)
                 if isinstance(cur, torch.Tensor):
                     cur.copy_(torch.from_numpy(np.ascontiguousarray(val)))
                 else:

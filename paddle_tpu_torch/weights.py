@@ -12,6 +12,15 @@ scope's parameters and optimizer state (names unchanged: ``gpt.wte``,
 ``gpt.wte_moment1_0``, ``adam_0``'s beta powers ...) in the port's
 ``Scope``, so that both packages start a step from the same values.
 Random streams are never matched: the values are copied.
+
+For the eager API, :func:`layer_from_numpy` carries a network across: the
+JAX package's ``nn.Layer.state_dict()`` (numpy, under the structured
+names both packages give the same layers, ``layers.0.self_attn.q_proj
+.weight``) goes into the port's ``Layer.set_state_dict``, and
+:func:`optimizer_from_numpy` seeds an eager optimizer's accumulators from
+the reference's per-parameter optimizer state (keyed by the same
+structured names, as ``checkpoint.py`` saves it), so that both packages
+continue from the same moments.
 """
 from __future__ import annotations
 
@@ -20,7 +29,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-__all__ = ["params_from_numpy", "scope_from_numpy", "torch_dtype"]
+__all__ = ["layer_from_numpy", "optimizer_from_numpy", "params_from_numpy",
+           "scope_from_numpy", "torch_dtype"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -65,3 +75,33 @@ def scope_from_numpy(values: Dict[str, np.ndarray], scope, device):
     for name, t in params_from_numpy(values, device).items():
         scope.set(name, t)
     return scope
+
+
+def layer_from_numpy(layer, state: Dict[str, np.ndarray]):
+    """Copy ``state`` (a JAX ``nn.Layer.state_dict()``: structured name ->
+    numpy) into the port's ``layer``, each value in its parameter's dtype
+    and on its device. Every parameter must be given and every name must
+    match one; raises ``KeyError`` otherwise. Returns the layer."""
+    own = {name for name, _ in layer.named_parameters()}
+    missing = sorted(own - set(state))
+    unknown = layer.set_state_dict({k: np.asarray(v)
+                                    for k, v in state.items()})
+    if missing or unknown:
+        raise KeyError(f"layer_from_numpy: parameters not given {missing}, "
+                       f"names that match no parameter {unknown}")
+    return layer
+
+
+def optimizer_from_numpy(optimizer, network, accumulators) -> None:
+    """Seed ``optimizer``'s eager accumulators from ``accumulators``:
+    ``{slot: {structured parameter name: value}}`` (a value may be a
+    record ``{"value": ...}``, as ``checkpoint.TrainCheckpointer`` stores
+    it); the first ``step`` then updates on those moments."""
+    from .checkpoint import TrainCheckpointer
+
+    structured = {slot: {key: (rec if isinstance(rec, dict)
+                               else {"value": np.asarray(rec)})
+                         for key, rec in per.items()}
+                  for slot, per in accumulators.items()}
+    TrainCheckpointer._restore_accumulators(optimizer, structured,
+                                            network=network)

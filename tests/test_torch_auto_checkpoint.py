@@ -42,6 +42,7 @@ from paddle_tpu.optimizer import Adam as JAdam
 from paddle_tpu_torch import static
 from paddle_tpu_torch.framework import CPUPlace, Executor, Scope, errors
 from paddle_tpu_torch.incubate.checkpoint import auto_checkpoint as ac
+from torch_modes import static_mode  # noqa: F401 (autouse fixture)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))

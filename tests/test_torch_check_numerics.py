@@ -36,6 +36,7 @@ from paddle_tpu_torch import flags, monitor
 from paddle_tpu_torch.framework import CPUPlace, Executor, Scope, errors
 from paddle_tpu_torch.weights import scope_from_numpy
 from test_torch_replay import _CFG, _B, _batch, _program
+from torch_modes import static_mode  # noqa: F401 (autouse fixture)
 
 _MSG = re.compile(r"op #(\d+) '([^']+)' produced [^']+ in output '([^']+)'")
 # persistables to poison at [0, 0] (a vector at [0])

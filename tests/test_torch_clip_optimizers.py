@@ -36,6 +36,7 @@ import paddle_tpu_torch.regularizer as treg
 from paddle_tpu_torch import framework as tfw
 from paddle_tpu_torch.static import nn as tsnn
 from paddle_tpu_torch.weights import scope_from_numpy
+from torch_modes import static_mode  # noqa: F401 (autouse fixture)
 
 _N, _D, _H, _C = 6, 8, 16, 4
 

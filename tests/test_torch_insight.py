@@ -40,6 +40,7 @@ from paddle_tpu_torch.framework import CPUPlace, Executor, Scope
 from paddle_tpu_torch.framework import xla_insight as insight
 from paddle_tpu_torch.weights import scope_from_numpy
 from test_torch_replay import _B, _CFG, _batch, _program
+from torch_modes import static_mode  # noqa: F401 (autouse fixture)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))

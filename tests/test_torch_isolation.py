@@ -9,6 +9,7 @@ import textwrap
 import numpy as np
 import pytest
 import torch
+from torch_modes import static_mode  # noqa: F401 (autouse fixture)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
@@ -102,6 +103,8 @@ def test_port_trains_where_jax_cannot_be_imported():
         import sys
         for name in ("jax", "jaxlib", "paddle_tpu"):
             sys.modules[name] = None  # any import of them now fails
+        import paddle_tpu_torch
+        paddle_tpu_torch.enable_static()  # a static program; eager is the default
         import numpy as np
         from paddle_tpu_torch.framework import (CPUPlace, Executor, Scope,
                                                 program_guard)
@@ -218,6 +221,20 @@ def test_unported_paths_raise():
     torch.testing.assert_close(loss.reshape(-1), want)
 
 
+@pytest.mark.parametrize("op, item", [
+    ("conv2d", "A11"), ("pool2d_grad", "A11"), ("lstm", "A11"),
+    ("c_allreduce_sum", "A10"), ("alltoall", "A10"),
+    ("c_broadcast_grad", "A10")])
+def test_unregistered_op_names_its_queue_item(op, item):
+    """An op with no lowering raises Unimplemented naming the ROADMAP
+    queue item that ports it: the collectives A10, the rest A11."""
+    from paddle_tpu_torch import errors
+    from paddle_tpu_torch.framework import registry
+
+    with pytest.raises(errors.Unimplemented, match=f"item {item}\\)"):
+        registry.get_op_def(op)
+
+
 _RECIPE_MODULES = ("nn/clip", "regularizer",
                    "distributed/fleet/meta_optimizers",
                    "ops/control_flow_ops")
@@ -236,6 +253,8 @@ def test_pretraining_recipe_stands_alone():
         import sys
         for name in ("jax", "jaxlib", "paddle_tpu"):
             sys.modules[name] = None  # any import of them now fails
+        import paddle_tpu_torch
+        paddle_tpu_torch.enable_static()  # a static program; eager is the default
         import torch
         from paddle_tpu_torch.distributed.fleet import RecomputeOptimizer
         from paddle_tpu_torch.framework import (CPUPlace, Executor, Scope,
@@ -292,6 +311,8 @@ def test_step_observability_stands_alone():
         import os, sys, tempfile
         for name in ("jax", "jaxlib", "paddle_tpu"):
             sys.modules[name] = None  # any import of them now fails
+        import paddle_tpu_torch
+        paddle_tpu_torch.enable_static()  # a static program; eager is the default
         tmp = tempfile.mkdtemp()
         os.environ["PADDLE_TPU_CHECK_NUMERICS"] = "1"
         os.environ["PADDLE_TPU_XLA_DUMP_DIR"] = tmp
@@ -328,6 +349,102 @@ def test_step_observability_stands_alone():
         assert len(exe.compiled_insights()) == 2
         assert xla_insight.load_dump_dir(tmp)
         assert device.memory_stats("cpu")["source"] == "synthetic"
+        assert not any(k.split(".")[0] in ("jax", "paddle_tpu")
+                       for k, v in sys.modules.items() if v is not None)
+        print("ISOLATED_OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "ISOLATED_OK" in out.stdout
+
+
+_EAGER_MODULES = ("dygraph/__init__", "dygraph/varbase", "dygraph/tracer",
+                  "dygraph/base", "ops/api", "amp/__init__",
+                  "tensor/__init__", "tensor/math", "nn/__init__",
+                  "nn/layers", "nn/common", "nn/transformer",
+                  "nn/functional/__init__", "io/__init__",
+                  "metric/__init__", "checkpoint", "callbacks",
+                  "hapi/__init__", "hapi/model", "hapi/model_io")
+
+
+def test_import_enables_dygraph_and_makes_no_cuda_context():
+    """``import paddle_tpu_torch`` starts in dygraph mode, as the
+    reference does, and touches no device: the tracer makes its lowering
+    context at its first op."""
+    code = textwrap.dedent("""
+        import torch
+        import paddle_tpu_torch
+        from paddle_tpu_torch.framework import program
+        assert paddle_tpu_torch.in_dygraph_mode()
+        assert program._current_tracer() is not None
+        assert program._current_tracer()._ctx is None
+        assert not torch.cuda.is_initialized()
+        print("EAGER_DEFAULT_OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "EAGER_DEFAULT_OK" in out.stdout
+
+
+def test_eager_api_stands_alone(monkeypatch):
+    """The eager API's modules are in the scan above; ``to_tensor`` and
+    ``Model.fit`` on the default place (the card) raise where there is no
+    card; and a fit of a small encoder runs on the CPU where jax and
+    paddle_tpu cannot be imported."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import errors
+    from paddle_tpu_torch.framework import core
+
+    files = _port_files()
+    for mod in _EAGER_MODULES:
+        path = os.path.join(_REPO, "paddle_tpu_torch", mod + ".py")
+        assert path in files, mod
+    monkeypatch.delenv("PADDLE_TPU_DEFAULT_DEVICE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    was_dygraph = pt.in_dygraph_mode()
+    pt.disable_static()
+    try:
+        monkeypatch.setattr(core, "_default_place", core.CPUPlace())
+        net = pt.nn.Linear(2, 1)  # made on the CPU, asked for
+        model = pt.Model(net)
+        model.prepare(pt.optimizer.Adam(parameters=net.parameters()),
+                      lambda p, y: ((p - y) ** 2).mean())
+        monkeypatch.setattr(core, "_default_place", None)  # the card
+        with pytest.raises(errors.Unavailable):
+            pt.to_tensor(np.ones(3, np.float32))
+        with pytest.raises(errors.Unavailable):
+            model.fit([(np.ones(2, np.float32), np.ones(1, np.float32))],
+                      verbose=0)
+    finally:
+        if not was_dygraph:
+            pt.enable_static()
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "paddle_tpu"):
+            sys.modules[name] = None  # any import of them now fails
+        import numpy as np
+        import paddle_tpu_torch as pt
+        pt.set_device("cpu")
+        nn, F = pt.nn, pt.nn.functional
+        net = nn.Sequential(nn.Embedding(16, 8), nn.TransformerEncoder(
+            nn.TransformerEncoderLayer(8, 2, 16, dropout=0.1,
+                                       activation="gelu",
+                                       normalize_before=True), 1),
+            nn.Linear(8, 16))
+        model = pt.Model(net)
+        model.prepare(pt.optimizer.Adam(learning_rate=1e-2,
+                                        parameters=net.parameters()),
+                      lambda p, y: F.cross_entropy(p, y))
+        r = np.random.RandomState(0)
+        data = [(r.randint(0, 16, 6), r.randint(0, 16, 6))
+                for _ in range(8)]
+        with pt.amp.auto_cast(dtype="bfloat16"):
+            hist = model.fit(data, batch_size=4, epochs=2, verbose=0)
+        assert np.isfinite(hist["loss"]).all()
         assert not any(k.split(".")[0] in ("jax", "paddle_tpu")
                        for k, v in sys.modules.items() if v is not None)
         print("ISOLATED_OK")

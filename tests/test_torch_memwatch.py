@@ -28,6 +28,7 @@ from paddle_tpu import memwatch as jmemwatch
 from paddle_tpu import monitor as jmonitor
 from paddle_tpu_torch import device, goodput, memwatch, monitor
 from paddle_tpu_torch.framework import Scope, errors, registry
+from torch_modes import static_mode  # noqa: F401 (autouse fixture)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))

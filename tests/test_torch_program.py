@@ -27,6 +27,7 @@ from paddle_tpu_torch import errors
 from paddle_tpu_torch.framework import core, program_guard, unique_name
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.optimizer import Adam
+from torch_modes import static_mode  # noqa: F401 (autouse fixture)
 
 _CFG = dict(vocab_size=128, n_layer=2, n_head=2, d_model=32, max_seq_len=16)
 

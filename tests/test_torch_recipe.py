@@ -51,6 +51,7 @@ from paddle_tpu_torch.framework import executor as texecutor
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.optimizer import SGD
 from paddle_tpu_torch.weights import scope_from_numpy
+from torch_modes import static_mode  # noqa: F401 (autouse fixture)
 
 _CFG = dict(vocab_size=64, n_layer=3, n_head=2, d_model=32, max_seq_len=16)
 _B, _T = 4, 16

@@ -51,12 +51,14 @@ in for the kernels.
   state restored after it), the learning rate frozen at the captured
   step's, and beta1's power one step ahead; a difference in a loss or a
   persistable passes only where a second eager run shares it."""
+import contextlib
 import os
 import sys
 
 import numpy as np
 import pytest
 import torch
+from torch_modes import static_mode  # noqa: F401 (autouse fixture)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -969,3 +971,92 @@ def test_segment_reckoning_grows_with_the_tokens():
     assert one["records"] == two["records"] == long["records"] > 10
     assert two["bytes"] == long["bytes"] == 2 * one["bytes"]
     assert one["per_token"] >= 4 * (4 * 128 * 4 + 6 * 128)
+
+
+# -- train_eager's checks -----------------------------------------------------
+
+_EAGER_TINY = dict(vocab=32, seq=16, d_model=16, n_head=2, n_layer=1,
+                   dropout=0.1)
+
+
+@contextlib.contextmanager
+def _eager_cpu():
+    """Dygraph mode on the CPU place inside a file that builds static
+    programs; restores both."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import dygraph
+    from paddle_tpu_torch.framework import core
+
+    prev = core._default_place
+    pt.set_device("cpu")
+    try:
+        with dygraph.guard():
+            yield pt
+    finally:
+        core._default_place = prev
+
+
+def _tiny_keep_masks(steps=2):
+    """The first layer's attention-dropout keep masks of a tiny eager fit
+    on the CPU, fetched as train_eager fetches them (a pre-hook on
+    out_proj)."""
+    with _eager_cpu() as pt:
+        pt.seed(1)
+        net = chip_smoke._masked_lm(pt, **_EAGER_TINY)
+        masks = []
+        net.encoder.layers[0].self_attn.out_proj.register_forward_pre_hook(
+            lambda layer, args: masks.append(args[0]._value != 0))
+        ids, labels = chip_smoke._mlm_batch(_EAGER_TINY["vocab"], 8,
+                                            _EAGER_TINY["seq"], seed=2)
+        chip_smoke._eager_fit(pt, net, ids, labels, steps, lr=1e-3,
+                              amp=False)
+    return masks
+
+
+def test_masks_differ_passes_fresh_masks_and_rejects_repeats():
+    masks = _tiny_keep_masks()
+    got = chip_smoke._masks_differ(masks, 0.1)
+    assert got["differing"] > 0 and got["elements"] == 8 * 16 * 16
+    with pytest.raises(AssertionError, match="same keep mask"):
+        chip_smoke._masks_differ([masks[0], masks[0].clone()], 0.1)
+    with pytest.raises(AssertionError, match="sigma"):
+        chip_smoke._masks_differ([masks[0], torch.ones_like(masks[0])], 0.1)
+    with pytest.raises(AssertionError, match="1 keep masks"):
+        chip_smoke._masks_differ(masks[:1], 0.1)
+
+
+def test_launches_agree_holds_each_kernel_to_its_count():
+    per_step = {"flash_attention_fwd": 12, "fused_adam": 198}
+    ok = {"flash_attention_fwd": 96, "fused_adam": 1584}
+    assert chip_smoke._launches_agree(ok, 8, per_step)["launches"] == ok
+    with pytest.raises(AssertionError, match="launched"):
+        chip_smoke._launches_agree(dict(ok, fused_adam=0), 8, per_step)
+    with pytest.raises(AssertionError, match="launched"):
+        chip_smoke._launches_agree(dict(ok, flash_attention_fwd=97), 8,
+                                   per_step)
+    with pytest.raises(AssertionError, match="launched"):
+        chip_smoke._launches_agree({"flash_attention_fwd": 0}, 8,
+                                   {"flash_attention_fwd": 0})
+    with pytest.raises(AssertionError, match="launched"):
+        chip_smoke._launches_agree({"fused_adam": 1584}, 8, per_step)
+
+
+def test_resume_digest_check_catches_a_resume_that_redraws(tmp_path,
+                                                           monkeypatch):
+    """``_eager_resume`` ends bit-identical on the CPU (a tiny copy of
+    train_eager's), and fails when the resumed run draws its dropout masks
+    from the wrong step (the checkpoint's tracer step not restored)."""
+    from paddle_tpu_torch.dygraph.tracer import Tracer
+
+    with _eager_cpu() as pt:
+        res = chip_smoke._eager_resume(pt, _EAGER_TINY, 2, 4, 8,
+                                       str(tmp_path / "ok"))
+        assert res["bit_identical"] and res["resumed_at"] == 4
+        monkeypatch.setattr(Tracer, "set_seed_step",
+                            lambda self, seed, step: None)
+        with pytest.raises(AssertionError, match="digest"):
+            chip_smoke._eager_resume(pt, _EAGER_TINY, 2, 4, 8,
+                                     str(tmp_path / "bad"))
+    assert chip_smoke._digests_agree("a", "a")["bit_identical"]
+    with pytest.raises(AssertionError, match="digest"):
+        chip_smoke._digests_agree("a", "b")

@@ -46,6 +46,7 @@ from paddle_tpu_torch.framework import program_guard, unique_name
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.optimizer import Adam
 from paddle_tpu_torch.weights import scope_from_numpy
+from torch_modes import static_mode  # noqa: F401 (autouse fixture)
 
 _CFG = dict(vocab_size=128, n_layer=2, n_head=2, d_model=32, max_seq_len=16)
 _FLASH_CFG = dict(vocab_size=256, n_layer=2, n_head=2, d_model=128,

@@ -39,9 +39,13 @@ def main() -> int:
     card = cs._environment(torch)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    import paddle_tpu_torch
     from paddle_tpu_torch.framework import Scope
     from paddle_tpu_torch.ops import _build
 
+    # the band's programs are static; a port with the eager API starts in
+    # dygraph mode (an older checkout has no switch and is static)
+    getattr(paddle_tpu_torch, "enable_static", lambda: None)()
     _build.load()
     config, batch, seq = cs._TRAIN, cs._TRAIN_B, cs._TRAIN_T
     program = cs._train_program(config, batch, seq)
