@@ -1809,8 +1809,10 @@ def _by_op(torch, events) -> dict:
     on the host (eagerly): each top-level host op that put work on the
     device, on any thread (a grad op's backward runs on autograd's
     thread while the executor's thread waits in it), is charged to the
-    executor's ``OP_RANGE`` range whose host interval holds its start.
-    Returns {} for a replayed step, which runs no host ops."""
+    executor's ``OP_RANGE`` range whose host interval holds its start
+    (a scheduled trace's "ProfilerStep*" range, ``_profiled``, is no
+    op's parent here). Returns {} for a replayed step, which runs no host
+    ops."""
     import bisect
 
     from paddle_tpu_torch.framework.executor import OP_RANGE
@@ -1826,7 +1828,8 @@ def _by_op(torch, events) -> dict:
         if (e.device_type != torch.autograd.DeviceType.CPU or not ranges
                 or e.name.startswith(OP_RANGE)
                 or (parent is not None
-                    and not parent.name.startswith(OP_RANGE))):
+                    and not parent.name.startswith((OP_RANGE,
+                                                    "ProfilerStep")))):
             continue
         us = getattr(e, "device_time_total", None)
         if us is None:
@@ -1866,10 +1869,13 @@ def _kernel_tally(torch, events):
 
     kernels = {}
     for e in events:
-        # an op's range also shows on the device timeline (the span of
-        # its kernels): not a kernel
+        # an op's range, and a scheduled trace's step range
+        # ("ProfilerStep*", ``_profiled``), also show on the device
+        # timeline as user annotations (the span of their kernels): not
+        # kernels
         if (e.device_type == torch.autograd.DeviceType.CUDA
-                and not e.name.startswith(OP_RANGE)):
+                and not e.name.startswith(OP_RANGE)
+                and not getattr(e, "is_user_annotation", False)):
             n, t = kernels.get(e.name, (0, 0.0))
             kernels[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
     device_ms = sum(t for _, t in kernels.values())
@@ -1904,33 +1910,27 @@ def _profile_step(torch, exe, main, feed, fetch_list, scope, card, phase,
     captured step for ``fetch_list`` (the trajectory's, so the same
     analysed entry) and the trace must show each path kernel launched
     exactly so often (a replayed step's launches are counted here, from
-    the device). A traced run: the tracer adds host time, so its wall is
-    not the step metric, nor its busy share (``traced_busy_share``); the
-    busy share is the device time over the untraced step's wall. Prints
-    the report and returns it."""
-    from torch.profiler import ProfilerActivity, profile
-
+    the device). The counted step follows one traced warm-up step
+    (``_profiled``), so the executor takes two steps here. A traced run:
+    the tracer adds host time, so its wall is not the step metric, nor
+    its busy share (``traced_busy_share``); the busy share is the device
+    time over the untraced step's wall. Prints the report and returns
+    it."""
     replays = exe.phases["replay"]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        exe.run(main, feed=feed, fetch_list=fetch_list, scope=scope,
-                return_numpy=return_numpy)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    if per_step is not None and exe.phases["replay"] != replays + 1:
-        raise AssertionError(f"{phase}: the traced step was not a replay "
+    _, wall_ms, events = _profiled(
+        torch, lambda: exe.run(main, feed=feed, fetch_list=fetch_list,
+                               scope=scope, return_numpy=return_numpy))
+    if per_step is not None and exe.phases["replay"] != replays + 2:
+        raise AssertionError(f"{phase}: the traced steps were not replays "
                              f"({exe.phases})")
-    kernels, device_ms, ours, families, other = _kernel_tally(
-        torch, prof.events())
+    kernels, device_ms, ours, families, other = _kernel_tally(torch, events)
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]
     if per_step is not None:
         seen = {k: v["calls"] for k, v in ours.items()}
         if seen != per_step:
             raise AssertionError(f"{phase}: path kernels launched {seen} "
                                  f"times in the traced step, not {per_step}")
-    by_op = _by_op(torch, prof.events())
+    by_op = _by_op(torch, events)
     by_family = {}
     for op, ms in by_op.items():
         fam = _op_family(op)
@@ -4347,15 +4347,14 @@ def _train_eager(torch, card) -> dict:
     and fused Adam 198 (``_launches_agree``), ``FLASH_DISPATCH_COUNT`` 12
     a step; the first layer's attention-dropout keep masks at steps 1 and
     2 differ, each keep share within 5 sigma of 0.9 (``_masks_differ``);
-    a traced step (``train_batch`` under ``torch.profiler``) launches the
-    same kernels; and a 2-layer copy resumed from its step-4 checkpoint
-    ends bit-identical to the uninterrupted run (``_eager_resume``).
+    a traced step (``train_batch`` under ``torch.profiler``, after a traced
+    warm-up step: ``_profiled``) launches the same kernels; and a 2-layer
+    copy resumed from its step-4 checkpoint ends bit-identical to the
+    uninterrupted run (``_eager_resume``).
     Reports the step wall (median of steps 3-8), the traced step's device
     ms and the card's idle share, each path kernel's device ms and
     launches, and the peak memory (memwatch's, the allocator's, and the
     reckoning). Returns {kernel: launches over the fit}."""
-    from torch.profiler import ProfilerActivity, profile
-
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import dygraph, memwatch
     from paddle_tpu_torch.ops import attention
@@ -4411,16 +4410,10 @@ def _train_eager(torch, card) -> dict:
         wall_ms = statistics.median(walls[2:])
 
         with pt.amp.auto_cast(dtype="bfloat16"):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                model.train_batch([ids], labels)
-                torch.cuda.synchronize()
-                traced_ms = (time.perf_counter() - t0) * 1e3
-        kernels, device_ms, ours, families, _ = _kernel_tally(
-            torch, prof.events())
-        del prof
+            _, traced_ms, events = _profiled(torch, model.train_batch,
+                                             [ids], labels)
+        kernels, device_ms, ours, families, _ = _kernel_tally(torch, events)
+        del events
         seen = {k: ours[k]["calls"] for k in counted["per_step"]}
         if seen != counted["per_step"]:
             raise AssertionError(f"train_eager: the traced step launched "
@@ -4448,6 +4441,389 @@ def _train_eager(torch, card) -> dict:
          note="busy share: the traced step's device ms over the untraced "
          "fit's median step wall (steps 3-8)")
     return counted["launches"]
+
+
+_JIT_SEED = 2027
+_JIT_CALLS = 10
+_JIT_FLASH = 12  # flash forward launches a forward: one attention a layer
+_JIT_DECODE_TRIPS = 4.0  # the decode loop's bound; its break fires at 3
+_JIT_LOAD_RTOL = 1e-4
+_JIT_DIR = os.path.join(_ROOT, "build", "jit")
+# bf16 rounding of a loop-route result against eager: one bf16 ulp
+_JIT_LOOP_RTOL = 2.0 ** -7
+# the decode loop where the host holds the card back: a narrow encoder
+_JIT_NARROW = dict(vocab=1024, seq=128, d_model=128, n_head=2, n_layer=2,
+                   dropout=0.0)
+_JIT_NARROW_TRIPS = 32.0
+_JIT_NARROW_CALLS = 5
+
+
+def _bit_identical(torch, got, want, what) -> dict:
+    """``got`` and ``want`` (torch tensors) equal bit for bit: same shape,
+    dtype and values. Raises otherwise."""
+    if (tuple(got.shape) != tuple(want.shape) or got.dtype != want.dtype
+            or not torch.equal(got, want)):
+        diff = (float((got.double() - want.double()).abs().max())
+                if got.shape == want.shape else None)
+        raise AssertionError(f"{what}: not bit-identical to eager ({got.dtype}"
+                             f" {tuple(got.shape)} against {want.dtype} "
+                             f"{tuple(want.shape)}, max |diff| {diff})")
+    return {"bit_identical": True, "shape": list(got.shape),
+            "dtype": str(got.dtype).replace("torch.", "")}
+
+
+def _rel_agrees(torch, got, want, rtol, what) -> dict:
+    """max |got - want| over max |want| within ``rtol``; reports whether
+    the two are also bit-identical. Raises otherwise."""
+    g, w = got.double(), want.double()
+    err = float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+    if tuple(got.shape) != tuple(want.shape) or not err <= rtol:
+        raise AssertionError(f"{what}: relative error {err} against eager, "
+                             f"tolerance {rtol}")
+    return {"max_rel_err": err, "rtol": rtol,
+            "bit_identical": bool(torch.equal(got, want))}
+
+
+def _route_agrees(info, route, what, **want) -> dict:
+    """A ``StaticFunction.routes`` entry took ``route`` and its counts are
+    ``want``. Raises otherwise."""
+    got = {k: info[k] for k in want}
+    if info["route"] != route or got != want:
+        raise AssertionError(f"{what}: route {info['route']} {got}, not "
+                             f"{route} {want}")
+    return info
+
+
+def _counts_agree(seen, want, what) -> list:
+    """The flash forward's launch count after each call against ``want``.
+    Raises otherwise."""
+    if list(seen) != list(want):
+        raise AssertionError(f"{what}: flash forward launches after each "
+                             f"call {list(seen)}, not {list(want)}")
+    return list(seen)
+
+
+def _if_nodes() -> bool:
+    """Whether this torch can capture CUDA conditional nodes."""
+    import torch
+
+    return hasattr(torch.cuda.CUDAGraph, "begin_capture_to_if_node")
+
+
+def _timed(torch, fn, *args):
+    """(fn's result, its wall ms), the card synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _profiled(torch, fn, *args):
+    """(fn's result, its wall ms, the trace's events) of one call under
+    ``torch.profiler``, after one traced warm-up call whose events are
+    dropped (the profiler's ``warmup`` step): a traced eager step once
+    lost some kernel records in a cold trace (5 of 12 flash forwards, in
+    one run of five on the H100), so the call that is counted runs inside
+    a trace already going."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    return out, wall_ms, prof.events()
+
+
+def _traced(torch, fn, *args):
+    """(fn's result, its device ms, the port's kernels by ``_TRACE_NAMES``)
+    of one call under ``torch.profiler`` (``_profiled``)."""
+    out, _, events = _profiled(torch, fn, *args)
+    _, device_ms, ours, _, _ = _kernel_tally(torch, events)
+    return out, device_ms, ours
+
+
+def _decode_loop(pt, net):
+    """The greedy decode loop of the JAX package's dy2static model test
+    over ``net``: a tensor ``while`` with ``break``, summing each trip's
+    largest last-position logits."""
+    def decode_scores(ids, max_new, limit):
+        total = pt.to_tensor(np.float32(0))
+        steps = pt.to_tensor(np.float32(0))
+        while steps < max_new:
+            logits = net(ids)
+            nxt = logits[:, -1, :].max(axis=-1)
+            total = total + nxt.sum()
+            steps = steps + 1.0
+            if total > limit:
+                break
+        return total
+
+    return decode_scores
+
+
+def _narrow_loop(torch, pt, jit, card) -> dict:
+    """The decode loop (``_decode_loop``) where the host holds the card
+    back: over a narrow encoder (``_JIT_NARROW``, batch 1, fp32) for
+    ``_JIT_NARROW_TRIPS`` trips, no break. Eager against the loop route
+    (each trip a replay of the captured body, and one host read):
+    ``_JIT_NARROW_CALLS`` calls each, walls; the loop route's result
+    within ``_JIT_LOAD_RTOL`` of eager's (``_rel_agrees``), its counts
+    by ``_route_agrees``."""
+    cfg = _JIT_NARROW
+    pt.seed(_JIT_SEED)
+    net = _masked_lm(pt, **cfg)
+    net.eval()
+    ids_np, _ = _mlm_batch(cfg["vocab"], 1, cfg["seq"], _JIT_SEED)
+    decode_scores = _decode_loop(pt, net)
+    args = (pt.to_tensor(ids_np), pt.to_tensor(np.float32(_JIT_NARROW_TRIPS)),
+            pt.to_tensor(np.float32(np.inf)))
+    eager_walls, walls, errs = [], [], []
+    for _ in range(_JIT_NARROW_CALLS):
+        want, ms = _timed(torch, decode_scores, *args)
+        eager_walls.append(ms)
+    static = jit.to_static(decode_scores)
+    for i in range(_JIT_NARROW_CALLS):
+        got, ms = _timed(torch, static, *args)
+        walls.append(ms)
+        errs.append(_rel_agrees(torch, got._value, want._value,
+                                _JIT_LOAD_RTOL, f"narrow loop call {i + 1}"))
+    trips = int(_JIT_NARROW_TRIPS)
+    route = _route_agrees(
+        list(static.routes.values())[0], "loop", "narrow loop",
+        trips=trips * _JIT_NARROW_CALLS, loop_captures=1,
+        host_reads=(trips + 1) * _JIT_NARROW_CALLS + 1)
+    eager_ms = statistics.median(eager_walls[1:])
+    loop_ms = statistics.median(walls[1:])
+    return {"config": cfg, "batch": 1, "trips": trips, "dtype": "float32",
+            "calls": errs, "route": route, "eager_walls_ms": eager_walls,
+            "loop_walls_ms": walls, "eager_ms": eager_ms, "loop_ms": loop_ms,
+            "eager_ms_per_trip": eager_ms / trips,
+            "loop_ms_per_trip": loop_ms / trips,
+            "eager_over_loop": eager_ms / loop_ms, "card": card,
+            "note": "medians of calls 2 on; the loop route's first call "
+                    "warms and captures the body"}
+
+
+def _jit(torch, card) -> dict:
+    """The export path at full width (``_EAGER``'s encoder, eval mode, from
+    ``_JIT_SEED``; batch ``_EAGER_B`` x seq 2048).
+
+    1. ``jit.to_static(net)`` under ``amp.auto_cast("bfloat16")``: ten
+       calls, each bit-identical to the eager forward
+       (``_bit_identical``); flash forward launches counted from 0 after
+       each call: 12, 24, then 24 (warm-up, capture, replays:
+       ``_counts_agree``); one cache entry on the "graph" route with
+       phases 1/1/8; a traced replay shows 12 flash forward kernels; a
+       batch-4 call makes a second entry.
+    2. ``set_value`` on one attention weight: the next call captures again
+       (``recaptures`` 1) and equals the eager forward with the new weight.
+    3. Control flow, each case against the same function run eagerly:
+       the greedy decode loop (a tensor ``while`` with ``break``) over the
+       encoder, two calls of 3 trips, on the "loop" route with one loop
+       body captured, 4 host reads and 3 trips a call (and one read of
+       the break's ``if`` in the first call's first trip, op by op), 36
+       flash launches in all (that trip, the body's warm-up and its
+       capture); and a tensor
+       ``if`` on the encoder's output, on the "loop" route with one host
+       read a call (this torch has no conditional nodes,
+       ``_if_nodes``); each within ``_JIT_LOOP_RTOL`` (``_rel_agrees``);
+       then the decode loop where the host holds the card back
+       (``_narrow_loop``: a narrow encoder, eager against the loop route).
+    4. ``jit.save`` in fp32 with ``InputSpec([None, 2048], "int64")`` (the
+       recording forward runs at batch 1, so the saved reshapes are batch
+       1's), ``jit.load``, four calls at batch 1 through the loaded
+       ``Executor`` (eager warm-up, capture, two replays): each within
+       ``_JIT_LOAD_RTOL`` of the eager fp32 forward, fp32 flash forward
+       launches 12, 24, 24, 24, a traced replay with 12 flash kernels.
+
+    Returns {kernel: launches} of the to_static calls (``jit``) and of the
+    loaded model's (``jit_load``)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import dygraph, jit
+    from paddle_tpu_torch.ops import flash_attention as fl
+
+    cfg = _EAGER
+    b, t = _EAGER_B, cfg["seq"]
+    report, launches = {"card": card, "if_nodes": _if_nodes()}, {}
+    # no tape: an eager forward would otherwise keep every activation for
+    # a backward that never comes
+    with dygraph.guard(), pt.no_grad():
+        pt.seed(_JIT_SEED)
+        net = _masked_lm(pt, **cfg)
+        net.eval()
+        ids_np, _ = _mlm_batch(cfg["vocab"], b, t, _JIT_SEED)
+        ids = pt.to_tensor(ids_np)
+        with pt.amp.auto_cast(dtype="bfloat16"):
+            eager_walls = []
+            for _ in range(3):
+                eager, ms = _timed(torch, net, ids)
+                eager_walls.append(ms)
+            eager = eager._value
+            static = jit.to_static(net)
+            sf = static.forward.static_function
+            fl.reset_launches()
+            seen, walls = [], []
+            for i in range(_JIT_CALLS):
+                out, ms = _timed(torch, static, ids)
+                walls.append(ms)
+                seen.append(fl.fwd_launches)
+                same = _bit_identical(torch, out._value, eager,
+                                      f"jit call {i + 1}")
+                del out
+            launches["jit"] = {"flash_attention_fwd": fl.fwd_launches}
+            report["to_static"] = {
+                "launches_after_each_call": _counts_agree(
+                    seen, [_JIT_FLASH] + [2 * _JIT_FLASH] * (_JIT_CALLS - 1),
+                    "to_static"),
+                "route": _route_agrees(
+                    list(sf.routes.values())[0], "graph", "to_static",
+                    phases={"eager": 1, "capture": 1,
+                            "replay": _JIT_CALLS - 2, "op": 0},
+                    recaptures=0, host_reads=0),
+                "bit_identical_calls": _JIT_CALLS, "output": same,
+                "walls_ms": walls, "replayed_ms": statistics.median(
+                    walls[2:]), "eager_walls_ms": eager_walls,
+                "eager_ms": statistics.median(eager_walls)}
+            if len(sf._cache) != 1:
+                raise AssertionError(f"to_static: {len(sf._cache)} entries")
+            out, device_ms, ours = _traced(torch, static, ids)
+            _bit_identical(torch, out._value, eager, "traced jit call")
+            del out
+            if ours["flash_attention_fwd"]["calls"] != _JIT_FLASH:
+                raise AssertionError(f"to_static: the traced replay ran "
+                                     f"{ours['flash_attention_fwd']} flash "
+                                     f"forward kernels, not {_JIT_FLASH}")
+            rep = report["to_static"]
+            rep.update(traced_device_ms=device_ms,
+                       traced_flash_fwd=ours["flash_attention_fwd"],
+                       idle_share=1.0 - device_ms / rep["replayed_ms"],
+                       eager_over_replayed=rep["eager_ms"]
+                       / rep["replayed_ms"])
+            static(pt.to_tensor(ids_np[:4]))
+            if len(sf._cache) != 2:
+                raise AssertionError(f"to_static: a batch-4 call left "
+                                     f"{len(sf._cache)} entries, not 2")
+            # 2. a parameter moves
+            w = net.encoder.layers[0].self_attn.q_proj.weight
+            w.set_value(w.numpy() * 0.5)
+            out = static(ids)
+            want = type(net).forward(net, ids)._value
+            report["set_value"] = {
+                **_bit_identical(torch, out._value, want, "after set_value"),
+                "recaptures": _route_agrees(
+                    sf.routes[next(iter(sf._cache))], "graph", "set_value",
+                    recaptures=1)["recaptures"]}
+            del out, want, eager, static
+            net.__dict__.pop("forward")  # the eager forward again
+
+            # 3. control flow
+            decode_scores = _decode_loop(pt, net)
+            one = float(decode_scores(ids, pt.to_tensor(np.float32(1)),
+                                      pt.to_tensor(np.float32(1e30))))
+            if not one > 0:
+                raise AssertionError(f"decode: one trip's score {one}")
+            args = (ids, pt.to_tensor(np.float32(_JIT_DECODE_TRIPS)),
+                    pt.to_tensor(np.float32(2.5 * one)))
+            want, eager_ms = _timed(torch, decode_scores, *args)
+            static = jit.to_static(decode_scores)
+            fl.reset_launches()
+            cases, calls = {}, 2
+            for i in range(calls):
+                got, ms = _timed(torch, static, *args)
+                cases[f"decode_call_{i + 1}"] = {
+                    **_rel_agrees(torch, got._value, want._value,
+                                  _JIT_LOOP_RTOL, f"decode call {i + 1}"),
+                    "ms": ms}
+            # the first call's first trip runs op by op (its loop-locals
+            # are not yet tensors: one host read of the break's `if`),
+            # then warms and captures the body; every later trip replays
+            cases["decode"] = _route_agrees(
+                list(static.routes.values())[0], "loop", "decode",
+                trips=3 * calls, host_reads=4 * calls + 1, loop_captures=1,
+                tensor_ifs=1)
+            cases["decode"].update(
+                eager_ms=eager_ms, score=float(want), one_trip_score=one,
+                flash_fwd_launches=_counts_agree(
+                    [fl.fwd_launches], [3 * _JIT_FLASH], "decode")[0])
+
+            def gate(ids):
+                h = net(ids)[:, -1, :]
+                if h.mean() > 0:
+                    out = h * 2.0
+                else:
+                    out = h - 1.0
+                return out
+
+            want = gate(ids)._value
+            static = jit.to_static(gate)
+            for i in range(calls):
+                got = static(ids)._value
+                cases[f"if_call_{i + 1}"] = _rel_agrees(
+                    torch, got, want, _JIT_LOOP_RTOL,
+                    f"tensor if call {i + 1}")
+            cases["if"] = _route_agrees(
+                list(static.routes.values())[0], "loop", "tensor if",
+                tensor_ifs=calls, host_reads=calls, tensor_loops=0)
+            report["control_flow"] = cases
+            del static, want, got
+        report["narrow_loop"] = _narrow_loop(torch, pt, jit, card)
+
+        # 4. export and load, fp32
+        shutil.rmtree(_JIT_DIR, ignore_errors=True)
+        path = os.path.join(_JIT_DIR, "encoder")
+        t0 = time.perf_counter()
+        jit.save(net, path, input_spec=[jit.InputSpec([None, t], "int64")])
+        save_s = time.perf_counter() - t0
+        sizes = {ext: os.path.getsize(path + ext)
+                 for ext in (".pdmodel", ".pdiparams")}
+        t0 = time.perf_counter()
+        loaded = jit.load(path)
+        load_s = time.perf_counter() - t0
+        ids1 = pt.to_tensor(ids_np[:1])
+        want = net(ids1)._value
+        fl.reset_launches()
+        seen, errs, walls = [], [], []
+        for i in range(4):
+            got, ms = _timed(torch, loaded, ids1)
+            walls.append(ms)
+            seen.append(fl.fwd_launches)
+            errs.append(_rel_agrees(torch, got._value, want, _JIT_LOAD_RTOL,
+                                    f"jit.load call {i + 1}"))
+        launches["jit_load"] = {"flash_attention_fwd": fl.fwd_launches}
+        got, device_ms, ours = _traced(torch, loaded, ids1)
+        errs.append(_rel_agrees(torch, got._value, want, _JIT_LOAD_RTOL,
+                                "traced jit.load call"))
+        if ours["flash_attention_fwd"]["calls"] != _JIT_FLASH:
+            raise AssertionError(f"jit.load: the traced replay ran "
+                                 f"{ours['flash_attention_fwd']} flash "
+                                 f"forward kernels, not {_JIT_FLASH}")
+        phases = dict(loaded._exe.phases)  # the trace's warm-up replays too
+        if phases != {"eager": 1, "capture": 1, "replay": 4}:
+            raise AssertionError(f"jit.load: executor phases {phases}")
+        report["jit_load"] = {
+            "launches_after_each_call": _counts_agree(
+                seen, [_JIT_FLASH] + [2 * _JIT_FLASH] * 3, "jit.load"),
+            "calls": errs, "phases": phases, "dtype": "float32",
+            "batch": 1, "walls_ms": walls, "traced_device_ms": device_ms,
+            "traced_flash_fwd": ours["flash_attention_fwd"],
+            "file_bytes": sizes, "save_s": save_s, "load_s": load_s,
+            "ops": len(loaded._program.global_block().ops)}
+        del loaded, got, want, net
+    shutil.rmtree(_JIT_DIR, ignore_errors=True)
+    _say(phase="jit", config=cfg, batch=b, **report, launches=launches,
+         note="replayed_ms: median wall of calls 3-10 (input copy and "
+         "output clone included); idle share: 1 - traced replay device "
+         "ms / replayed_ms")
+    return launches
 
 
 def _kernel_row(name, replaces, source, launches, err, t, card, **extra):
@@ -4513,6 +4889,8 @@ def main() -> int:
     lap("train_recipe")
     eager = _train_eager(torch, card)
     lap("train_eager")
+    jitted = _jit(torch, card)
+    lap("jit")
     eager_times = _time_flash(torch, card, "BHTD", False)
     lap("eager_kernel_times")
     for case in _CPU_VS_CARD:
@@ -4531,7 +4909,9 @@ def main() -> int:
         return {"train": train[name], "train_long": train_long[name],
                 "train_observed": observed[name],
                 "train_recipe": recipe[name],
-                "train_eager": eager.get(name, 0), **more}
+                "train_eager": eager.get(name, 0),
+                "jit": jitted["jit"].get(name, 0),
+                "jit_load": jitted["jit_load"].get(name, 0), **more}
 
     def replayed(name):  # the device trace's launches per replayed step
         return {"train": traced["path_kernels"][name]["calls"],

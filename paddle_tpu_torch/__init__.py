@@ -16,7 +16,9 @@ the same path:
                         the CUDA kernels' wrappers
   nn/, amp/, tensor/    layers, autocast, the tensor namespace
   optimizer/            the optimizers; nn/clip.py, regularizer.py
-  io/, metric/, hapi/   DataLoader, metrics, Model.fit
+  io/, metric/, hapi/   DataLoader, metrics, Model.fit; io/fs.py
+  jit/                  to_static (CUDA-graph replay, dy2static control
+                        flow), jit.save / jit.load
   checkpoint.py         the fit loop's full-state checkpoints
   models/gpt.py         GPTConfig and the training program
   distributed/fleet/    RecomputeOptimizer
@@ -58,6 +60,7 @@ from . import io  # noqa: E402
 from . import amp  # noqa: E402
 from . import tensor  # noqa: E402
 from . import callbacks  # noqa: E402
+from . import jit  # noqa: E402
 from .hapi.model import Model  # noqa: E402
 from .hapi.model_io import load, save  # noqa: E402
 

@@ -29,6 +29,12 @@ the generic grad of ``registry.py``).
 - **Grad-ready hooks**: ``fn(leaf_name, grad)`` fires during backward
   the moment a leaf's last gradient op has run (the data-parallel comms
   overlap rides them).
+- **Recording every op** (``record_all``): ``jit.save`` records one
+  forward into the tape whether or not an op needs a gradient, and the
+  tape ``Program`` becomes the saved program.
+- **Observers** (``observers``): each callable there sees every traced
+  op's input Tensors (``jit.StaticFunction`` learns which parameters a
+  captured function reads).
 
 Nothing touches the device until the first op: the lowering context is
 made at a tape's first op.
@@ -60,6 +66,9 @@ class Tracer:
         self._step = 0
         self.training = True
         self.enable_grad = True
+        # record every op into the tape, gradient or not (jit.save)
+        self.record_all = False
+        self.observers: List = []
         self._grad_ready_hooks: List = []
         # a parameter lives as long as its layer: a dead model's names
         # may be generated again (unique_name.guard)
@@ -132,6 +141,8 @@ class Tracer:
         in_tensors = {k: ts for k, ts in
                       ((k, _as_list(v)) for k, v in inputs.items()) if ts}
         ins = {k: [t._value for t in ts] for k, ts in in_tensors.items()}
+        for observe in self.observers:
+            observe(in_tensors)
         if opdef.uses_rng and "_rng_id" not in attrs:
             attrs["_rng_id"] = self.program._rng_op_count
             self.program._rng_op_count += 1
@@ -167,7 +178,7 @@ class Tracer:
                     t.is_leaf = not requires_grad
                 ts.append(t)
             out_tensors[slot] = ts
-        if requires_grad:
+        if requires_grad or self.record_all:
             self._record(type, in_tensors, out_tensors, attrs)
         return out_tensors
 

@@ -12,6 +12,12 @@ kernel) hand back the parameter's own tensor, updated where it lies.
 
 ``numpy()`` of a bfloat16 tensor gives the exact float32 of its values:
 numpy has no bfloat16 (the reference hands out ml_dtypes' bfloat16).
+
+While a ``jit.to_static`` function runs as a compiled unit
+(``jit/dy2static.py``), a tensor's value is not read on the host
+(``numpy()``, and so ``item()``, ``bool()``, ``float()`` and ``int()``,
+raise ``_compiled()``), and a host value that becomes a tensor goes
+through the unit's ``_constants`` (a capture cannot copy host data).
 """
 from __future__ import annotations
 
@@ -21,6 +27,12 @@ import numpy as np
 import torch
 
 from ..framework import core, unique_name
+
+# set while a jit.to_static function runs as a compiled unit
+# (jit/dy2static.py:compiling): the error a host read raises, and the
+# unit's store of device copies of host values
+_compiled = None
+_constants = None
 
 
 def _place_device(place) -> torch.device:
@@ -56,10 +68,20 @@ def to_torch(value: Any, dtype=None, place=None) -> torch.Tensor:
             arr = arr.astype(np.float32)
         elif arr.dtype == np.float64:
             arr = arr.astype(np.float32)
-        t = torch.from_numpy(np.array(arr, order="C"))
-        if bf16:
-            t = t.to(torch.bfloat16)
-        t = t.to(_place_device(place))
+        device = _place_device(place)
+
+        def make():
+            t = torch.from_numpy(np.array(arr, order="C"))
+            if bf16:
+                t = t.to(torch.bfloat16)
+            t = t.to(device)
+            return t if dtype is None else t.to(core.convert_dtype(dtype))
+
+        if _constants is None:
+            return make()
+        want = (core.convert_dtype(dtype) if dtype is not None
+                else torch.bfloat16 if bf16 else None)
+        return _constants(arr, want, device, make)
     if dtype is not None:
         t = t.to(core.convert_dtype(dtype))
     return t
@@ -120,6 +142,8 @@ class Tensor:
     def numpy(self) -> np.ndarray:
         """The value as numpy on the host (a copy); bfloat16 as its exact
         float32."""
+        if _compiled is not None:
+            raise _compiled()
         return core.host_numpy(self._value)
 
     def item(self):

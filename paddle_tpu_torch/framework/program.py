@@ -5,9 +5,10 @@ desc in generated protobuf classes (``paddle_tpu/proto/framework_pb2``);
 the port's descs are small Python classes with the same fields as
 ``proto/framework.proto`` (:class:`VarDesc`, :class:`OpDesc`,
 :class:`BlockDesc`; a Program is its list of blocks), so the port needs
-no protobuf package. ``clone()`` copies descs instead of round-tripping bytes;
-``serialize_to_string``/``parse_from_string`` wait for the inference
-slice and raise until then.
+no protobuf package. ``clone()`` copies descs instead of round-tripping
+bytes; ``serialize_to_string``/``parse_from_string`` write and read the
+``framework.proto`` wire format through ``_proto.py``, so a program
+serialized by either package parses in the other.
 
 Output shapes and dtypes are inferred when an op is appended, by running
 the op's lowering on ``meta`` tensors (``registry.infer_op``).
@@ -21,7 +22,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from .. import flags as _flags
-from . import core, unique_name
+from . import _proto, core, unique_name
 from . import errors as _errs
 
 __all__ = ["VarDesc", "OpDesc", "BlockDesc", "Variable",
@@ -104,10 +105,12 @@ def _attr_value(value: Any) -> Any:
 
 class VarDesc:
     """``VarDesc``: name, type, dtype name, dims, persistable,
-    stop_gradient, is_parameter, need_check_feed."""
+    stop_gradient, is_parameter, need_check_feed and the sharding
+    annotation ``dims_mapping`` (carried, unused by the port)."""
 
     __slots__ = ("name", "type", "dtype", "dims", "persistable",
-                 "stop_gradient", "is_parameter", "need_check_feed")
+                 "stop_gradient", "is_parameter", "need_check_feed",
+                 "dims_mapping")
 
     def __init__(self, name: str, dtype: str = "float32",
                  dims: Sequence[int] = (), type: str = DENSE_TENSOR,
@@ -121,6 +124,7 @@ class VarDesc:
         self.stop_gradient = stop_gradient
         self.is_parameter = is_parameter
         self.need_check_feed = need_check_feed
+        self.dims_mapping: Tuple[str, ...] = ()
 
     def copy(self) -> "VarDesc":
         return copy.copy(self)
@@ -128,22 +132,37 @@ class VarDesc:
 
 class OpDesc:
     """``OpDesc``: type, inputs and outputs as ordered (parameter,
-    arguments) pairs, attrs as name -> value."""
+    arguments) pairs, attrs as name -> value. ``attr_types`` keeps the
+    ``AttrType`` of an attr whose value alone would type otherwise (a
+    block index, or a parsed LONG, FLOAT or empty list; ``_proto.py``)."""
 
-    __slots__ = ("type", "inputs", "outputs", "attrs")
+    __slots__ = ("type", "inputs", "outputs", "attrs", "attr_types")
 
     def __init__(self, type: str):
         self.type = type
         self.inputs: List[Tuple[str, List[str]]] = []
         self.outputs: List[Tuple[str, List[str]]] = []
         self.attrs: Dict[str, Any] = {}
+        self.attr_types: Dict[str, int] = {}
 
     def copy(self) -> "OpDesc":
         d = OpDesc(self.type)
         d.inputs = [(p, list(a)) for p, a in self.inputs]
         d.outputs = [(p, list(a)) for p, a in self.outputs]
         d.attrs = copy.deepcopy(self.attrs)
+        d.attr_types = dict(self.attr_types)
         return d
+
+    def set_attr(self, name: str, value: Any) -> None:
+        """Store ``value`` normalized (``_attr_value``); a Block, or a list
+        of them, keeps its BLOCK / BLOCKS type."""
+        self.attrs[name] = _attr_value(value)
+        self.attr_types.pop(name, None)
+        if isinstance(value, Block):
+            self.attr_types[name] = _proto.BLOCK
+        elif (isinstance(value, (list, tuple)) and value
+              and isinstance(value[0], Block)):
+            self.attr_types[name] = _proto.BLOCKS
 
 
 class BlockDesc:
@@ -292,7 +311,7 @@ class Operator:
                 v.op = self
         for name, value in sorted((attrs or {}).items()):
             if value is not None:
-                self.desc.attrs[name] = _attr_value(value)
+                self.desc.set_attr(name, value)
 
         if (_flags.env_flag("PADDLE_TPU_OP_CALLSTACK")
                 and type not in ("feed", "fetch")
@@ -347,7 +366,7 @@ class Operator:
         return dict(self.desc.attrs)
 
     def _set_attr(self, name: str, value: Any) -> None:
-        self.desc.attrs[name] = _attr_value(value)
+        self.desc.set_attr(name, value)
 
     def __repr__(self):
         ins = {p: list(a) for p, a in self.desc.inputs}
@@ -475,15 +494,49 @@ class Program:
 
     # -- serialization -------------------------------------------------
     def serialize_to_string(self) -> bytes:
-        raise _errs.errors.Unimplemented(
-            "Program serialization is not ported yet (ROADMAP queue A, "
-            "item A12: the inference slice); clone() copies descs")
+        """``ProgramDesc`` bytes of every block's vars and ops (the JAX
+        package's format; ``_proto.py``)."""
+        return _proto.encode_program(
+            (b.desc, [v.desc for v in b.vars.values()],
+             [op.desc for op in b.ops]) for b in self.blocks)
 
     @staticmethod
     def parse_from_string(data: bytes) -> "Program":
-        raise _errs.errors.Unimplemented(
-            "Program parsing is not ported yet (ROADMAP queue A, item "
-            "A12: the inference slice)")
+        """The program of ``ProgramDesc`` bytes of either package; vars are
+        plain ``Variable``s (``is_parameter`` stays in their descs), as
+        the JAX package parses them. Malformed bytes raise
+        ``InvalidArgument``."""
+        prog = Program()
+        prog.blocks = []
+        parsed = _proto.parse_program(data)
+        for idx, parent, fwd, var_bytes, _ in parsed:
+            blk = Block(prog, idx, parent)
+            blk.desc.forward_block_idx = fwd
+            for vb in var_bytes:
+                var = Variable.__new__(Variable)
+                var.block = blk
+                var.desc = _proto.parse_var(
+                    vb, lambda n, k, dt, dims: VarDesc(n, dt, dims, k))
+                var.op = None
+                blk.vars[var.name] = var
+            prog.blocks.append(blk)
+        for blk, (*_, op_bytes) in zip(prog.blocks, parsed):
+            for ob in op_bytes:
+                op = Operator.__new__(Operator)
+                op.block = blk
+                op.desc = _proto.parse_op(ob, OpDesc)
+                op._input_vars, op._output_vars = (
+                    {slot: [v for v in map(blk._find_var_recursive, args)
+                            if v is not None] for slot, args in slots}
+                    for slots in (op.desc.inputs, op.desc.outputs))
+                for vs in op._output_vars.values():
+                    for v in vs:
+                        v.op = op
+                blk.ops.append(op)
+        if not prog.blocks:
+            prog.blocks = [Block(prog, 0, -1)]
+        prog._rng_op_count = sum(len(b.ops) for b in prog.blocks)
+        return prog
 
     def clone(self, for_test: bool = False) -> "Program":
         """A copy of every block's var and op descs (no serialization).

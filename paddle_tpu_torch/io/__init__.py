@@ -5,8 +5,7 @@ Port of ``paddle_tpu/io/__init__.py``. Batches are collated as numpy on
 the host by a background thread and land on the device when a step
 wraps them (``Model.fit``, ``to_tensor``); the consumer's wait is the
 goodput ledger's ``input_wait`` and a ``dataloader/wait`` span, as in
-the reference. ``io/fs.py`` (the HDFS/local file-system helpers) is not
-ported.
+the reference. ``io/fs.py`` holds the HDFS/local file-system helpers.
 """
 from __future__ import annotations
 

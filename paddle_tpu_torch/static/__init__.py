@@ -24,3 +24,5 @@ from .io import (
     save_vars,
 )
 from .nn import data
+
+from ..jit import InputSpec  # noqa: E402,F401  (reference paddle.static.InputSpec)

@@ -19,9 +19,12 @@ reads the loaded values. A new tensor instead makes the executor capture
 that step again (``Executor`` checks each bound persistable's address
 before a replay), which encodes fresh maps.
 
-``save_inference_model`` / ``load_inference_model`` serialize programs,
-which waits for the program serializer (ROADMAP A12): both raise
-``errors.Unimplemented``.
+``save_inference_model`` / ``load_inference_model`` are the JAX
+package's: ``<dirname>/__model__`` holds a pickled ``{"program":
+ProgramDesc bytes, "feeds": [...], "fetches": [...]}`` of the program
+pruned to the ops the targets need (``Program.serialize_to_string``), and
+``__params__`` the persistables those ops read, in the format above. A
+model saved by either package loads in the other.
 """
 from __future__ import annotations
 
@@ -33,15 +36,15 @@ import numpy as np
 import torch
 
 from ..framework import core
-from ..framework import errors as _errs
 from ..framework.executor import _host_tensor, _to_numpy
 from ..framework.program import Parameter, Program, Variable
 from ..framework.scope import Scope, global_scope
 
 __all__ = ["save_vars", "save_params", "save_persistables", "load_vars",
            "load_params", "load_persistables", "save_inference_model",
-           "load_inference_model", "PARAMS_FILENAME"]
+           "load_inference_model", "MODEL_FILENAME", "PARAMS_FILENAME"]
 
+MODEL_FILENAME = "__model__"
 PARAMS_FILENAME = "__params__"
 
 
@@ -146,19 +149,65 @@ def load_persistables(executor, dirname, main_program=None, filename=None,
                      scope=scope)
 
 
-def _unported(what: str) -> _errs.UnimplementedError:
-    return _errs.errors.Unimplemented(
-        f"{what} serializes a program, which is not ported to "
-        f"paddle_tpu_torch yet (ROADMAP.md queue A, item A12)")
+def prune_program(program: Program, feeds, targets) -> Program:
+    """A copy of ``program`` keeping the ops that the ``targets`` need,
+    walking back from them and stopping at the ``feeds`` (the JAX
+    package's ``native._py_prune``; every var stays)."""
+    feeds, needed = set(feeds), set(targets)
+    ops = program.global_block().ops
+    keep = [False] * len(ops)
+    for i in range(len(ops) - 1, -1, -1):
+        if any(n in needed for n in ops[i].output_arg_names()):
+            keep[i] = True
+            needed.update(n for n in ops[i].input_arg_names()
+                          if n not in feeds)
+    pruned = program.clone()
+    block = pruned.global_block()
+    block.ops = [op for op, k in zip(block.ops, keep) if k]
+    return pruned
 
 
 def save_inference_model(dirname: str, feeded_var_names, target_vars,
                          executor=None, main_program: Optional[Program] = None,
                          model_filename=None, params_filename=None,
-                         scope: Optional[Scope] = None):
-    raise _unported("save_inference_model")
+                         scope: Optional[Scope] = None) -> List[str]:
+    """Write the program pruned to what ``target_vars`` need from
+    ``feeded_var_names``, and the persistables its ops read; returns the
+    target names."""
+    from ..framework.program import default_main_program
+
+    program = main_program or default_main_program()
+    scope = scope or global_scope()
+    targets = [v.name if isinstance(v, Variable) else str(v)
+               for v in target_vars]
+    pruned = prune_program(program, list(feeded_var_names), targets)
+    os.makedirs(dirname, exist_ok=True)
+    with open(os.path.join(dirname, model_filename or MODEL_FILENAME),
+              "wb") as f:
+        pickle.dump({"program": pruned.serialize_to_string(),
+                     "feeds": list(feeded_var_names), "fetches": targets},
+                    f, protocol=4)
+    needed = {n for op in pruned.global_block().ops
+              for n in op.input_arg_names()}
+    save_vars(executor, dirname, program,
+              vars=[v.name for v in program.list_vars()
+                    if v.persistable and v.name in needed],
+              filename=params_filename or PARAMS_FILENAME, scope=scope)
+    return targets
 
 
 def load_inference_model(dirname: str, executor=None, model_filename=None,
                          params_filename=None, scope: Optional[Scope] = None):
-    raise _unported("load_inference_model")
+    """``(program, feed names, fetch vars)`` of a saved model; its
+    persistables go into ``scope`` on the executor's device, by
+    :func:`load_vars`'s rule."""
+    scope = scope or global_scope()
+    with open(os.path.join(dirname, model_filename or MODEL_FILENAME),
+              "rb") as f:
+        payload = pickle.load(f)
+    program = Program.parse_from_string(payload["program"])
+    load_vars(executor, dirname, program,
+              filename=params_filename or PARAMS_FILENAME, scope=scope)
+    block = program.global_block()
+    return program, payload["feeds"], [block.var(n)
+                                       for n in payload["fetches"]]

@@ -12,8 +12,8 @@ auto_checkpoint.py``) on the CPU.
   a new tensor, which makes the step capture again.
 - A file the JAX package's ``static.io.save_persistables`` wrote loads
   into the port's program with the JAX values.
-- ``save_inference_model`` / ``load_inference_model`` raise
-  ``Unimplemented`` naming ROADMAP A12.
+- ``save_inference_model`` / ``load_inference_model`` round-trip the
+  program pruned to the loss, bit for bit.
 - ``TrainEpochRange`` over 2 epochs x 3 steps, crashed at epoch 1's
   start and resumed on a fresh executor and scope, equals the
   uninterrupted loop bit for bit on the staged route, and the drift
@@ -22,6 +22,7 @@ auto_checkpoint.py``) on the CPU.
   the resume gate (``PADDLE_RESTART_COUNT``), ``restored_from`` and the
   generator form behave as the JAX package's.
 """
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import os
 import pickle
 import sys
@@ -40,7 +41,7 @@ from paddle_tpu.models import gpt as jgpt
 from paddle_tpu.optimizer import Adam as JAdam
 
 from paddle_tpu_torch import static
-from paddle_tpu_torch.framework import CPUPlace, Executor, Scope, errors
+from paddle_tpu_torch.framework import CPUPlace, Executor, Scope
 from paddle_tpu_torch.incubate.checkpoint import auto_checkpoint as ac
 from torch_modes import static_mode  # noqa: F401 (autouse fixture)
 
@@ -169,12 +170,23 @@ def test_loads_a_file_the_jax_package_wrote(tmp_path):
 
 
 def test_inference_model_io_is_not_ported(tmp_path):
-    (main, _, io), scope, exe, _ = _setup()
-    with pytest.raises(errors.UnimplementedError, match="A12"):
-        static.save_inference_model(str(tmp_path), ["tokens"], [io["loss"]],
-                                    exe, main, scope=scope)
-    with pytest.raises(errors.UnimplementedError, match="A12"):
-        static.load_inference_model(str(tmp_path), exe)
+    """(Named when the two raised; both are ported now.) The program
+    pruned to the loss and the persistables it reads round-trip: loaded
+    into a fresh scope, it gives the loss the saved state gives, bit for
+    bit, and the pruned program holds no optimizer op."""
+    (main, _, io), scope, exe, feed = _setup()
+    saved = static.save_inference_model(
+        str(tmp_path), ["tokens", "labels"], [io["loss"]], exe, main,
+        scope=scope)
+    assert saved == [io["loss"].name]
+    want = exe.run(main, feed=feed, fetch_list=[io["loss"]], scope=scope)[0]
+    fresh = Scope()
+    prog, feeds, fetches = static.load_inference_model(str(tmp_path), exe,
+                                                       scope=fresh)
+    assert feeds == ["tokens", "labels"]
+    assert "adam" not in [op.type for op in prog.global_block().ops]
+    got = exe.run(prog, feed=feed, fetch_list=fetches, scope=fresh)[0]
+    np.testing.assert_array_equal(got, want)
 
 
 def test_resumed_epoch_loop_equals_uninterrupted_staged(tmp_path):

@@ -9,6 +9,7 @@ drain before stop on a scale-down, cooldown gating, and the realized
 attainment back-fill; then both packages' autoscalers over the same
 stubs journal the same decisions.
 """
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import json
 import math
 

@@ -17,6 +17,7 @@ write: the losses and every persistable with the sentinel on equal those
 with it off, bit for bit, on both routes. Either flag is part of the
 cache key, and with both off nothing is probed.
 """
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import re
 
 import numpy as np

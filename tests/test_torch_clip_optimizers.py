@@ -20,6 +20,7 @@ program's (the norm and its sum bf16, the scale and the clipped gradients
 fp32), and the values at rtol 2e-2 (bf16 rounds at other places in the
 two frameworks).
 """
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import numpy as np
 import pytest
 

@@ -10,6 +10,7 @@ roofline document to the JAX package's. Also: the cold-start shed seeded
 from the roofline, and ``calibrate``'s repaired dispatch leg (host wall
 time) and copy-probe sizing.
 """
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import time
 
 import numpy as np

@@ -17,6 +17,7 @@ has no bfloat16); a label equal to ``ignore_index`` = -100 adds nothing
 to the port's cross-entropy, while the reference picks the logit at
 ``V - 100``.
 """
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import os
 import subprocess
 import sys
@@ -260,7 +261,7 @@ def reference(tmp_path_factory):
             f"s = importlib.util.spec_from_file_location('t', {__file__!r});"
             f" m = importlib.util.module_from_spec(s); "
             f"s.loader.exec_module(m); m._reference_main({out!r})")
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=_REPO)
+    env = torch_threads.subprocess_env(JAX_PLATFORMS="cpu", PYTHONPATH=_REPO)
     done = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
                           capture_output=True, text=True, timeout=600)
     assert done.returncode == 0, done.stdout[-3000:] + done.stderr[-3000:]

@@ -13,6 +13,7 @@ fused reduction: ``grad_health`` and ``layer_breakdown`` over the same
 numpy values (fp32 and bf16, through torch tensors on the port's side)
 against the JAX package's ``_fused_norms``, to 1e-6 relative.
 """
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import json
 import math
 import os

@@ -19,6 +19,7 @@ the TPU's BTHD kernel rounds q * scale first, and its online softmax
 rounds P against the running max where the plain version rounds the
 normalized P).
 """
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import sys
 
 import numpy as np

@@ -15,6 +15,7 @@ update; AdamW's decay term is grouped differently in the jnp rule); bf16
 p within one bf16 ulp (rtol 2^-7: both sides round one fp32 value, and
 a last-bit difference of that value may round the other way).
 """
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import numpy as np
 import pytest
 

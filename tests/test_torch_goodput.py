@@ -5,6 +5,7 @@ steps, ledgers, ``status()`` documents and metric series, equal journals
 span attribution. Clock, pid and uptime fields, and each package's own
 flight-recorder tail and progress count, are left out of the comparison.
 """
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import json
 
 import pytest

@@ -21,6 +21,7 @@ as the mean over positions of the per-position loss on labels clipped to
 The checkpoint scenarios are ``tests/test_checkpoint_recovery.py``'s, run
 on the port.
 """
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import contextlib
 import glob
 import os
@@ -143,8 +144,8 @@ def reference(tmp_path_factory):
             f"s = importlib.util.spec_from_file_location('t', {__file__!r});"
             f" m = importlib.util.module_from_spec(s); "
             f"s.loader.exec_module(m); m._reference_main({out!r})")
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PADDLE_TPU_FLASH_MIN_SEQ="64",
-               PYTHONPATH=_REPO)
+    env = torch_threads.subprocess_env(
+        JAX_PLATFORMS="cpu", PADDLE_TPU_FLASH_MIN_SEQ="64", PYTHONPATH=_REPO)
     done = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
                           capture_output=True, text=True, timeout=600)
     assert done.returncode == 0, done.stdout[-3000:] + done.stderr[-3000:]

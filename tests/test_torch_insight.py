@@ -19,6 +19,7 @@ equals ``chip_smoke._analytic_step_flops`` exactly (the plain
 versions' attention over all T^2 scores, no Adam products), the count
 ``train_observed`` holds the card's record to.
 """
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import json
 import os
 import sys

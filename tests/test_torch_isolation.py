@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither jax nor paddle_tpu, and it
 never falls back to the CPU on its own."""
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import ast
 import os
 import subprocess
@@ -75,7 +76,7 @@ def test_port_serves_where_jax_cannot_be_imported():
                        for k, v in sys.modules.items() if v is not None)
         print("ISOLATED_OK")
     """)
-    env = dict(os.environ, PYTHONPATH=_REPO)
+    env = torch_threads.subprocess_env(PYTHONPATH=_REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
@@ -126,7 +127,7 @@ def test_port_trains_where_jax_cannot_be_imported():
                        for k, v in sys.modules.items() if v is not None)
         print("TRAIN_ISOLATED_OK")
     """)
-    env = dict(os.environ, PYTHONPATH=_REPO)
+    env = torch_threads.subprocess_env(PYTHONPATH=_REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
@@ -186,8 +187,9 @@ def test_attention_raises_where_the_reference_takes_flash(monkeypatch):
 
 
 def test_unported_paths_raise():
-    """What still waits for a later slice says so: program serialization
-    (A12), mesh programs and the rest of fleet (A10). The chunked lm-head
+    """What still waits for a later slice says so: mesh programs and the
+    rest of fleet (A10); program serialization, refused here until it was
+    ported (A8b), now round-trips. The chunked lm-head
     CE and recompute, refused here until they were ported, now run (held
     against the JAX package in tests/test_torch_recipe.py); the chunked
     path's loss here is the materialized logits' CE."""
@@ -196,10 +198,12 @@ def test_unported_paths_raise():
     from paddle_tpu_torch.framework import CPUPlace, Executor, Program, Scope
     from paddle_tpu_torch.framework import registry
 
-    with pytest.raises(errors.Unimplemented, match="A12"):
-        Program().serialize_to_string()
-    with pytest.raises(errors.Unimplemented, match="A12"):
-        Program.parse_from_string(b"")
+    # program serialization is ported: an empty program round-trips, and
+    # malformed bytes raise the typed error
+    data = Program().serialize_to_string()
+    assert Program.parse_from_string(data).serialize_to_string() == data
+    with pytest.raises(errors.InvalidArgument, match="malformed"):
+        Program.parse_from_string(b"\xff")
     mesh = Program()
     mesh._mesh = object()
     with pytest.raises(errors.Unimplemented, match="A10"):
@@ -287,7 +291,7 @@ def test_pretraining_recipe_stands_alone():
                        for k, v in sys.modules.items() if v is not None)
         print("ISOLATED_OK")
     """)
-    env = dict(os.environ, PYTHONPATH=_REPO)
+    env = torch_threads.subprocess_env(PYTHONPATH=_REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
@@ -353,7 +357,7 @@ def test_step_observability_stands_alone():
                        for k, v in sys.modules.items() if v is not None)
         print("ISOLATED_OK")
     """)
-    env = dict(os.environ, PYTHONPATH=_REPO)
+    env = torch_threads.subprocess_env(PYTHONPATH=_REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
@@ -383,7 +387,7 @@ def test_import_enables_dygraph_and_makes_no_cuda_context():
         assert not torch.cuda.is_initialized()
         print("EAGER_DEFAULT_OK")
     """)
-    env = dict(os.environ, PYTHONPATH=_REPO)
+    env = torch_threads.subprocess_env(PYTHONPATH=_REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
@@ -449,7 +453,7 @@ def test_eager_api_stands_alone(monkeypatch):
                        for k, v in sys.modules.items() if v is not None)
         print("ISOLATED_OK")
     """)
-    env = dict(os.environ, PYTHONPATH=_REPO)
+    env = torch_threads.subprocess_env(PYTHONPATH=_REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr

@@ -14,6 +14,7 @@ against materialized logits (only the summation order differs); bf16 at
 tests/test_fused_lmhead_ce.py:89 and :97-100 (both sides multiply bf16
 inputs with fp32 accumulation and round the d-logits to bf16).
 """
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import numpy as np
 import pytest
 

@@ -28,6 +28,7 @@ What is held:
 - (b) the forward's grid covers every (128-row tile, 128-column vocab
   tile) once at the serving shapes and the edges.
 """
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import math
 import os
 import sys

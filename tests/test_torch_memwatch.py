@@ -14,6 +14,7 @@ an op, at an eager run and at a capture, turned into the typed
 ``ResourceExhausted`` naming that op, with the post-mortem beside the
 program dumps.
 """
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import json
 import os
 import sys

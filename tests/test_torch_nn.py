@@ -14,6 +14,7 @@ The convolution, pooling and normalization classes other than LayerNorm
 are ported as classes; their ops wait for A11, so a call raises the
 registry's ``Unimplemented`` naming A11.
 """
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import os
 import subprocess
 import sys
@@ -218,7 +219,7 @@ def reference(tmp_path_factory):
             f"s = importlib.util.spec_from_file_location('t', {__file__!r});"
             f" m = importlib.util.module_from_spec(s); "
             f"s.loader.exec_module(m); m._reference_main({out!r})")
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=_REPO)
+    env = torch_threads.subprocess_env(JAX_PLATFORMS="cpu", PYTHONPATH=_REPO)
     done = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
                           capture_output=True, text=True, timeout=600)
     assert done.returncode == 0, done.stdout[-3000:] + done.stderr[-3000:]

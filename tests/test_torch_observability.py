@@ -1,6 +1,7 @@
 """The port's observability planes on the CPU: the profiler's device trace
 (``torch.profiler`` where the JAX package used ``jax.profiler``) and the
 serving engine's lifecycle spans and ledger windows."""
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import json
 
 import torch

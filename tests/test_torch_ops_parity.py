@@ -25,6 +25,7 @@ online softmax rounds P against the running row max, the port's plain
 version the normalized P, so small outputs differ by more than the
 relative rule above allows. Every other case keeps its rule above.
 """
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import zlib
 
 import numpy as np

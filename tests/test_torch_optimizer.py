@@ -10,6 +10,7 @@ The rest runs the port alone: ``state_dict``/``set_state_dict``, the
 learning rate as a per-run feed, ``return_numpy=False``, the executor's
 cache, span and counters, and the refusals of what is not ported.
 """
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import numpy as np
 import pytest
 import torch

@@ -11,9 +11,10 @@ without 64-bit types here, so its shape inference writes int32 where an
 op's int64 input flows through (``reshape2`` of the int64 labels); the
 port keeps int64, and the comparison reads int64 as int32 on both sides
 (the feeds themselves are int64 in both). ``clone()`` (a desc copy; the
-port has no protobuf) must give an equal program, and serialization
-refuses until the inference slice.
+port has no protobuf) must give an equal program, as must a parse of the
+serialized program (``framework/_proto.py``).
 """
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import numpy as np
 import pytest
 
@@ -122,7 +123,10 @@ def test_clone_copies_descs_and_serialization_waits():
     attn = [op for op in test_prog.global_block().ops
             if op.type == "fused_attention_tpu"]
     assert attn and all(op.attr("is_test") for op in attn)
-    with pytest.raises(errors.Unimplemented, match="A12"):
-        tmain.serialize_to_string()
-    with pytest.raises(errors.Unimplemented):
-        type(tmain).parse_from_string(b"")
+    # serialization is ported (the name is from when it raised): a parse
+    # of the serialized program is the program
+    parsed = type(tmain).parse_from_string(tmain.serialize_to_string())
+    assert _ops(parsed) == _ops(tmain)
+    assert _vars(parsed, core.dtype_name) == _vars(tmain, core.dtype_name)
+    with pytest.raises(errors.InvalidArgument):
+        type(tmain).parse_from_string(b"\x0a\x05")

@@ -23,6 +23,7 @@ the chunked lm-head CE and set_device/get_device.
   fp32 at rtol 1e-5 and bf16 at rtol 2e-2.
 - set_device/get_device, and no card plus the default place raising.
 """
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import gc
 import weakref
 

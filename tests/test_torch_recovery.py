@@ -6,6 +6,7 @@ do the single-purpose audits and a goodput journal written by the port's
 ledger across a restart. The audit is pure Python; the packages share
 its text, so any difference is a fault.
 """
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import pytest
 
 from paddle_tpu import recovery as jrecovery

@@ -28,6 +28,7 @@ phases (``framework/replay.py``) that the card records and replays.
   same numpy parameters; prefill and decode programs are bound to one
   pages tensor.
 """
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import numpy as np
 import pytest
 import torch

@@ -15,6 +15,7 @@ port's engines, on the same numpy parameters, give the same tokens for
 one request stream, the same health-event sequence when a replica dies,
 and the same ``backoff_delay_s`` over a grid.
 """
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import time
 
 import numpy as np

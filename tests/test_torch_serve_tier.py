@@ -7,6 +7,7 @@ each replica's roofline from /status, ``capacity.plan`` and one drain-first
 full width; here the same code runs with ``device="cpu"`` on a 2-layer,
 64-wide model with 40 new tokens a request (long enough that requests
 are still out when the phase kills or drains a replica), against tokens
+import torch_threads  # noqa: F401 (one torch thread a worker)
 from an in-process engine; each replica process runs one CPU thread.
 Then its checks are shown failing where they should: changed tokens,
 and a decode tick that beats its floor.

@@ -4,6 +4,7 @@ port at the tiny config on the CPU, and the whole slice against
 same ledger decode-token total). Parameters are the O(1)-scale random
 ones of test_torch_serving_model, so greedy tokens vary from step to
 step."""
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import numpy as np
 import pytest
 

@@ -11,6 +11,7 @@ own order through two layers. Block 0 of the pages is excluded: it is
 the scratch block that padded and inactive rows all write, where
 duplicate writes leave an arbitrary winner in either framework.
 """
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import numpy as np
 import pytest
 

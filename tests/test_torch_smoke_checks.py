@@ -51,6 +51,7 @@ in for the kernels.
   state restored after it), the learning rate frozen at the captured
   step's, and beta1's power one step ahead; a difference in a loss or a
   persistable passes only where a second eager run shares it."""
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import contextlib
 import os
 import sys
@@ -1060,3 +1061,88 @@ def test_resume_digest_check_catches_a_resume_that_redraws(tmp_path,
     assert chip_smoke._digests_agree("a", "a")["bit_identical"]
     with pytest.raises(AssertionError, match="digest"):
         chip_smoke._digests_agree("a", "b")
+
+
+def test_jit_checks_pass_agreement_and_reject_what_they_must():
+    """The ``jit`` phase's checkers: bit identity (a one-ulp change, a
+    dtype and a shape fail), the relative tolerance (reported with bit
+    identity), a route and its counts, the launch sequence; and the
+    conditional-node probe names this torch's API."""
+    g = torch.Generator().manual_seed(3)
+    a = torch.randn(4, 8, generator=g).to(torch.bfloat16)
+    assert chip_smoke._bit_identical(torch, a.clone(), a, "x")[
+        "bit_identical"]
+    nudged = a.clone()
+    nudged.view(torch.int16)[0, 0] += 1  # one bf16 ulp
+    for bad in (nudged, a.float(), a[:2]):
+        with pytest.raises(AssertionError, match="bit-identical"):
+            chip_smoke._bit_identical(torch, bad, a, "x")
+    ok = chip_smoke._rel_agrees(torch, nudged, a, 2.0 ** -7, "x")
+    assert not ok["bit_identical"] and 0 < ok["max_rel_err"] <= 2.0 ** -7
+    with pytest.raises(AssertionError, match="relative error"):
+        chip_smoke._rel_agrees(torch, a * 1.1, a, 2.0 ** -7, "x")
+    info = {"route": "loop", "host_reads": 9, "trips": 6}
+    assert chip_smoke._route_agrees(info, "loop", "x", trips=6) is info
+    for route, want in (("graph", {"trips": 6}), ("loop", {"trips": 5})):
+        with pytest.raises(AssertionError, match="route"):
+            chip_smoke._route_agrees(info, route, "x", **want)
+    assert chip_smoke._counts_agree([12, 24], [12, 24], "x") == [12, 24]
+    with pytest.raises(AssertionError, match="flash forward launches"):
+        chip_smoke._counts_agree([12, 24, 36], [12, 24, 24], "x")
+    assert chip_smoke._if_nodes() == hasattr(
+        torch.cuda.CUDAGraph, "begin_capture_to_if_node")
+
+
+def test_narrow_loop_case_on_the_staged_route(monkeypatch):
+    """The ``jit`` phase's ``narrow_loop`` at a tiny width on the CPU's
+    staged route: the loop route's result agrees with eager's and its
+    counts (trips, host reads, one captured body) are the ones the card
+    must show."""
+    from types import SimpleNamespace
+
+    from paddle_tpu_torch import jit
+
+    def staged(fn):
+        sf = jit.to_static(fn)
+        sf.staged = True
+        return sf
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(chip_smoke, "_JIT_NARROW",
+                        dict(_EAGER_TINY, n_layer=2, dropout=0.0))
+    monkeypatch.setattr(chip_smoke, "_JIT_NARROW_TRIPS", 4.0)
+    with _eager_cpu() as pt, pt.no_grad():
+        r = chip_smoke._narrow_loop(torch, pt,
+                                    SimpleNamespace(to_static=staged), "cpu")
+    assert r["trips"] == 4 and r["route"]["loop_bodies"] == 1
+    assert len(r["calls"]) == chip_smoke._JIT_NARROW_CALLS
+    assert all(c["max_rel_err"] <= chip_smoke._JIT_LOAD_RTOL
+               for c in r["calls"])
+
+
+def test_kernel_tally_counts_kernels_not_ranges():
+    """``_kernel_tally`` sums device kernels only: an executor op's range
+    and a scheduled trace's step range (``_profiled``) also lie on the
+    device timeline and span kernels already counted."""
+    from types import SimpleNamespace
+
+    from paddle_tpu_torch.framework.executor import OP_RANGE
+
+    def event(name, us, device=torch.autograd.DeviceType.CUDA,
+              annotation=False):
+        return SimpleNamespace(name=name, device_type=device,
+                               is_user_annotation=annotation,
+                               time_range=SimpleNamespace(
+                                   elapsed_us=lambda: us))
+
+    events = [event("void (anonymous namespace)::fwd_sm90_kernel<64>(x)",
+                    400.0),
+              event("void at::native::elementwise_kernel<128, 2>", 100.0),
+              # as the card's profiler names a scheduled step's range
+              event("ProfilerStep*", 900.0, annotation=True),
+              event(OP_RANGE + "fused_attention_tpu", 450.0),
+              event("ProfilerStep#1", 5.0, torch.autograd.DeviceType.CPU)]
+    kernels, device_ms, ours, _, _ = chip_smoke._kernel_tally(torch, events)
+    assert device_ms == pytest.approx(0.5)
+    assert sorted(kernels) == sorted(e.name for e in events[:2])
+    assert ours["flash_attention_fwd"] == {"calls": 1, "ms": 0.4}

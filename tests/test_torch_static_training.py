@@ -30,6 +30,7 @@ step difference of up to lr * 6e-9 / eps: 4.7e-5 at the default eps
 1e-8 even at lr 1e-4, 6.5e-7 at eps 1e-5 and lr 1e-3, while the
 parameters move by up to 3e-3.
 """
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import numpy as np
 import pytest
 

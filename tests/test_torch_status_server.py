@@ -11,6 +11,7 @@ a live `serving` section. Then an ``HttpReplica`` round trip through the
 port's server, and one boot of ``tools/torch_serve_replica.py --device
 cpu`` as a process: READY, /generate, SIGTERM.
 """
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import json
 import os
 import signal
@@ -271,7 +272,7 @@ def test_replica_process_boots_serves_and_stops():
            "--n-head", "2", "--d-model", "32", "--max-seq-len", "64",
            "--max-batch", "4", "--kv-blocks", "16", "--block-size", "8",
            "--prefill-buckets", "16,32"]
-    env = {k: v for k, v in os.environ.items()
+    env = {k: v for k, v in torch_threads.subprocess_env().items()
            if k not in ("PADDLE_TPU_STATUS_PORT", "PADDLE_TPU_SERVE_PARAMS")}
     proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
