@@ -48,8 +48,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
    and the card's bound for the same work, at the serving score shapes
    and at the training shapes (the CE forward, dx and dW at N = 4096 and
    16384, and the flash forward, dq and dk/dv, with TFLOP/s and their
-   ratio to the library call); the fp32 CE forward also beside its
-   split-TF32 bound;
+   ratio to the library call); the fp32 CE forward's bound is its
+   split-TF32 one (three tf32 products a score), the FMA units' beside;
 5. serving at full GPT width (12 x 768, vocab 32000, random weights from
    seed 0): 8 prompts covering every prefill bucket through
    ServingEngine.warm + submit + run_until_idle, first eagerly
@@ -170,6 +170,36 @@ Phases (any failure raises, and the script exits non-zero with no result):
    checkpoint every 4 (``PADDLE_TPU_CKPT_DIR``) and resumed from step 4
    into a fresh model ends with the uninterrupted run's ``state_digest``;
    then the flash kernels timed at the eager shape (BHTD, non-causal);
+   then the vision and fluid static path: ``vision_fit``
+   (``_vision_fit``, BASELINE config 2): ResNet-50 (1000 classes, NCHW;
+   267 parameter tensors, 161 trainable) built on the card from a seed,
+   ``Model.fit`` 8 steps over a synthetic ImageNet batch of 64 x 3 x 224
+   x 224 under bf16 autocast, Momentum(0.025, 0.9, L2 decay 1e-4) and
+   the Accuracy metric: finite, falling losses; every BatchNorm's running
+   statistics moved; two ``eval_batch`` calls equal bit for bit, the
+   running statistics untouched; none of the seven kernels launched; a
+   traced ``train_batch``'s device ms by kernel and op family (conv,
+   batch_norm, elementwise, copies, the optimizer), the idle share and
+   the peak memory beside the reckoning; ``static_amp``
+   (``_static_amp``): the seq-2048 gpt2s built fp32 and decorated by
+   ``static.amp`` (bf16, dynamic scaling), run through
+   ``CompiledProgram.with_data_parallel``: casts and no ``equal`` op,
+   every matmul and attention reading bf16, the CE fp32; parameters fp32
+   in the scope; 5 steps replayed = 5 eager bit for bit; losses within
+   2e-2 of the undecorated fp32 program's, each parameter's Adam moment1
+   within 0.1 of its (relative norm); the seven kernels' launches
+   (CE once, flash 12, Adam 196 a step) on the host steps and in a traced
+   replayed step; one step with an inf in a weight leaves every
+   parameter and accumulator unchanged and halves the scale, replayed;
+   ``fluid_lenet`` (``_fluid_lenet``, BASELINE config 1): LeNet written
+   with ``fluid.layers`` and the ``Variable`` overloads over fake MNIST
+   (batch 64, Adam) through ``fluid.CompiledProgram``, 20 steps replayed
+   = 20 eager bit for bit, the loss falling, fused Adam 10 a step; then
+   the fp32 routes timed where the new paths run them: the CE forward,
+   dx and dW at N 16,384 (the ``static_amp`` step; first each against its
+   plain version, the forward at 1e-4, dx and dW with a non-uniform g at
+   fp32 ``_CE_GRAD_TOL``) and the flash kernels
+   at batch 1, BHTD, non-causal (``jit.load``'s fp32 program);
 7. CPU against card: tiny fp32 configs train 2 steps from the same numpy
    values on the CPU (plain versions, eager) and on the card (kernels;
    step 1 the warm-up, step 2 captured and replayed): one at seq 16
@@ -185,8 +215,11 @@ Phases (any failure raises, and the script exits non-zero with no result):
    (the device trace's), its largest error against the plain version and
    its times at the training shape (the CE forward, dx and dW also at
    N = 16384, under ``long_shape``; the flash kernels also at the eager
-   encoder's BHTD non-causal shape, under ``eager_shape``), its launches
-   by path including ``train_eager``; a kernel whose bf16 path runs on
+   encoder's BHTD non-causal shape, under ``eager_shape``; the CE kernels
+   in fp32 at N 16,384 under ``static_amp_shape``, the flash kernels in
+   fp32 at batch 1 under ``jit_load_shape``), its launches by path
+   including ``train_eager``, ``vision_fit`` (none), ``static_amp`` and
+   ``fluid_lenet``; a kernel whose bf16 path runs on
    the tensor cores names that source, with the fp32 one beside it
    (``source_fp32``, ``source_d256``; the CE forward's fp32 source is its
    split-TF32 kernel, ``serve_shapes`` its times at the serving shapes);
@@ -495,11 +528,11 @@ def _ce_fwd_agrees(torch, got, ref, lbl, v, tol, what) -> float:
     return err
 
 
-def _median_ms(torch, fn, *args):
+def _median_ms(torch, fn, *args, repeats=_REPEATS):
     for _ in range(3):
         fn(*args)
     times = []
-    for _ in range(_REPEATS):
+    for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -549,8 +582,10 @@ def _time_kernel(torch, card):
     shapes (fp32, and bf16 at N = 511), CUDA-event medians; each row also
     carries the device time of the kernel and of the library call from a
     traced window (``_device_ms``), which leaves the host's launch time
-    out, and, in fp32, the split-TF32 bound (three tf32 products a score
-    at the tensor cores' rate) and its TFLOP/s."""
+    out. In fp32 the bound is the split-TF32 one (three tf32 products a
+    score at the tensor cores' rate, the way the kernel computes), with
+    the FMA units' bound beside it (``bound_fma_ms``) and the kernel's
+    tf32 TFLOP/s."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import lmhead_ce as ce
@@ -563,8 +598,10 @@ def _time_kernel(torch, card):
             [(511, torch.bfloat16)]:
         x, w, lbl = _inputs(torch, n, _SERVE_D, _SERVE_V, dtype, seed=n)
         name = str(dtype).replace("torch.", "")
-        bound_ms, bound_by = _bound(n, _SERVE_D, _SERVE_V, name,
-                                    x.element_size())
+        bound_ms, bound_by = (
+            _bound(n, _SERVE_D, _SERVE_V, "tfloat32", 4, products=3)
+            if dtype == torch.float32 else
+            _bound(n, _SERVE_D, _SERVE_V, name, x.element_size()))
         row = dict(phase="kernel_time", kernel="lmhead_ce_fwd", n=n,
                    d=_SERVE_D, v=_SERVE_V, dtype=name,
                    kernel_ms=_median_ms(torch, ce.lmhead_ce, x, w, lbl),
@@ -572,9 +609,8 @@ def _time_kernel(torch, card):
                    library_ms=_median_ms(torch, library, x, w, lbl),
                    bound_ms=bound_ms, bound_by=bound_by,
                    repeats=_REPEATS, card=card)
-        if dtype == torch.float32:  # the split-TF32 kernel's own bound
-            row["bound_tf32_ms"], row["bound_tf32_by"] = _bound(
-                n, _SERVE_D, _SERVE_V, "tfloat32", 4, products=3)
+        if dtype == torch.float32:  # the FMA units' bound, for comparison
+            row["bound_fma_ms"] = _bound(n, _SERVE_D, _SERVE_V, name, 4)[0]
             row["tflops_tf32"] = (6.0 * n * _SERVE_V * _SERVE_D
                                   / row["kernel_ms"] / 1e9)
         row["over_library"] = row["kernel_ms"] / row["library_ms"]
@@ -1231,7 +1267,101 @@ def _time_training_kernels(torch, card):
     return rows
 
 
-def _time_flash(torch, card, layout="BTHD", causal=True):
+_F32_REPEATS = 5  # the fp32 CE backward takes tens of ms a call at N 16384
+
+
+def _time_ce_f32(torch, card):
+    """The CE forward, dx and dW on their fp32 routes (the forward split
+    TF32 on the tensor cores, dx and dW on the FMA units) at the
+    ``static_amp`` step's shape: N = 8 x 2048, D = 768, V = 32768, where
+    the rewritten program feeds them fp32 (``fused_lm_head_ce`` is on
+    neither AMP list). First each kernel against its plain version on the
+    same inputs: the forward through ``_ce_fwd_agrees`` at 1e-4, dx and
+    dW with a non-uniform per-row g in [0.5, 1.5] through
+    ``_ce_grad_agrees`` (fp32 ``_CE_GRAD_TOL``); the vocabulary split and
+    the block grid depend on N and V, and the phase's own checks put these
+    kernels on both sides. Then kernel, plain and library
+    (``F.cross_entropy(x @ w.t())`` in fp32 with TF32 off, and its
+    gradient) by CUDA events, median of ``_F32_REPEATS``, with g = 1/N.
+    Bounds: the forward's at three tf32 products a score on the tensor
+    cores, the way it computes (``bound_fma_ms`` beside it at the FMA
+    units' 67 TFLOP/s); dx's and dW's at the FMA units. Returns {kernel:
+    row}, each with its ``max_abs_err``."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import lmhead_ce as ce
+
+    n, d, v = _LONG_N, _TRAIN["d_model"], _TRAIN["vocab_size"]
+    x, w, lbl = _inputs(torch, n, d, v, torch.float32, seed=81)
+    lse = ce.lmhead_ce_fwd(x, w, lbl)[1]
+    what = f"n={n} d={d} v={v} float32"
+    plain_fwd = ce.lmhead_ce_plain(x, w, lbl)
+    errs = {"lmhead_ce_fwd": _ce_fwd_agrees(
+        torch, ce.lmhead_ce_fwd(x, w, lbl), plain_fwd, lbl, v, 1e-4, what)}
+    plain_lse = plain_fwd[1]
+    g = torch.from_numpy(np.random.RandomState(82).uniform(
+        0.5, 1.5, n).astype(np.float32)).cuda()
+    for name, kern, plain in (
+            ("lmhead_ce_dx", ce.lmhead_ce_dx, ce.lmhead_ce_dx_plain),
+            ("lmhead_ce_dw", ce.lmhead_ce_dw, ce.lmhead_ce_dw_plain)):
+        got = kern(x, w, lbl, plain_lse, g)
+        ref = plain(x, w, lbl, plain_lse, g)
+        torch.cuda.synchronize()
+        errs[name] = _ce_grad_agrees(torch, got, ref, name, what)
+        del got, ref
+    for name, err in errs.items():
+        _say(phase="kernel_check", kernel=name, n=n, d=d, v=v,
+             dtype="float32", max_abs_err=err, path="static_amp")
+
+    g = torch.full((n,), 1.0 / n, device="cuda")
+    xr = x.detach().requires_grad_(True)
+    wr = w.detach().requires_grad_(True)
+    lib_loss = F.cross_entropy(xr @ wr.t(), lbl, reduction="none")
+
+    def library_grad(*wrt):
+        return lambda: torch.autograd.grad(lib_loss, wrt, g,
+                                           retain_graph=True)
+
+    io = (n * d + v * d) * 4 + 8 * n
+    flops = 4.0 * n * v * d
+    specs = [
+        ("lmhead_ce_fwd", lambda: ce.lmhead_ce_fwd(x, w, lbl),
+         lambda: ce.lmhead_ce_plain(x, w, lbl),
+         lambda: F.cross_entropy(x @ w.t(), lbl, reduction="none"),
+         _bound_ms(io + 4 * n, 6.0 * n * v * d, "tfloat32")),
+        ("lmhead_ce_dx", lambda: ce.lmhead_ce_dx(x, w, lbl, lse, g),
+         lambda: ce.lmhead_ce_dx_plain(x, w, lbl, lse, g), library_grad(xr),
+         _bound_ms(io + 8 * n + 4 * n * d, flops, "float32")),
+        ("lmhead_ce_dw", lambda: ce.lmhead_ce_dw(x, w, lbl, lse, g),
+         lambda: ce.lmhead_ce_dw_plain(x, w, lbl, lse, g), library_grad(wr),
+         _bound_ms(io + 8 * n + 4 * v * d, flops, "float32")),
+    ]
+    rows = {}
+    for name, kern, plain, library, (bound, by) in specs:
+        row = dict(phase="kernel_time_f32", kernel=name, n=n, d=d, v=v,
+                   dtype="float32",
+                   kernel_ms=_median_ms(torch, kern, repeats=_F32_REPEATS),
+                   plain_ms=_median_ms(torch, plain, repeats=_F32_REPEATS),
+                   library_ms=_median_ms(torch, library,
+                                         repeats=_F32_REPEATS),
+                   bound_ms=bound, bound_by=by, max_abs_err=errs[name],
+                   repeats=_F32_REPEATS, card=card)
+        if name == "lmhead_ce_fwd":
+            row["bound_fma_ms"] = _bound_ms(io + 4 * n, 2.0 * n * v * d,
+                                            "float32")[0]
+            row["library"] = "F.cross_entropy(x @ w.t()), fp32, TF32 off"
+        else:
+            row["library"] = ("autograd.grad of F.cross_entropy(x @ w.t()) "
+                              "for this gradient alone, fp32, TF32 off")
+        row["over_library"] = row["kernel_ms"] / row["library_ms"]
+        _say(**row)
+        rows[name] = row
+    del lib_loss, xr, wr, x, w
+    return rows
+
+
+def _time_flash(torch, card, layout="BTHD", causal=True, dtype=None,
+                batch=_LONG_B, repeats=_REPEATS):
     """Kernel, plain, library and bound of the flash kernels at the
     seq-2048 training shape (B = 8, T = 2048, H = 12, D = 64, bf16), in
     ``layout``: causal BTHD is the static GPT step's, non-causal BHTD the
@@ -1244,14 +1374,19 @@ def _time_flash(torch, card, layout="BTHD", causal=True):
     algorithm: 2 for the forward, 3 for dq (scores, dP, dS k), 4 for
     dk/dv (scores, dP, P^T dO, dS^T q). Each row also carries ``tflops``
     (those FLOPs over its time) and ``over_library`` (its time over the
-    library call's)."""
+    library call's). ``dtype`` (bf16 by default) and ``batch`` set the
+    shape: fp32 at batch 1, BHTD, non-causal is ``jit.load``'s fp32 program
+    (the SIMT kernels of ``csrc/flash_attention.cu``), bounded at the FMA
+    units' 67 TFLOP/s."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import flash_attention as fl
 
-    b, h, t, d = _LONG_B, _LONG["n_head"], _LONG_T, _head_dim(_LONG)
-    q, k, v, do = _flash_inputs(torch, b, h, t, t, d, torch.bfloat16,
-                                layout, seed=90)
+    dtype = dtype or torch.bfloat16
+    dname = "float32" if dtype == torch.float32 else "bfloat16"
+    b, h, t, d = batch, _LONG["n_head"], _LONG_T, _head_dim(_LONG)
+    q, k, v, do = _flash_inputs(torch, b, h, t, t, d, dtype, layout,
+                                seed=90)
     out, lse = fl.flash_attention_fwd(q, k, v, causal, None, layout)
     delta = fl.flash_attention_delta(out, do, layout)
     args = (q, k, v, do, lse, delta, causal, None, layout)
@@ -1274,7 +1409,7 @@ def _time_flash(torch, card, layout="BTHD", causal=True):
     # FLOPs of one product: 2 D per visible score entry, T (T + 1) / 2 of
     # them in each (batch, head) under the causal mask, T^2 without it
     product = 2.0 * d * b * h * (t * (t + 1) // 2 if causal else t * t)
-    io = b * t * h * d * 2  # bytes of one bf16 q-sized tensor
+    io = b * t * h * d * dtype.itemsize  # bytes of one q-sized tensor
     stats = b * h * t * 4   # bytes of one fp32 row-stat tensor
     specs = [  # name, kernel, plain, library, products, bytes
         ("flash_attention_fwd",
@@ -1288,17 +1423,17 @@ def _time_flash(torch, card, layout="BTHD", causal=True):
          lambda: fl.flash_attention_dkv_plain(*args), library_grad(kr, vr),
          4, 6 * io + 2 * stats),
     ]
-    all_ms = _median_ms(torch, library_grad(qr, kr, vr))
+    all_ms = _median_ms(torch, library_grad(qr, kr, vr), repeats=repeats)
     rows = {}
     for name, kern, plain, library, products, nbytes in specs:
-        bound, by = _bound_ms(nbytes, products * product, "bfloat16")
+        bound, by = _bound_ms(nbytes, products * product, dname)
         row = dict(phase="kernel_time", kernel=name, b=b, t=t, h=h, d=d,
-                   dtype="bfloat16", layout=layout, causal=causal,
-                   kernel_ms=_median_ms(torch, kern),
-                   plain_ms=_median_ms(torch, plain),
-                   library_ms=_median_ms(torch, library), bound_ms=bound,
-                   bound_by=by, flops=products * product, bytes=nbytes,
-                   repeats=_REPEATS, card=card)
+                   dtype=dname, layout=layout, causal=causal,
+                   kernel_ms=_median_ms(torch, kern, repeats=repeats),
+                   plain_ms=_median_ms(torch, plain, repeats=repeats),
+                   library_ms=_median_ms(torch, library, repeats=repeats),
+                   bound_ms=bound, bound_by=by, flops=products * product,
+                   bytes=nbytes, repeats=repeats, card=card)
         row["tflops"] = products * product / row["kernel_ms"] / 1e9
         row["over_library"] = row["kernel_ms"] / row["library_ms"]
         if name == "flash_attention_fwd":
@@ -1597,6 +1732,24 @@ def _replay_agrees(r, e, lrs, b1p0, beta1=0.9, again=None) -> dict:
     return report
 
 
+def _reset_launches() -> None:
+    from paddle_tpu_torch.ops import flash_attention as fl
+    from paddle_tpu_torch.ops import fused_adam as fa
+    from paddle_tpu_torch.ops import lmhead_ce as ce
+
+    ce.reset_launches()
+    fa.reset_launches()
+    fl.reset_launches()
+
+
+def _all_launches() -> dict:
+    """{kernel: the wrapper's launch count} of all seven kernels."""
+    from paddle_tpu_torch.ops import lmhead_ce as ce
+
+    return {"lmhead_ce_fwd": ce.launches, "lmhead_ce_dx": ce.dx_launches,
+            "lmhead_ce_dw": ce.dw_launches, **_path_launches()}
+
+
 def _train(torch, card, config, batch, seq, phase, flash_per_step,
            band=False):
     """bench.py's gpt2s at ``seq`` through the port's training entry
@@ -1618,9 +1771,6 @@ def _train(torch, card, config, batch, seq, phase, flash_per_step,
     by ``_loss_band``. Returns the launches and R's traced step."""
     from paddle_tpu_torch.framework import Scope
     from paddle_tpu_torch.ops import attention
-    from paddle_tpu_torch.ops import flash_attention as fl
-    from paddle_tpu_torch.ops import fused_adam as fa
-    from paddle_tpu_torch.ops import lmhead_ce as ce
 
     t0 = time.perf_counter()
     program = _train_program(config, batch, seq)
@@ -1664,18 +1814,12 @@ def _train(torch, card, config, batch, seq, phase, flash_per_step,
                                                  feed, lrs))
 
     # the main path, counted: every count starts from 0 here
-    ce.reset_launches()
-    fa.reset_launches()
-    fl.reset_launches()
+    _reset_launches()
     dispatched = attention.FLASH_DISPATCH_COUNT
     legs["R"] = r = measured(lambda: _trajectory(exe, scope, program, feed,
                                                  lrs))
     dispatched = attention.FLASH_DISPATCH_COUNT - dispatched
-    launches = {"lmhead_ce_fwd": ce.launches, "lmhead_ce_dx": ce.dx_launches,
-                "lmhead_ce_dw": ce.dw_launches, "fused_adam": fa.launches,
-                "flash_attention_fwd": fl.fwd_launches,
-                "flash_attention_dq": fl.dq_launches,
-                "flash_attention_dkv": fl.dkv_launches}
+    launches = _all_launches()
     on_host = r["phases"]["eager"] + r["phases"]["capture"]
     if r["phases"] != {"eager": 1, "capture": 1, "replay": steps - 2}:
         raise AssertionError(f"{phase}: runs by phase {r['phases']}, not "
@@ -1754,15 +1898,18 @@ def _train(torch, card, config, batch, seq, phase, flash_per_step,
     return launches, traced["R"]
 
 
-# the port's kernels in a trace of the bf16 training step, by pieces of
-# the names the profiler gives their CUDA kernels: the first tuple counts
-# the kernel's launches, the second adds the time of its helper launches
-# (the CE forward's combine)
+# the port's kernels in a trace of a training step, by pieces of the
+# names the profiler gives their CUDA kernels (the CE backward's fp32
+# product, ``bwd_partial_kernel``, for the static AMP step): the first
+# tuple counts the kernel's launches, the second adds the time of its
+# helper launches (the CE forward's combine)
 _TRACE_NAMES = {
     "lmhead_ce_fwd": (("::fwd_sm90_kernel(", "::fwd_f32_sm90_kernel("),
                       ("::combine_kernel(",)),
-    "lmhead_ce_dx": (("::bwd_sm90_kernel<true>",), ()),
-    "lmhead_ce_dw": (("::bwd_sm90_kernel<false>",), ()),
+    "lmhead_ce_dx": (("::bwd_sm90_kernel<true>",
+                      "::bwd_partial_kernel<true>"), ()),
+    "lmhead_ce_dw": (("::bwd_sm90_kernel<false>",
+                      "::bwd_partial_kernel<false>"), ()),
     "flash_attention_fwd": (("::fwd_sm90_kernel<", "::fwd_kernel<"), ()),
     "flash_attention_dq": (("::dq_sm90_kernel<", "::dq_kernel<"), ()),
     "flash_attention_dkv": (("::dkv_sm90_kernel<", "::dkv_kernel<"), ()),
@@ -1770,9 +1917,11 @@ _TRACE_NAMES = {
 }
 
 # the other kernels of a traced step, by op family: the first family
-# whose pieces a kernel's name holds (copies before elementwise: PyTorch
-# names its copy and fill kernels inside its elementwise templates)
+# whose pieces a kernel's name holds (convolutions before GEMMs: cuDNN's
+# names hold "xmma" and "gemm"; copies before elementwise: PyTorch names
+# its copy and fill kernels inside its elementwise templates)
 _FAMILIES = [
+    ("conv", ("conv", "fprop", "dgrad", "wgrad", "implicit_gemm", "cudnn")),
     ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "gemv", "splitKreduce")),
     ("layer_norm", ("layer_norm", "LayerNorm", "GammaBeta")),
     ("copy", ("copy", "Memcpy", "Memset", "CatArray", "FillFunctor")),
@@ -1806,13 +1955,14 @@ _OP_FAMILIES = [
 
 def _by_op(torch, events) -> dict:
     """Device ms by program op type, from a traced step that ran its ops
-    on the host (eagerly): each top-level host op that put work on the
-    device, on any thread (a grad op's backward runs on autograd's
-    thread while the executor's thread waits in it), is charged to the
-    executor's ``OP_RANGE`` range whose host interval holds its start
-    (a scheduled trace's "ProfilerStep*" range, ``_profiled``, is no
-    op's parent here). Returns {} for a replayed step, which runs no host
-    ops."""
+    on the host (eagerly): each host event's own device time (its
+    kernels, not its children's: each kernel counts once, on whichever
+    thread its host op ran -- a grad op's backward runs on autograd's
+    thread while the caller waits in it) is charged to the innermost
+    executor or tracer ``OP_RANGE`` range whose host interval holds the
+    event's start (a scheduled trace's "ProfilerStep*" range,
+    ``_profiled``, is no op's range). Returns {} for a replayed step,
+    which runs no host ops."""
     import bisect
 
     from paddle_tpu_torch.framework.executor import OP_RANGE
@@ -1822,22 +1972,29 @@ def _by_op(torch, events) -> dict:
                     if e.name.startswith(OP_RANGE)
                     and e.device_type == torch.autograd.DeviceType.CPU)
     starts = [r[0] for r in ranges]
+    # ranges nest (an eager op's range may hold another op's): each
+    # range's enclosing one, for the walk out from a range that ended
+    parent, stack = [], []
+    for i, (start, end, _) in enumerate(ranges):
+        while stack and ranges[stack[-1]][1] < start:
+            stack.pop()
+        parent.append(stack[-1] if stack else -1)
+        stack.append(i)
     out = {}
     for e in events:
-        parent = e.cpu_parent
         if (e.device_type != torch.autograd.DeviceType.CPU or not ranges
-                or e.name.startswith(OP_RANGE)
-                or (parent is not None
-                    and not parent.name.startswith((OP_RANGE,
-                                                    "ProfilerStep")))):
+                or e.name.startswith(OP_RANGE)):
             continue
-        us = getattr(e, "device_time_total", None)
+        us = getattr(e, "self_device_time_total", None)
         if us is None:
-            us = e.cuda_time_total
+            us = e.self_cuda_time_total
         if not us:
             continue
-        i = bisect.bisect_right(starts, e.time_range.start) - 1
-        op = (ranges[i][2] if i >= 0 and e.time_range.start <= ranges[i][1]
+        t = e.time_range.start
+        i = bisect.bisect_right(starts, t) - 1
+        while i >= 0 and t > ranges[i][1]:  # an enclosing range, if any
+            i = parent[i]
+        op = (ranges[i][2] if i >= 0
               else f"(outside an op: {e.name[:60]})")
         out[op] = out.get(op, 0.0) + us / 1e3
     return out
@@ -4826,6 +4983,624 @@ def _jit(torch, card) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# vision_fit, static_amp, fluid_lenet: the vision and fluid static path
+# ---------------------------------------------------------------------------
+
+
+# BASELINE config 2: ResNet-50 at ImageNet's shapes, PaddleClas's
+# ResNet50 recipe per card (batch 64, Momentum 0.9, L2 decay 1e-4), under
+# bf16 autocast; one synthetic batch from a seed. The recipe's rate, 0.1,
+# is for a global batch of 256 (Goyal et al.'s linear rule); one card's
+# 64 takes 0.1 x 64 / 256. At 0.1 this batch's loss climbed from 7.6 to
+# 14.1 in 8 steps (NVIDIA H100 80GB HBM3 at 700 W); at 0.025 it falls.
+# The JAX package's loss climbs at 0.1 too, and the port takes each of its
+# steps (tests/test_torch_vision.py, resnet50 on one batch of 8 x 64 x 64)
+_VISION_B = 64
+_VISION_STEPS = 8
+_VISION_SEED = 2028
+_VISION_CLASSES = 1000
+_VISION_LR = 0.1 * _VISION_B / 256
+# parameter tensors and values, then the trainable ones (the rest: the
+# 53 BatchNorms' running mean and variance), as the JAX package counts
+_VISION_COUNTS = (267, 25610152, 161, 25557032)
+# the peak reckoned before the first run on the card: 0.3 GB of weights,
+# gradients and velocities; about 11M conv-output cells an image, each
+# kept as the bf16 conv output, BatchNorm's fp32 input and output and the
+# ReLU's fp32 output with its next conv's bf16 cast (16 B), 11.3 GB at
+# batch 64; 2 GB of backward transients
+_VISION_RECKONED_BYTES = 14e9
+# forward GFLOP an image at 224 x 224 (4.1 G multiply-adds)
+_VISION_GFLOP = 8.2
+
+# op families of the eager ResNet step, for the traced step's device
+# time by op (``_by_op``): the first family whose prefix starts the type
+_VISION_OP_FAMILIES = [
+    ("conv", ("conv2d", "depthwise_conv2d")),
+    ("batch_norm", ("batch_norm",)),
+    ("pool", ("pool2d",)),
+    ("gemm", ("matmul", "mul")),
+    ("optimizer", ("momentum", "adam", "sgd")),
+    ("copy", ("cast", "reshape", "flatten", "assign", "fill", "transpose")),
+    ("loss", ("softmax_with_cross_entropy", "mean", "reduce")),
+    ("elementwise", ("elementwise", "relu", "scale", "sum")),
+]
+
+
+def _vision_family(op_type) -> str:
+    base = op_type[:-len("_grad")] if op_type.endswith("_grad") else op_type
+    return next((f for f, prefixes in _VISION_OP_FAMILIES
+                 if base.startswith(prefixes)), "other")
+
+
+def _vision_batch(seed):
+    """(images [B, 3, 224, 224] fp32, zero mean and unit variance as a
+    normalized ImageNet batch, labels [B, 1] int64 in [0, 1000))."""
+    r = np.random.RandomState(seed)
+    images = r.standard_normal((_VISION_B, 3, 224, 224)).astype(np.float32)
+    labels = r.randint(0, _VISION_CLASSES, (_VISION_B, 1)).astype(np.int64)
+    return images, labels
+
+
+def _counts(net) -> tuple:
+    ps = net.parameters()
+    return (len(ps), sum(int(np.prod(p.shape)) for p in ps),
+            sum(1 for p in ps if p.trainable),
+            sum(int(np.prod(p.shape)) for p in ps if p.trainable))
+
+
+def _stats_moved(before, after) -> dict:
+    """Every BatchNorm running mean and variance (``before``/``after``:
+    {name: tensor}) moved. Raises otherwise."""
+    still = sorted(n for n in before if _same_tensor(before[n], after[n]))
+    if still:
+        raise AssertionError(f"vision_fit: {len(still)} running statistics "
+                             f"did not move: {still[:4]}")
+    return {"running_stats": len(before), "moved": len(before)}
+
+
+def _same_tensor(a, b) -> bool:
+    return bool(a.shape == b.shape and a.dtype == b.dtype and a.equal(b))
+
+
+def _vision_fit(torch, card) -> dict:
+    """BASELINE config 2 on the eager path at full width: ResNet-50 (1000
+    classes, NCHW) built on the card from a seed; ``Model.fit`` for
+    ``_VISION_STEPS`` steps over a DataLoader repeating one synthetic
+    ImageNet batch of 64 x 3 x 224 x 224, ``Momentum(0.025, 0.9,
+    weight_decay=L2Decay(1e-4))`` (``_VISION_LR``) and the ``Accuracy``
+    metric, under
+    ``amp.auto_cast(dtype="bfloat16")`` (conv2d on the white list,
+    batch_norm on the black). Checks: the parameter counts
+    (``_VISION_COUNTS``); finite losses, the last below the first; every
+    BatchNorm's running mean and variance moved; two ``eval_batch`` calls
+    on the batch give the same loss bit for bit and leave the running
+    statistics as they were (is_test: the running statistics, not the
+    batch's); ``Model.evaluate`` runs; none of the seven kernels launched
+    (the path runs none of them). Reports the step wall (median of steps
+    3-8), a traced ``train_batch``'s device ms by kernel family and by op
+    family, the idle share, and the peak memory beside the reckoning."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import dygraph, vision
+
+    with dygraph.guard():
+        pt.seed(_VISION_SEED)
+        t0 = time.perf_counter()
+        net = vision.models.resnet50(num_classes=_VISION_CLASSES)
+        build_s = time.perf_counter() - t0
+        counts = _counts(net)
+        if counts != _VISION_COUNTS:
+            raise AssertionError(f"vision_fit: parameter counts {counts}, "
+                                 f"not {_VISION_COUNTS}")
+        stats = {p.name: p._value.clone() for p in net.parameters()
+                 if not p.trainable}
+        images, labels = _vision_batch(_VISION_SEED)
+        data = [(images[i % _VISION_B], labels[i % _VISION_B])
+                for i in range(_VISION_STEPS * _VISION_B)]
+        loader = pt.io.DataLoader(data, batch_size=_VISION_B, shuffle=False)
+        model = pt.Model(net)
+        opt = pt.optimizer.Momentum(
+            learning_rate=_VISION_LR, momentum=0.9,
+            parameters=net.parameters(),
+            weight_decay=pt.regularizer.L2Decay(1e-4))
+        model.prepare(opt, pt.nn.CrossEntropyLoss(),
+                      metrics=pt.metric.Accuracy())
+        log = _step_log(pt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        with pt.amp.auto_cast(dtype="bfloat16"):
+            model.fit(loader, epochs=1, verbose=0, callbacks=[log])
+        torch.cuda.synchronize()
+        max_alloc = torch.cuda.max_memory_allocated()
+        launches = _all_launches()
+        losses = log.losses
+        if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"vision_fit: losses {losses}")
+        if any(launches.values()):
+            raise AssertionError(f"vision_fit launched the port's kernels "
+                                 f"{launches}; its path runs none")
+        velocities = len(opt._accumulators.get("velocity", {}))
+        if velocities != _VISION_COUNTS[2]:
+            raise AssertionError(f"vision_fit: Momentum keeps {velocities} "
+                                 f"velocities, not one a trainable tensor")
+        after = {p.name: p._value for p in net.parameters()
+                 if not p.trainable}
+        moved = _stats_moved(stats, after)
+        walls = log.walls_ms()
+        wall_ms = statistics.median(walls[2:])
+
+        # evaluation reads the running statistics and leaves them
+        frozen = {n: t.clone() for n, t in after.items()}
+        x, y = images[:_VISION_B], labels[:_VISION_B]
+        with pt.amp.auto_cast(dtype="bfloat16"):
+            first = model.eval_batch([x], y)
+            second = model.eval_batch([x], y)
+            evaluated = model.evaluate(
+                [(images[i], labels[i]) for i in range(_VISION_B)],
+                batch_size=_VISION_B, verbose=0)
+        first_loss = np.asarray(first[0][0] if isinstance(first, tuple)
+                                else first[0])
+        second_loss = np.asarray(second[0][0] if isinstance(second, tuple)
+                                 else second[0])
+        if first_loss.tobytes() != second_loss.tobytes():
+            raise AssertionError(f"vision_fit: two eval calls gave "
+                                 f"{first_loss} and {second_loss}")
+        changed = [n for n, t in frozen.items()
+                   if not _same_tensor(t, after[n])]
+        if changed:
+            raise AssertionError(f"vision_fit: evaluation moved the running "
+                                 f"statistics {changed[:4]}")
+
+        with pt.amp.auto_cast(dtype="bfloat16"):
+            _, traced_ms, events = _profiled(torch, model.train_batch, [x],
+                                             y)
+        kernels, device_ms, ours, families, _ = _kernel_tally(torch, events)
+        by_op = _by_op(torch, events)
+        del events
+        by_family = {}
+        for op, ms in by_op.items():
+            fam = _vision_family(op)
+            by_family[fam] = by_family.get(fam, 0.0) + ms
+        del model, net, opt, loader, data
+    busy = device_ms / wall_ms
+    flops = _VISION_GFLOP * 1e9 * 3 * _VISION_B
+    _say(phase="vision_fit", model="resnet50", classes=_VISION_CLASSES,
+         layout="NCHW", batch=_VISION_B, image=[3, 224, 224],
+         steps=_VISION_STEPS, amp="bfloat16 O1",
+         optimizer=f"Momentum({_VISION_LR}, 0.9, "
+         "weight_decay=L2Decay(1e-4))",
+         params={"tensors": counts[0], "values": counts[1],
+                 "trainable_tensors": counts[2],
+                 "trainable_values": counts[3]},
+         build_s=build_s, losses=losses, loss_drop=losses[0] - losses[-1],
+         running_stats=moved, eval_losses=[float(first_loss),
+                                           float(second_loss)],
+         eval_bit_identical=True, evaluate=evaluated,
+         step_walls_ms=walls, wall_ms=wall_ms,
+         images_per_s=_VISION_B / wall_ms * 1e3,
+         traced_step_ms=traced_ms, device_ms=device_ms, busy_share=busy,
+         idle_share=1.0 - busy, host_bound_ms=wall_ms - device_ms,
+         families=families, device_ms_by_op_family=by_family,
+         by_op_share=sum(by_op.values()) / device_ms if by_op else None,
+         by_op_top={k: v for k, v in sorted(
+             by_op.items(), key=lambda kv: -kv[1])[:12]},
+         launches_traced=sum(n for n, _ in kernels.values()),
+         port_kernels_launched=launches,
+         flops_per_step=flops,
+         bound_ms=_bound_ms(0.0, flops, "bfloat16")[0],
+         max_memory_allocated=max_alloc,
+         reckoned_peak_bytes=_VISION_RECKONED_BYTES, card=card,
+         note="the path runs none of the seven kernels: convolutions are "
+         "cuDNN's, pooling and batch norm plain torch (the JAX package's "
+         "are XLA's); busy share: the traced step's device ms over the "
+         "untraced fit's median step wall (steps 3-8)")
+    return launches
+
+
+# the static AMP path: bench.py's gpt2s at seq 2048, batch 8, built in
+# fp32 and decorated with static.amp (bf16, dynamic loss scaling from
+# 2^15, the reference's defaults), run as a CompiledProgram
+_AMP_STEPS = 5
+_AMP_RTOL = 2e-2  # tests/test_static_amp.py:108, the reference's bound
+# Adam moves a parameter by about lr * sign(g) whatever the size of g, so
+# the losses (about ln V after 5 steps at lr 1e-4) and the parameters would
+# pass a step that hands Adam the scaled gradient; its first moment carries
+# that size. Each parameter's moment1 after the steps, decorated (bf16
+# compute) against the fp32 program's, through ``_leaves_agree``: a
+# gradient left scaled by 2^15 reads about 2^15, one unscaled twice about 1.
+# Sound, the worst parameter reads 1.5e-2 on an NVIDIA H100 80GB HBM3 at
+# 700 W (this phase) and 3.6e-3 on the CPU's tiny GPT
+# (tests/test_torch_smoke_checks.py), so the limit leaves a factor of 6.
+_AMP_MOMENT_RTOL = 0.1
+# an attention key's bias has a gradient of 0 in exact arithmetic (softmax
+# ignores a constant added to a row of scores), so its moment or update is
+# rounding alone on both sides; each leaf is judged against its own norm
+# plus this share of the largest leaf's
+_LEAF_FLOOR = 1e-4
+
+
+def _leaves_agree(got, want, limit, what) -> dict:
+    """Holds each leaf of ``got`` ({name: tensor}) against ``want``'s by
+    ||got - want|| / (||want|| + ``_LEAF_FLOOR`` x the largest ||want||),
+    at most ``limit`` at the worst leaf; raises naming it. Returns the
+    worst, its name, the median and the count."""
+    norms = {n: float(t.double().norm()) for n, t in want.items()}
+    floor = _LEAF_FLOOR * max(norms.values(), default=0.0)
+    rel = {n: float((got[n].double() - want[n].double()).norm())
+           / (norms[n] + floor) for n in sorted(want)}
+    worst = max(rel, key=rel.get) if floor else None
+    if worst is None or not rel[worst] <= limit:
+        raise AssertionError(f"{what} of {worst} lies {rel.get(worst)} "
+                             f"(relative norm) from its control's, beyond "
+                             f"{limit}")
+    return {"worst": rel[worst], "worst_name": worst,
+            "median": statistics.median(rel.values()), "leaves": len(rel),
+            "limit": limit}
+
+
+def _amp_program(batch, seq, decorate=True, config=_LONG, **amp_kw):
+    """(main, startup, io) of ``config`` (gpt2s) built in fp32, under
+    ``static.amp`` when ``decorate``; ``io["compiled"]`` the
+    CompiledProgram over main."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.optimizer import Adam
+
+    def make_opt():
+        return (pt.static.amp.decorate(Adam(learning_rate=_LR), **amp_kw)
+                if decorate else Adam(learning_rate=_LR))
+
+    main, startup, io = _gpt_program(dict(config, dtype="float32"), batch,
+                                     seq, make_opt)
+    io["compiled"] = pt.static.CompiledProgram(main).with_data_parallel(
+        loss_name=io["loss"].name)
+    return main, startup, io
+
+
+def _amp_rewrite_agrees(main) -> dict:
+    """The rewritten program: casts, no ``equal``; every matmul and
+    ``fused_attention_tpu`` reads bf16; the lm-head CE reads fp32 (it is
+    on neither list, and the final layer norm is black). Raises
+    otherwise."""
+    ops = main.global_block().ops
+    types = [op.type for op in ops]
+    if "equal" in types or "cast" not in types:
+        raise AssertionError(f"static_amp: {types.count('cast')} casts, "
+                             f"{types.count('equal')} equal ops")
+
+    def dtypes(op):
+        return sorted({str(v.dtype).replace("torch.", "")
+                       for vs in op._input_vars.values() for v in vs
+                       if v.dtype.is_floating_point})
+
+    white = [(op.type, dtypes(op)) for op in ops
+             if op.type in ("matmul", "matmul_v2", "fused_attention_tpu")]
+    wrong = [w for w in white if w[1] != ["bfloat16"]]
+    if not white or wrong:
+        raise AssertionError(f"static_amp: white-list ops reading other "
+                             f"than bf16: {wrong[:4]}")
+    ce = [dtypes(op) for op in ops if op.type == "fused_lm_head_ce"]
+    return {"ops": len(ops), "casts": types.count("cast"), "equal_ops": 0,
+            "bf16_white_list_ops": {t: types.count(t)
+                                    for t in sorted({w[0] for w in white})},
+            "lm_head_ce_inputs": ce, "where_gates": types.count("where")}
+
+
+def _free(torch) -> None:
+    """Collect what the caller dropped and hand the card's cached blocks
+    back (each leg's graph pool), before the next leg allocates."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _amp_overflow(torch, batch, seq, start, feed, config=_LONG,
+                  device="cuda") -> dict:
+    """One replayed step of the decorated program
+    (``decr_every_n_nan_or_inf=1``) with an inf written into one weight,
+    in place, after the warm-up and the capture: ``FoundInfinite`` is
+    set, every parameter and accumulator stays as it was, bit for bit,
+    and the loss scale halves, inside the replayed graph (on the CPU, the
+    staged route). The loss itself may come out finite: the flash
+    kernels give a row whose scores are all -inf an output of 0. Raises
+    otherwise."""
+    from paddle_tpu_torch.framework import Scope
+
+    main, _, io = program = _amp_program(batch, seq, config=config,
+                                         decr_every_n_nan_or_inf=1)
+    scope = Scope()
+    for name, t in start.items():
+        scope.set(name, t.clone())
+    exe = _executor(device)
+    exe.staged = device == "cpu"
+    found_inf = next(op.output("FoundInfinite")[0]
+                     for op in main.global_block().ops
+                     if op.type == "check_finite_and_unscale")
+    fetch = [io["loss"], found_inf]
+    for _ in range(2):  # the warm-up and the capture
+        exe.run(io["compiled"], feed=feed, fetch_list=fetch, scope=scope)
+    poisoned = "gpt.h0.attn.q.w"
+    scope.get(poisoned).view(-1)[0] = float("inf")
+    before = {n: scope.get(n).clone() for n in start}
+    replays = exe.phases["replay"]
+    loss, found = exe.run(io["compiled"], feed=feed, fetch_list=fetch,
+                          scope=scope)
+    if exe.phases["replay"] != replays + 1:
+        raise AssertionError(f"static_amp overflow: not a replay "
+                             f"({exe.phases})")
+    after = {n: scope.get(n) for n in start}
+    scale = [float(before["@AMP.loss_scaling"][0]),
+             float(after["@AMP.loss_scaling"][0])]
+    moved = sorted(n for n in start if not n.startswith("@AMP")
+                   and not _same_tensor(before[n], after[n]))
+    if not bool(found.reshape(-1)[0]) or moved or scale[1] != scale[0] / 2:
+        raise AssertionError(f"static_amp overflow: found_inf {found}, "
+                             f"scale {scale}, {len(moved)} persistables "
+                             f"moved ({moved[:4]})")
+    out = {"loss": float(loss), "found_inf": True, "scale": scale,
+           "poisoned": poisoned,
+           "unchanged": len(start) - 3,
+           "good_steps": int(after["@AMP.good_steps"][0]),
+           "bad_steps": int(after["@AMP.bad_steps"][0])}
+    del exe, scope, program, before, after
+    if device != "cpu":
+        _free(torch)
+    return out
+
+
+def _static_amp(torch, card) -> dict:
+    """A8c on the kernels: ``_amp_program`` (gpt2s, seq 2048, batch 8,
+    built fp32, ``static.amp.decorate(Adam(1e-4))``) through
+    ``CompiledProgram(main).with_data_parallel(loss_name=...)`` and
+    ``Executor.run``. Checks: the rewrite (``_amp_rewrite_agrees``);
+    parameters stay fp32 in the scope; R, ``_AMP_STEPS`` steps replayed,
+    equals E, as many eager steps (PADDLE_TPU_EAGER=1), bit for bit from
+    one start (``_replay_agrees``); R's losses within ``_AMP_RTOL`` of the
+    undecorated fp32 program's (F) from the same start, and R's Adam
+    first moments within ``_AMP_MOMENT_RTOL`` of F's
+    (``_leaves_agree``); the launches over
+    R's host steps (the warm-up and the capture): the CE forward, dx and
+    dW once a step, flash forward, dq and dk/dv 12, Adam 196, and a
+    traced replayed step shows as many; an overflow step
+    (``_amp_overflow``). Reports the walls, the traced step's device ms
+    by family and the CE kernels' device ms (their fp32 routes at N
+    16,384)."""
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.ops import attention
+
+    batch, seq = _LONG_B, _LONG_T
+    t0 = time.perf_counter()
+    program = _amp_program(batch, seq)
+    main, startup, io = program
+    build_s = time.perf_counter() - t0
+    rewrite = _amp_rewrite_agrees(main)
+    scope = Scope()
+    exe = _executor("cuda")
+    exe.run(startup, scope=scope)
+    start = {v.name: scope.get(v.name).detach().clone()
+             for v in main.list_vars() if v.persistable}
+    not_fp32 = [p.name for p in main.all_parameters()
+                if start[p.name].dtype != torch.float32]
+    if not_fp32:
+        raise AssertionError(f"static_amp: parameters not fp32: "
+                             f"{not_fp32[:4]}")
+    b1p0 = float(start[next(n for n in start
+                            if n.startswith("gpt.wte_beta1_pow"))])
+    feed = _fixed_batch(torch, _LONG["vocab_size"], batch, seq)
+    lrs = [_LR] * _AMP_STEPS
+    compiled = (io["compiled"], startup, io)
+    per_step = {"lmhead_ce_fwd": 1, "lmhead_ce_dx": 1, "lmhead_ce_dw": 1,
+                "fused_adam": _ADAM_PER_STEP,
+                "flash_attention_fwd": _LAYERS,
+                "flash_attention_dq": _LAYERS,
+                "flash_attention_dkv": _LAYERS}
+
+    with _eager():
+        e = _leg(compiled, start, feed, "cuda", lrs)
+    _reset_launches()
+    dispatched = attention.FLASH_DISPATCH_COUNT
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name, t in start.items():
+        scope.set(name, t.clone())
+    r = _trajectory(exe, scope, compiled, feed, lrs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    # copies: the traced steps below move the scope's moments in place
+    r_moments = {n: t.clone() for n, t in r["state"].items()
+                 if "_moment1_" in n}
+    launches = _all_launches()
+    dispatched = attention.FLASH_DISPATCH_COUNT - dispatched
+    if r["phases"] != {"eager": 1, "capture": 1, "replay": _AMP_STEPS - 2}:
+        raise AssertionError(f"static_amp: runs by phase {r['phases']}")
+    want = {k: 2 * n for k, n in per_step.items()}
+    if launches != want or dispatched != 2 * _LAYERS:
+        raise AssertionError(f"static_amp launches {launches} and "
+                             f"{dispatched} flash dispatches, expected "
+                             f"{want} over the warm-up and the capture")
+    agree = _replay_agrees(r, e, lrs, b1p0)
+    fetch_list = [io["loss"], io["optimizer"]._lr_var]
+    traced = _profile_step(torch, exe, io["compiled"], feed, fetch_list,
+                           scope, card, "static_amp_profile",
+                           per_step=per_step)
+    scales = [float(scope.get("@AMP.loss_scaling")[0]),
+              int(scope.get("@AMP.good_steps")[0])]
+    r_walls = [s * 1e3 for s in r["step_s"]]
+    e_walls = [s * 1e3 for s in e["step_s"]]
+    del e, exe, scope, r["state"]
+    _free(torch)
+
+    f_program = _amp_program(batch, seq, decorate=False)
+    f_start = {n: t for n, t in start.items() if not n.startswith("@AMP")}
+    f = _leg((f_program[2]["compiled"],) + f_program[1:], f_start, feed,
+             "cuda", lrs)
+    rel = [abs(a - b) / abs(b) for a, b in zip(r["losses"], f["losses"])]
+    if not all(np.isfinite(r["losses"])) or max(rel) > _AMP_RTOL:
+        raise AssertionError(f"static_amp: bf16 losses {r['losses']} "
+                             f"against fp32 {f['losses']} (rel {rel})")
+    moments = _leaves_agree(r_moments, {n: f["state"][n] for n in r_moments},
+                            _AMP_MOMENT_RTOL, "static_amp: Adam's moment1")
+    f_walls = [s * 1e3 for s in f["step_s"]]
+    f_losses = f["losses"]
+    del f, f_program, r_moments
+    _free(torch)
+    overflow = _amp_overflow(torch, batch, seq, start, feed)
+    _say(phase="static_amp", config=dict(_LONG, dtype="float32"),
+         batch=batch, seq=seq, amp="static.amp.decorate(Adam(1e-4)): "
+         "bfloat16, dynamic loss scaling from 2^15", build_s=build_s,
+         rewrite=rewrite, losses=r["losses"], fp32_losses=f_losses,
+         loss_rel_to_fp32=rel, moment1_rel_to_fp32=moments,
+         scale_after=scales,
+         step_ms_all=r_walls, step_ms_median=statistics.median(r_walls[2:]),
+         eager_step_ms_all=e_walls,
+         fp32_step_ms_median=statistics.median(f_walls[2:]),
+         tokens_per_s=batch * seq / statistics.median(r_walls[2:]) * 1e3,
+         device_ms=traced["device_ms"],
+         busy_share=traced["device_ms"] / statistics.median(r_walls[2:]),
+         path_kernels=traced["path_kernels"], families=traced["families"],
+         launches=launches,
+         launches_per_replayed_step={
+             k: v["calls"] for k, v in traced["path_kernels"].items()},
+         flash_dispatches=dispatched, max_memory_allocated=peak,
+         overflow=overflow, card=card, **agree)
+    return launches
+
+
+# BASELINE config 1 as a fluid-era script: LeNet by fluid.layers over
+# fake MNIST, batch 64, Adam 1e-3, through CompiledProgram
+_FLUID_B = 64
+_FLUID_STEPS = 20
+_FLUID_BATCHES = 4  # 20 steps cycle 4 batches: 5 epochs of 256 images
+_FLUID_ADAM = 10  # conv1, conv2, fc1, fc2, fc3: weight and bias each
+
+
+def _fluid_lenet_program(fluid, pkg, batch):
+    """(main, startup, loss, accuracy): LeNet as a fluid-era script
+    writes it, with the static ``Variable``'s overloads (``h + h * 0.5``,
+    ``-x``, ``mean * 1.0``)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        img = fluid.data("img", [batch, 1, 28, 28], "float32")
+        label = fluid.data("label", [batch, 1], "int64")
+        c1 = fluid.layers.conv2d(img, 6, 3, padding=1, act="relu")
+        p1 = fluid.layers.pool2d(c1, 2, "max", 2)
+        c2 = fluid.layers.conv2d(p1, 16, 5, act="relu")
+        p2 = fluid.layers.pool2d(c2, 2, "max", 2)
+        f1 = fluid.layers.fc(p2, 120, act="relu")
+        h = fluid.layers.fc(f1, 84, act="relu")
+        h = h + h * 0.5
+        logits = -fluid.layers.fc(h, 10)
+        ce = fluid.layers.softmax_with_cross_entropy(logits, label)
+        loss = fluid.layers.mean(ce) * 1.0
+        acc = fluid.layers.accuracy(fluid.layers.softmax(logits), label)
+        pkg.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return main, startup, loss, acc
+
+
+def _fluid_run(exe, scope, compiled, loss, acc, batches, steps):
+    out = {"losses": [], "acc": [], "step_s": []}
+    for i in range(steps):
+        t0 = time.perf_counter()
+        lv, av = exe.run(compiled, feed=batches[i % len(batches)],
+                         fetch_list=[loss, acc], scope=scope)
+        out["step_s"].append(time.perf_counter() - t0)
+        out["losses"].append(float(lv))
+        out["acc"].append(float(av))
+    out["state"] = {n: scope.get(n) for n in sorted(scope.local_var_names())}
+    return out
+
+
+def _fluid_lenet(torch, card) -> dict:
+    """BASELINE config 1 through the fluid namespace: ``import
+    paddle_tpu_torch.fluid as fluid``, LeNet by ``fluid.layers``
+    (``_fluid_lenet_program``), ``vision.datasets.MNIST(backend="fake")``
+    through ``io.DataLoader`` at batch 64, Adam(1e-3), ``fluid.
+    CompiledProgram(main).with_data_parallel(loss_name=loss.name)``, 20
+    steps replayed (R) and 20 eager (E, PADDLE_TPU_EAGER=1) from one
+    start, with ``accuracy`` fetched. Checks: R = E bit for bit (losses,
+    accuracies, every persistable); finite losses whose mean over the
+    last 4 steps lies below the first 4's (the steps cycle 4 batches);
+    accuracies in [0, 1]; fused Adam launched 10 times a host step (R's
+    warm-up and capture), and 10 times in a traced replayed step. Both
+    legs run cuDNN's deterministic algorithms."""
+    deterministic = torch.backends.cudnn.deterministic
+    # cuDNN's default weight-gradient algorithms add with atomics, so two
+    # eager runs already differ in the last bit; bit identity needs the
+    # deterministic ones on both legs
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _fluid_lenet_legs(torch, card)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _fluid_lenet_legs(torch, card) -> dict:
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import io, vision
+
+    main, startup, loss, acc = _fluid_lenet_program(fluid, pt, _FLUID_B)
+    compiled = fluid.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name)
+    ds = vision.datasets.MNIST(mode="train", backend="fake")
+    loader = io.DataLoader(ds, batch_size=_FLUID_B, shuffle=False,
+                           drop_last=True)
+    batches = []
+    for b in loader:
+        batches.append({"img": np.asarray(b[0]), "label": np.asarray(b[1])})
+        if len(batches) == _FLUID_BATCHES:
+            break
+    scope, exe = fluid.Scope(), fluid.Executor()
+    exe.run(startup, scope=scope)
+    start = {n: scope.get(n).clone() for n in scope.local_var_names()}
+    e_scope, e_exe = fluid.Scope(), fluid.Executor()
+    for n, t in start.items():
+        e_scope.set(n, t.clone())
+    with _eager():
+        e = _fluid_run(e_exe, e_scope, compiled, loss, acc, batches,
+                       _FLUID_STEPS)
+    _reset_launches()
+    before = dict(exe.phases)
+    r = _fluid_run(exe, scope, compiled, loss, acc, batches, _FLUID_STEPS)
+    launches = _all_launches()
+    phases = {k: exe.phases[k] - before[k] for k in before}
+    if phases != {"eager": 1, "capture": 1, "replay": _FLUID_STEPS - 2}:
+        raise AssertionError(f"fluid_lenet: runs by phase {phases}")
+    want = {k: (2 * _FLUID_ADAM if k == "fused_adam" else 0)
+            for k in launches}
+    if launches != want:
+        raise AssertionError(f"fluid_lenet launches {launches}, not {want}")
+    off = _unequal(r["state"], e["state"])
+    if r["losses"] != e["losses"] or r["acc"] != e["acc"] or off:
+        raise AssertionError(f"fluid_lenet: replay differs from eager: "
+                             f"losses {r['losses']} / {e['losses']}, "
+                             f"persistables {off[:4]}")
+    losses = r["losses"]
+    first, last = np.mean(losses[:4]), np.mean(losses[-4:])
+    if not (np.all(np.isfinite(losses)) and last < first
+            and all(0.0 <= a <= 1.0 for a in r["acc"])):
+        raise AssertionError(f"fluid_lenet: losses {losses}, accuracies "
+                             f"{r['acc']}")
+    traced = _profile_step(torch, exe, compiled, batches[0], [loss, acc],
+                           scope, card, "fluid_lenet_profile",
+                           per_step={k: want[k] // 2 for k in want})
+    walls = [s * 1e3 for s in r["step_s"]]
+    _say(phase="fluid_lenet", batch=_FLUID_B, steps=_FLUID_STEPS,
+         batches=_FLUID_BATCHES, ops=len(main.global_block().ops),
+         losses=losses, accuracy=r["acc"], loss_first4=first,
+         loss_last4=last, replay_bit_identical=True,
+         persistables=len(r["state"]), step_ms_all=walls,
+         step_ms_median=statistics.median(walls[2:]),
+         eager_step_ms_median=statistics.median(
+             [s * 1e3 for s in e["step_s"]][2:]),
+         device_ms=traced["device_ms"], families=traced["families"],
+         launches=launches, launches_per_replayed_step={
+             k: v["calls"] for k, v in traced["path_kernels"].items()},
+         runs_by_phase=phases, card=card)
+    return launches
+
+
 def _kernel_row(name, replaces, source, launches, err, t, card, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -4893,6 +5668,16 @@ def main() -> int:
     lap("jit")
     eager_times = _time_flash(torch, card, "BHTD", False)
     lap("eager_kernel_times")
+    vision = _vision_fit(torch, card)
+    lap("vision_fit")
+    amp = _static_amp(torch, card)
+    lap("static_amp")
+    fluid = _fluid_lenet(torch, card)
+    lap("fluid_lenet")
+    f32_times = _time_ce_f32(torch, card)
+    load_times = _time_flash(torch, card, "BHTD", False, torch.float32,
+                             batch=1, repeats=10)
+    lap("f32_kernel_times")
     for case in _CPU_VS_CARD:
         _cpu_vs_card(torch, *case)
     _cpu_vs_card_eager(torch, _EAGER_CPU_VS_CARD, 1e-3, 1e-5)
@@ -4911,11 +5696,39 @@ def main() -> int:
                 "train_recipe": recipe[name],
                 "train_eager": eager.get(name, 0),
                 "jit": jitted["jit"].get(name, 0),
-                "jit_load": jitted["jit_load"].get(name, 0), **more}
+                "jit_load": jitted["jit_load"].get(name, 0),
+                "vision_fit": vision[name], "static_amp": amp[name],
+                "fluid_lenet": fluid[name], **more}
 
     def replayed(name):  # the device trace's launches per replayed step
         return {"train": traced["path_kernels"][name]["calls"],
                 "train_long": traced_long["path_kernels"][name]["calls"]}
+
+    amp_traced = _SAID["static_amp"]["path_kernels"]
+
+    def amp_shape(name):
+        """The fp32 route at the static_amp step's N (``_time_ce_f32``),
+        with its calls and device ms in a traced replayed step."""
+        t = f32_times[name]
+        return {"n": _LONG_N, "d": _TRAIN["d_model"],
+                "v": _TRAIN["vocab_size"], "dtype": "float32",
+                "source": fp32_src if name == "lmhead_ce_fwd" else ce_src,
+                "calls_per_replayed_step": amp_traced[name]["calls"],
+                "device_ms_per_replayed_step": amp_traced[name]["ms"],
+                **{k: t[k] for k in ("kernel_ms", "plain_ms", "bound_ms",
+                                     "bound_by", "bound_fma_ms",
+                                     "library_ms", "over_library",
+                                     "max_abs_err") if k in t}}
+
+    def load_shape(name):
+        """fp32 at batch 1, BHTD, non-causal: jit.load's program."""
+        t = load_times[name]
+        return {"b": 1, "t": _LONG_T, "h": _LONG["n_head"],
+                "d": _head_dim(_LONG), "dtype": "float32", "layout": "BHTD",
+                "causal": False, "source": flash_src,
+                **{k: t[k] for k in ("kernel_ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms", "tflops",
+                                     "over_library")}}
 
     def long_shape(name):
         t = times[(name, "long")]
@@ -4929,30 +5742,36 @@ def main() -> int:
     fwd = _kernel_row(
         "lmhead_ce_fwd", pallas + "fused_lmhead_ce.py:99",
         csrc + "lmhead_ce_fwd_sm90.cu", train["lmhead_ce_fwd"],
-        max(serve_err, errs["lmhead_ce_fwd"]), times["lmhead_ce_fwd"], card,
+        max(serve_err, errs["lmhead_ce_fwd"],
+            f32_times["lmhead_ce_fwd"]["max_abs_err"]),
+        times["lmhead_ce_fwd"], card,
         shape=shape, source_fp32=fp32_src, source_combine=ce_src,
         launches_by_path=by_path("lmhead_ce_fwd", serve=serve_launches),
         launches_per_replayed_step=replayed("lmhead_ce_fwd"),
         tflops=times["lmhead_ce_fwd"]["tflops"],
         over_library=times["lmhead_ce_fwd"]["over_library"],
         long_shape=long_shape("lmhead_ce_fwd"),
+        static_amp_shape=amp_shape("lmhead_ce_fwd"),
         serve_shapes=[{"n": n, "d": _SERVE_D, "v": _SERVE_V,
                        "dtype": "float32", "source": fp32_src,
                        **{k: serve_times[(n, "float32")][k] for k in (
                            "kernel_ms", "plain_ms", "library_ms",
-                           "bound_ms", "bound_tf32_ms", "tflops_tf32",
+                           "bound_ms", "bound_fma_ms", "tflops_tf32",
                            "over_library")}}
                       for n in _SCORE_NS])
 
     rows = [fwd] + [
         _kernel_row(name, pallas + where, csrc + "lmhead_ce_bwd_sm90.cu",
-                    train[name], errs[name], times[name], card, shape=shape,
+                    train[name],
+                    max(errs[name], f32_times[name]["max_abs_err"]),
+                    times[name], card, shape=shape,
                     source_fp32=ce_src, launches_by_path=by_path(name),
                     launches_per_replayed_step=replayed(name),
                     library_dx_dw_ms=times[name]["library_dx_dw_ms"],
                     tflops=times[name]["tflops"],
                     over_library=times[name]["over_library"],
-                    long_shape=long_shape(name))
+                    long_shape=long_shape(name),
+                    static_amp_shape=amp_shape(name))
         for name, where in (("lmhead_ce_dx", "fused_lmhead_ce.py:188"),
                             ("lmhead_ce_dw", "fused_lmhead_ce.py:221"))]
     rows.append(_kernel_row(
@@ -4979,6 +5798,7 @@ def main() -> int:
         else:
             extra["library_dq_dk_dv_ms"] = times[name]["library_dq_dk_dv_ms"]
             source = csrc + "flash_attention_bwd_sm90.cu"
+        extra["jit_load_shape"] = load_shape(name)
         extra["eager_shape"] = dict(
             flash_shape, layout="BHTD", causal=False,
             **{k: eager_times[name][k] for k in (

@@ -19,6 +19,11 @@ the same path:
   io/, metric/, hapi/   DataLoader, metrics, Model.fit; io/fs.py
   jit/                  to_static (CUDA-graph replay, dy2static control
                         flow), jit.save / jit.load
+  static/               the static builders, static.amp (the program's
+                        mixed-precision rewrite), CompiledProgram
+  fluid/                the fluid namespace of reference-style scripts
+  vision/               the model zoo (LeNet, ResNet, VGG, MobileNet),
+                        transforms and datasets
   checkpoint.py         the fit loop's full-state checkpoints
   models/gpt.py         GPTConfig and the training program
   distributed/fleet/    RecomputeOptimizer
@@ -55,12 +60,15 @@ _api._install_patches()
 
 from . import nn  # noqa: E402
 from . import optimizer  # noqa: E402
+from . import regularizer  # noqa: E402
 from . import metric  # noqa: E402
 from . import io  # noqa: E402
 from . import amp  # noqa: E402
 from . import tensor  # noqa: E402
 from . import callbacks  # noqa: E402
 from . import jit  # noqa: E402
+from . import fluid  # noqa: E402
+from . import vision  # noqa: E402
 from .hapi.model import Model  # noqa: E402
 from .hapi.model_io import load, save  # noqa: E402
 

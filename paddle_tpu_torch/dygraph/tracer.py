@@ -35,6 +35,8 @@ the generic grad of ``registry.py``).
 - **Observers** (``observers``): each callable there sees every traced
   op's input Tensors (``jit.StaticFunction`` learns which parameters a
   captured function reads).
+- **Profiling**: under an active ``torch.profiler`` each op, forward and
+  backward, runs inside the executor's ``paddle_op::<type>`` range.
 
 Nothing touches the device until the first op: the lowering context is
 made at a tape's first op.
@@ -50,6 +52,7 @@ from .. import amp as _amp
 from ..framework import core, registry
 from ..framework.backward import calc_gradient
 from ..framework.program import Operator, Program, Variable
+from ..framework.executor import op_range
 from ..framework.registry import OUT_PREFIX, LoweringContext
 from .varbase import Parameter, Tensor
 
@@ -150,17 +153,18 @@ class Tracer:
                          and any(not t.stop_gradient
                                  for ts in in_tensors.values() for t in ts))
         ctx = self._context()
-        if requires_grad:
-            diff = [slot for slot, ts in in_tensors.items()
-                    if slot not in opdef.no_grad_inputs
-                    and any(not t.stop_gradient for t in ts)]
-            idx = len(self.program.global_block().ops)
-            out_vals = ctx.record(
-                idx, opdef, ins, attrs, diff,
-                prepare=lambda i: _amp.amp_cast_inputs(type, i))
-        else:
-            out_vals = registry.run_lowering(
-                opdef, ctx, _amp.amp_cast_inputs(type, ins), attrs)
+        with op_range(type):
+            if requires_grad:
+                diff = [slot for slot, ts in in_tensors.items()
+                        if slot not in opdef.no_grad_inputs
+                        and any(not t.stop_gradient for t in ts)]
+                idx = len(self.program.global_block().ops)
+                out_vals = ctx.record(
+                    idx, opdef, ins, attrs, diff,
+                    prepare=lambda i: _amp.amp_cast_inputs(type, i))
+            else:
+                out_vals = registry.run_lowering(
+                    opdef, ctx, _amp.amp_cast_inputs(type, ins), attrs)
 
         out_tensors: Dict[str, List[Tensor]] = {}
         for slot, vals in out_vals.items():
@@ -275,7 +279,8 @@ class Tracer:
                 env.pop(name, None)
         with torch.no_grad():
             for i in range(n_fwd, len(block.ops)):
-                lower_op(ctx, block.ops[i], env, op_idx=i)
+                with op_range(block.ops[i].type):
+                    lower_op(ctx, block.ops[i], env, op_idx=i)
                 for gname in ready_at.get(i, ()):
                     if gname in env:
                         for hook in hooks:

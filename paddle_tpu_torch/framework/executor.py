@@ -86,10 +86,15 @@ captures a steady step as a CUDA graph and replays it
     records, and ``PADDLE_TPU_XLA_DUMP_DIR`` receives each program's
     artifacts under a hash of its structure.
 
+A block holding a host op (an op registered ``host=True``, whose rule
+reads its inputs on the host: ``chunk_eval``, ``positive_negative_pair``)
+runs eagerly on the card too, op by op, as the JAX executor runs such a
+block outside ``jax.jit``; every block of the program is scanned.
+
 Not ported, and each raises ``errors.Unimplemented`` naming its
 ``ROADMAP.md`` item: mesh and sharding-recipe programs and the pipeline
-(A10). Every ported op is a device op, so the JAX executor's eager path
-for blocks with host ops has nothing to run yet (A11).
+(A10). A ``CompiledProgram`` (``framework/compiler.py``) is unwrapped to
+its program; over more than one device it raises naming A10.
 """
 from __future__ import annotations
 
@@ -183,6 +188,15 @@ def lower_op(ctx: LoweringContext, op, env: Dict[str, Any],
 OP_RANGE = "paddle_op::"
 
 
+def op_range(op_type):
+    """Under an active ``torch.profiler``, the range ``OP_RANGE + op_type``
+    around an op (static or eager), so a trace charges the op's device
+    time to it; else nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(OP_RANGE + op_type)
+    return contextlib.nullcontext()
+
+
 def lower_block(ctx: LoweringContext, block, env: Dict[str, Any],
                 probes: Optional["Probes"] = None,
                 drop: Optional[Dict[int, Sequence[str]]] = None
@@ -194,16 +208,12 @@ def lower_block(ctx: LoweringContext, block, env: Dict[str, Any],
     values that ``drop`` lists for the op (its last readers: see
     :func:`liveness`) leave ``env``, so the step frees each one as soon
     as nothing else holds it."""
-    traced = torch.autograd._profiler_enabled()
     if probes is not None:
         probes.begin()
     for i, op in enumerate(block.ops):
         if op.type in _STRUCTURAL_OPS:
             continue
-        if traced:
-            with torch.profiler.record_function(OP_RANGE + op.type):
-                lower_op(ctx, op, env, op_idx=i)
-        else:
+        with op_range(op.type):
             lower_op(ctx, op, env, op_idx=i)
         if probes is not None:
             probes.after(i, op, env)
@@ -336,6 +346,7 @@ class _Analysed:
         self.regrad = regrad
         self.drop = drop  # op idx -> values that die after it (liveness)
         self.compiled: Optional[_CompiledStep] = None
+        self.has_host = False  # a host op anywhere: never captured
         self.runs = 0  # runs of this entry
         # the numerics probes (either check flag on), the legacy flag's
         # FloatingPointError instead of the sentinel's typed error
@@ -475,6 +486,10 @@ class Executor:
 
     # -- one run -------------------------------------------------------
     def _run_impl(self, program, feed, fetch_list, scope, return_numpy):
+        from .compiler import CompiledProgram
+
+        if isinstance(program, CompiledProgram):
+            program = program._unwrap()
         program = program or default_main_program()
         self._refuse_unported(program)
         feed = feed or {}
@@ -491,6 +506,9 @@ class Executor:
                 feed_vals[n] = place(np.asarray(fn()))
 
         entry = self._get_analysed(program, feed_vals, fetch_names, scope)
+        if compiled and entry.has_host:
+            compiled = False
+            feed_vals = {k: v.to(self.device) for k, v in feed_vals.items()}
         try:
             if compiled:
                 fetches = self._run_compiled(program, entry, feed_vals,
@@ -723,6 +741,8 @@ class Executor:
         entry = _Analysed(param_names, updated, tape, grad_of, regrad,
                           liveness(block, keep))
         entry.fetch_names = tuple(fetch_names)
+        entry.has_host = any(_is_host_op(op) for b in program.blocks
+                             for op in b.ops)
         if check_nan:
             entry.probes = Probes()
             entry.check_numerics = check_numerics
@@ -822,6 +842,15 @@ def _op_list(program) -> str:
                              for slot, args in op.desc.outputs)
             lines.append(f"{b.idx}:{i} {op.type}({ins}) -> {outs}")
     return "\n".join(lines) + "\n"
+
+
+def _is_host_op(op) -> bool:
+    if op.type in _STRUCTURAL_OPS:
+        return False
+    try:
+        return registry.get_op_def(op.type).host
+    except NotImplementedError:
+        return False
 
 
 def _host_tensor(value: Any) -> torch.Tensor:

@@ -443,8 +443,12 @@ class Block:
         if _current_device_guard is not None:
             attrs = dict(attrs or {})
             attrs.setdefault("op_device", _current_device_guard)
+        return self._insert_op(len(self.ops), type, inputs, outputs, attrs)
+
+    def _insert_op(self, index: int, type: str, inputs=None, outputs=None,
+                   attrs=None) -> Operator:
         op = Operator(self, type, inputs=inputs, outputs=outputs, attrs=attrs)
-        self.ops.append(op)
+        self.ops.insert(index, op)
         self.program._bump_version()
         return op
 

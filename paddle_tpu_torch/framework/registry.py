@@ -249,6 +249,9 @@ class OpDef:
     skip_infer: bool = False
     # the generic <op>_grad: its rule consumes the forward's record
     is_generic_grad: bool = False
+    # runs on the host with concrete values (a data-dependent loop or
+    # output shape): a block holding one is never captured
+    host: bool = False
 
 
 _REGISTRY: Dict[str, OpDef] = {}
@@ -257,7 +260,7 @@ _REGISTRY: Dict[str, OpDef] = {}
 def register_op(type: str, *, infer: Optional[Callable] = None,
                 no_grad_inputs: Sequence[str] = (),
                 stop_gradient: bool = False, uses_rng: bool = False,
-                skip_infer: bool = False):
+                skip_infer: bool = False, host: bool = False):
     """Decorator: register ``fn(ctx, ins, attrs) -> {slot: tensor|list}``
     as the lowering rule of op ``type``."""
 
@@ -266,7 +269,7 @@ def register_op(type: str, *, infer: Optional[Callable] = None,
             type=type, lower=fn, infer=infer,
             no_grad_inputs=frozenset(no_grad_inputs),
             stop_gradient=stop_gradient, uses_rng=uses_rng,
-            skip_infer=skip_infer)
+            skip_infer=skip_infer, host=host)
         return fn
 
     return deco
@@ -284,8 +287,9 @@ def get_op_def(type: str) -> OpDef:
             return gdef
     raise _errs.errors.Unimplemented(
         f"no lowering registered for op {type!r} in paddle_tpu_torch (the "
-        f"port registers the ops of the GPT training program and of the "
-        f"eager API's layers; this one waits in ROADMAP queue A, item "
+        f"port registers the ops of the GPT training program, of the "
+        f"eager API's layers and of the vision and fluid paths; this one "
+        f"waits in ROADMAP queue A, item "
         f"{_queue_item(type)})")
 
 

@@ -3,11 +3,11 @@
 Port of ``paddle_tpu/nn/common.py``: Layer classes over the functional
 API (Linear, Embedding, LayerNorm, Dropout, the activations, the
 containers and the losses), dual-mode through LayerHelper's parameter
-creation. The convolution, pooling and normalization classes other than
-LayerNorm are ported as classes; their ops (``conv2d``, ``pool2d``,
-``batch_norm``, ``group_norm``, ``instance_norm``) wait in ROADMAP queue
-A, item A11, so calling one raises the registry's ``Unimplemented``
-naming A11.
+creation. The convolution, pooling and normalization classes run the
+ops of ``ops/nn_ops.py`` (``conv2d``, ``conv2d_transpose``, ``pool2d``,
+``batch_norm``, ``group_norm``, ``instance_norm``); a BatchNorm's running
+mean and variance are parameters with ``trainable=False``, which its op
+writes in place of the old values at each training forward.
 """
 from __future__ import annotations
 
@@ -184,8 +184,8 @@ class BatchNorm3D(_BatchNormBase):
 
 
 class SyncBatchNorm(_BatchNormBase):
-    """Cross-replica BN; on one card it equals BatchNorm (its op waits
-    for A11, the mesh for A10)."""
+    """Cross-replica BN; on one card it equals BatchNorm (the mesh waits
+    for A10)."""
 
     @classmethod
     def convert_sync_batchnorm(cls, layer):

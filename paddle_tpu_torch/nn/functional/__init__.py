@@ -3,9 +3,8 @@ wrappers.
 
 Port of ``paddle_tpu/nn/functional/__init__.py``: thin functions over
 ``ops.api.dispatch``, so every call is one op in either mode. The
-convolution, pooling, batch-norm, interpolation and other functions whose
-ops the port does not lower yet raise the registry's ``Unimplemented``
-(ROADMAP queue A, item A11).
+interpolation and other functions whose ops the port does not lower yet
+raise the registry's ``Unimplemented`` (ROADMAP queue A, item A11).
 """
 from __future__ import annotations
 

@@ -13,8 +13,11 @@ from . import (  # noqa: F401
     control_flow_ops,
     fused_ops,
     math_ops,
+    metric_ops,
+    misc_ops,
     nn_ops,
     optimizer_ops,
     random_ops,
     tensor_ops,
+    vision_ops,
 )

@@ -5,11 +5,17 @@ dygraph tracer (eager mode, the default) or appends it to the current
 static block; the functional API (``paddle.add``, ``paddle.matmul``,
 ``paddle.reshape`` ...) is built on it, and :func:`monkey_patch` gives
 the eager ``Tensor`` its math operators and methods (``+``, ``@``,
-``==``, ``t.sum()`` ...), each one dispatched op.
+``==``, ``t.sum()`` ...), each one dispatched op; the static
+``Variable`` gets the same overloads and ``__getitem__``, as in the JAX
+package, so ``loss * 1.0``, ``-x`` or ``a == b`` on Variables append ops.
 
-The static ``Variable`` keeps Python's own operators in the port: the
-static builders compare and hash variables, so the overloads stay on the
-eager Tensor (the reference patches both).
+So a ``==``, ``!=``, ``<`` ... between Variables is an op, never a
+Python truth value, and a Variable has no ``__bool__`` (it is always
+truthy). The port's own code therefore compares Variables by identity
+or by name: never ``v in list_of_vars``, ``list.index``, ``list.remove``,
+``==`` between lists of Variables, or ``sorted`` over Variables.
+``__hash__`` stays the object's, so sets and dicts of Variables keep
+working.
 """
 from __future__ import annotations
 
@@ -437,5 +443,7 @@ def monkey_patch(cls):
 def _install_patches():
     from ..dygraph.varbase import Tensor
 
+    monkey_patch(framework.Variable)
     monkey_patch(Tensor)
+    framework.Variable.__getitem__ = _tensor_getitem
 

@@ -11,7 +11,8 @@ dispatches (``relu``, ``sigmoid``, ``tanh``, ``exp``, ``log``, ``sqrt``,
 ``scale``, ``clip``, ``matmul``/``matmul_v2``, ``bmm``, the ``reduce_*``
 reductions, ``arg_max``, ``where``, ``mean``, ``sum``, ``clip_by_norm`` and
 ``squared_l2_norm`` (the last two and the binaries are what gradient
-clipping and weight decay append). Large products stay
+clipping and weight decay append), ``mul`` (static ``fc``'s product) and
+``top_k_v2`` (what ``accuracy`` reads). Large products stay
 ``torch.matmul``, as they are plain ``jnp`` in the JAX package.
 
 Dtypes follow the JAX package's rules, not torch's: a binary op computes
@@ -270,3 +271,32 @@ def _where(ctx, ins, attrs):
     dt = torch.promote_types(xv.dtype, yv.dtype)
     return {"Out": torch.where(ins["Condition"][0].bool(), xv.to(dt),
                                yv.to(dt))}
+
+
+@register_op("mul")
+def _mul(ctx, ins, attrs):
+    """X flattened to 2-D at ``x_num_col_dims``, Y at ``y_num_col_dims``,
+    one product; the output keeps X's leading dims (static ``fc``)."""
+    xv, yv = ins["X"][0], ins["Y"][0]
+    xnc = attrs.get("x_num_col_dims", 1)
+    ync = attrs.get("y_num_col_dims", 1)
+    lead = tuple(xv.shape[:xnc])
+    rows = 1
+    for d in lead:
+        rows *= int(d)
+    ylead = 1
+    for d in yv.shape[:ync]:
+        ylead *= int(d)
+    out = xv.reshape(rows, -1) @ yv.reshape(ylead, -1)
+    return {"Out": out.reshape(lead + (out.shape[-1],))}
+
+
+@register_op("top_k_v2")
+def _top_k_v2(ctx, ins, attrs):
+    v = ins["X"][0]
+    k = maybe(ins, "K")
+    k = int(k) if k is not None else int(attrs.get("k", 1))
+    axis = attrs.get("axis", -1) % v.dim()
+    vals, idx = torch.topk(v, k, dim=axis,
+                           largest=attrs.get("largest", True), sorted=True)
+    return {"Out": vals, "Indices": idx.long()}

@@ -1,6 +1,11 @@
 """Optimizer op lowerings: ``sgd``, ``momentum``, ``adagrad``, ``adam``,
 ``adamw``, ``adamax``, ``rmsprop``, ``adadelta``, ``lamb``,
-``lars_momentum``, ``dgc_clip_by_norm``, ``dgc_momentum`` and ``dgc``.
+``lars_momentum``, ``ftrl``, ``decayed_adagrad``, ``proximal_gd``,
+``proximal_adagrad``, ``dpsgd``, ``dgc_clip_by_norm``, ``dgc_momentum``,
+``dgc`` and ``average_accumulates``, and the static AMP's
+``check_finite_and_unscale`` and ``update_loss_scaling`` (all
+``torch.where`` on the device, no host read: an overflow step replays
+inside the graph and leaves every parameter as it was).
 
 Port of ``paddle_tpu/ops/optimizer_ops.py``. ``register_optimizer`` keeps
 the JAX package's fp32 master arithmetic: inputs are widened to fp32 for
@@ -39,10 +44,16 @@ import torch
 
 from ..framework.registry import register_op
 from . import fused_adam as _fa
+from .random_ops import _normal_at
 
 
 def _lr(ins):
     return ins["LearningRate"][0].reshape(())
+
+
+# output slots not named <input slot>Out (ftrl)
+_IRREGULAR = {"SquaredAccumOut": "SquaredAccumulator",
+              "LinearAccumOut": "LinearAccumulator"}
 
 
 def register_optimizer(name):
@@ -55,7 +66,9 @@ def register_optimizer(name):
                        for slot, arrs in ins.items()}
             res = {}
             for slot, val in fn(ctx, f32_ins, attrs).items():
-                ref = ins.get(slot[:-3] if slot.endswith("Out") else slot)
+                src = _IRREGULAR.get(slot) or (
+                    slot[:-3] if slot.endswith("Out") else slot)
+                ref = ins.get(src)
                 res[slot] = val.to(ref[0].dtype) if ref is not None else val
             return res
 
@@ -273,3 +286,142 @@ def _dgc(ctx, ins, attrs):
             "Grad_out": torch.where(active, encoded, g),
             "GatherBuff": torch.zeros_like(g),
             "k": torch.full((), float(k), device=g.device)}
+
+
+@register_optimizer("ftrl")
+def _ftrl(ctx, ins, attrs):
+    p, g = ins["Param"][0], ins["Grad"][0]
+    sq, lin = ins["SquaredAccumulator"][0], ins["LinearAccumulator"][0]
+    l1 = attrs.get("l1", 0.0)
+    l2 = attrs.get("l2", 0.0)
+    power = attrs.get("lr_power", -0.5)
+    lr = _lr(ins)
+    new_sq = sq + g.square()
+    if power == -0.5:
+        sigma = (torch.sqrt(new_sq) - torch.sqrt(sq)) / lr
+        denom = torch.sqrt(new_sq) / lr + 2 * l2
+    else:
+        sigma = (torch.pow(new_sq, -power) - torch.pow(sq, -power)) / lr
+        denom = torch.pow(new_sq, -power) / lr + 2 * l2
+    lin_out = lin + g - sigma * p
+    p_out = (torch.clamp(lin_out, -l1, l1) - lin_out) / denom
+    return {"ParamOut": p_out, "SquaredAccumOut": new_sq,
+            "LinearAccumOut": lin_out}
+
+
+@register_optimizer("decayed_adagrad")
+def _decayed_adagrad(ctx, ins, attrs):
+    p, g, m = ins["Param"][0], ins["Grad"][0], ins["Moment"][0]
+    decay = attrs.get("decay", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    m_new = decay * m + (1 - decay) * g * g
+    return {"ParamOut": p - _lr(ins) * g / (torch.sqrt(m_new) + eps),
+            "MomentOut": m_new}
+
+
+def _proximal(prox, lr, l1, l2):
+    return (torch.sign(prox) * torch.clamp(torch.abs(prox) - lr * l1, min=0.0)
+            / (1.0 + lr * l2))
+
+
+@register_optimizer("proximal_gd")
+def _proximal_gd(ctx, ins, attrs):
+    """FOBOS: the l1 shrinkage and l2 decay of the plain SGD iterate."""
+    p, g = ins["Param"][0], ins["Grad"][0]
+    lr = _lr(ins)
+    return {"ParamOut": _proximal(p - lr * g, lr, attrs.get("l1", 0.0),
+                                  attrs.get("l2", 0.0))}
+
+
+@register_optimizer("proximal_adagrad")
+def _proximal_adagrad(ctx, ins, attrs):
+    p, g, m = ins["Param"][0], ins["Grad"][0], ins["Moment"][0]
+    m_new = m + g * g
+    lr_eff = _lr(ins) / torch.sqrt(m_new + 1e-10)
+    return {"ParamOut": _proximal(p - lr_eff * g, lr_eff,
+                                  attrs.get("l1", 0.0), attrs.get("l2", 0.0)),
+            "MomentOut": m_new}
+
+
+@register_op("dpsgd", stop_gradient=True, uses_rng=True)
+def _dpsgd(ctx, ins, attrs):
+    """The gradient clipped to norm ``clip``, plus Gaussian noise of
+    ``sigma * clip`` from the counter-based draw (the JAX package draws
+    from threefry: the same distribution, other numbers)."""
+    p, g = ins["Param"][0], ins["Grad"][0]
+    clip = attrs.get("clip", 10.0)
+    batch_size = attrs.get("batch_size", 16.0)
+    sigma = attrs.get("sigma", 1.0)
+    g = g / torch.clamp(torch.linalg.vector_norm(g) / clip, min=1.0)
+    noise = sigma * clip * _normal_at(
+        ctx.uniform(attrs.get("_rng_id", 0), g.shape))
+    return {"ParamOut": (p - _lr(ins) * (g + noise) / batch_size).to(p.dtype)}
+
+
+@register_op("check_finite_and_unscale", stop_gradient=True)
+def _check_finite_and_unscale(ctx, ins, attrs):
+    scale = ins["Scale"][0].reshape(())
+    found_inf = torch.zeros((), dtype=torch.bool, device=scale.device)
+    outs = []
+    for v in ins["X"]:
+        found_inf = found_inf | ~torch.isfinite(v).all()
+        dt = torch.promote_types(v.dtype, scale.dtype)
+        outs.append(v.to(dt) / scale)
+    return {"Out": outs, "FoundInfinite": found_inf.reshape(1)}
+
+
+@register_op("update_loss_scaling", stop_gradient=True)
+def _update_loss_scaling(ctx, ins, attrs):
+    """The dynamic loss scale: ``decr_every_n_nan_or_inf`` overflow steps
+    in a row scale it by ``decr_ratio`` (not below 1),
+    ``incr_every_n_steps`` good steps by ``incr_ratio``. The step counts
+    come back int32, as in the JAX package."""
+    found_inf = ins["FoundInfinite"][0].reshape(())
+    prev = ins["PrevLossScaling"][0].reshape(())
+    good = ins["InGoodSteps"][0].reshape(())
+    bad = ins["InBadSteps"][0].reshape(())
+    zero_g, zero_b = torch.zeros_like(good), torch.zeros_like(bad)
+    good_new = torch.where(found_inf, zero_g, good + 1)
+    bad_new = torch.where(found_inf, bad + 1, zero_b)
+    scale_up = good_new >= attrs.get("incr_every_n_steps", 1000)
+    scale_down = bad_new >= attrs.get("decr_every_n_nan_or_inf", 2)
+    new_scale = torch.where(
+        scale_down,
+        torch.clamp(prev * attrs.get("decr_ratio", 0.5), min=1.0),
+        torch.where(scale_up, prev * attrs.get("incr_ratio", 2.0), prev))
+    good_new = torch.where(scale_up, zero_g, good_new)
+    bad_new = torch.where(scale_down, zero_b, bad_new)
+    return {"Out": [torch.where(found_inf, torch.zeros_like(v), v)
+                    for v in ins.get("X", [])],
+            "LossScaling": new_scale.reshape(1),
+            "OutGoodSteps": good_new.to(torch.int32).reshape(1),
+            "OutBadSteps": bad_new.to(torch.int32).reshape(1)}
+
+
+@register_op("average_accumulates", stop_gradient=True)
+def _average_accumulates(ctx, ins, attrs):
+    """ModelAverage's accumulators: ``sum_1`` adds the parameter; once
+    ``num_accumulates`` reaches the window, the sums shift down."""
+    p = ins["param"][0]
+    s1, s2, s3 = ins["in_sum_1"][0], ins["in_sum_2"][0], ins["in_sum_3"][0]
+    n_acc = ins["in_num_accumulates"][0].reshape(()) + 1
+    o_acc = ins["in_old_num_accumulates"][0].reshape(())
+    n_upd = ins["in_num_updates"][0].reshape(()) + 1
+    avg_window = attrs.get("average_window", 0.0)
+    max_avg = attrs.get("max_average_window", 10000)
+    min_avg = attrs.get("min_average_window", 10000)
+    s1 = s1 + p
+    window = torch.clamp(
+        torch.clamp((n_upd.float() * avg_window).to(n_upd.dtype), max=max_avg),
+        min=min_avg)
+    overflow = n_acc >= window
+    return {
+        "out_sum_1": torch.where(overflow, torch.zeros_like(s1), s1),
+        "out_sum_2": torch.where(overflow, torch.zeros_like(s2), s2),
+        "out_sum_3": torch.where(overflow, s1 + s2, s3),
+        "out_num_accumulates": torch.where(
+            overflow, torch.zeros_like(n_acc), n_acc).reshape(1),
+        "out_old_num_accumulates": torch.where(
+            overflow, n_acc, o_acc).reshape(1),
+        "out_num_updates": n_upd.reshape(1),
+    }

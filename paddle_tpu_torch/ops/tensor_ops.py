@@ -5,7 +5,8 @@ Port of ``paddle_tpu/ops/tensor_ops.py``: ``fill_constant``,
 ``assign``, ``assign_value``, ``cast``, ``reshape2``/``reshape``,
 ``transpose2``/``transpose``, ``slice``, ``squeeze2``/``squeeze``,
 ``unsqueeze2``/``unsqueeze``, ``flatten_contiguous_range``, ``concat``,
-``split``, ``stack`` and ``gather``, with the JAX package's
+``split``, ``stack``, ``gather`` and ``one_hot``/``one_hot_v2``, with
+the JAX package's
 semantics (reshape's 0 copies the input dim, slice clamps its bounds,
 squeeze drops only the listed axes of size 1).
 """
@@ -201,3 +202,19 @@ def _gather(ctx, ins, attrs):
             .reshape(tuple(v.shape[:axis]) + tuple(idx.shape)
                      + tuple(v.shape[axis + 1:]))}
 
+
+
+@register_op("one_hot_v2", stop_gradient=True)
+def _one_hot_v2(ctx, ins, attrs):
+    """An index outside [0, depth) gives a row of zeros (``jax.nn.one_hot``;
+    ``F.one_hot`` would raise)."""
+    depth = int(maybe(ins, "depth_tensor", attrs.get("depth", 1)))
+    idx = x(ins)
+    if idx.dim() and idx.shape[-1] == 1:
+        idx = idx.squeeze(-1)
+    classes = torch.arange(depth, device=idx.device)
+    return {"Out": (idx.long().unsqueeze(-1) == classes).to(
+        torch_dtype(attrs.get("dtype", "float32")))}
+
+
+register_op("one_hot", stop_gradient=True)(_one_hot_v2)

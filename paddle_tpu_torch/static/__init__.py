@@ -1,4 +1,6 @@
-"""Static-graph user API of the port (mirrors ``paddle_tpu/static``)."""
+"""Static-graph user API of the port (mirrors ``paddle_tpu/static``):
+the builders (``nn``), save and load (``io``), the program rewrite of
+mixed precision (``amp``) and ``CompiledProgram``."""
 from ..framework import (
     CPUPlace,
     CUDAPlace,
@@ -12,7 +14,7 @@ from ..framework import (
     gradients,
     program_guard,
 )
-from . import io, nn
+from . import amp, io, nn
 from .io import (
     load_inference_model,
     load_params,
@@ -24,5 +26,11 @@ from .io import (
     save_vars,
 )
 from .nn import data
+
+from ..framework.compiler import (  # noqa: E402,F401
+    BuildStrategy,
+    CompiledProgram,
+    ExecutionStrategy,
+)
 
 from ..jit import InputSpec  # noqa: E402,F401  (reference paddle.static.InputSpec)

@@ -71,7 +71,10 @@ def params_from_numpy(params: Dict[str, np.ndarray], device,
 def scope_from_numpy(values: Dict[str, np.ndarray], scope, device):
     """Put ``{name: np.ndarray}`` into ``scope`` as tensors on ``device``,
     names and dtypes unchanged (ml_dtypes bfloat16 becomes torch bfloat16
-    exactly). Returns the scope."""
+    exactly): parameters, optimizer state and the static AMP's
+    persistables (``@AMP.loss_scaling``, and ``@AMP.good_steps`` /
+    ``@AMP.bad_steps``, float32 at the start and int32 after a step, as
+    ``update_loss_scaling`` writes them). Returns the scope."""
     for name, t in params_from_numpy(values, device).items():
         scope.set(name, t)
     return scope
@@ -81,7 +84,10 @@ def layer_from_numpy(layer, state: Dict[str, np.ndarray]):
     """Copy ``state`` (a JAX ``nn.Layer.state_dict()``: structured name ->
     numpy) into the port's ``layer``, each value in its parameter's dtype
     and on its device. Every parameter must be given and every name must
-    match one; raises ``KeyError`` otherwise. Returns the layer."""
+    match one; raises ``KeyError`` otherwise. The parameters include the
+    non-trainable ones, a BatchNorm's running mean and variance
+    (``bn1._mean``, ``bn1._variance``), so an eager ResNet moves across
+    whole. Returns the layer."""
     own = {name for name, _ in layer.named_parameters()}
     missing = sorted(own - set(state))
     unknown = layer.set_state_dict({k: np.asarray(v)

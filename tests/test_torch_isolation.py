@@ -226,7 +226,7 @@ def test_unported_paths_raise():
 
 
 @pytest.mark.parametrize("op, item", [
-    ("conv2d", "A11"), ("pool2d_grad", "A11"), ("lstm", "A11"),
+    ("pool3d", "A11"), ("pool3d_grad", "A11"), ("lstm", "A11"),
     ("c_allreduce_sum", "A10"), ("alltoall", "A10"),
     ("c_broadcast_grad", "A10")])
 def test_unregistered_op_names_its_queue_item(op, item):

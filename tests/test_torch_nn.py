@@ -10,9 +10,11 @@ magnitude, plus 1e-6). A bf16 case casts the layer's parameters with
 ``amp.decorate(level="O2")`` and feeds bf16 inputs. The JAX package
 computes its side in one subprocess for the module.
 
-The convolution, pooling and normalization classes other than LayerNorm
-are ported as classes; their ops wait for A11, so a call raises the
-registry's ``Unimplemented`` naming A11.
+The convolution, pooling and normalization classes other than LayerNorm,
+whose ops waited for A11 until the vision slice, are held the same way in
+``test_unported_layers_name_a11`` (its name kept from then): forward and
+gradients against the JAX package, BatchNorm's running statistics
+included.
 """
 import torch_threads  # noqa: F401 (one torch thread a worker)
 import os
@@ -203,7 +205,7 @@ def _reference_main(out):
     import paddle_tpu as pd
 
     res = {}
-    for name, dtype in PARAMS:
+    for name, dtype in PARAMS + [(u[0], "float32") for u in UNPORTED]:
         start, got = _run_case(pd, name, dtype)
         for k, v in start.items():
             res[f"{name}/{dtype}/init/{k}"] = v
@@ -261,29 +263,53 @@ def test_state_dict_names_match_the_reference(reference):
     assert list(layer.state_dict()) == want
 
 
+# ported in the vision slice; the test below keeps the name it had while
+# these layers raised Unimplemented naming A11
 UNPORTED = [
-    ("Conv2D", lambda: pt.nn.Conv2D(3, 4, 3), (1, 3, 8, 8)),
-    ("Conv2DTranspose", lambda: pt.nn.Conv2DTranspose(3, 4, 3),
+    ("Conv2D", lambda p: p.nn.Conv2D(3, 4, 3), (1, 3, 8, 8)),
+    ("Conv2DTranspose", lambda p: p.nn.Conv2DTranspose(3, 4, 3),
      (1, 3, 8, 8)),
-    ("MaxPool2D", lambda: pt.nn.MaxPool2D(2), (1, 3, 8, 8)),
-    ("AvgPool2D", lambda: pt.nn.AvgPool2D(2), (1, 3, 8, 8)),
-    ("AdaptiveAvgPool2D", lambda: pt.nn.AdaptiveAvgPool2D(1), (1, 3, 8, 8)),
-    ("AdaptiveMaxPool2D", lambda: pt.nn.AdaptiveMaxPool2D(1), (1, 3, 8, 8)),
-    ("BatchNorm2D", lambda: pt.nn.BatchNorm2D(3), (2, 3, 4, 4)),
-    ("SyncBatchNorm", lambda: pt.nn.SyncBatchNorm(3), (2, 3, 4, 4)),
-    ("GroupNorm", lambda: pt.nn.GroupNorm(1, 3), (2, 3, 4, 4)),
-    ("InstanceNorm2D", lambda: pt.nn.InstanceNorm2D(3), (2, 3, 4, 4)),
+    ("MaxPool2D", lambda p: p.nn.MaxPool2D(2), (1, 3, 8, 8)),
+    ("AvgPool2D", lambda p: p.nn.AvgPool2D(2), (1, 3, 8, 8)),
+    ("AdaptiveAvgPool2D", lambda p: p.nn.AdaptiveAvgPool2D(1), (1, 3, 8, 8)),
+    ("AdaptiveMaxPool2D", lambda p: p.nn.AdaptiveMaxPool2D(1), (1, 3, 8, 8)),
+    ("BatchNorm2D", lambda p: p.nn.BatchNorm2D(3), (2, 3, 4, 4)),
+    ("SyncBatchNorm", lambda p: p.nn.SyncBatchNorm(3), (2, 3, 4, 4)),
+    ("GroupNorm", lambda p: p.nn.GroupNorm(1, 3), (2, 3, 4, 4)),
+    ("InstanceNorm2D", lambda p: p.nn.InstanceNorm2D(3), (2, 3, 4, 4)),
 ]
+for _name, _make, _shape in UNPORTED:
+    _BY_NAME[_name] = (_name, _make, [_f(_shape)], None)
+
+
+def _batch_norm_stats(pkg, name, init):
+    """A BatchNorm layer's running mean and variance after one training
+    forward from ``init``."""
+    layer = layer_from_numpy(_BY_NAME[name][1](pkg), init)
+    r = np.random.RandomState(3)
+    layer(pkg.to_tensor(r.randn(2, 3, 4, 4).astype(np.float32)))
+    return {k: _as_f32(v) for k, v in layer.state_dict().items()}
 
 
 @pytest.mark.parametrize("name,make,shape", UNPORTED,
                          ids=[u[0] for u in UNPORTED])
-def test_unported_layers_name_a11(name, make, shape):
-    layer = make()
+def test_unported_layers_name_a11(reference, name, make, shape):
+    """Each layer whose op waited for A11 now runs forward and backward
+    as the JAX package does; a BatchNorm's running mean and variance are
+    parameters (``trainable=False``) that ``layer_from_numpy`` carries and
+    a training forward moves."""
+    layer = make(pt)
     assert layer.parameters() or name.endswith("Pool2D")
-    x = pt.to_tensor(np.ones(shape, np.float32))
-    with pytest.raises(errors.Unimplemented, match="A11"):
-        layer(x)
+    test_layer_matches_the_reference(reference, name, "float32")
+    if "BatchNorm" in name:
+        init = {k[len(name) + 14:]: v for k, v in reference.items()
+                if k.startswith(f"{name}/float32/init/")}
+        assert {"_mean", "_variance"} <= set(init)
+        frozen = [p for p in layer.parameters() if not p.trainable]
+        assert len(frozen) == 2
+        moved = _batch_norm_stats(pt, name, init)
+        assert not np.array_equal(moved["_mean"], init["_mean"])
+        assert not np.array_equal(moved["_variance"], init["_variance"])
 
 
 def test_layer_hooks_train_eval_and_set_state_dict():

@@ -50,9 +50,22 @@ in for the kernels.
   bit; three broken replays fail -- the capture step never applied (the
   state restored after it), the learning rate frozen at the captured
   step's, and beta1's power one step ahead; a difference in a loss or a
-  persistable passes only where a second eager run shares it."""
+  persistable passes only where a second eager run shares it.
+- The vision and fluid static path's checks: the static AMP rewrite
+  (``_amp_rewrite_agrees``) passes on a tiny GPT built fp32 and decorated
+  (casts, no ``equal``, every matmul and attention reading bf16, the CE
+  fp32) and fails on the undecorated program (no casts) and on one whose
+  first matmul is rewired back to its fp32 input; the overflow step
+  (``_amp_overflow``, the found-inf arithmetic) on that GPT on the CPU's
+  staged route: an inf in a weight leaves every parameter and
+  accumulator as it was and halves the scale, and a decorated program
+  whose optimizer writes are not gated fails it; ``_stats_moved`` (the
+  running-statistics check of ``vision_fit``) passes when every
+  BatchNorm statistic moved in a training forward of a small ResNet on
+  CPU tensors and fails when one did not (an eval forward)."""
 import torch_threads  # noqa: F401 (one torch thread a worker)
 import contextlib
+import dataclasses
 import os
 import sys
 
@@ -1146,3 +1159,146 @@ def test_kernel_tally_counts_kernels_not_ranges():
     assert device_ms == pytest.approx(0.5)
     assert sorted(kernels) == sorted(e.name for e in events[:2])
     assert ours["flash_attention_fwd"] == {"calls": 1, "ms": 0.4}
+
+
+_AMP_CFG = dict(vocab_size=128, n_layer=2, n_head=2, d_model=32,
+                max_seq_len=16)
+
+
+def _amp_start(main, startup):
+    from paddle_tpu_torch.framework import Scope
+
+    scope, exe = Scope(), chip_smoke._executor("cpu")
+    exe.run(startup, scope=scope)
+    return {v.name: scope.get(v.name).clone() for v in main.list_vars()
+            if v.persistable}
+
+
+@pytest.mark.parametrize("case", ["decorated", "undecorated", "rewired"])
+def test_amp_rewrite_check_rejects_a_dead_rewrite(case):
+    main, _, _ = chip_smoke._amp_program(2, 16, decorate=case != "undecorated",
+                                         config=_AMP_CFG)
+    if case == "rewired":  # the reference's dead rewrite, on one matmul
+        op = next(o for o in main.global_block().ops if o.type == "matmul")
+        block = main.global_block()
+        src = {slot: [block.var(v.name.split(".cast_")[0]) for v in vs]
+               for slot, vs in op._input_vars.items()}
+        op._input_vars.update(src)
+    if case == "decorated":
+        got = chip_smoke._amp_rewrite_agrees(main)
+        assert got["casts"] > 0 and got["lm_head_ce_inputs"] == [["float32"]]
+        assert set(got["bf16_white_list_ops"]) == {"matmul",
+                                                   "fused_attention_tpu"}
+    else:
+        with pytest.raises(AssertionError, match="static_amp"):
+            chip_smoke._amp_rewrite_agrees(main)
+
+
+@pytest.mark.parametrize("gated", [True, False], ids=["gated", "ungated"])
+def test_amp_overflow_step_keeps_every_parameter(monkeypatch, gated):
+    main, startup, _ = chip_smoke._amp_program(2, 16, config=_AMP_CFG)
+    start = _amp_start(main, startup)
+    feed = chip_smoke._fixed_batch(torch, 128, 2, 16, device="cpu")
+    if not gated:  # the optimizer's writes land whatever found_inf says
+        from paddle_tpu_torch.static import amp
+
+        real = amp.OptimizerWithMixedPrecision._apply_gradients_impl
+
+        def ungated(self, block, params_grads, *rest):
+            n = len(block.ops)
+            out = real(self, block, params_grads, *rest)
+            block.ops[:] = block.ops[:n] + [
+                o for o in block.ops[n:] if o.type not in ("where",
+                                                           "assign")]
+            return out
+
+        monkeypatch.setattr(amp.OptimizerWithMixedPrecision,
+                            "_apply_gradients_impl", ungated)
+        with pytest.raises(AssertionError, match="overflow"):
+            chip_smoke._amp_overflow(torch, 2, 16, start, feed,
+                                     config=_AMP_CFG, device="cpu")
+        return
+    got = chip_smoke._amp_overflow(torch, 2, 16, start, feed,
+                                   config=_AMP_CFG, device="cpu")
+    assert got["scale"] == [2.0 ** 15, 2.0 ** 14]
+    assert got["bad_steps"] == 0 and got["good_steps"] == 0
+    assert not np.isfinite(got["loss"])
+
+
+@pytest.mark.parametrize("unscale", ["sound", "left_scaled", "twice"])
+def test_amp_moment_check_sees_the_loss_scale(monkeypatch, unscale):
+    """``static_amp``'s hold of Adam's first moments against the fp32
+    program's (``_leaves_agree`` at ``_AMP_MOMENT_RTOL``), on the tiny GPT
+    over 3 steps at lr 1e-4: it passes the sound rewrite (the worst
+    parameter 3.6e-3 here) and rejects a ``check_finite_and_unscale``
+    that leaves the 2^15 scale on the gradients or divides by it twice,
+    though the losses of both stay within ``_AMP_RTOL``."""
+    from paddle_tpu_torch.framework import registry
+
+    if unscale != "sound":
+        real = registry.get_op_def("check_finite_and_unscale")
+
+        def wrong(ctx, ins, attrs):
+            out = real.lower(ctx, ins, attrs)
+            scale = ins["Scale"][0].reshape(())
+            out["Out"] = [o * scale if unscale == "left_scaled" else o / scale
+                          for o in out["Out"]]
+            return out
+
+        monkeypatch.setitem(registry._REGISTRY, "check_finite_and_unscale",
+                            dataclasses.replace(real, lower=wrong))
+    feed = chip_smoke._fixed_batch(torch, 128, 2, 16, device="cpu")
+    lrs = [chip_smoke._LR] * 3
+    legs = []
+    for decorate in (True, False):
+        program = chip_smoke._amp_program(2, 16, decorate=decorate,
+                                          config=_AMP_CFG)
+        io = program[2]
+        start = _amp_start(program[0], program[1])
+        legs.append(chip_smoke._leg((io["compiled"],) + program[1:], start,
+                                    feed, "cpu", lrs))
+    amp, fp32 = legs
+    rel = [abs(a - b) / abs(b) for a, b in zip(amp["losses"], fp32["losses"])]
+    assert max(rel) < chip_smoke._AMP_RTOL
+    moments = {n: t for n, t in amp["state"].items() if "_moment1_" in n}
+    want = {n: fp32["state"][n] for n in moments}
+    if unscale == "sound":
+        got = chip_smoke._leaves_agree(moments, want,
+                                       chip_smoke._AMP_MOMENT_RTOL, "m1")
+        assert got["leaves"] == 36 and got["worst"] < 0.05
+    else:
+        with pytest.raises(AssertionError, match="m1 of"):
+            chip_smoke._leaves_agree(moments, want,
+                                     chip_smoke._AMP_MOMENT_RTOL, "m1")
+
+
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+def test_running_stats_check(train):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import vision
+    from paddle_tpu_torch.framework import core
+
+    prev = core._default_place
+    pt.disable_static()
+    pt.set_device("cpu")
+    try:
+        net = vision.models.resnet18(num_classes=10)
+        before = {p.name: p._value.clone() for p in net.parameters()
+                  if not p.trainable}
+        if not train:
+            net.eval()
+        x = np.random.RandomState(0).randn(2, 3, 32, 32).astype(np.float32)
+        with pt.no_grad():
+            net(pt.to_tensor(x))
+        after = {p.name: p._value for p in net.parameters()
+                 if not p.trainable}
+    finally:
+        core._default_place = prev
+        pt.enable_static()
+    assert len(before) == 2 * 20  # 20 BatchNorms in resnet18
+    if train:
+        got = chip_smoke._stats_moved(before, after)
+        assert got == {"running_stats": 40, "moved": 40}
+    else:
+        with pytest.raises(AssertionError, match="did not move"):
+            chip_smoke._stats_moved(before, after)
