@@ -13,7 +13,7 @@ Phases (any failure raises, and the script exits non-zero with no result):
 2. build: one nvcc per ``paddle_tpu_torch/csrc/*.cu``, all started
    together, into ``build/torch_kernels/`` (ptxas's register and
    shared-memory report is printed); the tensor-core kernels' (CE
-   forward in bf16 and in fp32, dx, dW; flash forward, dq and dk/dv at
+   forward, dx and dW in bf16 and in fp32; flash forward, dq and dk/dv at
    head_dim 64 and 128) tensor-core instructions counted in the
    library's SASS (none fails),
    with their registers and spills, and their grid geometry held against
@@ -29,11 +29,15 @@ Phases (any failure raises, and the script exits non-zero with no result):
    (``_CE_GRAD_CASES``, a non-uniform g): bf16 (tensor cores) at both
    training shapes, ragged with labels V and -1, at D = 1000, at D = 60
    (padded), at N = 1 and at N = 600 (fewer blocks than SMs), at one
-   bf16 ulp plus 2^-6; fp32 (FMA units) at N = 511, ragged and at
-   D = 1000, at 1e-4; the CE kernels' peak added memory at the training
-   shape (no [N, V] buffer); fused Adam(W) on bf16, fp32, 1-D and odd
-   shapes, and on a bf16 p with the fp32 gradient a global-norm clip
-   gives; the flash attention forward (out, lse), dq and dk/dv over
+   bf16 ulp plus 2^-6; fp32 (split TF32 on the tensor cores) at N =
+   16384, ragged with labels V and -1, at D = 60 (padded), D = 1000 (two
+   slabs), N = 1 and N = 511 (the column sweep in chunks), at 1e-4, and
+   against float64 at N = 511 and 4096 within ``_BWD_TF32_MULTIPLE``
+   times the plain fp32 version's own error; the CE kernels' peak added
+   memory at the training shape, and fp32 dx and dW's at the static_amp
+   step's N = 16384 (no [N, V] buffer); fused Adam(W) on bf16, fp32, 1-D
+   and odd shapes, and on a bf16 p with the fp32 gradient a global-norm
+   clip gives; the flash attention forward (out, lse), dq and dk/dv over
    ``_FLASH_CASES``: the seq-2048 training shape (bf16, causal, BTHD),
    fp32 and bf16 in both layouts causal and not, D = 128 and 256, Tq !=
    Tk (causal, bottom-right; rows that see no key give out 0 and lse
@@ -48,8 +52,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
    and the card's bound for the same work, at the serving score shapes
    and at the training shapes (the CE forward, dx and dW at N = 4096 and
    16384, and the flash forward, dq and dk/dv, with TFLOP/s and their
-   ratio to the library call); the fp32 CE forward's bound is its
-   split-TF32 one (three tf32 products a score), the FMA units' beside;
+   ratio to the library call); the fp32 CE kernels' bounds are their
+   split-TF32 ones (three tf32 products a product), the FMA units' beside;
 5. serving at full GPT width (12 x 768, vocab 32000, random weights from
    seed 0): 8 prompts covering every prefill bucket through
    ServingEngine.warm + submit + run_until_idle, first eagerly
@@ -221,8 +225,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
    including ``train_eager``, ``vision_fit`` (none), ``static_amp`` and
    ``fluid_lenet``; a kernel whose bf16 path runs on
    the tensor cores names that source, with the fp32 one beside it
-   (``source_fp32``, ``source_d256``; the CE forward's fp32 source is its
-   split-TF32 kernel, ``serve_shapes`` its times at the serving shapes);
+   (``source_fp32``, ``source_d256``; the CE kernels' fp32 sources are
+   their split-TF32 kernels, ``serve_shapes`` the forward's times at the
+   serving shapes);
 9. the card's name and power limit again, and the last line:
    ``{"ok": true, "device": {...}}``.
 """
@@ -242,7 +247,7 @@ import numpy as np
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
 _PEAK_BYTES_PER_S = 3.35e12
 # fp32 on the FMA units, outside the tensor cores; tf32 the tensor cores'
-# dense rate, which the fp32 CE forward's three tf32 products run at
+# dense rate, which the fp32 CE kernels' three tf32 products run at
 _PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tfloat32": 494.7e12}
 
 _SERVE_D, _SERVE_V = 768, 32000
@@ -314,6 +319,8 @@ _SM90_KERNELS = {
     "lmhead_ce_fwd_f32": ("lmhead_ce_fwd_f32_sm90", "fwd_f32_sm90_kernel"),
     "lmhead_ce_dx": ("lmhead_ce_bwd_sm90", "bwd_sm90_kernelILb1E"),
     "lmhead_ce_dw": ("lmhead_ce_bwd_sm90", "bwd_sm90_kernelILb0E"),
+    "lmhead_ce_dx_f32": ("lmhead_ce_bwd_f32_sm90", "bwd_f32_sm90_kernelILb1E"),
+    "lmhead_ce_dw_f32": ("lmhead_ce_bwd_f32_sm90", "bwd_f32_sm90_kernelILb0E"),
     "flash_attention_fwd_d64": ("flash_attention_fwd_sm90",
                                 "fwd_sm90_kernelILi64E"),
     "flash_attention_fwd_d128": ("flash_attention_fwd_sm90",
@@ -376,6 +383,12 @@ def _build():
                            lib.lmhead_ce_sm90_half(),
                            lib.lmhead_ce_sm90_slab()),
                           (ce.SM90_TILE, ce.SM90_HALF, ce.SM90_SLAB)),
+        "lmhead_ce_bwd_f32": ((lib.lmhead_ce_bwd_f32_sm90_rows(),
+                               lib.lmhead_ce_bwd_f32_sm90_cols(),
+                               lib.lmhead_ce_bwd_f32_sm90_slab(),
+                               lib.lmhead_ce_bwd_f32_sm90_pad()),
+                              (ce.SM90_F32_BWD_ROWS, ce.SM90_F32_BWD_COLS,
+                               ce.SM90_F32_BWD_SLAB, ce.SM90_F32_BWD_PAD)),
         "lmhead_ce_fwd": ((lib.lmhead_ce_fwd_sm90_tile_n(),
                            lib.lmhead_ce_fwd_sm90_tile_v()),
                           (ce.SM90_FWD_TILE_N, ce.SM90_FWD_TILE_V)),
@@ -507,6 +520,81 @@ def _check_fp64_truth(torch) -> float:
                 f"float64 logits, beyond {bound} ({_TF32_MULTIPLE} x the "
                 f"plain fp32 version's {own} + {_TF32_ATOL})")
         worst = max(worst, _err(got[0], plain[0]), _err(got[1], plain[1]))
+    return worst
+
+
+# The fp32 CE backward (dx and dW, split TF32 on the tensor cores) against
+# float64: its max abs error may be at most _BWD_TF32_MULTIPLE times the
+# plain fp32 version's own (full fp32 products, TF32 off) plus _TF32_ATOL,
+# both given the same lse and g. Why 4:
+# tests/test_torch_lmhead_ce_f32.py emulates the kernel's arithmetic on the
+# CPU -- both products split, a new pair of accumulators for every 64 of D
+# in the score and every 64-column tile in the product, added in fp32, the
+# chunks' partials -- with the tensor cores' accumulation truncating after
+# every 4 products, and finds 0.75 to 1.87 times the plain version's error
+# over the seeds 10 to 21 at N = 64, D = 768, V = 2048 (1.87 at its seed
+# 10); the bound is twice the largest, rounded up. A 1xTF32 kernel lies
+# about 270 times beyond it there. The card's plain version (cuBLAS) errs
+# more than the CPU's, so there the ratio is smaller.
+_BWD_TF32_MULTIPLE = 4.0
+
+
+def _bwd_fp64_err(torch, got, x, w, labels, lse, g) -> tuple:
+    """Max abs errors of (dx, dW) against those of float64 logits and
+    d-logits from the same lse and g."""
+    logits = x.double() @ w.double().t()
+    v = w.shape[0]
+    lbl = labels.long()
+    ok = (lbl >= 0) & (lbl < v)
+    dl = torch.exp(logits - lse.double()[:, None])
+    del logits
+    rows = ok.nonzero()[:, 0]
+    dl[rows, lbl[ok]] -= 1.0
+    dl *= g.double()[:, None]
+    dx = _err(got[0].double(), dl @ w.double())
+    return dx, _err(got[1].double(), dl.t() @ x.double())
+
+
+def _check_bwd_fp64_truth(torch) -> dict:
+    """fp32 dx and dW against float64 at N 511 (a chunked sweep) and 4096
+    (one chunk: the whole sweep), D 768, V 32768, labels V and -1, a
+    non-uniform g: within ``_BWD_TF32_MULTIPLE`` times the plain fp32
+    version's own error plus ``_TF32_ATOL``; raises where not. Returns
+    {kernel: the largest error against the plain version}."""
+    from paddle_tpu_torch.ops import lmhead_ce as ce
+
+    worst = {"lmhead_ce_dx": 0.0, "lmhead_ce_dw": 0.0}
+    d, v = _TRAIN["d_model"], _TRAIN["vocab_size"]
+    for i, n in enumerate((511, _TRAIN_N)):
+        x, w, lbl = _inputs(torch, n, d, v, torch.float32, seed=30 + i)
+        lbl[3], lbl[7] = v, -1
+        g = torch.from_numpy(np.random.RandomState(32 + i).uniform(
+            0.5, 1.5, n).astype(np.float32)).cuda()
+        lse = ce.lmhead_ce_plain(x, w, lbl)[1]
+        got = (ce.lmhead_ce_dx(x, w, lbl, lse, g),
+               ce.lmhead_ce_dw(x, w, lbl, lse, g))
+        plain = (ce.lmhead_ce_dx_plain(x, w, lbl, lse, g),
+                 ce.lmhead_ce_dw_plain(x, w, lbl, lse, g))
+        torch.cuda.synchronize()
+        errs = _bwd_fp64_err(torch, got, x, w, lbl, lse, g)
+        owns = _bwd_fp64_err(torch, plain, x, w, lbl, lse, g)
+        for name, k, p, err, own in zip(worst, got, plain, errs, owns):
+            bound = _BWD_TF32_MULTIPLE * own + _TF32_ATOL
+            _say(phase="kernel_check", kernel=name, check="fp64_truth", n=n,
+                 d=d, v=v, dtype="float32", max_abs_err=err,
+                 plain_max_abs_err=own, ratio=err / own if own else None,
+                 bound=bound, multiple=_BWD_TF32_MULTIPLE, atol=_TF32_ATOL,
+                 chunks=ce.sm90_f32_bwd_split(
+                     *((n, v) if name == "lmhead_ce_dx" else (v, n)),
+                     torch.cuda.get_device_properties(0)
+                     .multi_processor_count)[1])
+            if not err <= bound or not bool(torch.isfinite(k).all()):
+                raise AssertionError(
+                    f"{name} fp32 at n={n}: max abs error {err} against "
+                    f"float64, beyond {bound} ({_BWD_TF32_MULTIPLE} x the "
+                    f"plain fp32 version's {own} + {_TF32_ATOL})")
+            worst[name] = max(worst[name], _err(k, p))
+        del got, plain
     return worst
 
 
@@ -681,15 +769,20 @@ _CE_GRAD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2.0 ** -7, 2.0 ** -6)}
 # (N, D, V, dtype): bf16 at both training shapes, then the bf16 kernel's
 # edges -- ragged N and V with labels V and -1, D = 1000 (a third D block,
 # partly past D), D = 60 (the wrapper pads to 64), N = 1, and N = 600,
-# whose 10 row tiles x 2 D halves fill 20 of the card's SMs; fp32 at
-# N = 511, ragged, and at D = 1000 (the SIMT kernel's two slabs)
+# whose 10 row tiles x 2 D halves fill 20 of the card's SMs; fp32 (split
+# TF32) at the static_amp step's N = 16384 (dx and dW one chunk each),
+# then its edges -- ragged N and V with labels V and -1, D = 60 (padded to
+# 64: five of the six product steps load nothing), D = 1000 (padded to
+# 1024: two slabs, the scores built twice), N = 1 (dx: 5 chunks of one
+# column tile) and N = 511 (dx: 16 row tiles x 8 chunks, the reduce)
 _CE_GRAD_CASES = [
     (_TRAIN_N, 768, 32768, "bfloat16"), (_LONG_N, 768, 32768, "bfloat16"),
     (33, 64, 130, "bfloat16"), (100, 1000, 300, "bfloat16"),
     (64, 60, 130, "bfloat16"), (1, 768, 300, "bfloat16"),
     (600, 768, 5000, "bfloat16"),
-    (511, 768, 32768, "float32"), (33, 64, 130, "float32"),
-    (100, 1000, 300, "float32"),
+    (_LONG_N, 768, 32768, "float32"), (33, 64, 130, "float32"),
+    (64, 60, 130, "float32"), (100, 1000, 300, "float32"),
+    (1, 768, 300, "float32"), (511, 768, 32768, "float32"),
 ]
 
 
@@ -721,13 +814,14 @@ def _check_training_kernels(torch):
     card. The bf16 forward over ``_CE_FWD_CASES`` at 2e-3 (the floor of
     tests/test_fused_lmhead_ce.py:89), each line naming its blocks. dx and
     dW with a non-uniform per-row g in [0.5, 1.5] over ``_CE_GRAD_CASES``
-    through ``_ce_grad_agrees``; each line names the blocks of the bf16
-    launch or the vocabulary chunks of the fp32 one. Adam, with and without
-    weight decay, at an lr whose update spans several ulps of p: m and v
-    at rtol 1e-5, p through its update in fp32 and bit for bit in bf16
+    through ``_ce_grad_agrees``; each line names the blocks of its launch
+    (and the fp32 one's column chunks); then the fp32 ones against float64
+    (``_check_bwd_fp64_truth``). Adam, with and without weight decay, at an
+    lr whose update spans several ulps of p: m and v at rtol 1e-5, p
+    through its update in fp32 and bit for bit in bf16
     (``_adam_agrees``). The CE kernels must also allocate no [N, V]
-    buffer at the training shape. Returns {kernel: max abs err}."""
-    from paddle_tpu_torch.ops import _build
+    buffer at the training shape, nor fp32 dx and dW at the static_amp
+    step's N. Returns {kernel: max abs err}."""
     from paddle_tpu_torch.ops import fused_adam as fa
     from paddle_tpu_torch.ops import lmhead_ce as ce
 
@@ -743,6 +837,18 @@ def _check_training_kernels(torch):
             ("lmhead_ce_dw", lambda: ce.lmhead_ce_dw(x, w, lbl, lse, g))):
         _no_big_buffer(torch, name, fn, _TRAIN_N * v * 2, "[N, V]",
                        n=_TRAIN_N, v=v)
+    # the fp32 backward at the static_amp step's N (its scratch: the rows'
+    # hi and lo, 2 x rows x D fp32, 201 MB for dW; an fp32 [N, V] buffer
+    # would be 2.15 GB)
+    x, w, lbl = _inputs(torch, _LONG_N, d, v, torch.float32, seed=41)
+    g = torch.full((_LONG_N,), 1.0 / _LONG_N, device="cuda")
+    lse = ce.lmhead_ce_fwd(x, w, lbl)[1]
+    for name, fn in (
+            ("lmhead_ce_dx", lambda: ce.lmhead_ce_dx(x, w, lbl, lse, g)),
+            ("lmhead_ce_dw", lambda: ce.lmhead_ce_dw(x, w, lbl, lse, g))):
+        _no_big_buffer(torch, name, fn, _LONG_N * v * 2, "[N, V]",
+                       n=_LONG_N, v=v, dtype="float32")
+    del x, w, lbl, lse, g
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for i, (n, dd, vv) in enumerate(_CE_FWD_CASES):
         x, w, lbl = _inputs(torch, n, dd, vv, torch.bfloat16, seed=40 + i)
@@ -758,7 +864,6 @@ def _check_training_kernels(torch):
              dtype="bfloat16", tolerance_rel=2e-3, max_abs_err=err, sms=sms,
              blocks=len(ce.sm90_fwd_blocks(n, vv, sms)))
 
-    tile = _build.load().lmhead_ce_tile_n()
     for i, (n, dd, vv, dtype_name) in enumerate(_CE_GRAD_CASES):
         x, w, lbl = _inputs(torch, n, dd, vv, getattr(torch, dtype_name),
                             seed=50 + i)
@@ -780,12 +885,14 @@ def _check_training_kernels(torch):
             worst[name] = max(worst[name], err)
             grid = (dict(blocks=len(ce.sm90_blocks(rows, dd)))
                     if dtype_name == "bfloat16" else
-                    dict(chunks=ce.split_vocab(rows, cols, tile, tile, sms,
-                                               ce._BWD_BLOCKS_PER_SM)[1]))
+                    dict(blocks=len(ce.sm90_f32_bwd_blocks(rows, cols, sms)),
+                         chunks=ce.sm90_f32_bwd_split(rows, cols, sms)[1]))
             _say(phase="kernel_check", kernel=name, n=n, d=dd, v=vv,
                  dtype=dtype_name, tolerance=_CE_GRAD_TOL[dtype_name],
                  max_abs_err=err, excess_over_rtol=_excess(
                      got, ref, _CE_GRAD_TOL[dtype_name][0]), sms=sms, **grid)
+    for name, err in _check_bwd_fp64_truth(torch).items():
+        worst[name] = max(worst[name], err)
 
     # the last case: a bf16 p with the fp32 gradient a global-norm clip
     # hands over (the recipe's path)
@@ -1271,8 +1378,8 @@ _F32_REPEATS = 5  # the fp32 CE backward takes tens of ms a call at N 16384
 
 
 def _time_ce_f32(torch, card):
-    """The CE forward, dx and dW on their fp32 routes (the forward split
-    TF32 on the tensor cores, dx and dW on the FMA units) at the
+    """The CE forward, dx and dW on their fp32 routes (split TF32 on the
+    tensor cores) at the
     ``static_amp`` step's shape: N = 8 x 2048, D = 768, V = 32768, where
     the rewritten program feeds them fp32 (``fused_lm_head_ce`` is on
     neither AMP list). First each kernel against its plain version on the
@@ -1283,10 +1390,12 @@ def _time_ce_f32(torch, card):
     kernels on both sides. Then kernel, plain and library
     (``F.cross_entropy(x @ w.t())`` in fp32 with TF32 off, and its
     gradient) by CUDA events, median of ``_F32_REPEATS``, with g = 1/N.
-    Bounds: the forward's at three tf32 products a score on the tensor
-    cores, the way it computes (``bound_fma_ms`` beside it at the FMA
-    units' 67 TFLOP/s); dx's and dW's at the FMA units. Returns {kernel:
-    row}, each with its ``max_abs_err``."""
+    Bounds: at three tf32 products a product on the tensor cores, the way
+    the kernels compute (6NVD FLOPs for the forward, 12NVD for dx and for
+    dW, at 494.7 TFLOP/s), with ``bound_fma_ms`` beside them (2NVD and 4NVD
+    at the FMA units' 67 TFLOP/s) and ``tflops_tf32``, the tf32 FLOPs over
+    the kernel's time. Returns {kernel: row}, each with its
+    ``max_abs_err``."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import lmhead_ce as ce
@@ -1331,11 +1440,14 @@ def _time_ce_f32(torch, card):
          _bound_ms(io + 4 * n, 6.0 * n * v * d, "tfloat32")),
         ("lmhead_ce_dx", lambda: ce.lmhead_ce_dx(x, w, lbl, lse, g),
          lambda: ce.lmhead_ce_dx_plain(x, w, lbl, lse, g), library_grad(xr),
-         _bound_ms(io + 8 * n + 4 * n * d, flops, "float32")),
+         _bound_ms(io + 8 * n + 4 * n * d, 3 * flops, "tfloat32")),
         ("lmhead_ce_dw", lambda: ce.lmhead_ce_dw(x, w, lbl, lse, g),
          lambda: ce.lmhead_ce_dw_plain(x, w, lbl, lse, g), library_grad(wr),
-         _bound_ms(io + 8 * n + 4 * v * d, flops, "float32")),
+         _bound_ms(io + 8 * n + 4 * v * d, 3 * flops, "tfloat32")),
     ]
+    fma = {"lmhead_ce_fwd": (io + 4 * n, 2.0 * n * v * d),
+           "lmhead_ce_dx": (io + 8 * n + 4 * n * d, flops),
+           "lmhead_ce_dw": (io + 8 * n + 4 * v * d, flops)}
     rows = {}
     for name, kern, plain, library, (bound, by) in specs:
         row = dict(phase="kernel_time_f32", kernel=name, n=n, d=d, v=v,
@@ -1346,9 +1458,9 @@ def _time_ce_f32(torch, card):
                                          repeats=_F32_REPEATS),
                    bound_ms=bound, bound_by=by, max_abs_err=errs[name],
                    repeats=_F32_REPEATS, card=card)
+        row["bound_fma_ms"] = _bound_ms(*fma[name], "float32")[0]
+        row["tflops_tf32"] = 3 * fma[name][1] / row["kernel_ms"] / 1e9
         if name == "lmhead_ce_fwd":
-            row["bound_fma_ms"] = _bound_ms(io + 4 * n, 2.0 * n * v * d,
-                                            "float32")[0]
             row["library"] = "F.cross_entropy(x @ w.t()), fp32, TF32 off"
         else:
             row["library"] = ("autograd.grad of F.cross_entropy(x @ w.t()) "
@@ -1900,16 +2012,21 @@ def _train(torch, card, config, batch, seq, phase, flash_per_step,
 
 # the port's kernels in a trace of a training step, by pieces of the
 # names the profiler gives their CUDA kernels (the CE backward's fp32
-# product, ``bwd_partial_kernel``, for the static AMP step): the first
+# product, ``bwd_f32_sm90_kernel``, for the static AMP step): the first
 # tuple counts the kernel's launches, the second adds the time of its
-# helper launches (the CE forward's combine)
+# helper launches (the CE forward's combine, the fp32 backward's split and
+# reduce)
 _TRACE_NAMES = {
     "lmhead_ce_fwd": (("::fwd_sm90_kernel(", "::fwd_f32_sm90_kernel("),
                       ("::combine_kernel(",)),
     "lmhead_ce_dx": (("::bwd_sm90_kernel<true>",
-                      "::bwd_partial_kernel<true>"), ()),
+                      "::bwd_f32_sm90_kernel<true>"),
+                     ("::bwd_f32_split_kernel<true>",
+                      "::bwd_f32_reduce_kernel<true>")),
     "lmhead_ce_dw": (("::bwd_sm90_kernel<false>",
-                      "::bwd_partial_kernel<false>"), ()),
+                      "::bwd_f32_sm90_kernel<false>"),
+                     ("::bwd_f32_split_kernel<false>",
+                      "::bwd_f32_reduce_kernel<false>")),
     "flash_attention_fwd": (("::fwd_sm90_kernel<", "::fwd_kernel<"), ()),
     "flash_attention_dq": (("::dq_sm90_kernel<", "::dq_kernel<"), ()),
     "flash_attention_dkv": (("::dkv_sm90_kernel<", "::dkv_kernel<"), ()),
@@ -5712,13 +5829,14 @@ def main() -> int:
         t = f32_times[name]
         return {"n": _LONG_N, "d": _TRAIN["d_model"],
                 "v": _TRAIN["vocab_size"], "dtype": "float32",
-                "source": fp32_src if name == "lmhead_ce_fwd" else ce_src,
+                "source": fp32_src if name == "lmhead_ce_fwd" else bwd32_src,
                 "calls_per_replayed_step": amp_traced[name]["calls"],
                 "device_ms_per_replayed_step": amp_traced[name]["ms"],
                 **{k: t[k] for k in ("kernel_ms", "plain_ms", "bound_ms",
                                      "bound_by", "bound_fma_ms",
-                                     "library_ms", "over_library",
-                                     "max_abs_err") if k in t}}
+                                     "tflops_tf32", "library_ms",
+                                     "over_library", "max_abs_err")
+                   if k in t}}
 
     def load_shape(name):
         """fp32 at batch 1, BHTD, non-causal: jit.load's program."""
@@ -5739,6 +5857,7 @@ def main() -> int:
                                      "tflops", "over_library") if k in t}}
 
     fp32_src = csrc + "lmhead_ce_fwd_f32_sm90.cu"
+    bwd32_src = csrc + "lmhead_ce_bwd_f32_sm90.cu"
     fwd = _kernel_row(
         "lmhead_ce_fwd", pallas + "fused_lmhead_ce.py:99",
         csrc + "lmhead_ce_fwd_sm90.cu", train["lmhead_ce_fwd"],
@@ -5765,7 +5884,7 @@ def main() -> int:
                     train[name],
                     max(errs[name], f32_times[name]["max_abs_err"]),
                     times[name], card, shape=shape,
-                    source_fp32=ce_src, launches_by_path=by_path(name),
+                    source_fp32=bwd32_src, launches_by_path=by_path(name),
                     launches_per_replayed_step=replayed(name),
                     library_dx_dw_ms=times[name]["library_dx_dw_ms"],
                     tflops=times[name]["tflops"],

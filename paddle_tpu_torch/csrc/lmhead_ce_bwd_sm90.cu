@@ -10,7 +10,7 @@
 //                rounded to bf16 (fused_lmhead_ce.py:211, :244)
 //     dx = dl . W   (N x D)        dW = dl^T . x   (V x D)
 // fp32 sums, each output cast to bf16 once. Labels outside [0, V) hit no
-// column. fp32 inputs keep the SIMT kernel of lmhead_ce.cu.
+// column. fp32 inputs take lmhead_ce_bwd_f32_sm90.cu (split TF32).
 //
 // Bound on this card (H100 SXM, bf16 at 989 TFLOP/s, 3.35 TB/s):
 // operations. The function needs 4*N*V*D FLOPs (the score tile, then the

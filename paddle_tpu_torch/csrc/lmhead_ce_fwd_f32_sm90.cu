@@ -91,12 +91,6 @@ constexpr size_t smem_bytes() {
   return 1024 + (size_t)(STAGES + LOS) * STAGE + 8 * STAGES;
 }
 
-// a as tf32, rounded to nearest (ties away from zero) on the low 13
-// mantissa bits, which it leaves zero
-__device__ __forceinline__ float tf32_rna(float a) {
-  return __uint_as_float((__float_as_uint(a) + 0x1000u) & 0xffffe000u);
-}
-
 __device__ __forceinline__ float4 tf32_rna4(float4 a) {
   return make_float4(tf32_rna(a.x), tf32_rna(a.y), tf32_rna(a.z),
                      tf32_rna(a.w));

@@ -1,5 +1,5 @@
 // What the sm_90a kernels share (lmhead_ce_bwd_sm90.cu,
-// lmhead_ce_fwd_sm90.cu, lmhead_ce_fwd_f32_sm90.cu,
+// lmhead_ce_bwd_f32_sm90.cu, lmhead_ce_fwd_sm90.cu, lmhead_ce_fwd_f32_sm90.cu,
 // flash_attention_fwd_sm90.cu, flash_attention_bwd_sm90.cu): mbarriers,
 // TMA loads, wgmma shared-memory descriptors and instructions, and, on the
 // host, the encoding of TMA tensor maps.
@@ -238,6 +238,28 @@ __device__ __forceinline__ void wgmma_n128_tf32(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d[64 x 32] (+)= A[64 x 8] . B[32 x 8]^T in tf32, A from registers (a0
+// row r, column t; a1 row r + 8, column t; a2, a3 the same rows, column
+// t + 4; with r = 16 (warp of the warpgroup) + lane / 4 and t = lane % 4),
+// B K-major in shared memory. A is read when the wgmma runs: its registers
+// must not change before the group that holds it has been waited for.
+__device__ __forceinline__ void wgmma_n32_tf32_rs(float (&d)[16], uint32_t a0,
+                                                  uint32_t a1, uint32_t a2,
+                                                  uint32_t a3, uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+}
+
 // d[64 x 64] += A[64 x 16] . B[16 x 64], A from registers (bf16 pairs:
 // a[0] rows r, columns 2 (t % 4) + {0, 1}; a[1] rows r + 8, the same
 // columns; a[2], a[3] the same 8 columns further, with r = 16 (t / 32) +
@@ -263,6 +285,13 @@ __device__ __forceinline__ void wgmma_n64_rs(float (&d)[32],
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// a as tf32, rounded to nearest (ties away from zero) on the low 13
+// mantissa bits, which it leaves zero: the hi of a split-TF32 pair (a =
+// hi + lo, lo = tf32_rna(a - hi), a - hi exact in fp32)
+__device__ __forceinline__ float tf32_rna(float a) {
+  return __uint_as_float((__float_as_uint(a) + 0x1000u) & 0xffffe000u);
 }
 
 // Two fp32 values as one register of bf16 (lo in the low half).

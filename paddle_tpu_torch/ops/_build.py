@@ -93,19 +93,19 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.lmhead_ce_combine.argtypes = [p, p, p, p, p, i, i, p]
     lib.lmhead_ce_combine.restype = i
-    lib.lmhead_ce_bwd_partial.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
-                                          i, i, i, p]
-    lib.lmhead_ce_bwd_partial.restype = i
-    lib.lmhead_ce_bwd_reduce.argtypes = [p, p, ctypes.c_longlong, i, p]
-    lib.lmhead_ce_bwd_reduce.restype = i
+    lib.lmhead_ce_bwd_f32_sm90.argtypes = [p] * 8 + [i] * 6 + [p]
+    lib.lmhead_ce_bwd_f32_sm90.restype = i
     lib.lmhead_ce_bwd_sm90.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
     lib.lmhead_ce_bwd_sm90.restype = i
     for fwd in (lib.lmhead_ce_fwd_sm90, lib.lmhead_ce_fwd_f32_sm90):
         fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
         fwd.restype = i
-    for tile in (lib.lmhead_ce_tile_n, lib.lmhead_ce_bwd_max_slab,
-                 lib.lmhead_ce_sm90_tile, lib.lmhead_ce_sm90_half,
-                 lib.lmhead_ce_sm90_slab, lib.lmhead_ce_sm90_max_d,
+    for tile in (lib.lmhead_ce_bwd_f32_sm90_rows,
+                 lib.lmhead_ce_bwd_f32_sm90_cols,
+                 lib.lmhead_ce_bwd_f32_sm90_slab,
+                 lib.lmhead_ce_bwd_f32_sm90_pad, lib.lmhead_ce_sm90_tile,
+                 lib.lmhead_ce_sm90_half, lib.lmhead_ce_sm90_slab,
+                 lib.lmhead_ce_sm90_max_d,
                  lib.lmhead_ce_fwd_sm90_tile_n, lib.lmhead_ce_fwd_sm90_tile_v,
                  lib.lmhead_ce_fwd_f32_sm90_tile_n,
                  lib.lmhead_ce_fwd_f32_sm90_tile_v,

@@ -7,9 +7,11 @@ its custom VJP: ``_stats_kernel`` forward, ``_dx_kernel`` and
 tensor cores), ``paddle_tpu_torch/csrc/lmhead_ce_fwd_f32_sm90.cu`` (fp32
 forward on the tensor cores through split TF32),
 ``paddle_tpu_torch/csrc/lmhead_ce_bwd_sm90.cu`` (bf16 backward on the
-tensor cores) and ``paddle_tpu_torch/csrc/lmhead_ce.cu`` (fp32 backward
-on the FMA units, and the forward's combine launch), whose headers state
-what bounds them on the card and how the design answers that:
+tensor cores), ``paddle_tpu_torch/csrc/lmhead_ce_bwd_f32_sm90.cu`` (fp32
+backward on the tensor cores through split TF32) and
+``paddle_tpu_torch/csrc/lmhead_ce.cu`` (the forward's combine launch),
+whose headers state what bounds them on the card and how the design
+answers that:
 
 - forward (``launches``): a split-vocab partial-stats launch and a
   combine launch, counted as one kernel. Both dtypes' partials are one
@@ -23,8 +25,12 @@ what bounds them on the card and how the design answers that:
   in fp32; training runs bf16;
 - dx (``dx_launches``) and dW (``dw_launches``): in bf16 one wgmma
   launch over (row tiles x D halves), :func:`sm90_blocks`; in fp32 a
-  SIMT launch over row tiles (dx at small N splits the vocabulary and
-  adds a reduce launch, counted with it as one kernel).
+  split launch (the rows' hi and lo), one wgmma launch over (32-row
+  tiles x column chunks), :func:`sm90_f32_bwd_blocks`, and, where the
+  row tiles alone leave SMs idle (dx at small N), a reduce launch over
+  the chunks' fp32 partials, counted together as one kernel. Both
+  products are split TF32 (three tf32 products each, the d-logits split
+  as the operands are), so fp32 dx and dW are fp32-class.
 
 Entry points:
 
@@ -49,9 +55,11 @@ product, as the TPU kernels do. The tensor-core kernels read x and W
 through TMA, which needs a row pitch of a multiple of 16 bytes: for a D
 that is not a multiple of 8 the wrapper pads x and W with zero columns
 into a copy (zero columns add nothing to any score or product) and
-returns the first D columns. The forwards stream D, so they take any D;
-the bf16 backward keeps the 64-row tile resident in shared memory, so
-bf16 dx and dW take D up to 1024 and raise above it.
+returns the first D columns (the fp32 backward pads to a multiple of 64,
+its depth step). The forwards stream D, and the fp32 backward sweeps it
+in slabs of 768, so they take any D; the bf16 backward keeps the 64-row
+tile resident in shared memory, so bf16 dx and dW take D up to 1024 and
+raise above it.
 
 Under a CUDA graph (``framework/replay.py``; the card's default for a
 training step and the serving programs) the wrappers need nothing of
@@ -96,9 +104,6 @@ dw_launches = 0   # backward dW
 # blocks per SM by default, so that a 31-token grid still spreads over the
 # whole card
 _BLOCKS_PER_SM = 4
-# the fp32 backward's 64 x D shared-memory accumulator leaves room for
-# one block per SM: two waves of blocks
-_BWD_BLOCKS_PER_SM = 2
 # the bf16 backward's row tile, D columns per block and per consumer
 # warpgroup (csrc/lmhead_ce_bwd_sm90.cu)
 SM90_TILE, SM90_HALF, SM90_SLAB = 64, 384, 192
@@ -109,6 +114,10 @@ SM90_FWD_TILE_N, SM90_FWD_TILE_V = 128, 128
 # many blocks per SM over the launch, so that the last of several waves
 # leaves little of the card idle
 _SM90_FWD_BLOCKS_PER_SM = 8
+# the fp32 backward's rows per block, columns per tile, output columns per
+# slab and D multiple (csrc/lmhead_ce_bwd_f32_sm90.cu)
+SM90_F32_BWD_ROWS, SM90_F32_BWD_COLS = 32, 64
+SM90_F32_BWD_SLAB, SM90_F32_BWD_PAD = 768, 64
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -327,11 +336,11 @@ def sm90_blocks(n_rows: int, d: int):
     return blocks
 
 
-def pad_d(*ts: torch.Tensor):
+def pad_d(*ts: torch.Tensor, multiple: int = 8):
     """Each 2-D tensor with zero columns added up to a D that is a
-    multiple of 8 (the same tensors where D already is one)."""
+    multiple of ``multiple`` (the same tensors where D already is one)."""
     d = ts[0].shape[1]
-    extra = -d % 8
+    extra = -d % multiple
     if not extra:
         return ts
     return tuple(torch.nn.functional.pad(t, (0, extra)) for t in ts)
@@ -360,44 +369,67 @@ def _launch_bwd_sm90(lib, a, b, lbl, g, lse, n_rows, n_cols,
     return out if out.shape[1] == d else out[:, :d].contiguous()
 
 
-def _launch_bwd_simt(lib, a, b, lbl, g, lse, n_rows, n_cols,
-                     token_rows: bool, stream) -> torch.Tensor:
-    """One fp32 backward product on the FMA units; returns out
-    [n_rows, D] fp32."""
+def sm90_f32_bwd_split(n_rows: int, n_cols: int, sms: int
+                       ) -> Tuple[int, int]:
+    """(tiles_per_chunk, chunks) of the fp32 backward's launch. Its blocks
+    run one per SM: with as many row tiles as SMs or more, one chunk (the
+    whole column sweep); with fewer, the columns are cut into as many
+    chunks as keep the (row tiles x chunks) grid within one wave, and no
+    chunk starts past the last column."""
+    row_tiles = -(-n_rows // SM90_F32_BWD_ROWS)
+    tiles = -(-n_cols // SM90_F32_BWD_COLS)
+    chunks = max(1, min(tiles, sms // row_tiles))
+    per = -(-tiles // chunks)
+    return per, -(-tiles // per)
+
+
+def sm90_f32_bwd_blocks(n_rows: int, n_cols: int, sms: int):
+    """The fp32 backward's grid: one entry per block, ``(rows, cols)``,
+    each its [start, end) of output rows and of columns (its chunk),
+    clipped to the rows and columns."""
+    per, chunks = sm90_f32_bwd_split(n_rows, n_cols, sms)
+    width = per * SM90_F32_BWD_COLS
+    return [((i * SM90_F32_BWD_ROWS, min(n_rows, (i + 1) * SM90_F32_BWD_ROWS)),
+             (c * width, min(n_cols, (c + 1) * width)))
+            for c in range(chunks)
+            for i in range(-(-n_rows // SM90_F32_BWD_ROWS))]
+
+
+def _launch_bwd_f32_sm90(lib, a, b, lbl, g, lse, n_rows, n_cols,
+                         token_rows: bool, stream) -> torch.Tensor:
+    """One fp32 backward product on the tensor cores (split TF32);
+    returns out [n_rows, D] fp32. Scratch: the rows' hi and lo [2,
+    n_rows, D] and, with several chunks, the partials [chunks, n_rows,
+    D]."""
     d = a.shape[1]
-    out = torch.empty((n_rows, d), dtype=a.dtype, device=a.device)
-    tile = lib.lmhead_ce_tile_n()
-    dslab = min(-(-d // 64) * 64, lib.lmhead_ce_bwd_max_slab())
-    tiles_per_chunk, chunks = split_vocab(
-        n_rows, n_cols, tile, tile, _sms(a.device), _BWD_BLOCKS_PER_SM)
-    part = (torch.empty((chunks, n_rows, d), dtype=torch.float32,
+    a, b = _aligned(*pad_d(a, b, multiple=SM90_F32_BWD_PAD))
+    dp = a.shape[1]
+    per, chunks = sm90_f32_bwd_split(n_rows, n_cols, _sms(a.device))
+    scratch = torch.empty((2, n_rows, dp), dtype=a.dtype, device=a.device)
+    part = (torch.empty((chunks, n_rows, dp), dtype=a.dtype,
                         device=a.device) if chunks > 1 else None)
-    name = "dx" if token_rows else "dW"
-    err = lib.lmhead_ce_bwd_partial(
+    out = torch.empty((n_rows, dp), dtype=a.dtype, device=a.device)
+    err = lib.lmhead_ce_bwd_f32_sm90(
         a.data_ptr(), b.data_ptr(), lbl.data_ptr(), g.data_ptr(),
-        lse.data_ptr(), None if part is None else part.data_ptr(),
-        out.data_ptr(), n_rows, n_cols, d, tiles_per_chunk, chunks, dslab,
-        int(token_rows), stream)
+        lse.data_ptr(), scratch.data_ptr(),
+        None if part is None else part.data_ptr(), out.data_ptr(), n_rows,
+        n_cols, dp, per, chunks, int(token_rows), stream)
     if err:
         raise RuntimeError(
-            f"lmhead_ce {name} launch failed: CUDA error {err} "
-            f"(rows={n_rows}, cols={n_cols}, d={d}, chunks={chunks})")
-    if part is not None:
-        err = lib.lmhead_ce_bwd_reduce(part.data_ptr(), out.data_ptr(),
-                                       n_rows * d, chunks, stream)
-        if err:
-            raise RuntimeError(f"lmhead_ce {name} reduce launch failed: "
-                               f"CUDA error {err}")
-    return out
+            f"lmhead_ce {'dx' if token_rows else 'dW'} (fp32 sm90) launch "
+            f"failed: error {err} (rows={n_rows}, cols={n_cols}, d={d}, "
+            f"chunks={chunks}; -2: no cuTensorMapEncodeTiled, -3: tensor "
+            f"map refused)")
+    return out if dp == d else out[:, :d].contiguous()
 
 
 def _launch_bwd_side(lib, a, b, lbl, g, lse, n_rows, n_cols,
                      token_rows: bool, stream) -> torch.Tensor:
     """One backward product (dx when the rows are tokens, dW when they
-    are vocab entries): bf16 on the tensor cores, fp32 on the FMA
-    units."""
+    are vocab entries) on the tensor cores: bf16, or fp32 through split
+    TF32."""
     launch = (_launch_bwd_sm90 if a.dtype == torch.bfloat16
-              else _launch_bwd_simt)
+              else _launch_bwd_f32_sm90)
     return launch(lib, a, b, lbl, g, lse, n_rows, n_cols, token_rows,
                   stream)
 

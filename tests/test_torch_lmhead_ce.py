@@ -261,24 +261,28 @@ class _Recorder:
             return 0
         return call
 
-    def lmhead_ce_tile_n(self):
-        return 64
-
-    def lmhead_ce_bwd_max_slab(self):
-        return 768
-
     def lmhead_ce_sm90_max_d(self):
         return 1024
 
 
+# the fp32 case keeps the id it had when fp32 took the SIMT partials
+# ("lmhead_ce_bwd_partial"), so that runs before and after compare
 @pytest.mark.parametrize("dtype,d,entry", [
     (torch.bfloat16, 64, "lmhead_ce_bwd_sm90"),
     (torch.bfloat16, 60, "lmhead_ce_bwd_sm90"),
-    (torch.float32, 64, "lmhead_ce_bwd_partial")])
+    pytest.param(torch.float32, 64, "lmhead_ce_bwd_f32_sm90",
+                 id="dtype2-64-lmhead_ce_bwd_partial"),
+    pytest.param(torch.float32, 60, "lmhead_ce_bwd_f32_sm90",
+                 id="dtype3-60-lmhead_ce_bwd_f32_sm90"),
+    pytest.param(torch.float32, 1000, "lmhead_ce_bwd_f32_sm90",
+                 id="dtype4-1000-lmhead_ce_bwd_f32_sm90")])
 def test_backward_routes_bf16_to_the_tensor_core_kernel(monkeypatch, dtype,
                                                          d, entry):
-    """bf16 dx and dW go to the sm90 entry point (D padded to a multiple
-    of 8 and cut back), fp32 to the SIMT one; one launch counted each."""
+    """bf16 dx and dW go to the bf16 sm90 entry point (D padded to a
+    multiple of 8 and cut back), fp32 to the split-TF32 one (D padded to a
+    multiple of 64, any width, with the column chunks of
+    sm90_f32_bwd_split and partials where there are several); one launch
+    counted each."""
     lib = _Recorder()
     monkeypatch.setattr(_build, "load", lambda: lib)
     monkeypatch.setattr(torch_ce, "_sms", lambda dev: 132)
@@ -297,15 +301,25 @@ def test_backward_routes_bf16_to_the_tensor_core_kernel(monkeypatch, dtype,
     names = [name for name, _ in lib.calls]
     assert names[0] == names[-1] == entry
     assert "lmhead_ce_bwd_sm90" not in names or dtype == torch.bfloat16
+    (_, a_dx), (_, a_dw) = lib.calls
     if entry == "lmhead_ce_bwd_sm90":
-        (_, a_dx), (_, a_dw) = lib.calls
         # (rows, cols, d, token_rows) of each launch; d padded to 64
         assert a_dx[6:10] == (n, v, 64, 1) and a_dw[6:10] == (v, n, 64, 0)
+    else:
+        # (rows, cols, d, tiles_per_chunk, chunks, token_rows); d padded
+        # to a multiple of 64; partials only with several chunks
+        dp = -(-d // 64) * 64
+        for args, rows, cols, token in ((a_dx, n, v, 1), (a_dw, v, n, 0)):
+            per, chunks = torch_ce.sm90_f32_bwd_split(rows, cols, 132)
+            assert args[8:14] == (rows, cols, dp, per, chunks, token)
+            assert (args[6] is None) == (chunks == 1)
+        assert torch_ce.sm90_f32_bwd_split(n, v, 132)[1] > 1
 
 
 def test_bf16_backward_above_its_widest_d_raises(monkeypatch):
     """bf16 D above the resident row tile's 1024 raises before a launch;
-    fp32 takes the SIMT kernel at any D."""
+    fp32 takes its split-TF32 kernel at any D (here 1032, padded to
+    1088: two slabs of 768)."""
     lib = _Recorder()
     monkeypatch.setattr(torch_ce, "_sms", lambda dev: 132)
     x, w, lbl = (torch.from_numpy(a) for a in _data(8, 1032, 40))
@@ -314,8 +328,9 @@ def test_bf16_backward_above_its_widest_d_raises(monkeypatch):
         torch_ce._launch_bwd_side(lib, x.bfloat16(), w.bfloat16(), lbl, g,
                                   lse, 8, 40, True, 0)
     assert lib.calls == []
-    torch_ce._launch_bwd_side(lib, x, w, lbl, g, lse, 8, 40, True, 0)
-    assert [name for name, _ in lib.calls] == ["lmhead_ce_bwd_partial"]
+    dx = torch_ce._launch_bwd_side(lib, x, w, lbl, g, lse, 8, 40, True, 0)
+    assert [name for name, _ in lib.calls] == ["lmhead_ce_bwd_f32_sm90"]
+    assert lib.calls[0][1][10] == 1088 and dx.shape == (8, 1032)
 
 
 def test_cuda_route_without_a_card_raises(monkeypatch, tmp_path):
