@@ -42,7 +42,10 @@ Phases (any failure raises, and the script exits non-zero with no result):
    fp32 and bf16 in both layouts causal and not, D = 128 and 256, Tq !=
    Tk (causal, bottom-right; rows that see no key give out 0 and lse
    -1e30 exactly) and sequence lengths that are not a multiple of the
-   kernels' tiles; the gradient chain (dq and dk/dv from the kernel
+   kernels' tiles; the fp32 forward (split TF32 on the tensor cores at D
+   = 64 and 128) against float64 within ``_F32_FLASH_MULTIPLE`` times the
+   plain fp32 version's own error in out and in lse; the gradient chain
+   (dq and dk/dv from the kernel
    forward's own out and lse) against the plain chain in fp32, within
    twice the plain bf16 chain's own error, at the seq-2048 shape and in
    BHTD at D = 128; the flash kernels' peak added memory at the training
@@ -52,8 +55,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
    and the card's bound for the same work, at the serving score shapes
    and at the training shapes (the CE forward, dx and dW at N = 4096 and
    16384, and the flash forward, dq and dk/dv, with TFLOP/s and their
-   ratio to the library call); the fp32 CE kernels' bounds are their
-   split-TF32 ones (three tf32 products a product), the FMA units' beside;
+   ratio to the library call); the fp32 CE kernels' and the fp32 flash
+   forward's bounds are their split-TF32 ones (three tf32 products a
+   product), the FMA units' beside;
 5. serving at full GPT width (12 x 768, vocab 32000, random weights from
    seed 0): 8 prompts covering every prefill bucket through
    ServingEngine.warm + submit + run_until_idle, first eagerly
@@ -221,13 +225,15 @@ Phases (any failure raises, and the script exits non-zero with no result):
    N = 16384, under ``long_shape``; the flash kernels also at the eager
    encoder's BHTD non-causal shape, under ``eager_shape``; the CE kernels
    in fp32 at N 16,384 under ``static_amp_shape``, the flash kernels in
-   fp32 at batch 1 under ``jit_load_shape``), its launches by path
+   fp32 at batch 1 under ``jit_load_shape`` and at the fp32 training
+   shape under ``train_f32_shape``, and in bf16 at head_dim 256 under
+   ``d256_shape``), its launches by path
    including ``train_eager``, ``vision_fit`` (none), ``static_amp`` and
    ``fluid_lenet``; a kernel whose bf16 path runs on
    the tensor cores names that source, with the fp32 one beside it
-   (``source_fp32``, ``source_d256``; the CE kernels' fp32 sources are
-   their split-TF32 kernels, ``serve_shapes`` the forward's times at the
-   serving shapes);
+   (``source_fp32``, ``source_d256``; the CE kernels' and the flash
+   forward's fp32 sources are their split-TF32 kernels, ``serve_shapes``
+   the CE forward's times at the serving shapes);
 9. the card's name and power limit again, and the last line:
    ``{"ok": true, "device": {...}}``.
 """
@@ -311,9 +317,9 @@ def _environment(torch):
 # the tensor-core kernels in SASS and in ptxas's report: each name is
 # found by the pieces of its mangled symbol (its source's file name, the
 # kernel, the template argument: bwd_sm90_kernel<TOKEN_ROWS> names the CE
-# backward's product, fwd_sm90_kernel<D>, dq_sm90_kernel<D> and
-# dkv_sm90_kernel<D> the flash kernels' head_dim; no two entries' pieces
-# match one kernel)
+# backward's product, fwd_sm90_kernel<D>, flash_fwd_f32_kernel<D>,
+# dq_sm90_kernel<D> and dkv_sm90_kernel<D> the flash kernels' head_dim; no
+# two entries' pieces match one kernel)
 _SM90_KERNELS = {
     "lmhead_ce_fwd": ("lmhead_ce_fwd_sm90", "fwd_sm90_kernel"),
     "lmhead_ce_fwd_f32": ("lmhead_ce_fwd_f32_sm90", "fwd_f32_sm90_kernel"),
@@ -325,6 +331,10 @@ _SM90_KERNELS = {
                                 "fwd_sm90_kernelILi64E"),
     "flash_attention_fwd_d128": ("flash_attention_fwd_sm90",
                                  "fwd_sm90_kernelILi128E"),
+    "flash_attention_fwd_f32_d64": ("flash_attention_fwd_f32_sm90",
+                                    "flash_fwd_f32_kernelILi64E"),
+    "flash_attention_fwd_f32_d128": ("flash_attention_fwd_f32_sm90",
+                                     "flash_fwd_f32_kernelILi128E"),
     "flash_attention_dq_d64": ("flash_attention_bwd_sm90",
                                "dq_sm90_kernelILi64E"),
     "flash_attention_dq_d128": ("flash_attention_bwd_sm90",
@@ -398,6 +408,10 @@ def _build():
         "flash_attention_fwd": ((lib.flash_attn_fwd_sm90_tile_q(),
                                  lib.flash_attn_fwd_sm90_tile_kv()),
                                 (fl.SM90_FWD_TILE_Q, fl.SM90_FWD_TILE_KV)),
+        "flash_attention_fwd_f32": ({d: (lib.flash_attn_fwd_f32_sm90_tile_q(d),
+                                         lib.flash_attn_fwd_f32_sm90_tile_kv(d))
+                                     for d in fl.SM90_F32_FWD_TILES},
+                                    fl.SM90_F32_FWD_TILES),
         "flash_attention_bwd": ({d: (lib.flash_attn_bwd_sm90_tile(d),
                                      lib.flash_attn_dq_sm90_stage(d),
                                      lib.flash_attn_dkv_sm90_stage(d))
@@ -1022,7 +1036,11 @@ _FLASH_KERNEL = dict(out="flash_attention_fwd", lse="flash_attention_fwd",
 # D = 64 and 128 runs the tensor-core forward, dq and dk/dv (both layouts
 # causal and not, Tq < Tk, Tq > Tk with rows that see no key, T = 1000
 # and 300, and T = 333 at D = 128 in BTHD), bf16 at D = 256 the SIMT
-# ones
+# ones. fp32 at D = 64 and 128 runs the split-TF32 forward (both layouts
+# causal and not, D = 128 in both layouts, Tq < Tk, Tq > Tk at both
+# head_dims, T = 200 and 333, jit.load's shape: B = 1, T = 2048, H = 12,
+# D = 64, BHTD, non-causal, and the fp32 training program's: B = 8, T =
+# 2048, H = 12, D = 64, causal, BTHD) and the SIMT dq and dk/dv
 _FLASH_CASES = [
     ("bfloat16", "BTHD", True, 8, 12, 2048, 2048, 64),
     ("bfloat16", "BHTD", False, 8, 12, 2048, 2048, 64),
@@ -1044,6 +1062,13 @@ _FLASH_CASES = [
     ("bfloat16", "BHTD", False, 1, 2, 300, 300, 128),
     ("bfloat16", "BTHD", False, 2, 3, 256, 256, 64),
     ("bfloat16", "BTHD", True, 2, 2, 333, 333, 128),
+    ("float32", "BTHD", False, 2, 2, 256, 256, 128),
+    ("float32", "BHTD", True, 2, 2, 256, 256, 128),
+    ("float32", "BHTD", True, 1, 2, 384, 128, 64),
+    ("float32", "BTHD", True, 1, 2, 384, 128, 128),
+    ("float32", "BTHD", True, 2, 2, 333, 333, 128),
+    ("float32", "BHTD", False, 1, 12, 2048, 2048, 64),
+    ("float32", "BTHD", True, 8, 12, 2048, 2048, 64),
 ]
 
 
@@ -1103,8 +1128,9 @@ def _flash_agrees(torch, got, ref, dtype_name, what) -> dict:
 
 
 def _check_flash(torch):
-    """Every case of ``_FLASH_CASES`` through ``_flash_agrees``, the
-    gradient chain over ``_CHAIN_CASES`` through ``_flash_chain``, then
+    """Every case of ``_FLASH_CASES`` through ``_flash_agrees``, the fp32
+    forward against float64 (``_check_f32_flash_truth``), the gradient
+    chain over ``_CHAIN_CASES`` through ``_flash_chain``, then
     the kernels' peak added memory at the training shape: no [B, H, T, T]
     buffer. Returns {kernel: max abs err}."""
     from paddle_tpu_torch.ops import flash_attention as fl
@@ -1129,6 +1155,7 @@ def _check_flash(torch):
              max_abs_err={n: _err(got[n], ref[n]) for n in ref})
         del got, ref
 
+    _check_f32_flash_truth(torch)
     _check_chain(torch)
     b, h, t, d = _LONG_B, _LONG["n_head"], _LONG_T, _head_dim(_LONG)
     q, k, v, do = _flash_inputs(torch, b, h, t, t, d, torch.bfloat16,
@@ -1161,6 +1188,103 @@ def _no_key_rows_agree(got, causal, layout, tq, tk, what) -> None:
         raise AssertionError(f"flash attention at {what}: a query row that "
                              f"sees no key gave a nonzero out or an lse "
                              f"other than -1e30")
+
+
+# The fp32 forward (split TF32 on the tensor cores,
+# csrc/flash_attention_fwd_f32_sm90.cu) against float64: its max abs error
+# in out and in lse may each be at most _F32_FLASH_MULTIPLE times the plain
+# fp32 version's own (full fp32 products, TF32 off), plus _F32_FLASH_ATOL,
+# over _F32_FLASH_TRUTH_CASES at _F32_FLASH_SEEDS and at the fp32 training
+# shape, _F32_FLASH_TRUTH_TRAIN, at _F32_FLASH_TRAIN_SEED. Why 28:
+# tests/test_torch_flash_attention_f32.py emulates the kernel's arithmetic
+# on the CPU -- the split, the tiles in order, the permuted keys, the
+# online softmax -- with the tensor cores' fp32 sums modelled as
+# truncating after every 4 products, and finds at most 13.8 times the
+# plain version's error over these cases at seeds 1, 2, 7 and 8 (lse at D
+# = 128, where the score sums 48 tf32 products a tile); the bound is twice
+# that. A 1xTF32 emulation (hi . hi alone) lies 10.8x or more beyond it
+# there, so the bound tells split TF32 from TF32. At the training shape's
+# length (T = 2048, causal, BTHD, D = 64; B = 1, H = 1 on the CPU) the
+# emulation lies at most 3.7 times the plain version's error (seeds 3, 7).
+_F32_FLASH_MULTIPLE = 28.0
+_F32_FLASH_ATOL = 1e-8
+# (layout, causal, B, H, Tq, Tk, D): D = 64 and 128, both layouts, causal
+# Tq < Tk and Tq > Tk (rows that see no key)
+_F32_FLASH_TRUTH_CASES = [("BHTD", False, 1, 2, 256, 256, 64),
+                          ("BTHD", True, 1, 2, 384, 384, 128),
+                          ("BHTD", True, 1, 2, 128, 384, 64),
+                          ("BTHD", True, 1, 2, 384, 128, 128)]
+_F32_FLASH_SEEDS = (1, 2)
+# the fp32 training program's shape (any fp32 build_train_program)
+_F32_FLASH_TRUTH_TRAIN = ("BTHD", True, 8, 12, 2048, 2048, 64)
+_F32_FLASH_TRAIN_SEED = 3
+
+
+def _flash_fp64_errs(torch, out, lse, q, k, v, causal, layout) -> tuple:
+    """(max abs error of out, of lse) against the forward computed in
+    float64 from the same fp32 inputs and the same fp32 scale; a row that
+    sees no key holds out 0 and lse -1e30 as fp32 stores it."""
+    from paddle_tpu_torch.ops import flash_attention as fl
+
+    qd, kd, vd = (fl._heads_first(t, layout).double() for t in (q, k, v))
+    scale = float(np.float32(1.0 / np.sqrt(q.shape[-1])))
+    s = fl._masked((qd @ kd.transpose(-1, -2)) * scale, causal,
+                   float("-inf"))
+    want_lse = torch.logsumexp(s, -1)
+    want = torch.exp(s - want_lse[..., None]).nan_to_num(0.0) @ vd
+    want_lse = want_lse.clamp_min(float(np.float32(-1e30)))
+    return (float((fl._heads_first(out, layout).double() - want).abs().max()),
+            float((lse.double() - want_lse).abs().max()))
+
+
+def _f32_flash_truth_agrees(torch, got, plain, q, k, v, causal, layout,
+                            what) -> dict:
+    """Holds an fp32 forward's (out, lse) ``got`` against float64 within
+    _F32_FLASH_MULTIPLE times the plain fp32 version's (``plain``) own
+    error + _F32_FLASH_ATOL; raises naming each of out and lse beyond it.
+    Returns {name: {err, plain_err, ratio, bound}}."""
+    own = _flash_fp64_errs(torch, *plain, q, k, v, causal, layout)
+    errs = _flash_fp64_errs(torch, *got, q, k, v, causal, layout)
+    report, bad = {}, []
+    for name, err, p in zip(("out", "lse"), errs, own):
+        bound = _F32_FLASH_MULTIPLE * p + _F32_FLASH_ATOL
+        report[name] = dict(err=err, plain_err=p, bound=bound,
+                            ratio=err / p if p else None)
+        if not err <= bound:
+            bad.append(f"{name}: max abs error {err} against float64, bound "
+                       f"{bound} ({_F32_FLASH_MULTIPLE} x the plain fp32 "
+                       f"version's {p} + {_F32_FLASH_ATOL})")
+    if bad:
+        raise AssertionError(f"fp32 flash forward beyond its float64 bound "
+                             f"at {what}: " + "; ".join(bad))
+    return report
+
+
+def _check_f32_flash_truth(torch) -> None:
+    """The fp32 forward's kernel through ``_f32_flash_truth_agrees`` over
+    _F32_FLASH_TRUTH_CASES at _F32_FLASH_SEEDS (the inputs the CPU test's
+    emulation sets the bound on), and at the fp32 training shape."""
+    from paddle_tpu_torch.ops import flash_attention as fl
+
+    runs = [(case, seed) for case in _F32_FLASH_TRUTH_CASES
+            for seed in _F32_FLASH_SEEDS]
+    for (layout, causal, b, h, tq, tk, d), seed in runs + [
+            (_F32_FLASH_TRUTH_TRAIN, _F32_FLASH_TRAIN_SEED)]:
+        q, k, v, _ = _flash_inputs(torch, b, h, tq, tk, d, torch.float32,
+                                   layout, seed)
+        got = fl.flash_attention_fwd(q, k, v, causal, None, layout)
+        plain = fl.flash_attention_fwd_plain(q, k, v, causal, None, layout)
+        torch.cuda.synchronize()
+        what = (f"{layout} {'causal' if causal else 'full'} B={b} H={h} "
+                f"Tq={tq} Tk={tk} D={d} seed {seed}")
+        report = _f32_flash_truth_agrees(torch, got, plain, q, k, v, causal,
+                                         layout, what)
+        _say(phase="kernel_check", kernel="flash_attention_fwd",
+             dtype="float32", what="split TF32 against float64",
+             layout=layout, causal=causal, b=b, h=h, tq=tq, tk=tk, d=d,
+             seed=seed, multiple=_F32_FLASH_MULTIPLE, atol=_F32_FLASH_ATOL,
+             **report)
+        del q, k, v, got, plain
 
 
 # The gradient chain (forward, delta, dq, dk/dv) against its fp32 truth:
@@ -1473,7 +1597,7 @@ def _time_ce_f32(torch, card):
 
 
 def _time_flash(torch, card, layout="BTHD", causal=True, dtype=None,
-                batch=_LONG_B, repeats=_REPEATS):
+                batch=_LONG_B, repeats=_REPEATS, heads=_LONG["n_head"]):
     """Kernel, plain, library and bound of the flash kernels at the
     seq-2048 training shape (B = 8, T = 2048, H = 12, D = 64, bf16), in
     ``layout``: causal BTHD is the static GPT step's, non-causal BHTD the
@@ -1486,17 +1610,23 @@ def _time_flash(torch, card, layout="BTHD", causal=True, dtype=None,
     algorithm: 2 for the forward, 3 for dq (scores, dP, dS k), 4 for
     dk/dv (scores, dP, P^T dO, dS^T q). Each row also carries ``tflops``
     (those FLOPs over its time) and ``over_library`` (its time over the
-    library call's). ``dtype`` (bf16 by default) and ``batch`` set the
-    shape: fp32 at batch 1, BHTD, non-causal is ``jit.load``'s fp32 program
-    (the SIMT kernels of ``csrc/flash_attention.cu``), bounded at the FMA
-    units' 67 TFLOP/s."""
+    library call's). ``dtype`` (bf16 by default), ``batch`` and ``heads``
+    (head_dim = 768 / heads) set the shape: fp32 at batch 1, BHTD,
+    non-causal is ``jit.load``'s fp32 program (in 6 heads, its head_dim
+    128 twin), fp32 at batch 8, BTHD, causal the fp32 training
+    program's, bf16 in 3 heads (head_dim 256) the SIMT kernels'
+    (``csrc/flash_attention.cu``). fp32 dq and dk/dv run
+    SIMT and are bounded at the FMA units' 67 TFLOP/s; the fp32 forward at
+    head_dim 64 or 128 runs on the tensor cores in split TF32, bounded at
+    three tf32 products a product at 494.7 TFLOP/s (``bound_fma_ms``, its
+    FLOPs at 67, beside it)."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import flash_attention as fl
 
     dtype = dtype or torch.bfloat16
     dname = "float32" if dtype == torch.float32 else "bfloat16"
-    b, h, t, d = batch, _LONG["n_head"], _LONG_T, _head_dim(_LONG)
+    b, h, t, d = batch, heads, _LONG_T, _LONG["d_model"] // heads
     q, k, v, do = _flash_inputs(torch, b, h, t, t, d, dtype, layout,
                                 seed=90)
     out, lse = fl.flash_attention_fwd(q, k, v, causal, None, layout)
@@ -1538,7 +1668,10 @@ def _time_flash(torch, card, layout="BTHD", causal=True, dtype=None,
     all_ms = _median_ms(torch, library_grad(qr, kr, vr), repeats=repeats)
     rows = {}
     for name, kern, plain, library, products, nbytes in specs:
-        bound, by = _bound_ms(nbytes, products * product, dname)
+        split = (dname == "float32" and name == "flash_attention_fwd"
+                 and d in fl.SM90_F32_FWD_TILES)
+        bound, by = _bound_ms(nbytes, products * product * (3 if split else 1),
+                              "tfloat32" if split else dname)
         row = dict(phase="kernel_time", kernel=name, b=b, t=t, h=h, d=d,
                    dtype=dname, layout=layout, causal=causal,
                    kernel_ms=_median_ms(torch, kern, repeats=repeats),
@@ -1548,6 +1681,11 @@ def _time_flash(torch, card, layout="BTHD", causal=True, dtype=None,
                    bytes=nbytes, repeats=repeats, card=card)
         row["tflops"] = products * product / row["kernel_ms"] / 1e9
         row["over_library"] = row["kernel_ms"] / row["library_ms"]
+        if split:
+            row["bound_fma_ms"] = _bound_ms(nbytes, products * product,
+                                            "float32")[0]
+            row["tflops_tf32"] = 3 * row["tflops"]
+            row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
         if name == "flash_attention_fwd":
             row["library"] = (f"F.scaled_dot_product_attention(is_causal="
                               f"{causal}) on BHTD tensors")
@@ -2027,7 +2165,8 @@ _TRACE_NAMES = {
                       "::bwd_f32_sm90_kernel<false>"),
                      ("::bwd_f32_split_kernel<false>",
                       "::bwd_f32_reduce_kernel<false>")),
-    "flash_attention_fwd": (("::fwd_sm90_kernel<", "::fwd_kernel<"), ()),
+    "flash_attention_fwd": (("::fwd_sm90_kernel<", "::flash_fwd_f32_kernel<",
+                             "::fwd_kernel<"), ()),
     "flash_attention_dq": (("::dq_sm90_kernel<", "::dq_kernel<"), ()),
     "flash_attention_dkv": (("::dkv_sm90_kernel<", "::dkv_kernel<"), ()),
     "fused_adam": (("::adam_kernel<",), ()),
@@ -4917,7 +5056,10 @@ def _jit(torch, card) -> dict:
        1's), ``jit.load``, four calls at batch 1 through the loaded
        ``Executor`` (eager warm-up, capture, two replays): each within
        ``_JIT_LOAD_RTOL`` of the eager fp32 forward, fp32 flash forward
-       launches 12, 24, 24, 24, a traced replay with 12 flash kernels.
+       launches 12, 24, 24, 24, a traced replay with 12 flash kernels,
+       each the split-TF32 forward (``flash_fwd_f32_kernel``); the
+       replayed wall (calls 3-4) and the flash forwards' device ms of the
+       traced replay.
 
     Returns {kernel: launches} of the to_static calls (``jit``) and of the
     loaded model's (``jit_load``)."""
@@ -5073,13 +5215,18 @@ def _jit(torch, card) -> dict:
             errs.append(_rel_agrees(torch, got._value, want, _JIT_LOAD_RTOL,
                                     f"jit.load call {i + 1}"))
         launches["jit_load"] = {"flash_attention_fwd": fl.fwd_launches}
-        got, device_ms, ours = _traced(torch, loaded, ids1)
+        got, _, events = _profiled(torch, loaded, ids1)
+        kernels, device_ms, ours, _, _ = _kernel_tally(torch, events)
         errs.append(_rel_agrees(torch, got._value, want, _JIT_LOAD_RTOL,
                                 "traced jit.load call"))
-        if ours["flash_attention_fwd"]["calls"] != _JIT_FLASH:
+        split_tf32 = sum(n for name, (n, _) in kernels.items()
+                         if "::flash_fwd_f32_kernel<" in name)
+        if ours["flash_attention_fwd"]["calls"] != _JIT_FLASH or \
+                split_tf32 != _JIT_FLASH:
             raise AssertionError(f"jit.load: the traced replay ran "
                                  f"{ours['flash_attention_fwd']} flash "
-                                 f"forward kernels, not {_JIT_FLASH}")
+                                 f"forward kernels, {split_tf32} of them "
+                                 f"the split-TF32 one, not {_JIT_FLASH}")
         phases = dict(loaded._exe.phases)  # the trace's warm-up replays too
         if phases != {"eager": 1, "capture": 1, "replay": 4}:
             raise AssertionError(f"jit.load: executor phases {phases}")
@@ -5087,8 +5234,12 @@ def _jit(torch, card) -> dict:
             "launches_after_each_call": _counts_agree(
                 seen, [_JIT_FLASH] + [2 * _JIT_FLASH] * 3, "jit.load"),
             "calls": errs, "phases": phases, "dtype": "float32",
-            "batch": 1, "walls_ms": walls, "traced_device_ms": device_ms,
+            "batch": 1, "walls_ms": walls,
+            "replayed_ms": statistics.median(walls[2:]),
+            "traced_device_ms": device_ms,
             "traced_flash_fwd": ours["flash_attention_fwd"],
+            "flash_fwd_device_ms": ours["flash_attention_fwd"]["ms"],
+            "traced_split_tf32_flash_fwd": split_tf32,
             "file_bytes": sizes, "save_s": save_s, "load_s": load_s,
             "ops": len(loaded._program.global_block().ops)}
         del loaded, got, want, net
@@ -5550,8 +5701,14 @@ def _static_amp(torch, card) -> dict:
 
     f_program = _amp_program(batch, seq, decorate=False)
     f_start = {n: t for n, t in start.items() if not n.startswith("@AMP")}
+    _reset_launches()
     f = _leg((f_program[2]["compiled"],) + f_program[1:], f_start, feed,
              "cuda", lrs)
+    f_launches = _all_launches()
+    if f_launches != want:  # fp32 flash: the split-TF32 forward
+        raise AssertionError(f"static_amp: the fp32 program launched "
+                             f"{f_launches}, expected {want} over the "
+                             f"warm-up and the capture")
     rel = [abs(a - b) / abs(b) for a, b in zip(r["losses"], f["losses"])]
     if not all(np.isfinite(r["losses"])) or max(rel) > _AMP_RTOL:
         raise AssertionError(f"static_amp: bf16 losses {r['losses']} "
@@ -5572,6 +5729,7 @@ def _static_amp(torch, card) -> dict:
          step_ms_all=r_walls, step_ms_median=statistics.median(r_walls[2:]),
          eager_step_ms_all=e_walls,
          fp32_step_ms_median=statistics.median(f_walls[2:]),
+         fp32_launches=f_launches,
          tokens_per_s=batch * seq / statistics.median(r_walls[2:]) * 1e3,
          device_ms=traced["device_ms"],
          busy_share=traced["device_ms"] / statistics.median(r_walls[2:]),
@@ -5794,7 +5952,14 @@ def main() -> int:
     f32_times = _time_ce_f32(torch, card)
     load_times = _time_flash(torch, card, "BHTD", False, torch.float32,
                              batch=1, repeats=10)
+    train_f32_times = _time_flash(torch, card, "BTHD", True, torch.float32,
+                                  repeats=10)
+    d128_f32_times = _time_flash(torch, card, "BHTD", False, torch.float32,
+                                 batch=1, repeats=10, heads=6)
     lap("f32_kernel_times")
+    d256_times = _time_flash(torch, card, "BTHD", True, torch.bfloat16,
+                             repeats=10, heads=3)
+    lap("d256_kernel_times")
     for case in _CPU_VS_CARD:
         _cpu_vs_card(torch, *case)
     _cpu_vs_card_eager(torch, _EAGER_CPU_VS_CARD, 1e-3, 1e-5)
@@ -5838,15 +6003,19 @@ def main() -> int:
                                      "over_library", "max_abs_err")
                    if k in t}}
 
-    def load_shape(name):
-        """fp32 at batch 1, BHTD, non-causal: jit.load's program."""
-        t = load_times[name]
-        return {"b": 1, "t": _LONG_T, "h": _LONG["n_head"],
-                "d": _head_dim(_LONG), "dtype": "float32", "layout": "BHTD",
-                "causal": False, "source": flash_src,
-                **{k: t[k] for k in ("kernel_ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms", "tflops",
-                                     "over_library")}}
+    def flash_at(t, name, source, **shape):
+        """A flash kernel's timing row at another shape."""
+        t = t[name]
+        return {**shape, "source": source,
+                **{k: t[k] for k in ("b", "t", "h", "d", "dtype", "layout",
+                                     "causal", "kernel_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "bound_fma_ms",
+                                     "bound_share", "library_ms", "tflops",
+                                     "tflops_tf32", "over_library")
+                   if k in t}}
+
+    def flash_fp32_src(name):
+        return f32_fwd_src if name == "flash_attention_fwd" else flash_src
 
     def long_shape(name):
         t = times[(name, "long")]
@@ -5905,11 +6074,14 @@ def main() -> int:
                    "d": _head_dim(_LONG), "dtype": "bfloat16",
                    "layout": "BTHD", "causal": True}
     flash_src = csrc + "flash_attention.cu"
+    f32_fwd_src = csrc + "flash_attention_fwd_f32_sm90.cu"
     for name, bthd, bhtd in (
             ("flash_attention_fwd", 130, 68),
             ("flash_attention_dq", 354, 315),
             ("flash_attention_dkv", 471, 423)):
-        extra = {"source_fp32": flash_src, "source_d256": flash_src,
+        extra = {"source_fp32": flash_fp32_src(name),
+                 "source_fp32_d256": flash_src,
+                 "source_d256": flash_src,
                  "tflops": times[name]["tflops"],
                  "over_library": times[name]["over_library"]}
         if name == "flash_attention_fwd":
@@ -5917,7 +6089,16 @@ def main() -> int:
         else:
             extra["library_dq_dk_dv_ms"] = times[name]["library_dq_dk_dv_ms"]
             source = csrc + "flash_attention_bwd_sm90.cu"
-        extra["jit_load_shape"] = load_shape(name)
+        extra["jit_load_shape"] = flash_at(load_times, name,
+                                            flash_fp32_src(name))
+        extra["train_f32_shape"] = flash_at(
+            train_f32_times, name, flash_fp32_src(name),
+            launches_per_step=_LAYERS,
+            path="the fp32 GPT training program (static_amp's undecorated "
+                 "program)")
+        extra["f32_d128_shape"] = flash_at(d128_f32_times, name,
+                                           flash_fp32_src(name))
+        extra["d256_shape"] = flash_at(d256_times, name, flash_src)
         extra["eager_shape"] = dict(
             flash_shape, layout="BHTD", causal=False,
             **{k: eager_times[name][k] for k in (

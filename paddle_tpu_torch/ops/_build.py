@@ -125,14 +125,17 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     for fn in (lib.flash_attn_fwd, lib.flash_attn_dq, lib.flash_attn_dkv):
         fn.restype = i
     geo = ctypes.POINTER(ll)
-    lib.flash_attn_fwd_sm90.argtypes = [p] * 5 + [i] * 5 + [geo, geo, f, i, p]
-    lib.flash_attn_fwd_sm90.restype = i
+    for fwd in (lib.flash_attn_fwd_sm90, lib.flash_attn_fwd_f32_sm90):
+        fwd.argtypes = [p] * 5 + [i] * 5 + [geo, geo, f, i, p]
+        fwd.restype = i
     lib.flash_attn_dq_sm90.argtypes = [p] * 7 + [i] * 5 + [geo, geo, f, i, p]
     lib.flash_attn_dkv_sm90.argtypes = [p] * 8 + [i] * 5 + [geo, geo, f, i,
                                                            p]
     lib.flash_attn_dq_sm90.restype = lib.flash_attn_dkv_sm90.restype = i
     for tile in (lib.flash_attn_bwd_sm90_tile, lib.flash_attn_dq_sm90_stage,
-                 lib.flash_attn_dkv_sm90_stage):  # of a head_dim
+                 lib.flash_attn_dkv_sm90_stage,
+                 lib.flash_attn_fwd_f32_sm90_tile_q,
+                 lib.flash_attn_fwd_f32_sm90_tile_kv):  # of a head_dim
         tile.argtypes = [i]
         tile.restype = i
     return lib

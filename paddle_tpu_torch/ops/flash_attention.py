@@ -6,18 +6,23 @@ and its custom VJP: ``_fwd_kernel``/``_fwd_kernel_bthd`` forward,
 ``_bwd_dkv_kernel``/``_bwd_dkv_kernel_bthd`` backward). The kernels are
 in ``paddle_tpu_torch/csrc/flash_attention_fwd_sm90.cu`` and
 ``paddle_tpu_torch/csrc/flash_attention_bwd_sm90.cu`` (bf16 at head_dim
-64 and 128, on the tensor cores) and
-``paddle_tpu_torch/csrc/flash_attention.cu`` (fp32, and bf16 at head_dim
-256, on the FMA units), whose headers state what bounds them on the card
-and how the design answers that. One kernel per role serves both layouts:
+64 and 128, on the tensor cores),
+``paddle_tpu_torch/csrc/flash_attention_fwd_f32_sm90.cu`` (the fp32
+forward at head_dim 64 and 128, on the tensor cores through split TF32)
+and ``paddle_tpu_torch/csrc/flash_attention.cu`` (the fp32 dq and dk/dv,
+and every role at head_dim 256, on the FMA units), whose headers state
+what bounds them on the card and how the design answers that. One kernel
+per role serves both layouts:
 
-- forward: out and the per-row logsumexp (``fwd_launches``). bf16 at
-  head_dim 64 or 128 takes the wgmma kernel, which reads q, k and v
-  through rank-3 TMA tensor maps (:func:`tma_geometry`); fp32, and bf16
-  at head_dim 256, take the SIMT kernel, which reads them through
-  (batch, seq, head) strides;
-- dq (``dq_launches``), SIMT;
-- dk and dv, one kernel (``dkv_launches``), SIMT.
+- forward: out and the per-row logsumexp (``fwd_launches``). At head_dim
+  64 or 128, bf16 takes the wgmma kernel and fp32 the split-TF32 wgmma
+  kernel (``SM90_F32_FWD_TILES``), both
+  reading q, k and v through rank-3 TMA tensor maps
+  (:func:`tma_geometry`); at head_dim 256 both dtypes take the SIMT
+  kernel, which reads them through (batch, seq, head) strides;
+- dq (``dq_launches``): bf16 at head_dim 64 or 128 on the tensor cores,
+  the rest SIMT;
+- dk and dv, one kernel (``dkv_launches``), routed as dq.
 
 Entry points:
 
@@ -109,10 +114,13 @@ dkv_launches = 0
 _NEG = -1e30  # the TPU kernel's finite stand-in for -inf
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128, 256)
-_SM90_HEAD_DIMS = (64, 128)  # bf16 kernels on the tensor cores
+_SM90_HEAD_DIMS = (64, 128)  # the kernels on the tensor cores
 # the bf16 forward's query rows per block and key/value rows per ring
 # stage (csrc/flash_attention_fwd_sm90.cu)
 SM90_FWD_TILE_Q, SM90_FWD_TILE_KV = 128, 64
+# the fp32 forward's, by head_dim (csrc/flash_attention_fwd_f32_sm90.cu):
+# two consumer warpgroups of 64 query rows at D = 64, one at D = 128
+SM90_F32_FWD_TILES = {64: (128, 32), 128: (64, 32)}
 # the bf16 backward's, by head_dim (csrc/flash_attention_bwd_sm90.cu):
 # rows of a block's own tile (query rows for dq, keys for dk/dv), key
 # rows of a dq ring stage, query rows of a dk/dv ring stage
@@ -320,8 +328,8 @@ def _raise_if(err: int, what: str, q, k, layout) -> None:
 
 
 def tma_geometry(t: torch.Tensor, layout: str) -> Tuple[int, ...]:
-    """How the bf16 forward addresses a contiguous q, k or v through a
-    rank-3 TMA tensor map: ``(inner, outer, st_seq, st_outer, head_col,
+    """How the tensor-core kernels address a contiguous q, k or v through
+    a rank-3 TMA tensor map: ``(inner, outer, st_seq, st_outer, head_col,
     outer_b, outer_h)``, in elements. The map's dimensions are (inner,
     T, outer), strided st_seq and st_outer; element (b, t, h, c) sits at
     coordinates (h * head_col + c, t, b * outer_b + h * outer_h). BTHD:
@@ -336,32 +344,38 @@ def tma_geometry(t: torch.Tensor, layout: str) -> Tuple[int, ...]:
     return (d, b * h, s[2], s[1], 0, h, 1)
 
 
-def _tensor_cores(q: torch.Tensor) -> bool:
-    """bf16 at head_dim 64 or 128: the tensor-core kernels' inputs."""
-    return q.dtype == torch.bfloat16 and q.shape[-1] in _SM90_HEAD_DIMS
+def _tensor_cores(q: torch.Tensor, forward: bool = False) -> bool:
+    """The tensor-core kernels' inputs: head_dim 64 or 128, in bf16 for
+    every role and, for the forward, in fp32 too."""
+    dtypes = _DTYPES if forward else (torch.bfloat16,)
+    return q.dtype in dtypes and q.shape[-1] in _SM90_HEAD_DIMS
 
 
 def _launch_fwd_sm90(lib, q, k, v, causal, scale, layout):
-    """The bf16 forward on the tensor cores (head_dim 64 or 128)."""
+    """The forward on the tensor cores (head_dim 64 or 128): bf16 through
+    ``flash_attn_fwd_sm90``, fp32 through ``flash_attn_fwd_f32_sm90``
+    (split TF32); both take the same rank-3 tensor maps."""
     b, h, tq, tk, d = _dims(q, k, layout)
+    entry = ("flash_attn_fwd_f32_sm90" if q.dtype == torch.float32
+             else "flash_attn_fwd_sm90")
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     geo = [(ctypes.c_longlong * 7)(*tma_geometry(t, layout)) for t in (q, k)]
-    err = lib.flash_attn_fwd_sm90(
+    err = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), b, h, tq, tk, d, *geo, scale, int(causal),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(
-            f"flash attention forward (sm90) launch failed: error {err} "
+            f"flash attention forward ({entry}) launch failed: error {err} "
             f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {layout}; -2: no "
             f"cuTensorMapEncodeTiled, -3: tensor map refused)")
     return out, lse
 
 
 def _launch_fwd_simt(lib, q, k, v, causal, scale, layout):
-    """The forward on the FMA units (fp32, and bf16 at head_dim 256)."""
+    """The forward on the FMA units (head_dim 256)."""
     b, h, tq, _, _ = _dims(q, k, layout)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
@@ -376,7 +390,8 @@ def _launch_fwd(q, k, v, causal, scale, layout):
     global fwd_launches
     from . import _build
 
-    launch = _launch_fwd_sm90 if _tensor_cores(q) else _launch_fwd_simt
+    launch = (_launch_fwd_sm90 if _tensor_cores(q, forward=True)
+              else _launch_fwd_simt)
     out, lse = launch(_build.load(), q, k, v, causal, scale, layout)
     fwd_launches += 1
     _note("flash_attention_fwd", 2, q, k, layout, causal, q, k, v, out, lse)

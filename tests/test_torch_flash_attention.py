@@ -247,13 +247,15 @@ def _stub_library(monkeypatch, lib):
     (torch.bfloat16, 64, "BTHD", "flash_attn_fwd_sm90"),
     (torch.bfloat16, 128, "BHTD", "flash_attn_fwd_sm90"),
     (torch.bfloat16, 256, "BTHD", "flash_attn_fwd"),
-    (torch.float32, 64, "BHTD", "flash_attn_fwd"),
-    (torch.float32, 128, "BTHD", "flash_attn_fwd")])
+    (torch.float32, 64, "BHTD", "flash_attn_fwd_f32_sm90"),
+    (torch.float32, 128, "BTHD", "flash_attn_fwd_f32_sm90"),
+    (torch.float32, 256, "BHTD", "flash_attn_fwd")])
 def test_forward_routes_bf16_to_the_tensor_core_kernel(monkeypatch, dtype, d,
                                                        layout, entry):
-    """bf16 at head_dim 64 and 128 goes to the sm90 entry point, with the
-    tensor-map geometry of q and of k; fp32, and bf16 at head_dim 256, to
-    the SIMT one; one launch counted either way."""
+    """At head_dim 64 and 128 bf16 goes to the sm90 entry point and fp32
+    to the split-TF32 one, each with the tensor-map geometry of q and of
+    k; head_dim 256 in either dtype goes to the SIMT one; one launch
+    counted either way."""
     lib = _Recorder()
     _stub_library(monkeypatch, lib)
     q, k, v, _ = (_torch(a, "f32").to(dtype)
@@ -264,7 +266,7 @@ def test_forward_routes_bf16_to_the_tensor_core_kernel(monkeypatch, dtype, d,
     assert out.shape == q.shape and lse.shape == (2, 3, 96)
     (name, args), = lib.calls
     assert name == entry
-    if entry == "flash_attn_fwd_sm90":
+    if entry != "flash_attn_fwd":
         assert args[5:10] == (2, 3, 96, 160, d)
         assert tuple(args[10]) == fl.tma_geometry(q, layout)
         assert tuple(args[11]) == fl.tma_geometry(k, layout)

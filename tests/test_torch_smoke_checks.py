@@ -23,6 +23,9 @@ in for the kernels.
   gradient fails -- one 64-wide column tile dropped, each row's d-logits
   built from the row before's lse, and (bf16) the sum rounded to bf16
   every 16 terms, as a bf16 accumulator would.
+- The fp32 flash forward's float64 check (``_f32_flash_truth_agrees``):
+  the split-TF32 kernel's arithmetic, emulated on the CPU, passes, and a
+  1xTF32 emulation fails it in out and in lse.
 - The flash backward computed the tensor-core kernels' way
   (``_keymajor_bwd``: key-major score tiles, P and dS rounded per tile)
   passes ``_flash_agrees``; a dropped query tile, P left unrounded for
@@ -405,6 +408,32 @@ def test_online_forward_passes(dtype_name, layout):
 def test_altered_online_forward_fails(dtype_name, alter):
     with pytest.raises(AssertionError, match="flash attention disagrees"):
         _flash_fwd(dtype_name, "BTHD", **alter)
+
+
+def test_f32_flash_truth_check_accepts_the_split_and_refuses_tf32():
+    """``chip_smoke._f32_flash_truth_agrees`` (the card's float64 check of
+    the fp32 flash forward) passes the kernel's arithmetic, emulated on
+    the CPU by ``tests/test_torch_flash_attention_f32.py``, and raises,
+    naming out and lse, on a 1xTF32 emulation (hi . hi alone), at the
+    check's first case and seed."""
+    import test_torch_flash_attention_f32 as f32
+
+    from paddle_tpu_torch.ops import flash_attention as fl
+
+    layout, causal, b, h, tq, tk, d = chip_smoke._F32_FLASH_TRUTH_CASES[0]
+    q, k, v, _ = chip_smoke._flash_inputs(
+        torch, b, h, tq, tk, d, torch.float32, layout,
+        chip_smoke._F32_FLASH_SEEDS[0], device="cpu")
+    plain = fl.flash_attention_fwd_plain(q, k, v, causal, None, layout)
+    report = chip_smoke._f32_flash_truth_agrees(
+        torch, f32.emulate(q, k, v, causal, layout), plain, q, k, v, causal,
+        layout, "3xTF32 emulation")
+    assert set(report) == {"out", "lse"}
+    assert all(r["err"] <= r["bound"] for r in report.values())
+    with pytest.raises(AssertionError, match="out.*lse"):
+        chip_smoke._f32_flash_truth_agrees(
+            torch, f32.emulate(q, k, v, causal, layout, f32._only_hi), plain,
+            q, k, v, causal, layout, "1xTF32 emulation")
 
 
 def test_rows_that_see_no_key_must_give_zero_and_the_stand_in():
