@@ -14,7 +14,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
    together, into ``build/torch_kernels/`` (ptxas's register and
    shared-memory report is printed); the tensor-core kernels' (CE
    forward, dx and dW in bf16 and in fp32; flash forward, dq and dk/dv at
-   head_dim 64 and 128) tensor-core instructions counted in the
+   head_dim 64 and 128, the forward and dk/dv at 256) tensor-core
+   instructions counted in the
    library's SASS (none fails),
    with their registers and spills, and their grid geometry held against
    their wrappers';
@@ -47,8 +48,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
    plain fp32 version's own error in out and in lse; the gradient chain
    (dq and dk/dv from the kernel
    forward's own out and lse) against the plain chain in fp32, within
-   twice the plain bf16 chain's own error, at the seq-2048 shape and in
-   BHTD at D = 128; the flash kernels' peak added memory at the training
+   twice the plain bf16 chain's own error, at the seq-2048 shape, in
+   BHTD at D = 128 and at train_d256's shape (D = 256); the flash
+   kernels' peak added memory at the training
    shape (no [B, H, T, T] buffer);
 4. timing with CUDA events (median of 30 after warm-up): each kernel, its
    plain version, one PyTorch library call computing the same function,
@@ -113,6 +115,11 @@ Phases (any failure raises, and the script exits non-zero with no result):
    parameters in fp32 (T) and in bf16 with the CE kernels replaced by
    their plain versions (Y); R (K) must lie within 2 max |Y - T| + 1e-3
    of T at every step (``_loss_band``);
+   then ``train_d256``: the seq-2048 step in 3 heads of 256
+   (``_D256``, gpt2s's width), as ``train_long``, its traced replayed
+   step showing 12 launches each of the head_dim-256 forward and dk/dv
+   (``fwd_d256_sm90_kernel``, ``dkv_d256_sm90_kernel``) and of the SIMT
+   dq (``dq_kernel``) with their device ms;
    then ``train_observed`` (``_train_observed``): the seq-2048 step
    again with every step-side observability flag on (the goodput,
    memwatch and dynamics journals and the program dumps under
@@ -213,7 +220,12 @@ Phases (any failure raises, and the script exits non-zero with no result):
    step 1 the warm-up, step 2 captured and replayed): one at seq 16
    (einsum attention), one at seq 128 with PADDLE_TPU_FLASH_MIN_SEQ=128
    (flash attention); loss and every persistable must agree at 1e-4, and
-   each Adam moment within 1e-4 of the largest moment of its kind; and
+   each Adam moment within 1e-4 of the largest moment of its kind; one
+   head of 256 in bf16 at seq 128 (``flash_d256``: the tensor-core
+   forward and dk/dv at head_dim 256) trained 2 steps on the card and on
+   the CPU, each Adam moment1 of the card's run within twice the CPU bf16
+   run's distance from the fp32 program's, and its losses inside the
+   loss band (``_bf16_leg_agrees``); and
    the eager encoder at 2 layers, d 128 and seq 1024 (flash on both
    sides), one ``Model.train_batch`` in fp32 from the same numpy weights,
    held the same way;
@@ -226,12 +238,16 @@ Phases (any failure raises, and the script exits non-zero with no result):
    encoder's BHTD non-causal shape, under ``eager_shape``; the CE kernels
    in fp32 at N 16,384 under ``static_amp_shape``, the flash kernels in
    fp32 at batch 1 under ``jit_load_shape`` and at the fp32 training
-   shape under ``train_f32_shape``, and in bf16 at head_dim 256 under
-   ``d256_shape``), its launches by path
+   shape under ``train_f32_shape``, in bf16 at head_dim 256 under
+   ``d256_shape`` with its launches and device ms in train_d256's traced
+   step, and in fp32 at head_dim 256 under ``f32_d256_shape``), its
+   launches by path
    including ``train_eager``, ``vision_fit`` (none), ``static_amp`` and
    ``fluid_lenet``; a kernel whose bf16 path runs on
    the tensor cores names that source, with the fp32 one beside it
-   (``source_fp32``, ``source_d256``; the CE kernels' and the flash
+   (``source_fp32``, and ``source_d256`` for bf16 at head_dim 256:
+   ``flash_attention_fwd_d256_sm90.cu``, ``flash_attention_dkv_d256_sm90.cu``
+   and, for dq, ``flash_attention.cu``; the CE kernels' and the flash
    forward's fp32 sources are their split-TF32 kernels, ``serve_shapes``
    the CE forward's times at the serving shapes);
 9. the card's name and power limit again, and the last line:
@@ -273,6 +289,15 @@ _LONG = dict(_TRAIN, max_seq_len=2048)
 _LONG_B, _LONG_T = 8, 2048
 _LONG_N = _LONG_B * _LONG_T
 _LAYERS = _LONG["n_layer"]
+# the same at n_head 3: head_dim 256, which the head_dim-256 flash
+# kernels take (train_d256)
+_D256 = dict(_LONG, n_head=3)
+# the kernels of train_d256's traced replayed step, by pieces of their
+# names, and their calls a step: the head_dim-256 forward and dk/dv on the
+# tensor cores, the SIMT dq
+_D256_NAMES = {"::fwd_d256_sm90_kernel(": _LAYERS,
+               "::dq_kernel<": _LAYERS,
+               "::dkv_d256_sm90_kernel(": _LAYERS}
 _WARM_STEPS, _TIMED_STEPS = 3, 10
 _LR = 1e-4  # bench.py's Adam learning rate
 # the last training step's rate: a schedule that changes after the
@@ -318,7 +343,8 @@ def _environment(torch):
 # found by the pieces of its mangled symbol (its source's file name, the
 # kernel, the template argument: bwd_sm90_kernel<TOKEN_ROWS> names the CE
 # backward's product, fwd_sm90_kernel<D>, flash_fwd_f32_kernel<D>,
-# dq_sm90_kernel<D> and dkv_sm90_kernel<D> the flash kernels' head_dim; no
+# dq_sm90_kernel<D> and dkv_sm90_kernel<D> the flash kernels' head_dim;
+# fwd_d256_sm90_kernel and dkv_d256_sm90_kernel are head_dim 256's own; no
 # two entries' pieces match one kernel)
 _SM90_KERNELS = {
     "lmhead_ce_fwd": ("lmhead_ce_fwd_sm90", "fwd_sm90_kernel"),
@@ -343,6 +369,10 @@ _SM90_KERNELS = {
                                 "dkv_sm90_kernelILi64E"),
     "flash_attention_dkv_d128": ("flash_attention_bwd_sm90",
                                  "dkv_sm90_kernelILi128E"),
+    "flash_attention_fwd_d256": ("flash_attention_fwd_d256_sm90",
+                                 "fwd_d256_sm90_kernel"),
+    "flash_attention_dkv_d256": ("flash_attention_dkv_d256_sm90",
+                                 "dkv_d256_sm90_kernel"),
 }
 
 
@@ -416,7 +446,13 @@ def _build():
                                      lib.flash_attn_dq_sm90_stage(d),
                                      lib.flash_attn_dkv_sm90_stage(d))
                                  for d in fl.SM90_BWD_TILES},
-                                fl.SM90_BWD_TILES)}
+                                fl.SM90_BWD_TILES),
+        "flash_attention_fwd_d256": ((lib.flash_attn_fwd_d256_sm90_tile_q(),
+                                      lib.flash_attn_fwd_d256_sm90_tile_kv()),
+                                     fl.SM90_D256_FWD_TILES),
+        "flash_attention_dkv_d256": ((lib.flash_attn_dkv_d256_sm90_tile(),
+                                      lib.flash_attn_dkv_d256_sm90_stage()),
+                                     fl.SM90_D256_DKV_TILES)}
     for name, (built, wrapper) in geometry.items():
         if built != wrapper:
             raise AssertionError(f"{name} (sm90) geometry {built} differs "
@@ -662,6 +698,20 @@ def _device_ms(torch, fn, *args, calls=10):
     us = sum(e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA)
     return us / 1e3 / calls
+
+
+def _warm_device_ms(torch, fn, calls=10):
+    """Device ms of one call of ``fn``: its kernels' summed durations in a
+    trace of ``calls`` calls after a traced warm-up (``_profiled``; a
+    cold trace lost kernel records on the card), over ``calls``; None
+    where the trace kept no kernel record."""
+    def run():
+        for _ in range(calls):
+            fn()
+
+    _, _, events = _profiled(torch, run)
+    device_ms = _kernel_tally(torch, events)[1]
+    return device_ms / calls if device_ms else None
 
 
 def _bound(n, d, v, dtype_name, elem, products=1):
@@ -1035,8 +1085,10 @@ _FLASH_KERNEL = dict(out="flash_attention_fwd", lse="flash_attention_fwd",
 # sequence lengths that are not a multiple of the kernels' tiles. bf16 at
 # D = 64 and 128 runs the tensor-core forward, dq and dk/dv (both layouts
 # causal and not, Tq < Tk, Tq > Tk with rows that see no key, T = 1000
-# and 300, and T = 333 at D = 128 in BTHD), bf16 at D = 256 the SIMT
-# ones. fp32 at D = 64 and 128 runs the split-TF32 forward (both layouts
+# and 300, and T = 333 at D = 128 in BTHD); bf16 at D = 256 the
+# tensor-core forward and dk/dv and the SIMT dq (both layouts causal and
+# not, Tq > Tk with rows that see no key and Tq < Tk, T = 333, and
+# train_d256's shape: B = 8, T = 2048, H = 3, causal, BTHD). fp32 at D = 64 and 128 runs the split-TF32 forward (both layouts
 # causal and not, D = 128 in both layouts, Tq < Tk, Tq > Tk at both
 # head_dims, T = 200 and 333, jit.load's shape: B = 1, T = 2048, H = 12,
 # D = 64, BHTD, non-causal, and the fp32 training program's: B = 8, T =
@@ -1069,6 +1121,12 @@ _FLASH_CASES = [
     ("float32", "BTHD", True, 2, 2, 333, 333, 128),
     ("float32", "BHTD", False, 1, 12, 2048, 2048, 64),
     ("float32", "BTHD", True, 8, 12, 2048, 2048, 64),
+    ("bfloat16", "BTHD", True, 8, 3, 2048, 2048, 256),
+    ("bfloat16", "BTHD", False, 2, 3, 512, 512, 256),
+    ("bfloat16", "BHTD", False, 1, 2, 300, 300, 256),
+    ("bfloat16", "BHTD", True, 1, 2, 384, 128, 256),
+    ("bfloat16", "BTHD", True, 1, 2, 128, 384, 256),
+    ("bfloat16", "BTHD", True, 2, 2, 333, 333, 256),
 ]
 
 
@@ -1304,9 +1362,11 @@ def _check_f32_flash_truth(torch) -> None:
 _CHAIN_MULTIPLE = 2.0
 _CHAIN_ATOL = 1e-3
 # (B, H, T, D, layout) of the chain check, causal bf16: the seq-2048
-# training shape, and BHTD at head_dim 128
+# training shape, BHTD at head_dim 128, and train_d256's shape (gpt2s's
+# width in 3 heads of 256)
 _CHAIN_CASES = [(_LONG_B, _LONG["n_head"], _LONG_T, 64, "BTHD"),
-                (2, 4, 1024, 128, "BHTD")]
+                (2, 4, 1024, 128, "BHTD"),
+                (_LONG_B, 3, _LONG_T, 256, "BTHD")]
 
 
 def _plain_chain(q, k, v, do, causal, layout) -> dict:
@@ -1597,7 +1657,8 @@ def _time_ce_f32(torch, card):
 
 
 def _time_flash(torch, card, layout="BTHD", causal=True, dtype=None,
-                batch=_LONG_B, repeats=_REPEATS, heads=_LONG["n_head"]):
+                batch=_LONG_B, repeats=_REPEATS, heads=_LONG["n_head"],
+                device=False):
     """Kernel, plain, library and bound of the flash kernels at the
     seq-2048 training shape (B = 8, T = 2048, H = 12, D = 64, bf16), in
     ``layout``: causal BTHD is the static GPT step's, non-causal BHTD the
@@ -1614,12 +1675,20 @@ def _time_flash(torch, card, layout="BTHD", causal=True, dtype=None,
     (head_dim = 768 / heads) set the shape: fp32 at batch 1, BHTD,
     non-causal is ``jit.load``'s fp32 program (in 6 heads, its head_dim
     128 twin), fp32 at batch 8, BTHD, causal the fp32 training
-    program's, bf16 in 3 heads (head_dim 256) the SIMT kernels'
-    (``csrc/flash_attention.cu``). fp32 dq and dk/dv run
+    program's, bf16 in 3 heads (head_dim 256) train_d256's (the
+    head_dim-256 forward and dk/dv on the tensor cores, the SIMT dq of
+    ``csrc/flash_attention.cu``), fp32 there the SIMT kernels'. fp32 dq
+    and dk/dv run
     SIMT and are bounded at the FMA units' 67 TFLOP/s; the fp32 forward at
     head_dim 64 or 128 runs on the tensor cores in split TF32, bounded at
     three tf32 products a product at 494.7 TFLOP/s (``bound_fma_ms``, its
-    FLOPs at 67, beside it)."""
+    FLOPs at 67, beside it). With ``device``, each row also carries the
+    library call's device ms a call in a warm trace of 10 calls
+    (``library_device_ms``, ``_warm_device_ms``: without the host's time
+    to launch, which a CUDA-event time of one call holds; the kernels'
+    own come from a traced training step, ``main``'s ``d256_shape``: a
+    trace late in the smoke kept no record of the wrappers' eager
+    launches, cold or warm)."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import flash_attention as fl
@@ -1681,6 +1750,8 @@ def _time_flash(torch, card, layout="BTHD", causal=True, dtype=None,
                    bytes=nbytes, repeats=repeats, card=card)
         row["tflops"] = products * product / row["kernel_ms"] / 1e9
         row["over_library"] = row["kernel_ms"] / row["library_ms"]
+        if device:
+            row["library_device_ms"] = _warm_device_ms(torch, library)
         if split:
             row["bound_fma_ms"] = _bound_ms(nbytes, products * product,
                                             "float32")[0]
@@ -2001,7 +2072,7 @@ def _all_launches() -> dict:
 
 
 def _train(torch, card, config, batch, seq, phase, flash_per_step,
-           band=False):
+           band=False, names=None):
     """bench.py's gpt2s at ``seq`` through the port's training entry
     points: 3 warm-up + 10 timed steps on one fixed batch, twice from the
     same initial persistables: E, eagerly (PADDLE_TPU_EAGER=1), then R,
@@ -2018,7 +2089,10 @@ def _train(torch, card, config, batch, seq, phase, flash_per_step,
     of each: R's replayed step must show every path kernel's launches
     per step in the device trace. With ``band``, first the loss band's
     T and Y runs (``_band_runs``) from the same start, and R (K) is held
-    by ``_loss_band``. Returns the launches and R's traced step."""
+    by ``_loss_band``. With ``names`` ({piece of a kernel's name: calls}),
+    R's traced step must also show the kernels whose names hold each
+    piece launched so often (``_profile_step``). Returns the launches and
+    R's traced step."""
     from paddle_tpu_torch.framework import Scope
     from paddle_tpu_torch.ops import attention
 
@@ -2097,7 +2171,8 @@ def _train(torch, card, config, batch, seq, phase, flash_per_step,
         traced["E"] = _profile_step(torch, e_exe, main, feed, fetch_list,
                                     e_scope, card, phase + "_eager_profile")
     traced["R"] = _profile_step(torch, exe, main, feed, fetch_list, scope,
-                                card, phase + "_profile", per_step=per_step)
+                                card, phase + "_profile", per_step=per_step,
+                                names=names)
 
     def side(leg):
         t = legs[leg]
@@ -2166,9 +2241,10 @@ _TRACE_NAMES = {
                      ("::bwd_f32_split_kernel<false>",
                       "::bwd_f32_reduce_kernel<false>")),
     "flash_attention_fwd": (("::fwd_sm90_kernel<", "::flash_fwd_f32_kernel<",
-                             "::fwd_kernel<"), ()),
+                             "::fwd_d256_sm90_kernel(", "::fwd_kernel<"), ()),
     "flash_attention_dq": (("::dq_sm90_kernel<", "::dq_kernel<"), ()),
-    "flash_attention_dkv": (("::dkv_sm90_kernel<", "::dkv_kernel<"), ()),
+    "flash_attention_dkv": (("::dkv_sm90_kernel<", "::dkv_d256_sm90_kernel(",
+                             "::dkv_kernel<"), ()),
     "fused_adam": (("::adam_kernel<",), ()),
 }
 
@@ -2312,7 +2388,7 @@ def _kernel_tally(torch, events):
 
 
 def _profile_step(torch, exe, main, feed, fetch_list, scope, card, phase,
-                  per_step=None, return_numpy=True) -> dict:
+                  per_step=None, return_numpy=True, names=None) -> dict:
     """One traced training step: host wall, device kernel time, launches,
     each of the port's kernels' device calls and ms (``path_kernels``),
     the other kernels' device time by kernel family (``families``), the
@@ -2323,7 +2399,9 @@ def _profile_step(torch, exe, main, feed, fetch_list, scope, card, phase,
     captured step for ``fetch_list`` (the trajectory's, so the same
     analysed entry) and the trace must show each path kernel launched
     exactly so often (a replayed step's launches are counted here, from
-    the device). The counted step follows one traced warm-up step
+    the device); with ``names`` ({piece: calls}), the kernels whose names
+    hold each piece too (``named_kernels``: their calls and device ms).
+    The counted step follows one traced warm-up step
     (``_profiled``), so the executor takes two steps here. A traced run:
     the tracer adds host time, so its wall is not the step metric, nor
     its busy share (``traced_busy_share``); the busy share is the device
@@ -2343,6 +2421,14 @@ def _profile_step(torch, exe, main, feed, fetch_list, scope, card, phase,
         if seen != per_step:
             raise AssertionError(f"{phase}: path kernels launched {seen} "
                                  f"times in the traced step, not {per_step}")
+    named = {piece: {"calls": sum(n for k, (n, _) in kernels.items()
+                                  if piece in k),
+                     "ms": sum(t for k, (_, t) in kernels.items()
+                               if piece in k)}
+             for piece in names or {}}
+    if names and {p: v["calls"] for p, v in named.items()} != names:
+        raise AssertionError(f"{phase}: kernels by name {named} in the "
+                             f"traced step, not {names}")
     by_op = _by_op(torch, events)
     by_family = {}
     for op, ms in by_op.items():
@@ -2355,6 +2441,7 @@ def _profile_step(torch, exe, main, feed, fetch_list, scope, card, phase,
         wall_ms=wall_ms, device_ms=device_ms,
         traced_busy_share=device_ms / wall_ms if kernels else None,
         launches=sum(n for n, _ in kernels.values()), path_kernels=ours,
+        **({"named_kernels": named} if names else {}),
         non_kernel_ms=device_ms - sum(v["ms"] for v in ours.values()),
         families=families,
         other_top=[k for _, k in sorted(other, reverse=True)[:5]],
@@ -2377,11 +2464,17 @@ def _profile_step(torch, exe, main, feed, fetch_list, scope, card, phase,
 # between an H100 and the CPU into a step difference of 2e-4 at lr 1e-3
 # (measured on an H100); at 1e-5 it shrinks a thousandfold, while the
 # other parameters still move by about lr.
+# The flash_d256 leg runs one head of 256 in bf16 (the tensor-core
+# forward and dk/dv at head_dim 256 take bf16 only; fp32 there is SIMT),
+# so it is held by ``_bf16_leg_agrees`` instead (``_cpu_vs_card_bf16``).
 _CPU_VS_CARD = [
     ("einsum", dict(vocab_size=128, n_layer=2, n_head=2, d_model=32,
                     max_seq_len=16), 16, None, 1e-3, 1e-8),
     ("flash", dict(vocab_size=256, n_layer=2, n_head=2, d_model=128,
                    max_seq_len=128), 128, 128, 1e-3, 1e-5),
+    ("flash_d256", dict(vocab_size=256, n_layer=2, n_head=1, d_model=256,
+                        max_seq_len=128, dtype="bfloat16"), 128, 128, 1e-3,
+     1e-5),
 ]
 # the eager encoder of train_eager at 2 layers, d 128 (head_dim 64) and
 # seq 1024, where attention takes flash on the card by default; one
@@ -2391,27 +2484,40 @@ _EAGER_CPU_VS_CARD = dict(vocab=1024, seq=1024, d_model=128, n_head=2,
 _TINY_TOL = 1e-4
 
 
+def _tiny_build(config, seq, lr, eps):
+    """(main, startup, io): a tiny GPT train program (batch 2) with Adam,
+    built under a fresh unique-name generator, so that its bf16 and fp32
+    builds name their persistables alike."""
+    from paddle_tpu_torch.framework import program_guard, unique_name
+    from paddle_tpu_torch.models.gpt import GPTConfig, build_train_program
+    from paddle_tpu_torch.optimizer import Adam
+
+    with unique_name.guard():
+        main, startup, io = build_train_program(GPTConfig(**config), batch=2,
+                                                seq=seq)
+        with program_guard(main, startup):
+            Adam(learning_rate=lr, epsilon=eps).minimize(io["loss"])
+    return main, startup, io
+
+
+def _tiny_feed(vocab, seq):
+    r = np.random.RandomState(1)
+    return {k: r.randint(0, vocab, (2, seq)).astype(np.int64)
+            for k in ("tokens", "labels")}
+
+
 def _tiny_program(config, seq, lr, eps):
     """(main, io, names, start, feed): a tiny fp32 GPT train program with
     Adam, its persistables' names and startup values (from a CPU run) and
     one seeded batch of 2."""
-    from paddle_tpu_torch.framework import (CPUPlace, Executor, Scope,
-                                            program_guard)
-    from paddle_tpu_torch.models.gpt import GPTConfig, build_train_program
-    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.framework import CPUPlace, Executor, Scope
 
-    cfg = GPTConfig(**config)
-    main, startup, io = build_train_program(cfg, batch=2, seq=seq)
-    with program_guard(main, startup):
-        Adam(learning_rate=lr, epsilon=eps).minimize(io["loss"])
+    main, startup, io = _tiny_build(config, seq, lr, eps)
     scope = Scope()
     Executor(CPUPlace()).run(startup, scope=scope)
     names = sorted(v.name for v in main.list_vars() if v.persistable)
     start = {n: scope.get(n).numpy() for n in names}
-    r = np.random.RandomState(1)
-    feed = {k: r.randint(0, cfg.vocab_size, (2, seq)).astype(np.int64)
-            for k in ("tokens", "labels")}
-    return main, io, names, start, feed
+    return main, io, names, start, _tiny_feed(config["vocab_size"], seq)
 
 
 def _tiny_steps(program, dev, flash_min_seq, steps=2):
@@ -2476,7 +2582,10 @@ def _cpu_vs_card(torch, leg, config, seq, flash_min_seq, lr, eps):
     another order). The flash leg lowers PADDLE_TPU_FLASH_MIN_SEQ to its
     seq, so that attention (head_dim 64) takes the flash kernels on both
     sides: FLASH_DISPATCH_COUNT must rise on each, and must not in the
-    einsum leg."""
+    einsum leg. A bf16 config goes to ``_cpu_vs_card_bf16``."""
+    if config.get("dtype") == "bfloat16":
+        return _cpu_vs_card_bf16(torch, leg, config, seq, flash_min_seq, lr,
+                                 eps)
     program = _tiny_program(config, seq, lr, eps)
     cpu = _tiny_steps(program, "cpu", flash_min_seq)
     card = _tiny_steps(program, "cuda", flash_min_seq)
@@ -2490,6 +2599,125 @@ def _cpu_vs_card(torch, leg, config, seq, flash_min_seq, lr, eps):
          flash_dispatches=dispatched, persistables=len(program[2]),
          max_abs_diff=worst, tolerance=_TINY_TOL,
          moment_tolerance="1e-4 of the largest moment of its kind")
+
+
+# A bf16 leg against the CPU. K (the card: the kernels) and Y (the CPU:
+# the plain versions) train the same bf16 program from one start; T, the
+# truth, is the program built in fp32 on the CPU from that start cast up.
+# After the steps, each Adam moment1 (which carries its gradient's size:
+# m = (1 - beta1) g after one step) of K lies within _BF16_LEG_MULTIPLE
+# times Y's distance from T (Frobenius norm), plus _BF16_LEG_ATOL times
+# the largest moment1's norm in T, and K's losses inside ``_loss_band``'s
+# band around T that Y sets. The floor is relative to the largest moment
+# (as ``_tiny_agree``'s is to the largest of its kind), not to the
+# moment's own: the key bias's gradient is 0 in exact arithmetic (a
+# score row's softmax does not see a shift along its keys), so its
+# moment is rounding noise in K, Y and T alike. Why 2:
+# K and Y share the bf16 rounding of the whole program and differ in the
+# kernels' own last-bit differences (and the CPU's and the card's fp32
+# sums), so K lies about as far from T as Y does (the chain check's
+# argument, ``_CHAIN_MULTIPLE``). A wrong gradient from a kernel (a
+# dropped key tile of dk) moves its weights' moment by a large share of
+# its norm (tests/test_torch_smoke_checks.py shows it rejected).
+_BF16_LEG_STEPS = 2
+_BF16_LEG_MULTIPLE = 2.0
+_BF16_LEG_ATOL = 1e-3
+
+
+def _bf16_leg_runs(torch, config, seq, flash_min_seq, lr, eps, card="cuda",
+                   steps=_BF16_LEG_STEPS) -> dict:
+    """{"K", "Y", "T": (losses, {moment1 name: fp32 CPU tensor}, flash
+    dispatches)}: the bf16 program on ``card`` (K) and on the CPU (Y), the
+    fp32 one on the CPU (T), ``steps`` steps each from one start (the bf16
+    startup run on the CPU), with PADDLE_TPU_FLASH_MIN_SEQ at
+    ``flash_min_seq``."""
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.ops import attention
+
+    low = _tiny_build(config, seq, lr, eps)
+    full = _tiny_build(dict(config, dtype="float32"), seq, lr, eps)
+    scope = Scope()
+    _executor("cpu").run(low[1], scope=scope)
+    start = {v.name: scope.get(v.name) for v in low[0].list_vars()
+             if v.persistable}
+    moments = sorted(n for n in start if "_moment1_" in n)
+    saved = os.environ.get("PADDLE_TPU_FLASH_MIN_SEQ")
+    os.environ["PADDLE_TPU_FLASH_MIN_SEQ"] = str(flash_min_seq)
+    try:
+        runs = {}
+        for name, (main, _, io), dev, dtype in (
+                ("K", low, card, None), ("Y", low, "cpu", None),
+                ("T", full, "cpu", torch.float32)):
+            scope = Scope()
+            for n, t in start.items():
+                scope.set(n, (t.to(dtype) if dtype else t).to(dev).clone())
+            feed = {k: torch.from_numpy(a).to(dev)
+                    for k, a in _tiny_feed(config["vocab_size"], seq).items()}
+            exe = _executor(dev)
+            before = attention.FLASH_DISPATCH_COUNT
+            losses = [float(exe.run(main, feed=feed, fetch_list=[io["loss"]],
+                                    scope=scope)[0]) for _ in range(steps)]
+            runs[name] = (losses, {n: scope.get(n).float().cpu()
+                                   for n in moments},
+                          attention.FLASH_DISPATCH_COUNT - before)
+        return runs
+    finally:
+        if saved is None:
+            os.environ.pop("PADDLE_TPU_FLASH_MIN_SEQ", None)
+        else:
+            os.environ["PADDLE_TPU_FLASH_MIN_SEQ"] = saved
+
+
+def _bf16_leg_agrees(runs, what) -> dict:
+    """Holds K of ``_bf16_leg_runs`` to T by the rule above (each moment1
+    and the losses); raises naming each moment beyond its bound. Returns
+    the worst moment's report and the loss band's."""
+    (kl, km, _), (yl, ym, _), (tl, tm, _) = runs["K"], runs["Y"], runs["T"]
+    if not km or sorted(km) != sorted(tm):
+        raise AssertionError(f"{what}: moments {sorted(km)} against "
+                             f"{sorted(tm)}")
+    floor = _BF16_LEG_ATOL * max(float(m.double().norm()) for m in tm.values())
+    bad, worst = [], None
+    for n in sorted(km):
+        own = float((ym[n].double() - tm[n].double()).norm())
+        err = float((km[n].double() - tm[n].double()).norm())
+        bound = _BF16_LEG_MULTIPLE * own + floor
+        if worst is None or err / bound > worst["share"]:
+            worst = dict(name=n, err=err, plain_err=own, bound=bound,
+                         share=err / bound,
+                         norm=float(tm[n].double().norm()))
+        if not err <= bound:
+            bad.append(f"{n}: distance {err} from fp32, bound {bound} "
+                       f"({_BF16_LEG_MULTIPLE} x the CPU bf16 run's {own} + "
+                       f"{floor})")
+    if bad:
+        raise AssertionError(f"{what}: moments beyond their bound: "
+                             + "; ".join(bad))
+    return dict(worst_moment=worst, moments=len(km),
+                loss_band=_loss_band(kl, tl, yl))
+
+
+def _cpu_vs_card_bf16(torch, leg, config, seq, flash_min_seq, lr, eps):
+    """A tiny bf16 config trains ``_BF16_LEG_STEPS`` steps (batch 2) on
+    the card (kernels) and on the CPU (plain versions) from one start,
+    held by ``_bf16_leg_agrees`` against the fp32 program; flash must be
+    dispatched on each side, and the card's run must launch the flash
+    forward, dq and dk/dv kernels."""
+    from paddle_tpu_torch.ops import flash_attention as fl
+
+    fl.reset_launches()
+    runs = _bf16_leg_runs(torch, config, seq, flash_min_seq, lr, eps)
+    launches = (fl.fwd_launches, fl.dq_launches, fl.dkv_launches)
+    dispatched = {k: runs[k][2] for k in runs}
+    if min(dispatched.values()) <= 0 or min(launches) <= 0:
+        raise AssertionError(f"cpu_vs_card {leg}: flash dispatches "
+                             f"{dispatched}, kernel launches {launches}")
+    report = _bf16_leg_agrees(runs, f"cpu_vs_card {leg}")
+    _say(phase="cpu_vs_card", leg=leg, config=config, seq=seq, lr=lr,
+         eps=eps, steps=_BF16_LEG_STEPS, losses_card=runs["K"][0],
+         losses_cpu_bf16=runs["Y"][0], losses_cpu_fp32=runs["T"][0],
+         flash_dispatches=dispatched, launches_fwd_dq_dkv=launches,
+         multiple=_BF16_LEG_MULTIPLE, atol=_BF16_LEG_ATOL, **report)
 
 
 def _serve_leg(model, prompts):
@@ -5929,6 +6157,10 @@ def main() -> int:
     train_long, traced_long = _train(torch, card, _LONG, _LONG_B, _LONG_T,
                                      "train_long", _LAYERS)
     lap("train_long")
+    train_d256, traced_d256 = _train(torch, card, _D256, _LONG_B, _LONG_T,
+                                     "train_d256", _LAYERS,
+                                     names=_D256_NAMES)
+    lap("train_d256")
     observed = _train_observed(torch, card)
     lap("train_observed")
     _sentinel_seq512(torch, card)
@@ -5958,7 +6190,9 @@ def main() -> int:
                                  batch=1, repeats=10, heads=6)
     lap("f32_kernel_times")
     d256_times = _time_flash(torch, card, "BTHD", True, torch.bfloat16,
-                             repeats=10, heads=3)
+                             repeats=10, heads=3, device=True)
+    f32_d256_times = _time_flash(torch, card, "BTHD", True, torch.float32,
+                                 repeats=5, heads=3)
     lap("d256_kernel_times")
     for case in _CPU_VS_CARD:
         _cpu_vs_card(torch, *case)
@@ -5974,6 +6208,7 @@ def main() -> int:
 
     def by_path(name, **more):
         return {"train": train[name], "train_long": train_long[name],
+                "train_d256": train_d256[name],
                 "train_observed": observed[name],
                 "train_recipe": recipe[name],
                 "train_eager": eager.get(name, 0),
@@ -5984,7 +6219,8 @@ def main() -> int:
 
     def replayed(name):  # the device trace's launches per replayed step
         return {"train": traced["path_kernels"][name]["calls"],
-                "train_long": traced_long["path_kernels"][name]["calls"]}
+                "train_long": traced_long["path_kernels"][name]["calls"],
+                "train_d256": traced_d256["path_kernels"][name]["calls"]}
 
     amp_traced = _SAID["static_amp"]["path_kernels"]
 
@@ -6011,7 +6247,8 @@ def main() -> int:
                                      "causal", "kernel_ms", "plain_ms",
                                      "bound_ms", "bound_by", "bound_fma_ms",
                                      "bound_share", "library_ms", "tflops",
-                                     "tflops_tf32", "over_library")
+                                     "tflops_tf32", "over_library",
+                                     "library_device_ms")
                    if k in t}}
 
     def flash_fp32_src(name):
@@ -6075,13 +6312,19 @@ def main() -> int:
                    "layout": "BTHD", "causal": True}
     flash_src = csrc + "flash_attention.cu"
     f32_fwd_src = csrc + "flash_attention_fwd_f32_sm90.cu"
+    d256_src = {"flash_attention_fwd": csrc + "flash_attention_fwd_d256_sm90.cu",
+                "flash_attention_dq": flash_src,
+                "flash_attention_dkv": csrc + "flash_attention_dkv_d256_sm90.cu"}
+    d256_piece = {"flash_attention_fwd": "::fwd_d256_sm90_kernel(",
+                  "flash_attention_dq": "::dq_kernel<",
+                  "flash_attention_dkv": "::dkv_d256_sm90_kernel("}
     for name, bthd, bhtd in (
             ("flash_attention_fwd", 130, 68),
             ("flash_attention_dq", 354, 315),
             ("flash_attention_dkv", 471, 423)):
         extra = {"source_fp32": flash_fp32_src(name),
                  "source_fp32_d256": flash_src,
-                 "source_d256": flash_src,
+                 "source_d256": d256_src[name],
                  "tflops": times[name]["tflops"],
                  "over_library": times[name]["over_library"]}
         if name == "flash_attention_fwd":
@@ -6098,7 +6341,20 @@ def main() -> int:
                  "program)")
         extra["f32_d128_shape"] = flash_at(d128_f32_times, name,
                                            flash_fp32_src(name))
-        extra["d256_shape"] = flash_at(d256_times, name, flash_src)
+        traced_named = traced_d256["named_kernels"][d256_piece[name]]
+        device_ms = traced_named["ms"] / traced_named["calls"]
+        library_ms = d256_times[name]["library_device_ms"]
+        extra["d256_shape"] = flash_at(
+            d256_times, name, d256_src[name], path="train_d256",
+            launches=train_d256[name],
+            calls_per_replayed_step=traced_named["calls"],
+            device_ms_per_replayed_step=traced_named["ms"],
+            kernel_device_ms=device_ms,
+            over_library_device=device_ms / library_ms if library_ms
+            else None)
+        extra["f32_d256_shape"] = flash_at(
+            f32_d256_times, name, flash_src,
+            path="none measured (fp32 at head_dim 256)")
         extra["eager_shape"] = dict(
             flash_shape, layout="BHTD", causal=False,
             **{k: eager_times[name][k] for k in (

@@ -37,10 +37,12 @@
 // outputs once at 3.35 TB/s. These kernels run on the fp32 FMA units
 // (67 TFLOP/s), so they sit far above that bound. bf16 at head_dim 64
 // and 128 runs on the tensor cores instead (flash_attention_fwd_sm90.cu,
-// flash_attention_bwd_sm90.cu), and so does the fp32 forward at head_dim
-// 64 and 128, in split TF32 (flash_attention_fwd_f32_sm90.cu). This file
+// flash_attention_bwd_sm90.cu), and so do the bf16 forward and dk/dv at
+// head_dim 256 (flash_attention_fwd_d256_sm90.cu,
+// flash_attention_dkv_d256_sm90.cu) and the fp32 forward at head_dim 64
+// and 128, in split TF32 (flash_attention_fwd_f32_sm90.cu). This file
 // keeps the fp32 forward only at head_dim 256, the fp32 dq and dk/dv at
-// every head_dim, and bf16 at head_dim 256 for all three roles.
+// every head_dim, and the bf16 dq at head_dim 256.
 //
 // Design. The TPU grid walks the kv blocks (or, for dk/dv, the q blocks)
 // of one block in order on one core and carries the running max, sum and
@@ -458,12 +460,15 @@ int launch(Role role, const Params& p, int batch, int heads, cudaStream_t s) {
   const dim3 grid((rows + 63) / 64, heads, batch);
   if (grid.x == 0 || grid.y == 0 || grid.z == 0) return 0;
   // bf16 at head_dim 64 and 128 runs on the tensor cores
-  // (flash_attention_fwd_sm90.cu, flash_attention_bwd_sm90.cu), and so
-  // does the fp32 forward there (flash_attention_fwd_f32_sm90.cu)
-  if constexpr (std::is_same<T, __nv_bfloat16>::value && D < 256) {
+  // (flash_attention_fwd_sm90.cu, flash_attention_bwd_sm90.cu), and so do
+  // the bf16 forward and dk/dv at 256 (flash_attention_fwd_d256_sm90.cu,
+  // flash_attention_dkv_d256_sm90.cu) and the fp32 forward at 64 and 128
+  // (flash_attention_fwd_f32_sm90.cu)
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+  if constexpr (bf16 && D < 256) {
     return -1;
   } else if (role == FWD) {
-    if constexpr (D < 256) {
+    if constexpr (D < 256 || bf16) {
       return -1;
     } else {
       auto kernel = fwd_kernel<T, D>;
@@ -473,8 +478,12 @@ int launch(Role role, const Params& p, int batch, int heads, cudaStream_t s) {
     auto kernel = dq_kernel<T, D>;
     kernel<<<grid, THREADS, 0, s>>>(p);
   } else {
-    auto kernel = dkv_kernel<T, D>;
-    kernel<<<grid, THREADS, 0, s>>>(p);
+    if constexpr (bf16) {
+      return -1;
+    } else {
+      auto kernel = dkv_kernel<T, D>;
+      kernel<<<grid, THREADS, 0, s>>>(p);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -520,9 +529,11 @@ extern "C" {
 // q: [B, Tq, H, D] (BTHD) or [B, H, Tq, D] (BHTD) at strides q_sb, q_st,
 // q_sh (elements; D contiguous), as are out, dout and dq; k: likewise at
 // k_sb, k_st, k_sh, as are v, dk and dv. lse and delta: [B, H, Tq] fp32.
-// d: 64, 128 or 256 (anything else returns -1); bf16, and the fp32
-// forward, only at d = 256 (flash_attn_fwd_sm90, flash_attn_dq_sm90,
-// flash_attn_dkv_sm90 and flash_attn_fwd_f32_sm90 take 64 and 128).
+// d: 64, 128 or 256 (anything else returns -1); the fp32 forward only at
+// d = 256, bf16 only for dq at d = 256 (flash_attn_fwd_sm90,
+// flash_attn_dq_sm90, flash_attn_dkv_sm90 and flash_attn_fwd_f32_sm90
+// take 64 and 128, flash_attn_fwd_d256_sm90 and flash_attn_dkv_d256_sm90
+// bf16 at 256).
 
 int flash_attn_fwd(const void* q, const void* k, const void* v, void* out,
                    void* lse, int batch, int heads, int tq, int tk, int d,

@@ -110,7 +110,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                  lib.lmhead_ce_fwd_f32_sm90_tile_n,
                  lib.lmhead_ce_fwd_f32_sm90_tile_v,
                  lib.flash_attn_fwd_sm90_tile_q,
-                 lib.flash_attn_fwd_sm90_tile_kv):
+                 lib.flash_attn_fwd_sm90_tile_kv,
+                 lib.flash_attn_fwd_d256_sm90_tile_q,
+                 lib.flash_attn_fwd_d256_sm90_tile_kv,
+                 lib.flash_attn_dkv_d256_sm90_tile,
+                 lib.flash_attn_dkv_d256_sm90_stage):
         tile.argtypes = []
         tile.restype = i
     f = ctypes.c_float
@@ -125,13 +129,15 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     for fn in (lib.flash_attn_fwd, lib.flash_attn_dq, lib.flash_attn_dkv):
         fn.restype = i
     geo = ctypes.POINTER(ll)
-    for fwd in (lib.flash_attn_fwd_sm90, lib.flash_attn_fwd_f32_sm90):
+    for fwd in (lib.flash_attn_fwd_sm90, lib.flash_attn_fwd_f32_sm90,
+                lib.flash_attn_fwd_d256_sm90):
         fwd.argtypes = [p] * 5 + [i] * 5 + [geo, geo, f, i, p]
         fwd.restype = i
     lib.flash_attn_dq_sm90.argtypes = [p] * 7 + [i] * 5 + [geo, geo, f, i, p]
-    lib.flash_attn_dkv_sm90.argtypes = [p] * 8 + [i] * 5 + [geo, geo, f, i,
-                                                           p]
-    lib.flash_attn_dq_sm90.restype = lib.flash_attn_dkv_sm90.restype = i
+    for dkv in (lib.flash_attn_dkv_sm90, lib.flash_attn_dkv_d256_sm90):
+        dkv.argtypes = [p] * 8 + [i] * 5 + [geo, geo, f, i, p]
+        dkv.restype = i
+    lib.flash_attn_dq_sm90.restype = i
     for tile in (lib.flash_attn_bwd_sm90_tile, lib.flash_attn_dq_sm90_stage,
                  lib.flash_attn_dkv_sm90_stage,
                  lib.flash_attn_fwd_f32_sm90_tile_q,

@@ -7,22 +7,28 @@ and its custom VJP: ``_fwd_kernel``/``_fwd_kernel_bthd`` forward,
 in ``paddle_tpu_torch/csrc/flash_attention_fwd_sm90.cu`` and
 ``paddle_tpu_torch/csrc/flash_attention_bwd_sm90.cu`` (bf16 at head_dim
 64 and 128, on the tensor cores),
+``paddle_tpu_torch/csrc/flash_attention_fwd_d256_sm90.cu`` and
+``paddle_tpu_torch/csrc/flash_attention_dkv_d256_sm90.cu`` (the bf16
+forward and dk/dv at head_dim 256, on the tensor cores),
 ``paddle_tpu_torch/csrc/flash_attention_fwd_f32_sm90.cu`` (the fp32
 forward at head_dim 64 and 128, on the tensor cores through split TF32)
 and ``paddle_tpu_torch/csrc/flash_attention.cu`` (the fp32 dq and dk/dv,
-and every role at head_dim 256, on the FMA units), whose headers state
-what bounds them on the card and how the design answers that. One kernel
-per role serves both layouts:
+the fp32 forward at head_dim 256 and the bf16 dq at head_dim 256, on the
+FMA units), whose headers state what bounds them on the card and how the
+design answers that. One kernel per role, dtype and head_dim serves both
+layouts (``_SM90_ENTRIES`` names the tensor-core ones):
 
-- forward: out and the per-row logsumexp (``fwd_launches``). At head_dim
-  64 or 128, bf16 takes the wgmma kernel and fp32 the split-TF32 wgmma
-  kernel (``SM90_F32_FWD_TILES``), both
-  reading q, k and v through rank-3 TMA tensor maps
-  (:func:`tma_geometry`); at head_dim 256 both dtypes take the SIMT
-  kernel, which reads them through (batch, seq, head) strides;
+- forward: out and the per-row logsumexp (``fwd_launches``). bf16 takes
+  a wgmma kernel at every head_dim (``flash_attn_fwd_sm90`` at 64 and
+  128, ``flash_attn_fwd_d256_sm90`` at 256), fp32 the split-TF32 wgmma
+  kernel at 64 and 128 (``SM90_F32_FWD_TILES``); these read q, k and v
+  through rank-3 TMA tensor maps (:func:`tma_geometry`). fp32 at head_dim
+  256 takes the SIMT kernel, which reads them through (batch, seq, head)
+  strides;
 - dq (``dq_launches``): bf16 at head_dim 64 or 128 on the tensor cores,
   the rest SIMT;
-- dk and dv, one kernel (``dkv_launches``), routed as dq.
+- dk and dv, one kernel (``dkv_launches``): bf16 on the tensor cores at
+  every head_dim (``flash_attn_dkv_d256_sm90`` at 256), fp32 SIMT.
 
 Entry points:
 
@@ -114,10 +120,28 @@ dkv_launches = 0
 _NEG = -1e30  # the TPU kernel's finite stand-in for -inf
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128, 256)
-_SM90_HEAD_DIMS = (64, 128)  # the kernels on the tensor cores
+# the tensor-core entry point of each role by (dtype, head_dim); every
+# other input runs the SIMT kernels of csrc/flash_attention.cu
+_SM90_ENTRIES = {
+    "fwd": {(torch.bfloat16, 64): "flash_attn_fwd_sm90",
+            (torch.bfloat16, 128): "flash_attn_fwd_sm90",
+            (torch.bfloat16, 256): "flash_attn_fwd_d256_sm90",
+            (torch.float32, 64): "flash_attn_fwd_f32_sm90",
+            (torch.float32, 128): "flash_attn_fwd_f32_sm90"},
+    "dq": {(torch.bfloat16, 64): "flash_attn_dq_sm90",
+           (torch.bfloat16, 128): "flash_attn_dq_sm90"},
+    "dkv": {(torch.bfloat16, 64): "flash_attn_dkv_sm90",
+            (torch.bfloat16, 128): "flash_attn_dkv_sm90",
+            (torch.bfloat16, 256): "flash_attn_dkv_d256_sm90"},
+}
 # the bf16 forward's query rows per block and key/value rows per ring
-# stage (csrc/flash_attention_fwd_sm90.cu)
+# stage (csrc/flash_attention_fwd_sm90.cu; at head_dim 256
+# csrc/flash_attention_fwd_d256_sm90.cu)
 SM90_FWD_TILE_Q, SM90_FWD_TILE_KV = 128, 64
+SM90_D256_FWD_TILES = (128, 64)
+# the bf16 dk/dv's at head_dim 256: keys of a block, query rows of a ring
+# stage (csrc/flash_attention_dkv_d256_sm90.cu)
+SM90_D256_DKV_TILES = (64, 32)
 # the fp32 forward's, by head_dim (csrc/flash_attention_fwd_f32_sm90.cu):
 # two consumer warpgroups of 64 query rows at D = 64, one at D = 128
 SM90_F32_FWD_TILES = {64: (128, 32), 128: (64, 32)}
@@ -344,20 +368,20 @@ def tma_geometry(t: torch.Tensor, layout: str) -> Tuple[int, ...]:
     return (d, b * h, s[2], s[1], 0, h, 1)
 
 
-def _tensor_cores(q: torch.Tensor, forward: bool = False) -> bool:
-    """The tensor-core kernels' inputs: head_dim 64 or 128, in bf16 for
-    every role and, for the forward, in fp32 too."""
-    dtypes = _DTYPES if forward else (torch.bfloat16,)
-    return q.dtype in dtypes and q.shape[-1] in _SM90_HEAD_DIMS
+def _tensor_cores(q: torch.Tensor, role: str) -> Optional[str]:
+    """The tensor-core entry point that takes ``role`` ("fwd", "dq" or
+    "dkv") of q's dtype and head_dim, or None where that role runs SIMT:
+    bf16 forward and dk/dv at head_dim 64, 128 and 256, bf16 dq at 64
+    and 128, the fp32 forward at 64 and 128."""
+    return _SM90_ENTRIES[role].get((q.dtype, q.shape[-1]))
 
 
-def _launch_fwd_sm90(lib, q, k, v, causal, scale, layout):
-    """The forward on the tensor cores (head_dim 64 or 128): bf16 through
-    ``flash_attn_fwd_sm90``, fp32 through ``flash_attn_fwd_f32_sm90``
-    (split TF32); both take the same rank-3 tensor maps."""
+def _launch_fwd_sm90(lib, entry, q, k, v, causal, scale, layout):
+    """The forward on the tensor cores through ``entry``: bf16 through
+    ``flash_attn_fwd_sm90`` (head_dim 64, 128) or
+    ``flash_attn_fwd_d256_sm90``, fp32 through ``flash_attn_fwd_f32_sm90``
+    (split TF32); all take the same rank-3 tensor maps."""
     b, h, tq, tk, d = _dims(q, k, layout)
-    entry = ("flash_attn_fwd_f32_sm90" if q.dtype == torch.float32
-             else "flash_attn_fwd_sm90")
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
@@ -375,7 +399,7 @@ def _launch_fwd_sm90(lib, q, k, v, causal, scale, layout):
 
 
 def _launch_fwd_simt(lib, q, k, v, causal, scale, layout):
-    """The forward on the FMA units (head_dim 256)."""
+    """The forward on the FMA units (fp32 at head_dim 256)."""
     b, h, tq, _, _ = _dims(q, k, layout)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
@@ -390,32 +414,38 @@ def _launch_fwd(q, k, v, causal, scale, layout):
     global fwd_launches
     from . import _build
 
-    launch = (_launch_fwd_sm90 if _tensor_cores(q, forward=True)
-              else _launch_fwd_simt)
-    out, lse = launch(_build.load(), q, k, v, causal, scale, layout)
+    entry = _tensor_cores(q, "fwd")
+    if entry:
+        out, lse = _launch_fwd_sm90(_build.load(), entry, q, k, v, causal,
+                                    scale, layout)
+    else:
+        out, lse = _launch_fwd_simt(_build.load(), q, k, v, causal, scale,
+                                    layout)
     fwd_launches += 1
     _note("flash_attention_fwd", 2, q, k, layout, causal, q, k, v, out, lse)
     return out, lse
 
 
-def _launch_bwd(entry, what, outs, q, k, v, dout, lse, delta, causal, scale,
+def _launch_bwd(role, what, outs, q, k, v, dout, lse, delta, causal, scale,
                 layout):
-    """The dq or dk/dv kernel ``entry`` writes ``outs``. bf16 at head_dim
-    64 or 128 takes its tensor-core version (``entry`` + ``_sm90``),
-    which reads q, k, v and dO through rank-3 tensor maps (dO through
-    q's geometry); the rest takes the SIMT one, through strides."""
+    """The dq or dk/dv kernel (``role`` "dq" or "dkv") writes ``outs``.
+    Where the role has a tensor-core version (``_tensor_cores``), that
+    one reads q, k, v and dO through rank-3 tensor maps (dO through q's
+    geometry); the rest takes the SIMT ``flash_attn_<role>``, through
+    strides."""
     from . import _build
 
-    if _tensor_cores(q):
+    entry = _tensor_cores(q, role)
+    if entry:
         b, h, tq, tk, d = _dims(q, k, layout)
         q, k, v, dout = (t if t.data_ptr() % 16 == 0 else t.clone()
                          for t in (q, k, v, dout))
         geo = [(ctypes.c_longlong * 7)(*tma_geometry(t, layout))
                for t in (q, k)]
-        entry += "_sm90"
         dims = (b, h, tq, tk, d, *geo, scale, int(causal),
                 torch.cuda.current_stream(q.device).cuda_stream)
     else:
+        entry = f"flash_attn_{role}"
         dims = _geometry(q, k, scale, causal, layout)
     err = getattr(_build.load(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
@@ -431,7 +461,7 @@ def _launch_bwd(entry, what, outs, q, k, v, dout, lse, delta, causal, scale,
 def _launch_dq(q, k, v, dout, lse, delta, causal, scale, layout):
     global dq_launches
     dq = torch.empty_like(q)
-    _launch_bwd("flash_attn_dq", "dq", (dq,), q, k, v, dout, lse, delta,
+    _launch_bwd("dq", "dq", (dq,), q, k, v, dout, lse, delta,
                 causal, scale, layout)
     dq_launches += 1
     _note("flash_attention_dq", 3, q, k, layout, causal, q, k, v, dout, lse,
@@ -442,7 +472,7 @@ def _launch_dq(q, k, v, dout, lse, delta, causal, scale, layout):
 def _launch_dkv(q, k, v, dout, lse, delta, causal, scale, layout):
     global dkv_launches
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("flash_attn_dkv", "dk/dv", (dk, dv), q, k, v, dout, lse,
+    _launch_bwd("dkv", "dk/dv", (dk, dv), q, k, v, dout, lse,
                 delta, causal, scale, layout)
     dkv_launches += 1
     _note("flash_attention_dkv", 4, q, k, layout, causal, q, k, v, dout, lse,

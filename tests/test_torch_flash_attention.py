@@ -11,8 +11,8 @@ which the port's wrappers take for CPU tensors:
 - the gradients of ``jax.grad`` of ``flash_attention`` against
   ``torch.autograd`` through ``FlashAttention``.
 
-Cases: fp32 and bf16, causal and not, BTHD and BHTD, D = 64 and 128, and
-causal Tq != Tk (bottom-right aligned). Tolerances follow
+Cases: fp32 and bf16, causal and not, BTHD and BHTD, D = 64, 128 and 256,
+and causal Tq != Tk (bottom-right aligned). Tolerances follow
 ``tests/test_flash_attention.py``: fp32 out and lse at 2e-5, gradients at
 2e-4; bf16 at 2e-2 (the port rounds the fp32 scores times the scale where
 the TPU's BTHD kernel rounds q * scale first, and its online softmax
@@ -85,6 +85,15 @@ _CASES += [
     pytest.param("bf16", "BTHD", True, 64, 128, 384,
                  id="bf16-BTHD-tq128-tk384"),
 ]
+# head_dim 256 (the bf16 forward and dk/dv on the tensor cores since
+# their redesign, the rest SIMT): BTHD causal, BHTD non-causal, Tq < Tk
+_CASES += [pytest.param(dt, layout, causal, 256, tq, tk,
+                        id=f"{dt}-{layout}-d256-{name}")
+           for dt in ("f32", "bf16")
+           for layout, causal, tq, tk, name in (
+               ("BTHD", True, 256, 256, "causal"),
+               ("BHTD", False, 256, 256, "full"),
+               ("BHTD", True, 128, 384, "tq128-tk384"))]
 
 
 @pytest.mark.parametrize("dt,layout,causal,d,tq,tk", _CASES)
@@ -246,15 +255,19 @@ def _stub_library(monkeypatch, lib):
 @pytest.mark.parametrize("dtype,d,layout,entry", [
     (torch.bfloat16, 64, "BTHD", "flash_attn_fwd_sm90"),
     (torch.bfloat16, 128, "BHTD", "flash_attn_fwd_sm90"),
-    (torch.bfloat16, 256, "BTHD", "flash_attn_fwd"),
+    # the id it had while bf16 at head_dim 256 ran SIMT
+    pytest.param(torch.bfloat16, 256, "BTHD", "flash_attn_fwd_d256_sm90",
+                 id="dtype2-256-BTHD-flash_attn_fwd"),
     (torch.float32, 64, "BHTD", "flash_attn_fwd_f32_sm90"),
     (torch.float32, 128, "BTHD", "flash_attn_fwd_f32_sm90"),
-    (torch.float32, 256, "BHTD", "flash_attn_fwd")])
+    (torch.float32, 256, "BHTD", "flash_attn_fwd"),
+    (torch.bfloat16, 256, "BHTD", "flash_attn_fwd_d256_sm90")])
 def test_forward_routes_bf16_to_the_tensor_core_kernel(monkeypatch, dtype, d,
                                                        layout, entry):
-    """At head_dim 64 and 128 bf16 goes to the sm90 entry point and fp32
-    to the split-TF32 one, each with the tensor-map geometry of q and of
-    k; head_dim 256 in either dtype goes to the SIMT one; one launch
+    """bf16 goes to a tensor-core entry point at every head_dim (the sm90
+    one at 64 and 128, the head_dim-256 one at 256) and fp32 to the
+    split-TF32 one at 64 and 128, each with the tensor-map geometry of q
+    and of k; fp32 at head_dim 256 goes to the SIMT one; one launch
     counted either way."""
     lib = _Recorder()
     _stub_library(monkeypatch, lib)
@@ -311,17 +324,47 @@ def test_ablation_tool_anchors_match_the_forward_kernel(monkeypatch):
     assert len({text for text in variants.values()}) == len(variants)
 
 
+def test_ablation_tool_anchors_match_the_d256_forward_kernel(monkeypatch):
+    """``--d256`` edits the head_dim-256 forward's source by text: each
+    anchor (the exponential, the two wgmma calls, the loop's load of K
+    and V) is in it exactly once, and each variant differs from it and
+    from every other."""
+    import importlib.util
+    import os
+
+    tools = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "tools")
+    monkeypatch.syspath_prepend(tools)
+    spec = importlib.util.spec_from_file_location(
+        "torch_flash_fwd_ablation",
+        os.path.join(tools, "torch_flash_fwd_ablation.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    with open(tool.SOURCE_D256) as f:
+        src = f.read()
+    variants = tool.variants(src, d256=True)
+    assert variants["kernel"] == src
+    assert len({text for text in variants.values()}) == len(variants)
+    with pytest.raises(RuntimeError, match="source changed"):
+        tool.variants(src.replace("load(j + 1);", "load(j + 1 );"),
+                      d256=True)
+
+
 @pytest.mark.parametrize("dtype,d,layout,sm90", [
     (torch.bfloat16, 64, "BTHD", True), (torch.bfloat16, 64, "BHTD", True),
     (torch.bfloat16, 128, "BTHD", True), (torch.bfloat16, 128, "BHTD", True),
-    (torch.bfloat16, 256, "BTHD", False), (torch.float32, 64, "BHTD", False),
-    (torch.float32, 128, "BTHD", False)])
+    # the id it had while bf16 at head_dim 256 ran SIMT in both roles
+    pytest.param(torch.bfloat16, 256, "BTHD", "dkv",
+                 id="dtype4-256-BTHD-False"),
+    (torch.float32, 64, "BHTD", False), (torch.float32, 128, "BTHD", False),
+    (torch.bfloat16, 256, "BHTD", "dkv"), (torch.float32, 256, "BTHD", False)])
 @pytest.mark.parametrize("role", ["dq", "dkv"])
 def test_backward_routes_bf16_to_the_tensor_core_kernels(monkeypatch, dtype, d,
                                                          layout, sm90, role):
     """bf16 at head_dim 64 and 128 goes to the sm90 dq and dk/dv entry
-    points, with the tensor-map geometry of q (which dO shares) and of k;
-    fp32, and bf16 at head_dim 256, to the SIMT ones; one launch counted
+    points, bf16 dk/dv at head_dim 256 to its own (``sm90`` "dkv"), each
+    with the tensor-map geometry of q (which dO shares) and of k; fp32,
+    and the bf16 dq at head_dim 256, to the SIMT ones; one launch counted
     either way, on that role's counter only."""
     lib = _Recorder()
     _stub_library(monkeypatch, lib)
@@ -334,8 +377,14 @@ def test_backward_routes_bf16_to_the_tensor_core_kernels(monkeypatch, dtype, d,
     assert (fl.fwd_launches, fl.dq_launches, fl.dkv_launches) == (
         (0, 1, 0) if role == "dq" else (0, 0, 1))
     (name, args), = lib.calls
-    entry = f"flash_attn_{role}" + ("_sm90" if sm90 else "")
+    if sm90 is True:
+        entry = f"flash_attn_{role}_sm90"
+    elif sm90 == role:
+        entry = f"flash_attn_{role}_d256_sm90"
+    else:
+        entry = f"flash_attn_{role}"
     assert name == entry
+    sm90 = entry.endswith("_sm90")
     n_out = 1 if role == "dq" else 2
     if role == "dq":
         assert outs.shape == q.shape
@@ -368,6 +417,31 @@ def test_backward_raises_on_a_refused_launch(monkeypatch, role, dtype):
     with pytest.raises(RuntimeError, match="error -3"):
         launch(q, q, q, q, stats, stats, True, 0.125, "BTHD")
     assert (fl.dq_launches, fl.dkv_launches) == (0, 0) and calls == []
+
+
+@pytest.mark.parametrize("role,entry", [
+    ("fwd", "flash_attn_fwd_d256_sm90"), ("dkv", "flash_attn_dkv_d256_sm90")])
+def test_d256_entries_raise_on_a_refused_launch(monkeypatch, role, entry):
+    """bf16 at head_dim 256: a refused tensor map (or any error code) from
+    the forward's or dk/dv's tensor-core entry point raises naming it; no
+    launch is counted, and neither the plain version nor the SIMT kernel
+    is taken in its place."""
+    calls = []
+    for plain in ("flash_attention_fwd_plain", "flash_attention_dkv_plain"):
+        monkeypatch.setattr(fl, plain, lambda *a: calls.append(a))
+    lib = _Recorder(err=-3)
+    _stub_library(monkeypatch, lib)
+    q = torch.zeros((1, 128, 2, 256), dtype=torch.bfloat16)
+    stats = torch.zeros((1, 2, 128))
+    fl.reset_launches()
+    with pytest.raises(RuntimeError, match=f"{entry}.*error -3"):
+        if role == "fwd":
+            fl._launch_fwd(q, q, q, True, 0.0625, "BTHD")
+        else:
+            fl._launch_dkv(q, q, q, q, stats, stats, True, 0.0625, "BTHD")
+    assert [name for name, _ in lib.calls] == [entry]
+    assert (fl.fwd_launches, fl.dq_launches, fl.dkv_launches) == (0, 0, 0)
+    assert calls == []
 
 
 def test_backward_clones_a_misaligned_input(monkeypatch):

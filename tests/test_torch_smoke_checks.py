@@ -38,7 +38,12 @@ in for the kernels.
 - CPU against card (``_tiny_agree``): the tiny flash GPT leg, run twice
   on the CPU, agrees with itself, and a run whose dq is 2% too large is
   rejected (Adam's parameter step hardly sees a gradient's size; the
-  moments do).
+  moments do). The bf16 head_dim-256 leg (``_bf16_leg_agrees``): its
+  plain run passes, and one whose dk drops the first key tile fails at
+  the key weights' moment.
+- The head_dim-256 kernels by name: their mangled names map to one
+  ``_SM90_KERNELS`` key each, and a device trace charges them to the
+  flash forward and dk/dv (``_D256_NAMES`` tells them from the SIMT dq).
 - The seq-512 loss band (``_loss_band``, C2), on a tiny bf16 GPT trained
   13 steps on the CPU from one start: K trained with the wrappers (the
   plain versions here) and with a CE forward whose logits are summed in
@@ -1188,6 +1193,98 @@ def test_kernel_tally_counts_kernels_not_ranges():
     assert device_ms == pytest.approx(0.5)
     assert sorted(kernels) == sorted(e.name for e in events[:2])
     assert ours["flash_attention_fwd"] == {"calls": 1, "ms": 0.4}
+
+
+def test_smoke_finds_the_d256_kernels_by_name():
+    """The head_dim-256 forward and dk/dv map to exactly one
+    ``_SM90_KERNELS`` key each in the build's SASS and ptxas report, and
+    none of the D = 64/128 flash kernels or the CE forward maps to them;
+    in a device trace they count as the flash forward and dk/dv, and the
+    named check of a traced step (``_D256_NAMES``) finds them apart from
+    the SIMT dq."""
+    from types import SimpleNamespace
+
+    space = "_ZN58_GLOBAL__N__a6c4b388_33_{}_cu_46558d5b"
+    names = {
+        space.format("flash_attention_fwd_d256_sm90")
+        + "20fwd_d256_sm90_kernelEv14CUtensorMap_stS1_S1_NS_6ParamsE":
+            "flash_attention_fwd_d256",
+        space.format("flash_attention_dkv_d256_sm90")
+        + "20dkv_d256_sm90_kernelEv14CUtensorMap_stS1_S1_S1_NS_6ParamsE":
+            "flash_attention_dkv_d256",
+        space.format("flash_attention_fwd_sm90")
+        + "15fwd_sm90_kernelILi64EEEv14CUtensorMap_stS1_S1_NS_6ParamsE":
+            "flash_attention_fwd_d64",
+        space.format("flash_attention_bwd_sm90")
+        + "15dkv_sm90_kernelILi128EEEv14CUtensorMap_stS1_S1_S1_NS_6ParamsE":
+            "flash_attention_dkv_d128",
+        space.format("lmhead_ce_fwd_sm90")
+        + "15fwd_sm90_kernelEv14CUtensorMap_stS0_PKxPfS3_S3_iiii":
+            "lmhead_ce_fwd"}
+    for mangled, want in names.items():
+        hits = [key for key, parts in chip_smoke._SM90_KERNELS.items()
+                if all(p in mangled for p in parts)]
+        assert hits == [want], (mangled, hits)
+        assert chip_smoke._sm90_kernel(mangled) == want
+
+    def event(name):
+        return SimpleNamespace(
+            name=name, device_type=torch.autograd.DeviceType.CUDA,
+            is_user_annotation=False,
+            time_range=SimpleNamespace(elapsed_us=lambda: 250.0))
+
+    args = "(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, " \
+           "(anonymous namespace)::Params)"
+    events = [event("void (anonymous namespace)::fwd_d256_sm90_kernel" + args),
+              event("void (anonymous namespace)::dkv_d256_sm90_kernel"
+                    + args),
+              event("void (anonymous namespace)::dq_kernel<__nv_bfloat16, "
+                    "256>((anonymous namespace)::Params)")]
+    kernels, _, ours, families, _ = chip_smoke._kernel_tally(torch, events)
+    assert {k: v["calls"] for k, v in ours.items()} == {
+        "lmhead_ce_fwd": 0, "lmhead_ce_dx": 0, "lmhead_ce_dw": 0,
+        "flash_attention_fwd": 1, "flash_attention_dq": 1,
+        "flash_attention_dkv": 1, "fused_adam": 0}
+    assert families == {}
+    for piece in chip_smoke._D256_NAMES:
+        assert sum(piece in k for k in kernels) == 1, piece
+
+
+@pytest.fixture(scope="module")
+def d256_leg():
+    """The flash_d256 leg's runs on the CPU: K (the wrappers, here the
+    plain versions), Y and T."""
+    leg = chip_smoke._CPU_VS_CARD[2]
+    assert leg[0] == "flash_d256" and leg[1]["dtype"] == "bfloat16"
+    return leg, chip_smoke._bf16_leg_runs(torch, *leg[1:], card="cpu")
+
+
+def test_bf16_leg_passes_the_plain_run(d256_leg):
+    """K equal to Y passes; flash ran on every side."""
+    _, runs = d256_leg
+    assert min(r[2] for r in runs.values()) > 0
+    report = chip_smoke._bf16_leg_agrees(runs, "plain")
+    assert report["moments"] > 0 and report["worst_moment"]["share"] <= 1
+
+
+def test_bf16_leg_rejects_a_dropped_key_tile(d256_leg, monkeypatch):
+    """A dk/dv whose dk of the first 64 keys is 0 (a dropped key tile)
+    moves the key weights' moment far beyond the bound."""
+    from paddle_tpu_torch.ops import flash_attention as fl
+
+    leg, runs = d256_leg
+    plain = fl.flash_attention_dkv_plain
+
+    def dropped(*args):
+        dk, dv = plain(*args)
+        dk = dk.clone()
+        dk[:, :64] = 0  # BTHD: (B, T, H, D)
+        return dk, dv
+
+    monkeypatch.setattr(fl, "flash_attention_dkv_plain", dropped)
+    bad = chip_smoke._bf16_leg_runs(torch, *leg[1:], card="cpu")
+    with pytest.raises(AssertionError, match="attn.k.w_moment1"):
+        chip_smoke._bf16_leg_agrees(dict(runs, K=bad["K"]), "dropped")
 
 
 _AMP_CFG = dict(vocab_size=128, n_layer=2, n_head=2, d_model=32,

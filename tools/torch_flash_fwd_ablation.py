@@ -1,32 +1,40 @@
 #!/usr/bin/env python3
 """Where the bf16 flash attention forward spends its time, on one CUDA
-card: ablations of ``paddle_tpu_torch/csrc/flash_attention_fwd_sm90.cu``.
+card: ablations of ``paddle_tpu_torch/csrc/flash_attention_fwd_sm90.cu``
+or, with ``--d256``, of ``flash_attention_fwd_d256_sm90.cu``.
 
 Each variant is the kernel's source with one part of its work removed,
 built by its own nvcc (all started together) into its own library and
 timed with CUDA events (median of 20 after 3 warm-up calls) at the
 seq-2048 training shape (B = 8, T = 2048, H = 12, D = 64, bf16, causal,
-BTHD), in the order kernel, variants, variants reversed, kernel:
+BTHD; with ``--d256`` H = 3, D = 256, gpt2s's width in three heads), in
+the order kernel, variants, variants reversed, kernel:
 
 - ``kernel``: the source as it is (its result is checked against the
   plain version: largest error of out and of lse);
 - ``no_exp``: the softmax without its exponentials (P = s - m), the rest
   of it (scale, mask, row max, shuffles, row sum, rescale) kept;
-- ``no_scores``: the score wgmma on one k16 slice of D's four;
+- ``no_scores``: the score wgmma on one k16 slice of D's four (of its
+  sixteen at D = 256);
 - ``no_product``: no P . V wgmma;
 - ``no_reload``: no key or value tile loaded after the first (the ring's
-  barriers still turn over);
+  barriers still turn over; at D = 256 after the first two, which the
+  prologue loads);
 - ``skeleton``: ``no_scores``, ``no_product`` and ``no_exp`` together:
   the loads, barriers and the rest of the softmax alone.
 
+Each row also carries ``device_ms``: the kernel's own duration in a
+``torch.profiler`` trace of 10 calls, without the host's time to encode
+the tensor maps and launch, which the CUDA-event time of one call holds.
 The variants' outputs are wrong by construction; only their times mean
 anything. Run from the root of a checkout:
 
-    python3 tools/torch_flash_fwd_ablation.py
+    python3 tools/torch_flash_fwd_ablation.py [--d256]
 
 It prints one JSON line per timing, the card's name and power limit
 beside each.
 """
+import argparse
 import ctypes
 import json
 import os
@@ -46,6 +54,7 @@ from torch_ce_bwd_ablation import _median_ms  # noqa: E402
 
 CSRC = os.path.join(ROOT, "paddle_tpu_torch", "csrc")
 SOURCE = os.path.join(CSRC, "flash_attention_fwd_sm90.cu")
+SOURCE_D256 = os.path.join(CSRC, "flash_attention_fwd_d256_sm90.cu")
 _EXP = "        e = exp2f(e - m_new);"
 _SCORES = """      wgmma_n64<0>(s, desc(q_addr + hh * Q_BOX + 32 * kk),
                    desc(k_addr + hh * KV_BOX + 32 * kk), (hh | kk) != 0);"""
@@ -58,13 +67,19 @@ _LOAD = """        mbar_expect_tx(full(stage), STAGE);
           tma_load_3d(ks + (HALVES + hh) * KV_BOX, &map_v, kc + 64 * hh,
                       j * BKV, ko, full(stage));
         }"""
+# the head_dim-256 kernel's load in its loop (the prologue loads the
+# first two tiles), and what no_reload puts in its place
+_LOADS_D256 = {"      load(j + 1);": "      mbar_arrive(k_full(j + 1));\n"
+                                     "      mbar_arrive(v_full(j + 1));"}
 
 
-def variants(src):
-    """{name: source}; raises if the kernel no longer has the text a
-    variant edits."""
-    for piece in (_EXP, _SCORES, _PRODUCT, _LOAD):
-        if piece not in src:
+def variants(src, d256=False):
+    """{name: source} of the D = 64/128 kernel's source or, with
+    ``d256``, of the head_dim-256 kernel's; raises if the kernel no
+    longer has the text a variant edits."""
+    loads = list(_LOADS_D256) if d256 else [_LOAD]
+    for piece in [_EXP, _SCORES, _PRODUCT] + loads:
+        if src.count(piece) != 1:
             raise RuntimeError("the kernel's source changed; update the "
                                "ablations of tools/torch_flash_fwd_ablation"
                                ".py")
@@ -72,9 +87,15 @@ def variants(src):
     no_scores = src.replace(_SCORES, "      if (hh == 0 && kk == 0)\n"
                             + _SCORES)
     no_product = src.replace(_PRODUCT, "      ;")
-    no_reload = src.replace(_LOAD, "        if (j > 0) {\n"
-                            "          mbar_arrive(full(stage));\n"
-                            "        } else {\n" + _LOAD + "\n        }")
+    if d256:
+        no_reload = src
+        for load, arrive in _LOADS_D256.items():
+            no_reload = no_reload.replace(load, arrive)
+    else:
+        no_reload = src.replace(_LOAD, "        if (j > 0) {\n"
+                                "          mbar_arrive(full(stage));\n"
+                                "        } else {\n" + _LOAD +
+                                "\n        }")
     skeleton = no_exp.replace(_SCORES, "      if (hh == 0 && kk == 0)\n"
                               + _SCORES).replace(_PRODUCT, "      ;")
     return {"kernel": src, "no_exp": no_exp, "no_scores": no_scores,
@@ -82,9 +103,10 @@ def variants(src):
             "skeleton": skeleton}
 
 
-def build(sources, out_dir):
+def build(sources, out_dir, entry="flash_attn_fwd_sm90"):
     """One nvcc per variant, started together, each finding the kernel's
-    headers (sm90.cuh) in csrc/; {name: ctypes library}."""
+    headers (sm90.cuh) in csrc/; {name: ctypes library} with ``entry``
+    declared."""
     nvcc = _build._nvcc()
     procs = {}
     for name, src in sources.items():
@@ -103,37 +125,60 @@ def build(sources, out_dir):
         lib = ctypes.CDLL(os.path.join(out_dir, f"{name}.so"))
         p, i = ctypes.c_void_p, ctypes.c_int
         geo = ctypes.POINTER(ctypes.c_longlong)
-        lib.flash_attn_fwd_sm90.argtypes = [p] * 5 + [i] * 5 + [
-            geo, geo, ctypes.c_float, i, p]
-        lib.flash_attn_fwd_sm90.restype = i
+        fn = getattr(lib, entry)
+        fn.argtypes = [p] * 5 + [i] * 5 + [geo, geo, ctypes.c_float, i, p]
+        fn.restype = i
         libs[name] = lib
     return libs
 
 
+def device_ms(fn, calls=10):
+    """The CUDA kernels' summed duration in a traced window of ``calls``
+    calls of ``fn``, over ``calls``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) / 1e3 / calls
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--d256", action="store_true",
+                    help="the head_dim-256 kernel, at H = 3, D = 256")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_flash_fwd_ablation: no CUDA card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], check=True,
                           capture_output=True, text=True,
                           timeout=60).stdout.strip().splitlines()[0]
-    with open(SOURCE) as f:
-        sources = variants(f.read())
-    b, t, h, d = 8, 2048, 12, 64
+    with open(SOURCE_D256 if args.d256 else SOURCE) as f:
+        sources = variants(f.read(), args.d256)
+    entry = "flash_attn_fwd_d256_sm90" if args.d256 else "flash_attn_fwd_sm90"
+    b, t, h, d = (8, 2048, 3, 256) if args.d256 else (8, 2048, 12, 64)
     r = np.random.RandomState(0)
     q, k, v = (torch.from_numpy(r.randn(b, t, h, d).astype(np.float32))
                .cuda().bfloat16() for _ in range(3))
     ref_out, ref_lse = fl.flash_attention_fwd_plain(q, k, v, True, None,
                                                     "BTHD")
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(sources, tmp)
+        libs = build(sources, tmp, entry)
         names = list(libs)
         for name in names + names[::-1]:
             def run(lib=libs[name]):
-                return fl._launch_fwd_sm90(lib, q, k, v, True, d ** -0.5,
-                                           "BTHD")
+                return fl._launch_fwd_sm90(lib, entry, q, k, v, True,
+                                           d ** -0.5, "BTHD")
             row = dict(kernel="flash_attention_fwd", variant=name, b=b, t=t,
-                       h=h, d=d, ms=_median_ms(run), card=card)
+                       h=h, d=d, ms=_median_ms(run),
+                       device_ms=device_ms(run), card=card)
             if name == "kernel":
                 out, lse = run()
                 row["out_err"] = float((out.float() - ref_out.float())
