@@ -117,9 +117,10 @@ Phases (any failure raises, and the script exits non-zero with no result):
    of T at every step (``_loss_band``);
    then ``train_d256``: the seq-2048 step in 3 heads of 256
    (``_D256``, gpt2s's width), as ``train_long``, its traced replayed
-   step showing 12 launches each of the head_dim-256 forward and dk/dv
-   (``fwd_d256_sm90_kernel``, ``dkv_d256_sm90_kernel``) and of the SIMT
-   dq (``dq_kernel``) with their device ms;
+   step showing 12 launches each of the head_dim-256 forward, dq and
+   dk/dv (``fwd_d256_sm90_kernel``, ``dq_d256_sm90_kernel``,
+   ``dkv_d256_sm90_kernel``) with their device ms, and none of the SIMT
+   dq (``dq_kernel``);
    then ``train_observed`` (``_train_observed``): the seq-2048 step
    again with every step-side observability flag on (the goodput,
    memwatch and dynamics journals and the program dumps under
@@ -222,8 +223,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
    (flash attention); loss and every persistable must agree at 1e-4, and
    each Adam moment within 1e-4 of the largest moment of its kind; one
    head of 256 in bf16 at seq 128 (``flash_d256``: the tensor-core
-   forward and dk/dv at head_dim 256) trained 2 steps on the card and on
-   the CPU, each Adam moment1 of the card's run within twice the CPU bf16
+   forward, dq and dk/dv at head_dim 256) trained 2 steps on the card and
+   on the CPU, each Adam moment1 of the card's run within twice the CPU bf16
    run's distance from the fp32 program's, and its losses inside the
    loss band (``_bf16_leg_agrees``); and
    the eager encoder at 2 layers, d 128 and seq 1024 (flash on both
@@ -246,8 +247,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
    ``fluid_lenet``; a kernel whose bf16 path runs on
    the tensor cores names that source, with the fp32 one beside it
    (``source_fp32``, and ``source_d256`` for bf16 at head_dim 256:
-   ``flash_attention_fwd_d256_sm90.cu``, ``flash_attention_dkv_d256_sm90.cu``
-   and, for dq, ``flash_attention.cu``; the CE kernels' and the flash
+   ``flash_attention_fwd_d256_sm90.cu``, ``flash_attention_dq_d256_sm90.cu``
+   and ``flash_attention_dkv_d256_sm90.cu``; the CE kernels' and the flash
    forward's fp32 sources are their split-TF32 kernels, ``serve_shapes``
    the CE forward's times at the serving shapes);
 9. the card's name and power limit again, and the last line:
@@ -293,11 +294,12 @@ _LAYERS = _LONG["n_layer"]
 # kernels take (train_d256)
 _D256 = dict(_LONG, n_head=3)
 # the kernels of train_d256's traced replayed step, by pieces of their
-# names, and their calls a step: the head_dim-256 forward and dk/dv on the
-# tensor cores, the SIMT dq
+# names, and their calls a step: the head_dim-256 forward, dq and dk/dv on
+# the tensor cores, and none of the SIMT dq
 _D256_NAMES = {"::fwd_d256_sm90_kernel(": _LAYERS,
-               "::dq_kernel<": _LAYERS,
-               "::dkv_d256_sm90_kernel(": _LAYERS}
+               "::dq_d256_sm90_kernel(": _LAYERS,
+               "::dkv_d256_sm90_kernel(": _LAYERS,
+               "::dq_kernel<": 0}
 _WARM_STEPS, _TIMED_STEPS = 3, 10
 _LR = 1e-4  # bench.py's Adam learning rate
 # the last training step's rate: a schedule that changes after the
@@ -344,8 +346,8 @@ def _environment(torch):
 # kernel, the template argument: bwd_sm90_kernel<TOKEN_ROWS> names the CE
 # backward's product, fwd_sm90_kernel<D>, flash_fwd_f32_kernel<D>,
 # dq_sm90_kernel<D> and dkv_sm90_kernel<D> the flash kernels' head_dim;
-# fwd_d256_sm90_kernel and dkv_d256_sm90_kernel are head_dim 256's own; no
-# two entries' pieces match one kernel)
+# fwd_d256_sm90_kernel, dq_d256_sm90_kernel and dkv_d256_sm90_kernel are
+# head_dim 256's own; no two entries' pieces match one kernel)
 _SM90_KERNELS = {
     "lmhead_ce_fwd": ("lmhead_ce_fwd_sm90", "fwd_sm90_kernel"),
     "lmhead_ce_fwd_f32": ("lmhead_ce_fwd_f32_sm90", "fwd_f32_sm90_kernel"),
@@ -371,6 +373,8 @@ _SM90_KERNELS = {
                                  "dkv_sm90_kernelILi128E"),
     "flash_attention_fwd_d256": ("flash_attention_fwd_d256_sm90",
                                  "fwd_d256_sm90_kernel"),
+    "flash_attention_dq_d256": ("flash_attention_dq_d256_sm90",
+                                "dq_d256_sm90_kernel"),
     "flash_attention_dkv_d256": ("flash_attention_dkv_d256_sm90",
                                  "dkv_d256_sm90_kernel"),
 }
@@ -450,6 +454,9 @@ def _build():
         "flash_attention_fwd_d256": ((lib.flash_attn_fwd_d256_sm90_tile_q(),
                                       lib.flash_attn_fwd_d256_sm90_tile_kv()),
                                      fl.SM90_D256_FWD_TILES),
+        "flash_attention_dq_d256": ((lib.flash_attn_dq_d256_sm90_tile(),
+                                     lib.flash_attn_dq_d256_sm90_stage()),
+                                    fl.SM90_D256_DQ_TILES),
         "flash_attention_dkv_d256": ((lib.flash_attn_dkv_d256_sm90_tile(),
                                       lib.flash_attn_dkv_d256_sm90_stage()),
                                      fl.SM90_D256_DKV_TILES)}
@@ -682,34 +689,21 @@ def _median_ms(torch, fn, *args, repeats=_REPEATS):
 
 
 def _device_ms(torch, fn, *args, calls=10):
-    """Device time of one call of ``fn``: the summed durations of the CUDA
-    kernels it launches in a traced window of ``calls`` calls, over
-    ``calls`` (the CUDA-event time of a short call also holds the host's
-    time to launch it)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn(*args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn(*args)
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / calls
-
-
-def _warm_device_ms(torch, fn, calls=10):
     """Device ms of one call of ``fn``: its kernels' summed durations in a
-    trace of ``calls`` calls after a traced warm-up (``_profiled``; a
-    cold trace lost kernel records on the card), over ``calls``; None
-    where the trace kept no kernel record."""
+    trace of ``calls`` calls after a traced warm-up (``_profiled``), over
+    ``calls`` (the CUDA-event time of a short call also holds the host's
+    time to launch it); None where the trace lost records or kept no
+    kernel record."""
     def run():
         for _ in range(calls):
-            fn()
+            fn(*args)
 
-    _, _, events = _profiled(torch, run)
+    try:
+        _, _, events = _profiled(torch, run)
+    except _TraceLost as e:
+        _say(phase="trace_lost", fn=getattr(fn, "__name__", str(fn)),
+             error=str(e))
+        return None
     device_ms = _kernel_tally(torch, events)[1]
     return device_ms / calls if device_ms else None
 
@@ -1086,8 +1080,8 @@ _FLASH_KERNEL = dict(out="flash_attention_fwd", lse="flash_attention_fwd",
 # D = 64 and 128 runs the tensor-core forward, dq and dk/dv (both layouts
 # causal and not, Tq < Tk, Tq > Tk with rows that see no key, T = 1000
 # and 300, and T = 333 at D = 128 in BTHD); bf16 at D = 256 the
-# tensor-core forward and dk/dv and the SIMT dq (both layouts causal and
-# not, Tq > Tk with rows that see no key and Tq < Tk, T = 333, and
+# tensor-core forward, dq and dk/dv (both layouts causal and not, Tq >
+# Tk with rows that see no key and Tq < Tk, T = 300 and 333, and
 # train_d256's shape: B = 8, T = 2048, H = 3, causal, BTHD). fp32 at D = 64 and 128 runs the split-TF32 forward (both layouts
 # causal and not, D = 128 in both layouts, Tq < Tk, Tq > Tk at both
 # head_dims, T = 200 and 333, jit.load's shape: B = 1, T = 2048, H = 12,
@@ -1676,15 +1670,13 @@ def _time_flash(torch, card, layout="BTHD", causal=True, dtype=None,
     non-causal is ``jit.load``'s fp32 program (in 6 heads, its head_dim
     128 twin), fp32 at batch 8, BTHD, causal the fp32 training
     program's, bf16 in 3 heads (head_dim 256) train_d256's (the
-    head_dim-256 forward and dk/dv on the tensor cores, the SIMT dq of
-    ``csrc/flash_attention.cu``), fp32 there the SIMT kernels'. fp32 dq
-    and dk/dv run
-    SIMT and are bounded at the FMA units' 67 TFLOP/s; the fp32 forward at
+    head_dim-256 forward, dq and dk/dv on the tensor cores), fp32 there
+    the SIMT kernels'. fp32 dq and dk/dv run SIMT and are bounded at the FMA units' 67 TFLOP/s; the fp32 forward at
     head_dim 64 or 128 runs on the tensor cores in split TF32, bounded at
     three tf32 products a product at 494.7 TFLOP/s (``bound_fma_ms``, its
     FLOPs at 67, beside it). With ``device``, each row also carries the
     library call's device ms a call in a warm trace of 10 calls
-    (``library_device_ms``, ``_warm_device_ms``: without the host's time
+    (``library_device_ms``, ``_device_ms``: without the host's time
     to launch, which a CUDA-event time of one call holds; the kernels'
     own come from a traced training step, ``main``'s ``d256_shape``: a
     trace late in the smoke kept no record of the wrappers' eager
@@ -1751,7 +1743,7 @@ def _time_flash(torch, card, layout="BTHD", causal=True, dtype=None,
         row["tflops"] = products * product / row["kernel_ms"] / 1e9
         row["over_library"] = row["kernel_ms"] / row["library_ms"]
         if device:
-            row["library_device_ms"] = _warm_device_ms(torch, library)
+            row["library_device_ms"] = _device_ms(torch, library)
         if split:
             row["bound_fma_ms"] = _bound_ms(nbytes, products * product,
                                             "float32")[0]
@@ -2242,7 +2234,8 @@ _TRACE_NAMES = {
                       "::bwd_f32_reduce_kernel<false>")),
     "flash_attention_fwd": (("::fwd_sm90_kernel<", "::flash_fwd_f32_kernel<",
                              "::fwd_d256_sm90_kernel(", "::fwd_kernel<"), ()),
-    "flash_attention_dq": (("::dq_sm90_kernel<", "::dq_kernel<"), ()),
+    "flash_attention_dq": (("::dq_sm90_kernel<", "::dq_d256_sm90_kernel(",
+                            "::dq_kernel<"), ()),
     "flash_attention_dkv": (("::dkv_sm90_kernel<", "::dkv_d256_sm90_kernel(",
                              "::dkv_kernel<"), ()),
     "fused_adam": (("::adam_kernel<",), ()),
@@ -2465,8 +2458,9 @@ def _profile_step(torch, exe, main, feed, fetch_list, scope, card, phase,
 # (measured on an H100); at 1e-5 it shrinks a thousandfold, while the
 # other parameters still move by about lr.
 # The flash_d256 leg runs one head of 256 in bf16 (the tensor-core
-# forward and dk/dv at head_dim 256 take bf16 only; fp32 there is SIMT),
-# so it is held by ``_bf16_leg_agrees`` instead (``_cpu_vs_card_bf16``).
+# forward, dq and dk/dv at head_dim 256 take bf16 only; fp32 there is
+# SIMT), so it is held by ``_bf16_leg_agrees`` instead
+# (``_cpu_vs_card_bf16``).
 _CPU_VS_CARD = [
     ("einsum", dict(vocab_size=128, n_layer=2, n_head=2, d_model=32,
                     max_seq_len=16), 16, None, 1e-3, 1e-8),
@@ -4480,10 +4474,11 @@ def _chunked_vs_pallas(torch, config, batch, seq) -> dict:
     return {"losses": losses, "rel": rel, "rtol": _CHUNKED_RTOL}
 
 
-def _hash_ms(torch, config, batch, seq) -> float:
+def _hash_ms(torch, config, batch, seq):
     """Device ms of one layer's dropout draw on the card at the recipe's
     shape: the counter-based hash of the (seed, step) tensor
-    (``LoweringContext.uniform``) and the keep test."""
+    (``LoweringContext.uniform``) and the keep test (``_device_ms``: None
+    where the trace lost records)."""
     from paddle_tpu_torch.framework.registry import LoweringContext
 
     shape = (batch, seq, config["n_head"],
@@ -4693,7 +4688,7 @@ def _train_recipe(torch, card, config=_RECIPE, batch=_LONG_B, seq=_LONG_T,
          path_kernels=traced["path_kernels"], flash_dispatches=dispatched,
          dropout_hash_ms={"per_draw": hash_ms,
                           "draws_per_step": 2 * layers,
-                          "per_step": 2 * layers * hash_ms},
+                          "per_step": hash_ms and 2 * layers * hash_ms},
          seconds=time.perf_counter() - t_phase, card=card,
          note="one smoke run, not a benchmark; launches are the wrappers' "
          "host counts (the warm-up and the capture)")
@@ -5160,13 +5155,39 @@ def _timed(torch, fn, *args):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+# torch.profiler keeps a kernel's record only where it lies inside the
+# trace's window on the host's clock, and the card's times, mapped onto
+# that clock, stray by milliseconds (tools/torch_trace_window.py, on the
+# H100): a kernel near the window's start was dropped (a flash forward of
+# a replayed step's 24, the first 1-21 kernels of a cold trace) or one
+# that ran before it kept (a warm-up step's last 298). So ``_profiled``
+# runs its counted call ``_TRACE_MARGIN_S`` inside the window on both
+# sides, between two marker kernels (``torch.cuda._sleep``'s), each run
+# alone; it keeps the device records that lie between the markers on the
+# card's own clock, and raises ``_TraceLost`` where a marker's record is
+# gone (the window may then have lost others)
+_TRACE_MARGIN_S = 0.25
+_TRACE_MARKER = "spin_kernel"
+
+
+class _TraceLost(AssertionError):
+    """A trace that lost a marker kernel's record (``_profiled``)."""
+
+
+def _mark(torch):
+    """One ``_TRACE_MARKER`` kernel, with the card idle before and after."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
 def _profiled(torch, fn, *args):
     """(fn's result, its wall ms, the trace's events) of one call under
     ``torch.profiler``, after one traced warm-up call whose events are
-    dropped (the profiler's ``warmup`` step): a traced eager step once
-    lost some kernel records in a cold trace (5 of 12 flash forwards, in
-    one run of five on the H100), so the call that is counted runs inside
-    a trace already going."""
+    dropped (the profiler's ``warmup`` step), between two marker kernels
+    ``_TRACE_MARGIN_S`` inside the trace's window. The events are
+    ``_between_marks``'s: it raises ``_TraceLost`` where the trace lost a
+    marker's record."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
@@ -5176,12 +5197,43 @@ def _profiled(torch, fn, *args):
         fn(*args)
         torch.cuda.synchronize()
         prof.step()
+        time.sleep(_TRACE_MARGIN_S)
+        _mark(torch)
         t0 = time.perf_counter()
         out = fn(*args)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        _mark(torch)
+        time.sleep(_TRACE_MARGIN_S)
         prof.step()
-    return out, wall_ms, prof.events()
+    return out, wall_ms, _between_marks(torch, prof.events())
+
+
+def _between_marks(torch, events):
+    """The host's events and the device records that lie between the two
+    ``_TRACE_MARKER`` records of a trace (``_profiled``) on the card's
+    clock, the markers and their launches left out. Raises ``_TraceLost``
+    unless both markers' records are there."""
+    cuda = torch.autograd.DeviceType.CUDA
+    marks = sorted(e.time_range.start for e in events
+                   if e.device_type == cuda and _TRACE_MARKER in e.name)
+    if len(marks) != 2:
+        starts = [e.time_range.start for e in events
+                  if e.device_type == cuda and _TRACE_MARKER not in e.name]
+        raise _TraceLost(
+            f"the trace kept {len(marks)} of its 2 marker kernels and "
+            f"{len(starts)} other device records, "
+            f"{[sum(t < m for t in starts) for m in marks]} of them before "
+            "each marker kept: its window lost kernel records")
+
+    def kept(e):
+        if e.device_type == cuda:
+            return (_TRACE_MARKER not in e.name
+                    and marks[0] < e.time_range.start < marks[1])
+        return not any(_TRACE_MARKER in getattr(k, "name", "")
+                       for k in getattr(e, "kernels", ()))  # a launch
+
+    return [e for e in events if kept(e)]
 
 
 def _traced(torch, fn, *args):
@@ -6313,10 +6365,10 @@ def main() -> int:
     flash_src = csrc + "flash_attention.cu"
     f32_fwd_src = csrc + "flash_attention_fwd_f32_sm90.cu"
     d256_src = {"flash_attention_fwd": csrc + "flash_attention_fwd_d256_sm90.cu",
-                "flash_attention_dq": flash_src,
+                "flash_attention_dq": csrc + "flash_attention_dq_d256_sm90.cu",
                 "flash_attention_dkv": csrc + "flash_attention_dkv_d256_sm90.cu"}
     d256_piece = {"flash_attention_fwd": "::fwd_d256_sm90_kernel(",
-                  "flash_attention_dq": "::dq_kernel<",
+                  "flash_attention_dq": "::dq_d256_sm90_kernel(",
                   "flash_attention_dkv": "::dkv_d256_sm90_kernel("}
     for name, bthd, bhtd in (
             ("flash_attention_fwd", 130, 68),

@@ -15,13 +15,12 @@
 //         dv = P^T . dO          dk = scale * dS^T . Q
 // Causal masks are aligned bottom-right (column c is visible from row r iff
 // c <= r + Tk - Tq), as the TPU kernels and the einsum path align them.
-// Rounding, as on the TPU: P is rounded to the inputs' dtype before P . V
-// and before P^T . dO, dS before dS . K and dS^T . Q; every accumulator is
-// fp32 and the outputs are cast once. The scale multiplies the fp32 scores
-// (the BHTD rule; the TPU's BTHD kernel rounds q * scale to the inputs'
-// dtype first, which agrees at D = 64, where the scale is 0.125) and the
-// dq and dk sums once at the end. fp32 inputs are multiplied in full fp32
-// (no TF32); bf16 inputs are widened to fp32.
+// These kernels take fp32 inputs only, multiplied in full fp32 (no TF32),
+// so the TPU's rounding of P and dS to the inputs' dtype rounds nothing.
+// Every accumulator is fp32. The scale multiplies the fp32 scores (the
+// BHTD rule; the TPU's BTHD kernel rounds q * scale to the inputs' dtype
+// first, which agrees at D = 64, where the scale is 0.125) and the dq and
+// dk sums once at the end.
 // Masked scores take no part: the online softmax starts from -1e30, a
 // finite stand-in for -inf, as on the TPU, and a masked entry contributes
 // exactly 0. A row that sees no key (only with causal and Tq > Tk) has
@@ -29,20 +28,19 @@
 // TPU does where a whole query block is skipped).
 //
 // Bound on this card (H100 SXM): operations. At the training shape
-// (B = 8, T = 2048, H = 12, D = 64, bf16, causal) the visible score
+// (B = 8, T = 2048, H = 12, D = 64, fp32, causal) the visible score
 // entries number B*H*T*(T+1)/2, and each product over them costs 2*D FLOPs
 // an entry: 51.6 GFLOP for the forward (2 products), 77.3 for dq (3) and
-// 103.1 for dk/dv (4): 0.052, 0.078 and 0.104 ms at the 989 TFLOP/s of the
-// bf16 tensor cores, against under 0.04 ms to move q, k, v, dO and the
-// outputs once at 3.35 TB/s. These kernels run on the fp32 FMA units
-// (67 TFLOP/s), so they sit far above that bound. bf16 at head_dim 64
-// and 128 runs on the tensor cores instead (flash_attention_fwd_sm90.cu,
-// flash_attention_bwd_sm90.cu), and so do the bf16 forward and dk/dv at
-// head_dim 256 (flash_attention_fwd_d256_sm90.cu,
-// flash_attention_dkv_d256_sm90.cu) and the fp32 forward at head_dim 64
-// and 128, in split TF32 (flash_attention_fwd_f32_sm90.cu). This file
-// keeps the fp32 forward only at head_dim 256, the fp32 dq and dk/dv at
-// every head_dim, and the bf16 dq at head_dim 256.
+// 103.1 for dk/dv (4): 0.77, 1.15 and 1.54 ms at the 67 TFLOP/s of the
+// fp32 FMA units these kernels run on, against under 0.08 ms to move q,
+// k, v, dO and the outputs once at 3.35 TB/s. bf16 runs on the tensor
+// cores in every role at every head_dim (flash_attention_fwd_sm90.cu and
+// flash_attention_bwd_sm90.cu at head_dim 64 and 128;
+// flash_attention_fwd_d256_sm90.cu, flash_attention_dq_d256_sm90.cu and
+// flash_attention_dkv_d256_sm90.cu at 256), and so does the fp32 forward
+// at head_dim 64 and 128, in split TF32 (flash_attention_fwd_f32_sm90.cu).
+// This file serves fp32 only: the forward at head_dim 256, dq and dk/dv
+// at every head_dim.
 //
 // Design. The TPU grid walks the kv blocks (or, for dk/dv, the q blocks)
 // of one block in order on one core and carries the running max, sum and
@@ -57,7 +55,7 @@
 // 16 threads of a row reduce with shuffles. Score products stage both
 // operands 32 deep at a time in shared memory, transposed, so that each
 // thread reads its 4 rows and 4 columns as one float4 each; the second
-// product parks the rounded P (or dS) tile in shared memory and streams
+// product parks the P (or dS) tile in shared memory and streams
 // the other operand's rows in 64-column slabs. Shared memory is 34,816
 // bytes a block whatever D is (64, 128 or 256). Tiles wholly above the
 // causal diagonal are skipped; only tiles that cross it, or the ragged
@@ -68,10 +66,7 @@
 // Plain C interface, loaded with ctypes: each entry point launches one
 // kernel on the given stream and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -101,19 +96,6 @@ struct Params {
   int causal;
 };
 
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float round_to(float v, float) { return v; }
-__device__ __forceinline__ float round_to(float v, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
 __device__ __forceinline__ float row_max(float v) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1)
@@ -131,9 +113,8 @@ __device__ __forceinline__ float row_sum(float v) {
 // rows at or past `rows`. A warp covers 4 rows x 8 depths: each row's 8
 // values are one sector in device memory, and the 32 stores hit 32
 // different banks (bank = 4k + r mod 32 with the ROW stride).
-template <typename T>
 __device__ __forceinline__ void stage_t(float (*dst)[ROW],
-                                        const T* __restrict__ src,
+                                        const float* __restrict__ src,
                                         long long row_stride, int r0,
                                         int rows, int k0, int tid) {
 #pragma unroll
@@ -142,33 +123,32 @@ __device__ __forceinline__ void stage_t(float (*dst)[ROW],
     const int r = (chunk & 15) * 4 + (lane & 3);
     const int k = (chunk >> 4) * 8 + (lane >> 2);
     const int gr = r0 + r;
-    dst[k][r] = gr < rows ? widen(src[gr * row_stride + k0 + k]) : 0.f;
+    dst[k][r] = gr < rows ? src[gr * row_stride + k0 + k] : 0.f;
   }
 }
 
 // dst[r][c] = src[r0 + r][d1 + c] for r, c < 64 (not transposed), 0 for
 // rows at or past `rows`. Neighbouring threads read neighbouring columns.
-template <typename T>
 __device__ __forceinline__ void stage_rows(float (*dst)[ROW],
-                                           const T* __restrict__ src,
+                                           const float* __restrict__ src,
                                            long long row_stride, int r0,
                                            int rows, int d1, int tid) {
 #pragma unroll 4
   for (int e = tid; e < 64 * 64; e += THREADS) {
     const int r = e >> 6, c = e & 63;
     const int gr = r0 + r;
-    dst[r][c] = gr < rows ? widen(src[gr * row_stride + d1 + c]) : 0.f;
+    dst[r][c] = gr < rows ? src[gr * row_stride + d1 + c] : 0.f;
   }
 }
 
 // s[i][j] = sum over the D depths of a[a0 + 4ty + i] . b[b0 + 4tx + j]
 // (rows of two row-major operands; rows past a_rows / b_rows read as 0).
 // stg holds two [BK][ROW] staging tiles. Ends synchronised: stg is free.
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void scores(float (&s)[TM][TN],
-                                       const T* __restrict__ a,
+                                       const float* __restrict__ a,
                                        long long a_st, int a0, int a_rows,
-                                       const T* __restrict__ b,
+                                       const float* __restrict__ b,
                                        long long b_st, int b0, int b_rows,
                                        float (*stg)[ROW], int tid, int ty,
                                        int tx) {
@@ -199,13 +179,13 @@ __device__ __forceinline__ void scores(float (&s)[TM][TN],
 
 // acc[i][4 * sl + j] += sum over c < 64 of w[c][4ty + i] * src[r0 + c][64 sl
 // + 4tx + j], for every 64-column slab sl of D: the second product of each
-// pass, with w the rounded P or dS tile (the summed index first). The
+// pass, with w the P or dS tile (the summed index first). The
 // slabs of src are staged through stg, which must be free; ends
 // synchronised, so w and stg may be overwritten after it.
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void accumulate(float (&acc)[TM][D / 16],
                                            const float (*w)[ROW],
-                                           const T* __restrict__ src,
+                                           const float* __restrict__ src,
                                            long long st, int r0, int rows,
                                            float (*stg)[ROW], int tid,
                                            int ty, int tx) {
@@ -230,9 +210,10 @@ __device__ __forceinline__ void accumulate(float (&acc)[TM][D / 16],
 }
 
 // out rows [r0, r0 + 64) of a row-major [rows, D] operand: row 4ty + i,
-// columns 64 sl + 4tx + j, times `mul`, cast once.
-template <typename T, int D>
-__device__ __forceinline__ void write_rows(T* __restrict__ out, long long st,
+// columns 64 sl + 4tx + j, times `mul`.
+template <int D>
+__device__ __forceinline__ void write_rows(float* __restrict__ out,
+                                           long long st,
                                            int r0, int rows,
                                            const float (&acc)[TM][D / 16],
                                            float mul, int ty, int tx) {
@@ -244,7 +225,7 @@ __device__ __forceinline__ void write_rows(T* __restrict__ out, long long st,
     for (int sl = 0; sl < D / 64; ++sl)
 #pragma unroll
       for (int j = 0; j < TN; ++j)
-        store(&out[r * st + 64 * sl + 4 * tx + j], acc[i][4 * sl + j] * mul);
+        out[r * st + 64 * sl + 4 * tx + j] = acc[i][4 * sl + j] * mul;
   }
 }
 
@@ -265,17 +246,17 @@ __device__ __forceinline__ bool visible(const Params& p, int r, int c) {
   return r < p.tq && c < p.tk && (!p.causal || c <= r + p.tk - p.tq);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS) fwd_kernel(const Params p) {
   __shared__ __align__(16) float stg[2 * BK][ROW];
-  __shared__ __align__(16) float pt[BKV][ROW];  // rounded P^T: [col][row]
+  __shared__ __align__(16) float pt[BKV][ROW];  // P^T: [col][row]
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.k_sb + h * p.k_sh;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.k_sb + h * p.k_sh;
 
   float m_run[TM], l_run[TM], acc[TM][D / 16];
 #pragma unroll
@@ -289,7 +270,7 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(const Params p) {
   const int end = kv_end(p, q0);
   for (int c0 = 0; c0 < end; c0 += BKV) {
     float s[TM][TN];
-    scores<T, D>(s, q, p.q_st, q0, p.tq, k, p.k_st, c0, p.tk, stg, tid, ty,
+    scores<D>(s, q, p.q_st, q0, p.tq, k, p.k_st, c0, p.tk, stg, tid, ty,
                  tx);
     const bool masked = needs_mask(p, q0, c0);
 #pragma unroll
@@ -309,7 +290,7 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(const Params p) {
       for (int j = 0; j < TN; ++j) {
         const float e = keep[j] ? expf(s[i][j] - m_new) : 0.f;
         sum += e;
-        pt[4 * tx + j][4 * ty + i] = round_to(e, T());
+        pt[4 * tx + j][4 * ty + i] = e;
       }
       const float alpha = expf(m_run[i] - m_new);
       l_run[i] = l_run[i] * alpha + row_sum(sum);
@@ -318,10 +299,10 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(const Params p) {
       for (int c = 0; c < D / 16; ++c) acc[i][c] *= alpha;
     }
     __syncthreads();
-    accumulate<T, D>(acc, pt, v, p.k_st, c0, p.tk, stg, tid, ty, tx);
+    accumulate<D>(acc, pt, v, p.k_st, c0, p.tk, stg, tid, ty, tx);
   }
 
-  T* out = static_cast<T*>(p.out) + b * p.q_sb + h * p.q_sh;
+  float* out = static_cast<float*>(p.out) + b * p.q_sb + h * p.q_sh;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const float l_safe = l_run[i] == 0.f ? 1.f : l_run[i];
@@ -332,21 +313,21 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(const Params p) {
       p.lse_out[((long long)b * gridDim.y + h) * p.tq + r] =
           m_run[i] + logf(l_safe);
   }
-  write_rows<T, D>(out, p.q_st, q0, p.tq, acc, 1.f, ty, tx);
+  write_rows<D>(out, p.q_st, q0, p.tq, acc, 1.f, ty, tx);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS) dq_kernel(const Params p) {
   __shared__ __align__(16) float stg[2 * BK][ROW];
-  __shared__ __align__(16) float dst[BKV][ROW];  // rounded dS^T: [col][row]
+  __shared__ __align__(16) float dst[BKV][ROW];  // dS^T: [col][row]
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* dout = static_cast<const T*>(p.dout) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.k_sb + h * p.k_sh;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* dout = static_cast<const float*>(p.dout) + b * p.q_sb + h * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.k_sb + h * p.k_sh;
   const long long stats = ((long long)b * gridDim.y + h) * p.tq;
 
   float row_lse[TM], row_delta[TM], acc[TM][D / 16];
@@ -362,9 +343,9 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(const Params p) {
   const int end = kv_end(p, q0);
   for (int c0 = 0; c0 < end; c0 += BKV) {
     float s[TM][TN], dp[TM][TN];
-    scores<T, D>(s, q, p.q_st, q0, p.tq, k, p.k_st, c0, p.tk, stg, tid, ty,
+    scores<D>(s, q, p.q_st, q0, p.tq, k, p.k_st, c0, p.tk, stg, tid, ty,
                  tx);
-    scores<T, D>(dp, dout, p.q_st, q0, p.tq, v, p.k_st, c0, p.tk, stg, tid,
+    scores<D>(dp, dout, p.q_st, q0, p.tq, v, p.k_st, c0, p.tk, stg, tid,
                  ty, tx);
     const bool masked = needs_mask(p, q0, c0);
 #pragma unroll
@@ -374,31 +355,30 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(const Params p) {
       for (int j = 0; j < TN; ++j) {
         const bool keep = !masked || visible(p, r, c0 + 4 * tx + j);
         const float pr = keep ? expf(s[i][j] * p.scale - row_lse[i]) : 0.f;
-        dst[4 * tx + j][4 * ty + i] =
-            round_to(pr * (dp[i][j] - row_delta[i]), T());
+        dst[4 * tx + j][4 * ty + i] = pr * (dp[i][j] - row_delta[i]);
       }
     }
     __syncthreads();
-    accumulate<T, D>(acc, dst, k, p.k_st, c0, p.tk, stg, tid, ty, tx);
+    accumulate<D>(acc, dst, k, p.k_st, c0, p.tk, stg, tid, ty, tx);
   }
-  write_rows<T, D>(static_cast<T*>(p.out) + b * p.q_sb + h * p.q_sh,
+  write_rows<D>(static_cast<float*>(p.out) + b * p.q_sb + h * p.q_sh,
                    p.q_st, q0, p.tq, acc, p.scale, ty, tx);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS) dkv_kernel(const Params p) {
   __shared__ __align__(16) float stg[2 * BK][ROW];
-  __shared__ __align__(16) float wt[BQ][ROW];  // rounded P or dS: [row][col]
+  __shared__ __align__(16) float wt[BQ][ROW];  // P or dS: [row][col]
 
   // this block's 64 key/value rows are the rows of its score tiles here
   // (st = K Q^T), its query tiles the columns
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int c0 = blockIdx.x * BKV;
   const int h = blockIdx.y, b = blockIdx.z;
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* dout = static_cast<const T*>(p.dout) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.k_sb + h * p.k_sh;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* dout = static_cast<const float*>(p.dout) + b * p.q_sb + h * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.k_sb + h * p.k_sh;
   const long long stats = ((long long)b * gridDim.y + h) * p.tq;
 
   float acc_k[TM][D / 16], acc_v[TM][D / 16];
@@ -412,9 +392,9 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(const Params p) {
   const int begin = p.causal && first > 0 ? first / BQ * BQ : 0;
   for (int q0 = begin; q0 < p.tq; q0 += BQ) {
     float st[TM][TN], dpt[TM][TN];
-    scores<T, D>(st, k, p.k_st, c0, p.tk, q, p.q_st, q0, p.tq, stg, tid, ty,
+    scores<D>(st, k, p.k_st, c0, p.tk, q, p.q_st, q0, p.tq, stg, tid, ty,
                  tx);
-    scores<T, D>(dpt, v, p.k_st, c0, p.tk, dout, p.q_st, q0, p.tq, stg, tid,
+    scores<D>(dpt, v, p.k_st, c0, p.tk, dout, p.q_st, q0, p.tq, stg, tid,
                  ty, tx);
     const bool masked = needs_mask(p, q0, c0);
     float col_lse[TN], col_delta[TN];
@@ -431,73 +411,59 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(const Params p) {
       for (int j = 0; j < TN; ++j) {
         const bool keep = !masked || visible(p, q0 + 4 * tx + j, c);
         const float pr = keep ? expf(st[i][j] * p.scale - col_lse[j]) : 0.f;
-        wt[4 * tx + j][4 * ty + i] = round_to(pr, T());
+        wt[4 * tx + j][4 * ty + i] = pr;
         dpt[i][j] = pr * (dpt[i][j] - col_delta[j]);  // now dS^T
       }
     }
     __syncthreads();
-    accumulate<T, D>(acc_v, wt, dout, p.q_st, q0, p.tq, stg, tid, ty, tx);
+    accumulate<D>(acc_v, wt, dout, p.q_st, q0, p.tq, stg, tid, ty, tx);
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
       for (int j = 0; j < TN; ++j)
-        wt[4 * tx + j][4 * ty + i] = round_to(dpt[i][j], T());
+        wt[4 * tx + j][4 * ty + i] = dpt[i][j];
     __syncthreads();
-    accumulate<T, D>(acc_k, wt, q, p.q_st, q0, p.tq, stg, tid, ty, tx);
+    accumulate<D>(acc_k, wt, q, p.q_st, q0, p.tq, stg, tid, ty, tx);
   }
   const long long kbase = b * p.k_sb + h * p.k_sh;
-  write_rows<T, D>(static_cast<T*>(p.out) + kbase, p.k_st, c0, p.tk, acc_k,
+  write_rows<D>(static_cast<float*>(p.out) + kbase, p.k_st, c0, p.tk, acc_k,
                    p.scale, ty, tx);
-  write_rows<T, D>(static_cast<T*>(p.out2) + kbase, p.k_st, c0, p.tk, acc_v,
+  write_rows<D>(static_cast<float*>(p.out2) + kbase, p.k_st, c0, p.tk, acc_v,
                    1.f, ty, tx);
 }
 
 enum Role { FWD, DQ, DKV };
 
-template <typename T, int D>
+template <int D>
 int launch(Role role, const Params& p, int batch, int heads, cudaStream_t s) {
   const int rows = role == DKV ? p.tk : p.tq;
   const dim3 grid((rows + 63) / 64, heads, batch);
   if (grid.x == 0 || grid.y == 0 || grid.z == 0) return 0;
-  // bf16 at head_dim 64 and 128 runs on the tensor cores
-  // (flash_attention_fwd_sm90.cu, flash_attention_bwd_sm90.cu), and so do
-  // the bf16 forward and dk/dv at 256 (flash_attention_fwd_d256_sm90.cu,
-  // flash_attention_dkv_d256_sm90.cu) and the fp32 forward at 64 and 128
-  // (flash_attention_fwd_f32_sm90.cu)
-  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
-  if constexpr (bf16 && D < 256) {
-    return -1;
-  } else if (role == FWD) {
-    if constexpr (D < 256 || bf16) {
+  if (role == FWD) {
+    // the fp32 forward at 64 and 128 runs on the tensor cores
+    // (flash_attention_fwd_f32_sm90.cu)
+    if constexpr (D < 256) {
       return -1;
     } else {
-      auto kernel = fwd_kernel<T, D>;
-      kernel<<<grid, THREADS, 0, s>>>(p);
+      fwd_kernel<D><<<grid, THREADS, 0, s>>>(p);
     }
   } else if (role == DQ) {
-    auto kernel = dq_kernel<T, D>;
-    kernel<<<grid, THREADS, 0, s>>>(p);
+    dq_kernel<D><<<grid, THREADS, 0, s>>>(p);
   } else {
-    if constexpr (bf16) {
-      return -1;
-    } else {
-      auto kernel = dkv_kernel<T, D>;
-      kernel<<<grid, THREADS, 0, s>>>(p);
-    }
+    dkv_kernel<D><<<grid, THREADS, 0, s>>>(p);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int launch_d(Role role, const Params& p, int batch, int heads, int d,
              cudaStream_t s) {
   switch (d) {
     case 64:
-      return launch<T, 64>(role, p, batch, heads, s);
+      return launch<64>(role, p, batch, heads, s);
     case 128:
-      return launch<T, 128>(role, p, batch, heads, s);
+      return launch<128>(role, p, batch, heads, s);
     case 256:
-      return launch<T, 256>(role, p, batch, heads, s);
+      return launch<256>(role, p, batch, heads, s);
     default:
       return -1;
   }
@@ -517,9 +483,9 @@ int run(Role role, Params& p, int batch, int heads, int tq, int tk, int d,
   p.k_sh = k_sh;
   p.scale = scale;
   p.causal = causal;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_d<__nv_bfloat16>(role, p, batch, heads, d, s)
-                 : launch_d<float>(role, p, batch, heads, d, s);
+  if (is_bf16) return -1;  // bf16 runs on the tensor cores, every role
+  return launch_d(role, p, batch, heads, d,
+                  static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -529,11 +495,11 @@ extern "C" {
 // q: [B, Tq, H, D] (BTHD) or [B, H, Tq, D] (BHTD) at strides q_sb, q_st,
 // q_sh (elements; D contiguous), as are out, dout and dq; k: likewise at
 // k_sb, k_st, k_sh, as are v, dk and dv. lse and delta: [B, H, Tq] fp32.
-// d: 64, 128 or 256 (anything else returns -1); the fp32 forward only at
-// d = 256, bf16 only for dq at d = 256 (flash_attn_fwd_sm90,
-// flash_attn_dq_sm90, flash_attn_dkv_sm90 and flash_attn_fwd_f32_sm90
-// take 64 and 128, flash_attn_fwd_d256_sm90 and flash_attn_dkv_d256_sm90
-// bf16 at 256).
+// fp32 only (is_bf16 returns -1: flash_attn_fwd_sm90, flash_attn_dq_sm90
+// and flash_attn_dkv_sm90 take bf16 at 64 and 128, flash_attn_fwd_d256_sm90,
+// flash_attn_dq_d256_sm90 and flash_attn_dkv_d256_sm90 at 256). d: 64, 128
+// or 256 (anything else returns -1); the forward only at d = 256
+// (flash_attn_fwd_f32_sm90 takes 64 and 128).
 
 int flash_attn_fwd(const void* q, const void* k, const void* v, void* out,
                    void* lse, int batch, int heads, int tq, int tk, int d,

@@ -86,44 +86,26 @@
 // dk and dv are written by the block that owns their keys: no atomics, and
 // the sums are deterministic.
 //
-// Plain C interface, loaded with ctypes; barrier, TMA and wgmma helpers
-// from sm90.cuh.
+// Plain C interface, loaded with ctypes; the split-D helpers from
+// flash_d256.cuh, barrier, TMA and wgmma helpers from sm90.cuh.
 
 #include <math.h>
 
-#include "sm90.cuh"
+#include "flash_d256.cuh"
 
 namespace {
 
-using namespace sm90;
+using namespace d256;
 
-constexpr int D = 256;
-constexpr int HALVES = D / 64;     // 64-column swizzle atoms of a row
 constexpr int KEYS = 64;           // keys of a block
-constexpr int NQ = 32;             // query rows of a ring stage
-constexpr int KS = NQ / 16;        // k16 slices of a query tile
-constexpr int WGS = 2;             // warpgroups, 128 columns of D each
-constexpr int THREADS = 128 * WGS;
-constexpr int STAGES = 3;
+constexpr int NQ = NT;             // query rows of a ring stage
 constexpr int K_BOX = KEYS * 128;  // 64 keys x 64 bf16
-constexpr int Q_BOX = NQ * 128;    // 32 query rows x 64 bf16
+constexpr int Q_BOX = T_BOX;       // 32 query rows x 64 bf16
 constexpr int STAGE = 2 * HALVES * Q_BOX;  // Q atoms, then dO atoms
-constexpr int PART = KEYS * NQ;    // floats of a partial S^T or dP^T tile
-constexpr float NEG = -1e30f;  // the forward's lse of a row that sees no key
-constexpr float FAR = 1e30f;   // lse of a row that takes no part: P = 0
 constexpr size_t SMEM = 1024 + (size_t)2 * HALVES * K_BOX +
                         (size_t)STAGES * STAGE + 2 * WGS * 2 * PART * 4 +
                         8 * (2 * STAGES + 1);
 static_assert(SMEM <= SMEM_LIMIT, "shared memory");
-
-// One operand's addressing, as flash_attention_fwd_sm90.cu's: element
-// (b, t, h, c) at tensor-map coordinates (h * head_col + c, t, b * outer_b
-// + h * outer_h) and at element offset coordinate0 + t * st_seq +
-// coordinate2 * st_outer.
-struct Geo {
-  long long st_seq, st_outer;
-  int head_col, outer_b, outer_h;
-};
 
 struct Params {
   Geo q, k;            // q's serves dO; k's serves v, dk and dv
@@ -135,84 +117,6 @@ struct Params {
   float scale;  // of the scores, and of dk once, at the end
   int causal;
 };
-
-// d = A . B^T over two k16 steps (k0 and k0 + 1) of one 64-column atom of
-// D, issued (not waited for): A's 64 rows at a_addr, B's NQ rows at
-// b_addr, both K-major
-__device__ __forceinline__ void ss_chain(float (&d)[NQ / 2], uint32_t a_addr,
-                                         uint32_t b_addr, int k0) {
-#pragma unroll
-  for (int kk = k0; kk < k0 + 2; ++kk)
-    wgmma_n32(d, desc(a_addr + 32 * kk), desc(b_addr + 32 * kk), kk != k0);
-}
-
-// acc += A . B, issued: A's KS k16 slices in registers, B's query rows at
-// b_addr (the warpgroup's first atom), MN-major, 16 rows a slice, one
-// 64-column atom after the other
-__device__ __forceinline__ void rs_wgmma(float (&acc)[2][32],
-                                         const uint32_t (&a)[KS][4],
-                                         uint32_t b_addr) {
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
-      wgmma_n64_rs(acc[hh], a[kk], desc(b_addr + hh * Q_BOX + kk * 16 * 128));
-}
-
-// s rounded to bf16, packed as wgmma's A: slice kk is s[8 kk .. 8 kk + 8)
-__device__ __forceinline__ void pack(uint32_t (&a)[KS][4],
-                                     const float (&s)[NQ / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-    for (int x = 0; x < 4; ++x)
-      a[kk][x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
-}
-
-__device__ __forceinline__ void fence2(float (&a)[NQ / 2],
-                                       float (&b)[NQ / 2]) {
-  fence_regs(a);
-  fence_regs(b);
-}
-
-// x = a + b (fresh, or x += a + b), elementwise in fp32
-__device__ __forceinline__ void add2(float (&x)[NQ / 2], const float (&a)[NQ / 2],
-                                     const float (&b)[NQ / 2], bool fresh) {
-#pragma unroll
-  for (int e = 0; e < NQ / 2; ++e) x[e] = fresh ? a[e] + b[e] : x[e] + (a[e] + b[e]);
-}
-
-__device__ __forceinline__ void fence_acc(float (&a)[2][32]) {
-  fence_regs(a[0]);
-  fence_regs(a[1]);
-}
-
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-
-// The thread's NQ / 2 values of a 64 x NQ fp32 tile fragment in a traded
-// slot: float4 i of thread t at float4 128 i + t, so a warp's accesses are
-// contiguous
-__device__ __forceinline__ void put(float* part, int t,
-                                    const float (&x)[NQ / 2]) {
-#pragma unroll
-  for (int i = 0; i < NQ / 8; ++i)
-    reinterpret_cast<float4*>(part)[128 * i + t] =
-        make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
-}
-
-__device__ __forceinline__ void add_from(const float* part, int t,
-                                         float (&x)[NQ / 2]) {
-#pragma unroll
-  for (int i = 0; i < NQ / 8; ++i) {
-    const float4 y = reinterpret_cast<const float4*>(part)[128 * i + t];
-    x[4 * i] += y.x;
-    x[4 * i + 1] += y.y;
-    x[4 * i + 2] += y.z;
-    x[4 * i + 3] += y.w;
-  }
-}
 
 // lse and delta of the thread's query columns q0 + 8 jj + c_in + c at
 // [2 jj + c]; a row past Tq or with lse -1e30 takes no part (+1e30, so
@@ -428,23 +332,6 @@ __global__ void __launch_bounds__(THREADS, 1)
             pack_bf16(dv[hh][e], dv[hh][e + 1]);
       }
   }
-}
-
-// Tensor map of one operand: geo = {inner, outer, st_seq, st_outer, ...}
-// in elements; boxes of 64 columns x rows x 1.
-bool make_map_3d(CUtensorMap* map, const void* ptr, const long long* geo,
-                 int seq, int rows) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(geo[0]),
-                              static_cast<cuuint64_t>(seq),
-                              static_cast<cuuint64_t>(geo[1])};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(geo[2]) * 2,
-                                 static_cast<cuuint64_t>(geo[3]) * 2};
-  return make_map(map, ptr, 3, dims, strides, rows);
-}
-
-Geo geo_of(const long long* geo) {
-  return Geo{geo[2], geo[3], static_cast<int>(geo[4]),
-             static_cast<int>(geo[5]), static_cast<int>(geo[6])};
 }
 
 }  // namespace

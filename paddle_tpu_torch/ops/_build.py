@@ -2,10 +2,11 @@
 
 Every ``*.cu`` file under ``paddle_tpu_torch/csrc/`` exposes a plain C
 interface; the ``*.cuh`` headers beside them (``sm90.cuh``: the helpers
-of the tensor-core kernels) are included, not compiled. At first use
-each source is compiled for Hopper (``sm_90a``) by its own ``nvcc``, all
-of them started together, and the objects are linked into one shared
-library::
+of the tensor-core kernels; ``flash_d256.cuh``: those the bf16 flash
+backward kernels at head_dim 256 share) are included, not compiled. At
+first use each source is compiled for Hopper (``sm_90a``) by its own
+``nvcc``, all of them started together, and the objects are linked into
+one shared library::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
          -Xcompiler -fPIC -Xptxas=-v -c -o <hash>/<name>.o csrc/<name>.cu
@@ -114,7 +115,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                  lib.flash_attn_fwd_d256_sm90_tile_q,
                  lib.flash_attn_fwd_d256_sm90_tile_kv,
                  lib.flash_attn_dkv_d256_sm90_tile,
-                 lib.flash_attn_dkv_d256_sm90_stage):
+                 lib.flash_attn_dkv_d256_sm90_stage,
+                 lib.flash_attn_dq_d256_sm90_tile,
+                 lib.flash_attn_dq_d256_sm90_stage):
         tile.argtypes = []
         tile.restype = i
     f = ctypes.c_float
@@ -133,11 +136,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                 lib.flash_attn_fwd_d256_sm90):
         fwd.argtypes = [p] * 5 + [i] * 5 + [geo, geo, f, i, p]
         fwd.restype = i
-    lib.flash_attn_dq_sm90.argtypes = [p] * 7 + [i] * 5 + [geo, geo, f, i, p]
+    for dq in (lib.flash_attn_dq_sm90, lib.flash_attn_dq_d256_sm90):
+        dq.argtypes = [p] * 7 + [i] * 5 + [geo, geo, f, i, p]
+        dq.restype = i
     for dkv in (lib.flash_attn_dkv_sm90, lib.flash_attn_dkv_d256_sm90):
         dkv.argtypes = [p] * 8 + [i] * 5 + [geo, geo, f, i, p]
         dkv.restype = i
-    lib.flash_attn_dq_sm90.restype = i
     for tile in (lib.flash_attn_bwd_sm90_tile, lib.flash_attn_dq_sm90_stage,
                  lib.flash_attn_dkv_sm90_stage,
                  lib.flash_attn_fwd_f32_sm90_tile_q,

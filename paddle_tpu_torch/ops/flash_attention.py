@@ -7,16 +7,18 @@ and its custom VJP: ``_fwd_kernel``/``_fwd_kernel_bthd`` forward,
 in ``paddle_tpu_torch/csrc/flash_attention_fwd_sm90.cu`` and
 ``paddle_tpu_torch/csrc/flash_attention_bwd_sm90.cu`` (bf16 at head_dim
 64 and 128, on the tensor cores),
-``paddle_tpu_torch/csrc/flash_attention_fwd_d256_sm90.cu`` and
+``paddle_tpu_torch/csrc/flash_attention_fwd_d256_sm90.cu``,
+``paddle_tpu_torch/csrc/flash_attention_dq_d256_sm90.cu`` and
 ``paddle_tpu_torch/csrc/flash_attention_dkv_d256_sm90.cu`` (the bf16
-forward and dk/dv at head_dim 256, on the tensor cores),
+forward, dq and dk/dv at head_dim 256, on the tensor cores),
 ``paddle_tpu_torch/csrc/flash_attention_fwd_f32_sm90.cu`` (the fp32
 forward at head_dim 64 and 128, on the tensor cores through split TF32)
-and ``paddle_tpu_torch/csrc/flash_attention.cu`` (the fp32 dq and dk/dv,
-the fp32 forward at head_dim 256 and the bf16 dq at head_dim 256, on the
-FMA units), whose headers state what bounds them on the card and how the
+and ``paddle_tpu_torch/csrc/flash_attention.cu`` (fp32 only: the dq and
+dk/dv at every head_dim and the forward at head_dim 256, on the FMA
+units), whose headers state what bounds them on the card and how the
 design answers that. One kernel per role, dtype and head_dim serves both
-layouts (``_SM90_ENTRIES`` names the tensor-core ones):
+layouts (``_SM90_ENTRIES`` names the tensor-core ones; bf16 takes one in
+every role at every head_dim):
 
 - forward: out and the per-row logsumexp (``fwd_launches``). bf16 takes
   a wgmma kernel at every head_dim (``flash_attn_fwd_sm90`` at 64 and
@@ -25,8 +27,8 @@ layouts (``_SM90_ENTRIES`` names the tensor-core ones):
   through rank-3 TMA tensor maps (:func:`tma_geometry`). fp32 at head_dim
   256 takes the SIMT kernel, which reads them through (batch, seq, head)
   strides;
-- dq (``dq_launches``): bf16 at head_dim 64 or 128 on the tensor cores,
-  the rest SIMT;
+- dq (``dq_launches``): bf16 on the tensor cores at every head_dim
+  (``flash_attn_dq_d256_sm90`` at 256), fp32 SIMT;
 - dk and dv, one kernel (``dkv_launches``): bf16 on the tensor cores at
   every head_dim (``flash_attn_dkv_d256_sm90`` at 256), fp32 SIMT.
 
@@ -129,7 +131,8 @@ _SM90_ENTRIES = {
             (torch.float32, 64): "flash_attn_fwd_f32_sm90",
             (torch.float32, 128): "flash_attn_fwd_f32_sm90"},
     "dq": {(torch.bfloat16, 64): "flash_attn_dq_sm90",
-           (torch.bfloat16, 128): "flash_attn_dq_sm90"},
+           (torch.bfloat16, 128): "flash_attn_dq_sm90",
+           (torch.bfloat16, 256): "flash_attn_dq_d256_sm90"},
     "dkv": {(torch.bfloat16, 64): "flash_attn_dkv_sm90",
             (torch.bfloat16, 128): "flash_attn_dkv_sm90",
             (torch.bfloat16, 256): "flash_attn_dkv_d256_sm90"},
@@ -142,6 +145,9 @@ SM90_D256_FWD_TILES = (128, 64)
 # the bf16 dk/dv's at head_dim 256: keys of a block, query rows of a ring
 # stage (csrc/flash_attention_dkv_d256_sm90.cu)
 SM90_D256_DKV_TILES = (64, 32)
+# the bf16 dq's at head_dim 256: query rows of a block, keys of a ring
+# stage (csrc/flash_attention_dq_d256_sm90.cu)
+SM90_D256_DQ_TILES = (64, 32)
 # the fp32 forward's, by head_dim (csrc/flash_attention_fwd_f32_sm90.cu):
 # two consumer warpgroups of 64 query rows at D = 64, one at D = 128
 SM90_F32_FWD_TILES = {64: (128, 32), 128: (64, 32)}
@@ -371,8 +377,8 @@ def tma_geometry(t: torch.Tensor, layout: str) -> Tuple[int, ...]:
 def _tensor_cores(q: torch.Tensor, role: str) -> Optional[str]:
     """The tensor-core entry point that takes ``role`` ("fwd", "dq" or
     "dkv") of q's dtype and head_dim, or None where that role runs SIMT:
-    bf16 forward and dk/dv at head_dim 64, 128 and 256, bf16 dq at 64
-    and 128, the fp32 forward at 64 and 128."""
+    bf16 in every role at head_dim 64, 128 and 256, the fp32 forward at
+    64 and 128."""
     return _SM90_ENTRIES[role].get((q.dtype, q.shape[-1]))
 
 

@@ -350,22 +350,50 @@ def test_ablation_tool_anchors_match_the_d256_forward_kernel(monkeypatch):
                       d256=True)
 
 
+def test_ablation_tool_anchors_match_the_d256_dq_kernel(monkeypatch):
+    """tools/torch_flash_dq_ablation.py edits the head_dim-256 dq's source
+    by text: each anchor (the trade, the exponential, the dS . K wgmma,
+    the loop's load of K and V) is in it exactly once, and each variant
+    differs from it and from every other."""
+    import importlib.util
+    import os
+
+    tools = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "tools")
+    monkeypatch.syspath_prepend(tools)
+    spec = importlib.util.spec_from_file_location(
+        "torch_flash_dq_ablation",
+        os.path.join(tools, "torch_flash_dq_ablation.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    with open(tool.SOURCE) as f:
+        src = f.read()
+    variants = tool.variants(src)
+    assert variants["kernel"] == src
+    assert len({text for text in variants.values()}) == len(variants)
+    with pytest.raises(RuntimeError, match="source changed"):
+        tool.variants(src.replace("trade(s, dp, j);", "trade(s, dp, j );"))
+
+
 @pytest.mark.parametrize("dtype,d,layout,sm90", [
     (torch.bfloat16, 64, "BTHD", True), (torch.bfloat16, 64, "BHTD", True),
     (torch.bfloat16, 128, "BTHD", True), (torch.bfloat16, 128, "BHTD", True),
-    # the id it had while bf16 at head_dim 256 ran SIMT in both roles
-    pytest.param(torch.bfloat16, 256, "BTHD", "dkv",
+    # the ids these had while bf16 at head_dim 256 ran SIMT in both roles,
+    # then in dq alone
+    pytest.param(torch.bfloat16, 256, "BTHD", "d256",
                  id="dtype4-256-BTHD-False"),
     (torch.float32, 64, "BHTD", False), (torch.float32, 128, "BTHD", False),
-    (torch.bfloat16, 256, "BHTD", "dkv"), (torch.float32, 256, "BTHD", False)])
+    pytest.param(torch.bfloat16, 256, "BHTD", "d256",
+                 id="dtype7-256-BHTD-dkv"),
+    (torch.float32, 256, "BTHD", False)])
 @pytest.mark.parametrize("role", ["dq", "dkv"])
 def test_backward_routes_bf16_to_the_tensor_core_kernels(monkeypatch, dtype, d,
                                                          layout, sm90, role):
     """bf16 at head_dim 64 and 128 goes to the sm90 dq and dk/dv entry
-    points, bf16 dk/dv at head_dim 256 to its own (``sm90`` "dkv"), each
-    with the tensor-map geometry of q (which dO shares) and of k; fp32,
-    and the bf16 dq at head_dim 256, to the SIMT ones; one launch counted
-    either way, on that role's counter only."""
+    points, bf16 dq and dk/dv at head_dim 256 to their own (``sm90``
+    "d256"), each with the tensor-map geometry of q (which dO shares) and
+    of k; fp32 to the SIMT ones; one launch counted either way, on that
+    role's counter only."""
     lib = _Recorder()
     _stub_library(monkeypatch, lib)
     q, k, v, do = (_torch(a, "f32").to(dtype)
@@ -379,7 +407,7 @@ def test_backward_routes_bf16_to_the_tensor_core_kernels(monkeypatch, dtype, d,
     (name, args), = lib.calls
     if sm90 is True:
         entry = f"flash_attn_{role}_sm90"
-    elif sm90 == role:
+    elif sm90 == "d256":
         entry = f"flash_attn_{role}_d256_sm90"
     else:
         entry = f"flash_attn_{role}"
@@ -420,14 +448,16 @@ def test_backward_raises_on_a_refused_launch(monkeypatch, role, dtype):
 
 
 @pytest.mark.parametrize("role,entry", [
-    ("fwd", "flash_attn_fwd_d256_sm90"), ("dkv", "flash_attn_dkv_d256_sm90")])
+    ("fwd", "flash_attn_fwd_d256_sm90"), ("dkv", "flash_attn_dkv_d256_sm90"),
+    ("dq", "flash_attn_dq_d256_sm90")])
 def test_d256_entries_raise_on_a_refused_launch(monkeypatch, role, entry):
     """bf16 at head_dim 256: a refused tensor map (or any error code) from
-    the forward's or dk/dv's tensor-core entry point raises naming it; no
-    launch is counted, and neither the plain version nor the SIMT kernel
-    is taken in its place."""
+    the forward's, dq's or dk/dv's tensor-core entry point raises naming
+    it; no launch is counted, and neither the plain version nor the SIMT
+    kernel is taken in its place."""
     calls = []
-    for plain in ("flash_attention_fwd_plain", "flash_attention_dkv_plain"):
+    for plain in ("flash_attention_fwd_plain", "flash_attention_dq_plain",
+                  "flash_attention_dkv_plain"):
         monkeypatch.setattr(fl, plain, lambda *a: calls.append(a))
     lib = _Recorder(err=-3)
     _stub_library(monkeypatch, lib)
@@ -437,6 +467,8 @@ def test_d256_entries_raise_on_a_refused_launch(monkeypatch, role, entry):
     with pytest.raises(RuntimeError, match=f"{entry}.*error -3"):
         if role == "fwd":
             fl._launch_fwd(q, q, q, True, 0.0625, "BTHD")
+        elif role == "dq":
+            fl._launch_dq(q, q, q, q, stats, stats, True, 0.0625, "BTHD")
         else:
             fl._launch_dkv(q, q, q, q, stats, stats, True, 0.0625, "BTHD")
     assert [name for name, _ in lib.calls] == [entry]

@@ -43,7 +43,8 @@ in for the kernels.
   the key weights' moment.
 - The head_dim-256 kernels by name: their mangled names map to one
   ``_SM90_KERNELS`` key each, and a device trace charges them to the
-  flash forward and dk/dv (``_D256_NAMES`` tells them from the SIMT dq).
+  flash forward, dq and dk/dv (``_D256_NAMES`` tells them from the SIMT
+  dq, which it wants at no call).
 - The seq-512 loss band (``_loss_band``, C2), on a tiny bf16 GPT trained
   13 steps on the CPU from one start: K trained with the wrappers (the
   plain versions here) and with a CE forward whose logits are summed in
@@ -1195,13 +1196,50 @@ def test_kernel_tally_counts_kernels_not_ranges():
     assert ours["flash_attention_fwd"] == {"calls": 1, "ms": 0.4}
 
 
+def test_traced_window_keeps_what_lies_between_its_markers():
+    """``_between_marks`` keeps the host's events and the device records
+    between the two marker kernels on the card's clock: a warm-up step's
+    record kept before the first marker, the markers and their launches
+    go; a trace that lost a marker's record raises ``_TraceLost``."""
+    from types import SimpleNamespace
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    marker = "at::cuda::spin_kernel(long)"
+
+    def event(name, start, device=cuda, kernels=()):
+        return SimpleNamespace(name=name, device_type=device,
+                               kernels=[SimpleNamespace(name=k)
+                                        for k in kernels],
+                               time_range=SimpleNamespace(start=start))
+
+    events = [event("void fused_adam_kernel(x)", 5.0),  # the warm-up's
+              event(marker, 10.0),
+              event("void (anonymous namespace)::fwd_sm90_kernel<64>(x)",
+                    20.0),
+              event("void at::native::elementwise_kernel<128, 2>", 30.0),
+              event(marker, 40.0),
+              event("cudaLaunchKernel", 9.0, cpu, kernels=[marker]),
+              event("cudaGraphLaunch", 15.0, cpu,
+                    kernels=["void at::native::elementwise_kernel<128, 2>"]),
+              event("ProfilerStep#1", 1.0, cpu)]
+    assert chip_smoke._TRACE_MARKER in marker
+    kept = chip_smoke._between_marks(torch, events)
+    assert [e.name for e in kept] == [e.name for e in events[2:4]
+                                      + events[6:]]
+    for lost in (1, 4):
+        with pytest.raises(chip_smoke._TraceLost, match="kept 1 of its 2"):
+            chip_smoke._between_marks(torch, events[:lost]
+                                      + events[lost + 1:])
+
+
 def test_smoke_finds_the_d256_kernels_by_name():
-    """The head_dim-256 forward and dk/dv map to exactly one
+    """The head_dim-256 forward, dq and dk/dv map to exactly one
     ``_SM90_KERNELS`` key each in the build's SASS and ptxas report, and
     none of the D = 64/128 flash kernels or the CE forward maps to them;
-    in a device trace they count as the flash forward and dk/dv, and the
-    named check of a traced step (``_D256_NAMES``) finds them apart from
-    the SIMT dq."""
+    in a device trace they count as the flash forward, dq and dk/dv, and
+    the named check of a traced step (``_D256_NAMES``) finds each of them
+    apart from the others and from the SIMT dq, whose piece it wants at
+    no call."""
     from types import SimpleNamespace
 
     space = "_ZN58_GLOBAL__N__a6c4b388_33_{}_cu_46558d5b"
@@ -1212,6 +1250,12 @@ def test_smoke_finds_the_d256_kernels_by_name():
         space.format("flash_attention_dkv_d256_sm90")
         + "20dkv_d256_sm90_kernelEv14CUtensorMap_stS1_S1_S1_NS_6ParamsE":
             "flash_attention_dkv_d256",
+        space.format("flash_attention_dq_d256_sm90")
+        + "19dq_d256_sm90_kernelEv14CUtensorMap_stS1_S1_S1_NS_6ParamsE":
+            "flash_attention_dq_d256",
+        space.format("flash_attention_bwd_sm90")
+        + "14dq_sm90_kernelILi64EEEv14CUtensorMap_stS1_S1_S1_NS_6ParamsE":
+            "flash_attention_dq_d64",
         space.format("flash_attention_fwd_sm90")
         + "15fwd_sm90_kernelILi64EEEv14CUtensorMap_stS1_S1_NS_6ParamsE":
             "flash_attention_fwd_d64",
@@ -1235,19 +1279,25 @@ def test_smoke_finds_the_d256_kernels_by_name():
 
     args = "(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, " \
            "(anonymous namespace)::Params)"
+    simt_dq = "void (anonymous namespace)::dq_kernel<256>" \
+        "((anonymous namespace)::Params)"
     events = [event("void (anonymous namespace)::fwd_d256_sm90_kernel" + args),
+              event("void (anonymous namespace)::dq_d256_sm90_kernel" + args),
               event("void (anonymous namespace)::dkv_d256_sm90_kernel"
                     + args),
-              event("void (anonymous namespace)::dq_kernel<__nv_bfloat16, "
-                    "256>((anonymous namespace)::Params)")]
+              event(simt_dq)]
     kernels, _, ours, families, _ = chip_smoke._kernel_tally(torch, events)
     assert {k: v["calls"] for k, v in ours.items()} == {
         "lmhead_ce_fwd": 0, "lmhead_ce_dx": 0, "lmhead_ce_dw": 0,
-        "flash_attention_fwd": 1, "flash_attention_dq": 1,
+        "flash_attention_fwd": 1, "flash_attention_dq": 2,
         "flash_attention_dkv": 1, "fused_adam": 0}
     assert families == {}
+    assert chip_smoke._D256_NAMES["::dq_d256_sm90_kernel("] == \
+        chip_smoke._LAYERS and chip_smoke._D256_NAMES["::dq_kernel<"] == 0
     for piece in chip_smoke._D256_NAMES:
-        assert sum(piece in k for k in kernels) == 1, piece
+        hits = [k for k in kernels if piece in k]
+        assert hits == [simt_dq] if piece == "::dq_kernel<" else \
+            len(hits) == 1 and hits != [simt_dq], (piece, hits)
 
 
 @pytest.fixture(scope="module")

@@ -103,10 +103,11 @@ def variants(src, d256=False):
             "skeleton": skeleton}
 
 
-def build(sources, out_dir, entry="flash_attn_fwd_sm90"):
+def build(sources, out_dir, entry="flash_attn_fwd_sm90", pointers=5):
     """One nvcc per variant, started together, each finding the kernel's
     headers (sm90.cuh) in csrc/; {name: ctypes library} with ``entry``
-    declared."""
+    declared: ``pointers`` tensors, then the tensor-core entry points'
+    dims, geometries, scale, causal flag and stream."""
     nvcc = _build._nvcc()
     procs = {}
     for name, src in sources.items():
@@ -126,7 +127,8 @@ def build(sources, out_dir, entry="flash_attn_fwd_sm90"):
         p, i = ctypes.c_void_p, ctypes.c_int
         geo = ctypes.POINTER(ctypes.c_longlong)
         fn = getattr(lib, entry)
-        fn.argtypes = [p] * 5 + [i] * 5 + [geo, geo, ctypes.c_float, i, p]
+        fn.argtypes = [p] * pointers + [i] * 5 + [geo, geo, ctypes.c_float,
+                                                   i, p]
         fn.restype = i
         libs[name] = lib
     return libs

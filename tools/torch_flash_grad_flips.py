@@ -10,7 +10,8 @@ sides round P and dS to bf16 at the same places, but their fp32 values
 before that rounding differ in the last bits (the tensor cores' sums
 against cuBLAS's), so now and then an entry of P or dS rounds the other
 way; a flip of a large dS moves a whole row of dk by ulp(dS) |q| scale,
-which can be more than the bound where the row's values are small.
+which can be more than the bound where the row's values are small (and
+of dq by ulp(dS) |k| scale).
 
 For D = 64, 128 and 256, at B = 2, H = 2, T = 512, causal, BHTD (the
 shape of a ``_FLASH_CASES`` case at D = 256) for N seeds (default 48)
@@ -19,13 +20,14 @@ at D = 256 train_d256's) for M seeds (default 4), seeds 40, 41, ..., on
 the inputs ``chip_smoke._flash_inputs`` makes, this counts the values of
 dq, dk and dv beyond the bound:
 
-- ``kernels``: the wrappers (the tensor-core kernels; SIMT dq at 256);
+- ``kernels``: the wrappers (the tensor-core kernels);
 - ``exact``: the plain version with its two fp32 products S = q k^T and
   dP = dO v^T summed in float64 and rounded once to fp32 (the same
-  rounding of P and dS to bf16 after), for dk and dv.
+  rounding of P and dS to bf16 after), for dq, dk and dv.
 
 One JSON line per (shape, D, seed) where a count is not 0, then the
-totals per shape and D: values beyond and seeds with any; the card's
+totals per shape and D: values beyond, seeds with any, and seeds with
+any in each of dq, dk and dv; the card's
 name and power limit on each.
 """
 import argparse
@@ -36,8 +38,9 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def exact_dkv(torch, fl, q, k, v, do, lse, delta, causal, layout):
-    """(dk, dv) of the plain version with S and dP summed in float64."""
+def exact_grads(torch, fl, q, k, v, do, lse, delta, causal, layout):
+    """(dq, dk, dv) of the plain version with S and dP summed in
+    float64."""
     def heads(t):
         return fl._heads_first(t, layout).double()
 
@@ -48,8 +51,8 @@ def exact_dkv(torch, fl, q, k, v, do, lse, delta, causal, layout):
     ds = (p * (dp - delta[..., None])).to(q.dtype).float()
     dv = p.to(q.dtype).float().transpose(-1, -2) @ fl._heads_first(do, layout)
     dk = (ds.transpose(-1, -2) @ fl._heads_first(q, layout)) * scale
-    return (fl._to_layout(dk, layout, q.dtype),
-            fl._to_layout(dv, layout, q.dtype))
+    dq = (ds @ fl._heads_first(k, layout)) * scale
+    return tuple(fl._to_layout(g, layout, q.dtype) for g in (dq, dk, dv))
 
 
 def beyond(torch, got, want, tol):
@@ -84,12 +87,13 @@ def main() -> int:
                                                torch.bfloat16, layout, seed)
                 got, ref = cs._flash_outputs(torch, q, k, v, do, True, layout)
                 delta = fl.flash_attention_delta(ref["out"], do, layout)
-                dk, dv = exact_dkv(torch, fl, q, k, v, do, ref["lse"], delta,
-                                   True, layout)
+                dq, dk, dv = exact_grads(torch, fl, q, k, v, do, ref["lse"],
+                                         delta, True, layout)
                 torch.cuda.synchronize()
                 row = {"kernels": {n: beyond(torch, got[n], ref[n], tol)
                                    for n in ("dq", "dk", "dv")},
-                       "exact": {"dk": beyond(torch, dk, ref["dk"], tol),
+                       "exact": {"dq": beyond(torch, dq, ref["dq"], tol),
+                                 "dk": beyond(torch, dk, ref["dk"], tol),
                                  "dv": beyond(torch, dv, ref["dv"], tol)}}
                 key = f"{layout} B{b} H{h} T{t} D{d}"
                 for kind, counts in row.items():
@@ -99,11 +103,14 @@ def main() -> int:
                     tot["values"] += sum(counts.values())
                     tot["seeds_beyond"] += int(sum(counts.values()) > 0)
                     tot["seeds"] += 1
+                    for n, c in counts.items():  # seeds beyond, by gradient
+                        by = tot.setdefault("seeds_beyond_by_grad", {})
+                        by[n] = by.get(n, 0) + int(c > 0)
                 if any(sum(c.values()) for c in row.values()):
                     print(json.dumps(dict(shape=key, seed=seed,
                                           tolerance=tol, card=card, **row)),
                           flush=True)
-                del q, k, v, do, got, ref, delta, dk, dv
+                del q, k, v, do, got, ref, delta, dq, dk, dv
                 torch.cuda.empty_cache()
     print(json.dumps(dict(totals=totals, card=card)))
     return 0
