@@ -1,14 +1,10 @@
-// Flash attention, forward and backward, for Hopper (sm_90a).
+// Flash attention backward in fp32 for Hopper (sm_90a), on the FMA units.
 //
-// Replaces the three TPU kernels of paddle_tpu/ops/pallas/flash_attention.py
-// (each run through pl.pallas_call), in both of their layouts:
-//   _fwd_kernel (BHTD) / _fwd_kernel_bthd (BTHD), by _fwd: for each query
-//     row r, without writing the [Tq, Tk] scores to device memory,
-//         s[r, c]  = (q[r] . k[c]) * scale       (fp32 products and sums)
-//         lse[r]   = logsumexp over the visible c of s[r, c]
-//         out[r]   = sum_c softmax(s[r])[c] * v[c]
-//   _bwd_dq_kernel / _bwd_dq_kernel_bthd, by _bwd (dq pass), from the saved
-//     lse and delta[r] = rowsum(dO[r] * out[r]):
+// Replaces, for fp32 inputs, the two backward TPU kernels of
+// paddle_tpu/ops/pallas/flash_attention.py (each run through
+// pl.pallas_call), in both of their layouts, from the forward's saved lse
+// (s[r, c] = (q[r] . k[c]) * scale) and delta[r] = rowsum(dO[r] * out[r]):
+//   _bwd_dq_kernel / _bwd_dq_kernel_bthd, by _bwd (dq pass):
 //         P = exp(s - lse), dP = dO . V^T, dS = P * (dP - delta)
 //         dq = scale * dS . K
 //   _bwd_dkv_kernel / _bwd_dkv_kernel_bthd (dk/dv pass):
@@ -21,38 +17,33 @@
 // BHTD rule; the TPU's BTHD kernel rounds q * scale to the inputs' dtype
 // first, which agrees at D = 64, where the scale is 0.125) and the dq and
 // dk sums once at the end.
-// Masked scores take no part: the online softmax starts from -1e30, a
-// finite stand-in for -inf, as on the TPU, and a masked entry contributes
-// exactly 0. A row that sees no key (only with causal and Tq > Tk) has
-// l = 0, written out as 0 with lse = -1e30 (l is replaced by 1, as the
-// TPU does where a whole query block is skipped).
+// Masked scores take no part: a masked entry's P is exactly 0.
 //
 // Bound on this card (H100 SXM): operations. At the training shape
 // (B = 8, T = 2048, H = 12, D = 64, fp32, causal) the visible score
 // entries number B*H*T*(T+1)/2, and each product over them costs 2*D FLOPs
-// an entry: 51.6 GFLOP for the forward (2 products), 77.3 for dq (3) and
-// 103.1 for dk/dv (4): 0.77, 1.15 and 1.54 ms at the 67 TFLOP/s of the
-// fp32 FMA units these kernels run on, against under 0.08 ms to move q,
-// k, v, dO and the outputs once at 3.35 TB/s. bf16 runs on the tensor
-// cores in every role at every head_dim (flash_attention_fwd_sm90.cu and
-// flash_attention_bwd_sm90.cu at head_dim 64 and 128;
-// flash_attention_fwd_d256_sm90.cu, flash_attention_dq_d256_sm90.cu and
-// flash_attention_dkv_d256_sm90.cu at 256), and so does the fp32 forward
-// at head_dim 64 and 128, in split TF32 (flash_attention_fwd_f32_sm90.cu).
-// This file serves fp32 only: the forward at head_dim 256, dq and dk/dv
-// at every head_dim.
+// an entry: 77.3 GFLOP for dq (3 products) and 103.1 for dk/dv (4): 1.15
+// and 1.54 ms at the 67 TFLOP/s of the fp32 FMA units these kernels run
+// on, against under 0.08 ms to move q, k, v, dO and the outputs once at
+// 3.35 TB/s. bf16 runs on the tensor cores in every role at every
+// head_dim (flash_attention_fwd_sm90.cu and flash_attention_bwd_sm90.cu at
+// head_dim 64 and 128; flash_attention_fwd_d256_sm90.cu,
+// flash_attention_dq_d256_sm90.cu and flash_attention_dkv_d256_sm90.cu at
+// 256), and so does the fp32 forward, in split TF32
+// (flash_attention_fwd_f32_sm90.cu at head_dim 64 and 128,
+// flash_attention_fwd_f32_d256_sm90.cu at 256). This file serves the fp32
+// dq and dk/dv at every head_dim.
 //
 // Design. The TPU grid walks the kv blocks (or, for dk/dv, the q blocks)
-// of one block in order on one core and carries the running max, sum and
-// accumulators in VMEM. Here that sequential axis is a loop inside one
-// block, and the parallel axes are the grid: one block of 256 threads per
-// (64-row tile, head, batch), the 64-row tile being a query tile for the
-// forward and dq and a key/value tile for dk/dv, so neither backward pass
-// needs atomics. At the training shape that is 32 x 12 x 8 = 3,072 blocks
-// a launch. Query tiles run in reverse order, so that the long causal rows
-// start first. Each thread owns a 4 x 4 patch of the 64 x 64 score tile
-// and 4 rows x D/16 columns of the output accumulator, in registers; the
-// 16 threads of a row reduce with shuffles. Score products stage both
+// of one block in order on one core and carries the accumulators in VMEM.
+// Here that sequential axis is a loop inside one block, and the parallel
+// axes are the grid: one block of 256 threads per (64-row tile, head,
+// batch), the 64-row tile being a query tile for dq and a key/value tile
+// for dk/dv, so neither pass needs atomics. At the training shape that
+// is 32 x 12 x 8 = 3,072 blocks a launch. Query tiles run in reverse
+// order, so that the long causal rows start first. Each thread owns a 4 x
+// 4 patch of the 64 x 64 score tile and 4 rows x D/16 columns of the
+// output accumulator, in registers. Score products stage both
 // operands 32 deep at a time in shared memory, transposed, so that each
 // thread reads its 4 rows and 4 columns as one float4 each; the second
 // product parks the P (or dS) tile in shared memory and streams
@@ -77,37 +68,22 @@ constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 scores each
 constexpr int TM = 4;
 constexpr int TN = 4;
 constexpr int ROW = 64 + 4;   // row stride of the shared tiles (float4 rows)
-constexpr float NEG = -1e30f;  // finite stand-in for -inf, as on the TPU
 
 struct Params {
   const void* q;       // [B, Tq, H, D] or [B, H, Tq, D], as are dout and dq
   const void* k;       // [B, Tk, H, D] or [B, H, Tk, D], as are v, dk, dv
   const void* v;
-  const void* dout;    // dO (backward)
-  const float* lse;    // [B, H, Tq] (backward)
-  const float* delta;  // [B, H, Tq] (backward)
-  void* out;           // out (forward), dq (dq pass) or dk (dk/dv pass)
+  const void* dout;    // dO
+  const float* lse;    // [B, H, Tq]
+  const float* delta;  // [B, H, Tq]
+  void* out;           // dq (dq pass) or dk (dk/dv pass)
   void* out2;          // dv (dk/dv pass)
-  float* lse_out;      // [B, H, Tq] (forward)
   int tq, tk;
   long long q_sb, q_st, q_sh;  // element strides of batch, seq and head
   long long k_sb, k_st, k_sh;
   float scale;
   int causal;
 };
-
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 // dst[k][r] = src[r0 + r][k0 + k] for r < 64, k < BK (transposed), 0 for
 // rows at or past `rows`. A warp covers 4 rows x 8 depths: each row's 8
@@ -247,76 +223,6 @@ __device__ __forceinline__ bool visible(const Params& p, int r, int c) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS) fwd_kernel(const Params p) {
-  __shared__ __align__(16) float stg[2 * BK][ROW];
-  __shared__ __align__(16) float pt[BKV][ROW];  // P^T: [col][row]
-
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const float* v = static_cast<const float*>(p.v) + b * p.k_sb + h * p.k_sh;
-
-  float m_run[TM], l_run[TM], acc[TM][D / 16];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    m_run[i] = NEG;
-    l_run[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
-  }
-
-  const int end = kv_end(p, q0);
-  for (int c0 = 0; c0 < end; c0 += BKV) {
-    float s[TM][TN];
-    scores<D>(s, q, p.q_st, q0, p.tq, k, p.k_st, c0, p.tk, stg, tid, ty,
-                 tx);
-    const bool masked = needs_mask(p, q0, c0);
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int r = q0 + 4 * ty + i;
-      bool keep[TN];
-      float tmax = NEG;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        keep[j] = !masked || visible(p, r, c0 + 4 * tx + j);
-        s[i][j] *= p.scale;
-        if (keep[j]) tmax = fmaxf(tmax, s[i][j]);
-      }
-      const float m_new = fmaxf(m_run[i], row_max(tmax));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const float e = keep[j] ? expf(s[i][j] - m_new) : 0.f;
-        sum += e;
-        pt[4 * tx + j][4 * ty + i] = e;
-      }
-      const float alpha = expf(m_run[i] - m_new);
-      l_run[i] = l_run[i] * alpha + row_sum(sum);
-      m_run[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-    accumulate<D>(acc, pt, v, p.k_st, c0, p.tk, stg, tid, ty, tx);
-  }
-
-  float* out = static_cast<float*>(p.out) + b * p.q_sb + h * p.q_sh;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const float l_safe = l_run[i] == 0.f ? 1.f : l_run[i];
-    const int r = q0 + 4 * ty + i;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[i][c] /= l_safe;
-    if (tx == 0 && r < p.tq)
-      p.lse_out[((long long)b * gridDim.y + h) * p.tq + r] =
-          m_run[i] + logf(l_safe);
-  }
-  write_rows<D>(out, p.q_st, q0, p.tq, acc, 1.f, ty, tx);
-}
-
-template <int D>
 __global__ void __launch_bounds__(THREADS) dq_kernel(const Params p) {
   __shared__ __align__(16) float stg[2 * BK][ROW];
   __shared__ __align__(16) float dst[BKV][ROW];  // dS^T: [col][row]
@@ -432,22 +338,14 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(const Params p) {
                    1.f, ty, tx);
 }
 
-enum Role { FWD, DQ, DKV };
+enum Role { DQ, DKV };
 
 template <int D>
 int launch(Role role, const Params& p, int batch, int heads, cudaStream_t s) {
   const int rows = role == DKV ? p.tk : p.tq;
   const dim3 grid((rows + 63) / 64, heads, batch);
   if (grid.x == 0 || grid.y == 0 || grid.z == 0) return 0;
-  if (role == FWD) {
-    // the fp32 forward at 64 and 128 runs on the tensor cores
-    // (flash_attention_fwd_f32_sm90.cu)
-    if constexpr (D < 256) {
-      return -1;
-    } else {
-      fwd_kernel<D><<<grid, THREADS, 0, s>>>(p);
-    }
-  } else if (role == DQ) {
+  if (role == DQ) {
     dq_kernel<D><<<grid, THREADS, 0, s>>>(p);
   } else {
     dkv_kernel<D><<<grid, THREADS, 0, s>>>(p);
@@ -495,26 +393,10 @@ extern "C" {
 // q: [B, Tq, H, D] (BTHD) or [B, H, Tq, D] (BHTD) at strides q_sb, q_st,
 // q_sh (elements; D contiguous), as are out, dout and dq; k: likewise at
 // k_sb, k_st, k_sh, as are v, dk and dv. lse and delta: [B, H, Tq] fp32.
-// fp32 only (is_bf16 returns -1: flash_attn_fwd_sm90, flash_attn_dq_sm90
-// and flash_attn_dkv_sm90 take bf16 at 64 and 128, flash_attn_fwd_d256_sm90,
-// flash_attn_dq_d256_sm90 and flash_attn_dkv_d256_sm90 at 256). d: 64, 128
-// or 256 (anything else returns -1); the forward only at d = 256
-// (flash_attn_fwd_f32_sm90 takes 64 and 128).
-
-int flash_attn_fwd(const void* q, const void* k, const void* v, void* out,
-                   void* lse, int batch, int heads, int tq, int tk, int d,
-                   long long q_sb, long long q_st, long long q_sh,
-                   long long k_sb, long long k_st, long long k_sh,
-                   float scale, int causal, int is_bf16, void* stream) {
-  Params p{};
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.out = out;
-  p.lse_out = static_cast<float*>(lse);
-  return run(FWD, p, batch, heads, tq, tk, d, q_sb, q_st, q_sh, k_sb, k_st,
-             k_sh, scale, causal, is_bf16, stream);
-}
+// fp32 only (is_bf16 returns -1: flash_attn_dq_sm90 and flash_attn_dkv_sm90
+// take bf16 at 64 and 128, flash_attn_dq_d256_sm90 and
+// flash_attn_dkv_d256_sm90 at 256). d: 64, 128 or 256 (anything else
+// returns -1).
 
 int flash_attn_dq(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,

@@ -1,10 +1,12 @@
-// What the bf16 flash backward kernels at head_dim 256 share
-// (flash_attention_dq_d256_sm90.cu, flash_attention_dkv_d256_sm90.cu): a
-// block of two warpgroups on one 64-row tile (query rows for dq, keys for
-// dk/dv), warpgroup w owning 128 columns of D; a ring of 32-row tiles of
-// the other side (keys for dq, query rows for dk/dv); the partial 64 x 32
+// What the flash kernels at head_dim 256 that split D between two
+// warpgroups share (the bf16 backward's flash_attention_dq_d256_sm90.cu
+// and flash_attention_dkv_d256_sm90.cu, the fp32 forward's
+// flash_attention_fwd_f32_d256_sm90.cu): a block of two warpgroups on one
+// 64-row tile (query rows for dq and the forward, keys for dk/dv),
+// warpgroup w owning 128 columns of D; 32-row tiles of the other side
+// (keys for dq and the forward, query rows for dk/dv); the partial 64 x 32
 // score tiles each warpgroup sums over its columns, traded through shared
-// memory; and the rank-3 tensor maps of ops/flash_attention.py's
+// memory; and the rank-3 tensor maps (bf16) of ops/flash_attention.py's
 // tma_geometry.
 
 #pragma once

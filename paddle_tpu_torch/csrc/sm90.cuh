@@ -1,9 +1,10 @@
 // What the sm_90a kernels share (lmhead_ce_bwd_sm90.cu,
 // lmhead_ce_bwd_f32_sm90.cu, lmhead_ce_fwd_sm90.cu, lmhead_ce_fwd_f32_sm90.cu,
-// flash_attention_fwd_sm90.cu, flash_attention_fwd_f32_sm90.cu,
-// flash_attention_bwd_sm90.cu, flash_attention_fwd_d256_sm90.cu, and through
-// flash_d256.cuh flash_attention_dq_d256_sm90.cu and
-// flash_attention_dkv_d256_sm90.cu): mbarriers,
+// flash_attention_fwd_sm90.cu, flash_attention_bwd_sm90.cu,
+// flash_attention_fwd_d256_sm90.cu, through flash_d256.cuh
+// flash_attention_dq_d256_sm90.cu and flash_attention_dkv_d256_sm90.cu, and
+// through flash_f32.cuh flash_attention_fwd_f32_sm90.cu and
+// flash_attention_fwd_f32_d256_sm90.cu): mbarriers,
 // TMA loads, wgmma shared-memory descriptors and instructions, and, on the
 // host, the encoding of TMA tensor maps.
 //

@@ -2,8 +2,9 @@
 
 Every ``*.cu`` file under ``paddle_tpu_torch/csrc/`` exposes a plain C
 interface; the ``*.cuh`` headers beside them (``sm90.cuh``: the helpers
-of the tensor-core kernels; ``flash_d256.cuh``: those the bf16 flash
-backward kernels at head_dim 256 share) are included, not compiled. At
+of the tensor-core kernels; ``flash_d256.cuh``: those the flash kernels
+that split head_dim 256 between two warpgroups share; ``flash_f32.cuh``:
+those of the split-TF32 flash forwards) are included, not compiled. At
 first use each source is compiled for Hopper (``sm_90a``) by its own
 ``nvcc``, all of them started together, and the objects are linked into
 one shared library::
@@ -117,7 +118,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                  lib.flash_attn_dkv_d256_sm90_tile,
                  lib.flash_attn_dkv_d256_sm90_stage,
                  lib.flash_attn_dq_d256_sm90_tile,
-                 lib.flash_attn_dq_d256_sm90_stage):
+                 lib.flash_attn_dq_d256_sm90_stage,
+                 lib.flash_attn_fwd_f32_d256_sm90_tile_q,
+                 lib.flash_attn_fwd_f32_d256_sm90_tile_kv):
         tile.argtypes = []
         tile.restype = i
     f = ctypes.c_float
@@ -126,14 +129,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fused_adam_step.restype = i
     ll = ctypes.c_longlong
     dims = [i, i, i, i, i, ll, ll, ll, ll, ll, ll, f, i, i, p]
-    lib.flash_attn_fwd.argtypes = [p] * 5 + dims
     lib.flash_attn_dq.argtypes = [p] * 7 + dims
     lib.flash_attn_dkv.argtypes = [p] * 8 + dims
-    for fn in (lib.flash_attn_fwd, lib.flash_attn_dq, lib.flash_attn_dkv):
+    for fn in (lib.flash_attn_dq, lib.flash_attn_dkv):
         fn.restype = i
     geo = ctypes.POINTER(ll)
     for fwd in (lib.flash_attn_fwd_sm90, lib.flash_attn_fwd_f32_sm90,
-                lib.flash_attn_fwd_d256_sm90):
+                lib.flash_attn_fwd_d256_sm90,
+                lib.flash_attn_fwd_f32_d256_sm90):
         fwd.argtypes = [p] * 5 + [i] * 5 + [geo, geo, f, i, p]
         fwd.restype = i
     for dq in (lib.flash_attn_dq_sm90, lib.flash_attn_dq_d256_sm90):

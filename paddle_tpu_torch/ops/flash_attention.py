@@ -11,24 +11,26 @@ in ``paddle_tpu_torch/csrc/flash_attention_fwd_sm90.cu`` and
 ``paddle_tpu_torch/csrc/flash_attention_dq_d256_sm90.cu`` and
 ``paddle_tpu_torch/csrc/flash_attention_dkv_d256_sm90.cu`` (the bf16
 forward, dq and dk/dv at head_dim 256, on the tensor cores),
-``paddle_tpu_torch/csrc/flash_attention_fwd_f32_sm90.cu`` (the fp32
-forward at head_dim 64 and 128, on the tensor cores through split TF32)
-and ``paddle_tpu_torch/csrc/flash_attention.cu`` (fp32 only: the dq and
-dk/dv at every head_dim and the forward at head_dim 256, on the FMA
-units), whose headers state what bounds them on the card and how the
-design answers that. One kernel per role, dtype and head_dim serves both
-layouts (``_SM90_ENTRIES`` names the tensor-core ones; bf16 takes one in
-every role at every head_dim):
+``paddle_tpu_torch/csrc/flash_attention_fwd_f32_sm90.cu`` and
+``paddle_tpu_torch/csrc/flash_attention_fwd_f32_d256_sm90.cu`` (the fp32
+forward at head_dim 64 and 128, and at 256, on the tensor cores through
+split TF32) and ``paddle_tpu_torch/csrc/flash_attention.cu`` (fp32 only:
+the dq and dk/dv at every head_dim, on the FMA units), whose headers
+state what bounds them on the card and how the design answers that. One
+kernel per role, dtype and head_dim serves both layouts
+(``_SM90_ENTRIES`` names the tensor-core ones; the forward takes one in
+both dtypes at every head_dim, bf16 in every role):
 
-- forward: out and the per-row logsumexp (``fwd_launches``). bf16 takes
-  a wgmma kernel at every head_dim (``flash_attn_fwd_sm90`` at 64 and
-  128, ``flash_attn_fwd_d256_sm90`` at 256), fp32 the split-TF32 wgmma
-  kernel at 64 and 128 (``SM90_F32_FWD_TILES``); these read q, k and v
-  through rank-3 TMA tensor maps (:func:`tma_geometry`). fp32 at head_dim
-  256 takes the SIMT kernel, which reads them through (batch, seq, head)
-  strides;
+- forward: out and the per-row logsumexp (``fwd_launches``), a wgmma
+  kernel at every dtype and head_dim: bf16 ``flash_attn_fwd_sm90`` at 64
+  and 128, ``flash_attn_fwd_d256_sm90`` at 256; fp32 in split TF32
+  ``flash_attn_fwd_f32_sm90`` at 64 and 128 (``SM90_F32_FWD_TILES``),
+  ``flash_attn_fwd_f32_d256_sm90`` at 256 (``SM90_F32_D256_FWD_TILES``).
+  Each reads q, k and v through rank-3 TMA tensor maps
+  (:func:`tma_geometry`);
 - dq (``dq_launches``): bf16 on the tensor cores at every head_dim
-  (``flash_attn_dq_d256_sm90`` at 256), fp32 SIMT;
+  (``flash_attn_dq_d256_sm90`` at 256), fp32 SIMT, which reads q, k, v
+  and dO through (batch, seq, head) strides;
 - dk and dv, one kernel (``dkv_launches``): bf16 on the tensor cores at
   every head_dim (``flash_attn_dkv_d256_sm90`` at 256), fp32 SIMT.
 
@@ -122,14 +124,15 @@ dkv_launches = 0
 _NEG = -1e30  # the TPU kernel's finite stand-in for -inf
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128, 256)
-# the tensor-core entry point of each role by (dtype, head_dim); every
-# other input runs the SIMT kernels of csrc/flash_attention.cu
+# the tensor-core entry point of each role by (dtype, head_dim); the fp32
+# dq and dk/dv run the SIMT kernels of csrc/flash_attention.cu
 _SM90_ENTRIES = {
     "fwd": {(torch.bfloat16, 64): "flash_attn_fwd_sm90",
             (torch.bfloat16, 128): "flash_attn_fwd_sm90",
             (torch.bfloat16, 256): "flash_attn_fwd_d256_sm90",
             (torch.float32, 64): "flash_attn_fwd_f32_sm90",
-            (torch.float32, 128): "flash_attn_fwd_f32_sm90"},
+            (torch.float32, 128): "flash_attn_fwd_f32_sm90",
+            (torch.float32, 256): "flash_attn_fwd_f32_d256_sm90"},
     "dq": {(torch.bfloat16, 64): "flash_attn_dq_sm90",
            (torch.bfloat16, 128): "flash_attn_dq_sm90",
            (torch.bfloat16, 256): "flash_attn_dq_d256_sm90"},
@@ -151,6 +154,9 @@ SM90_D256_DQ_TILES = (64, 32)
 # the fp32 forward's, by head_dim (csrc/flash_attention_fwd_f32_sm90.cu):
 # two consumer warpgroups of 64 query rows at D = 64, one at D = 128
 SM90_F32_FWD_TILES = {64: (128, 32), 128: (64, 32)}
+# and at head_dim 256 (csrc/flash_attention_fwd_f32_d256_sm90.cu): 64
+# query rows a block, D split between its two warpgroups; 32 keys a tile
+SM90_F32_D256_FWD_TILES = (64, 32)
 # the bf16 backward's, by head_dim (csrc/flash_attention_bwd_sm90.cu):
 # rows of a block's own tile (query rows for dq, keys for dk/dv), key
 # rows of a dq ring stage, query rows of a dk/dv ring stage
@@ -349,14 +355,6 @@ def _geometry(q, k, scale, causal, layout) -> tuple:
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def _raise_if(err: int, what: str, q, k, layout) -> None:
-    if err:
-        raise RuntimeError(
-            f"flash attention {what} launch failed: CUDA error {err} "
-            f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {layout}, "
-            f"{q.dtype})")
-
-
 def tma_geometry(t: torch.Tensor, layout: str) -> Tuple[int, ...]:
     """How the tensor-core kernels address a contiguous q, k or v through
     a rank-3 TMA tensor map: ``(inner, outer, st_seq, st_outer, head_col,
@@ -376,9 +374,9 @@ def tma_geometry(t: torch.Tensor, layout: str) -> Tuple[int, ...]:
 
 def _tensor_cores(q: torch.Tensor, role: str) -> Optional[str]:
     """The tensor-core entry point that takes ``role`` ("fwd", "dq" or
-    "dkv") of q's dtype and head_dim, or None where that role runs SIMT:
-    bf16 in every role at head_dim 64, 128 and 256, the fp32 forward at
-    64 and 128."""
+    "dkv") of q's dtype and head_dim, or None where that role runs SIMT
+    (the fp32 dq and dk/dv): bf16 in every role at head_dim 64, 128 and
+    256, the fp32 forward at each of them."""
     return _SM90_ENTRIES[role].get((q.dtype, q.shape[-1]))
 
 
@@ -386,7 +384,8 @@ def _launch_fwd_sm90(lib, entry, q, k, v, causal, scale, layout):
     """The forward on the tensor cores through ``entry``: bf16 through
     ``flash_attn_fwd_sm90`` (head_dim 64, 128) or
     ``flash_attn_fwd_d256_sm90``, fp32 through ``flash_attn_fwd_f32_sm90``
-    (split TF32); all take the same rank-3 tensor maps."""
+    or ``flash_attn_fwd_f32_d256_sm90`` (split TF32); all take the same
+    rank-3 tensor maps."""
     b, h, tq, tk, d = _dims(q, k, layout)
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
@@ -404,29 +403,12 @@ def _launch_fwd_sm90(lib, entry, q, k, v, causal, scale, layout):
     return out, lse
 
 
-def _launch_fwd_simt(lib, q, k, v, causal, scale, layout):
-    """The forward on the FMA units (fp32 at head_dim 256)."""
-    b, h, tq, _, _ = _dims(q, k, layout)
-    out = torch.empty_like(q)
-    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    err = lib.flash_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), *_geometry(q, k, scale, causal, layout))
-    _raise_if(err, "forward", q, k, layout)
-    return out, lse
-
-
 def _launch_fwd(q, k, v, causal, scale, layout):
     global fwd_launches
     from . import _build
 
-    entry = _tensor_cores(q, "fwd")
-    if entry:
-        out, lse = _launch_fwd_sm90(_build.load(), entry, q, k, v, causal,
-                                    scale, layout)
-    else:
-        out, lse = _launch_fwd_simt(_build.load(), q, k, v, causal, scale,
-                                    layout)
+    out, lse = _launch_fwd_sm90(_build.load(), _tensor_cores(q, "fwd"), q, k,
+                                v, causal, scale, layout)
     fwd_launches += 1
     _note("flash_attention_fwd", 2, q, k, layout, causal, q, k, v, out, lse)
     return out, lse

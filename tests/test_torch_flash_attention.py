@@ -260,15 +260,16 @@ def _stub_library(monkeypatch, lib):
                  id="dtype2-256-BTHD-flash_attn_fwd"),
     (torch.float32, 64, "BHTD", "flash_attn_fwd_f32_sm90"),
     (torch.float32, 128, "BTHD", "flash_attn_fwd_f32_sm90"),
-    (torch.float32, 256, "BHTD", "flash_attn_fwd"),
+    # the id it had while fp32 at head_dim 256 ran SIMT
+    pytest.param(torch.float32, 256, "BHTD", "flash_attn_fwd_f32_d256_sm90",
+                 id="dtype5-256-BHTD-flash_attn_fwd"),
     (torch.bfloat16, 256, "BHTD", "flash_attn_fwd_d256_sm90")])
 def test_forward_routes_bf16_to_the_tensor_core_kernel(monkeypatch, dtype, d,
                                                        layout, entry):
     """bf16 goes to a tensor-core entry point at every head_dim (the sm90
-    one at 64 and 128, the head_dim-256 one at 256) and fp32 to the
-    split-TF32 one at 64 and 128, each with the tensor-map geometry of q
-    and of k; fp32 at head_dim 256 goes to the SIMT one; one launch
-    counted either way."""
+    one at 64 and 128, the head_dim-256 one at 256) and fp32 to a
+    split-TF32 one (at 64 and 128, and at 256 its own), each with the
+    tensor-map geometry of q and of k; one launch counted."""
     lib = _Recorder()
     _stub_library(monkeypatch, lib)
     q, k, v, _ = (_torch(a, "f32").to(dtype)
@@ -279,11 +280,10 @@ def test_forward_routes_bf16_to_the_tensor_core_kernel(monkeypatch, dtype, d,
     assert out.shape == q.shape and lse.shape == (2, 3, 96)
     (name, args), = lib.calls
     assert name == entry
-    if entry != "flash_attn_fwd":
-        assert args[5:10] == (2, 3, 96, 160, d)
-        assert tuple(args[10]) == fl.tma_geometry(q, layout)
-        assert tuple(args[11]) == fl.tma_geometry(k, layout)
-        assert args[12:14] == (0.125, 1)
+    assert args[5:10] == (2, 3, 96, 160, d)
+    assert tuple(args[10]) == fl.tma_geometry(q, layout)
+    assert tuple(args[11]) == fl.tma_geometry(k, layout)
+    assert args[12:14] == (0.125, 1)
 
 
 def test_forward_raises_on_a_refused_launch(monkeypatch):
@@ -348,6 +348,34 @@ def test_ablation_tool_anchors_match_the_d256_forward_kernel(monkeypatch):
     with pytest.raises(RuntimeError, match="source changed"):
         tool.variants(src.replace("load(j + 1);", "load(j + 1 );"),
                       d256=True)
+
+
+def test_ablation_tool_anchors_match_the_f32_d256_forward_kernel(
+        monkeypatch):
+    """``--f32-d256`` edits the fp32 head_dim-256 forward's source, with
+    ``flash_f32.cuh`` written in, by text: each anchor (the exponential,
+    a box's score chain, P . V, the split of K and V, the load of the next
+    tile) is in it exactly once, the header is written in once, and each
+    variant differs from the kernel and from every other."""
+    import importlib.util
+    import os
+
+    tools = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "tools")
+    monkeypatch.syspath_prepend(tools)
+    spec = importlib.util.spec_from_file_location(
+        "torch_flash_fwd_ablation",
+        os.path.join(tools, "torch_flash_fwd_ablation.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    with open(tool.SOURCE_F32_D256) as f:
+        src = f.read()
+    variants = tool.variants_f32_d256(src)
+    assert '#include "flash_f32.cuh"' not in variants["kernel"]
+    assert "softmax_tile" in variants["kernel"]
+    assert len({text for text in variants.values()}) == len(variants)
+    with pytest.raises(RuntimeError, match="source changed"):
+        tool.variants_f32_d256(src.replace("load(j + 1);", "load(j + 1 );"))
 
 
 def test_ablation_tool_anchors_match_the_d256_dq_kernel(monkeypatch):

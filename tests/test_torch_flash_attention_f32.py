@@ -2,15 +2,19 @@
 CPU, against the port's plain version, the JAX package's kernel and
 float64.
 
-The kernel (``paddle_tpu_torch/csrc/flash_attention_fwd_f32_sm90.cu``)
-cannot run here, so :func:`emulate` repeats its arithmetic in torch:
+The kernels (``paddle_tpu_torch/csrc/flash_attention_fwd_f32_sm90.cu`` at
+head_dim 64 and 128, ``flash_attention_fwd_f32_d256_sm90.cu`` at 256)
+cannot run here, so :func:`emulate` repeats their arithmetic in torch:
 
 - each operand split as ``a = hi + lo`` with ``hi = tf32_rna(a)`` and
   ``lo = tf32_rna(a - hi)`` (``tests/test_torch_lmhead_ce_f32.py``'s
   rounding);
-- the key tiles of ``SM90_F32_FWD_TILES`` in order; per tile the scores
-  ``Q K^T`` in one new accumulator, per 8-deep slice of D ``lo_q . hi_k``,
-  ``hi_q . lo_k``, ``hi_q . hi_k``;
+- the key tiles of ``SM90_F32_FWD_TILES`` (``SM90_F32_D256_FWD_TILES``)
+  in order; per tile the scores ``Q K^T`` in one new accumulator, per
+  8-deep slice of D ``lo_q . hi_k``, ``hi_q . lo_k``, ``hi_q . hi_k``; at
+  head_dim 256 one new accumulator per 32-column box of D, the boxes added
+  in fp32 as ``((c0 + c1) + (c2 + c3))`` over each half of D (a
+  warpgroup's) and the two halves added last;
 - the online softmax on scores prescaled by ``scale * log2(e)`` in fp32:
   ``exp2`` of ``s - m``, masked scores -inf, the row sum of the unrounded
   P kept per thread (keys ``8 j + 2 t + {0, 1}`` of quad lane t, ``l *
@@ -19,15 +23,16 @@ cannot run here, so :func:`emulate` repeats its arithmetic in torch:
 - the tile's ``P V`` in a new accumulator, per 8-key slice in the kernel's
   permuted order (keys 0, 2, 4, 6, 1, 3, 5, 7: the P fragment's), ``lo_p .
   hi_v``, ``hi_p . lo_v``, ``hi_p . hi_v``, added to the output in fp32
-  before the next tile's rescale;
+  before the next tile's rescale (at head_dim 256 ``o * alpha + P V``, one
+  fused multiply-add);
 - out = o * (1 / l), lse = m ln 2 + log l (one fused multiply-add).
 
 The tensor cores' fp32 accumulation is modelled pessimistically, as that
 file models it: exact products, the sum rounded toward zero after every 4
 (the tensor cores of earlier generations were measured to truncate).
 
-What is held, at a few heads, T up to 384, D 64 and 128, both layouts,
-causal and not, Tq != Tk, and rows that see no key:
+What is held, at a few heads, T up to 384, D 64, 128 and 256, both
+layouts, causal and not, Tq != Tk, and rows that see no key:
 
 - the emulation against ``flash_attention_fwd_plain`` at
   ``chip_smoke._FLASH_TOL["float32"]``, and against the JAX package's
@@ -104,13 +109,37 @@ def _only_hi(a):
     return tf32_rna(a), torch.zeros_like(a)
 
 
+def _scores(q_hi, q_lo, k_hi, k_lo, c, cols):
+    """One new accumulator of a key tile's scores over ``cols`` of D."""
+    s = torch.zeros(q_hi.shape[:-1] + (c.stop - c.start,))
+    for kd in range(cols.start, cols.stop, 8):
+        ks = slice(kd, kd + 8)
+        s = _mma(s, q_lo[..., ks], k_hi[..., c, ks])
+        s = _mma(s, q_hi[..., ks], k_lo[..., c, ks])
+        s = _mma(s, q_hi[..., ks], k_hi[..., c, ks])
+    return s
+
+
+def _scores_d256(q_hi, q_lo, k_hi, k_lo, c):
+    """The head_dim-256 kernel's scores of a key tile: a chain per
+    32-column box, ``((c0 + c1) + (c2 + c3))`` over each warpgroup's 128
+    columns, then the two warpgroups' partial sums."""
+    box = [_scores(q_hi, q_lo, k_hi, k_lo, c, slice(32 * x, 32 * x + 32))
+           for x in range(8)]
+    half = [_f32(_f32(box[4 * w] + box[4 * w + 1])
+                 + _f32(box[4 * w + 2] + box[4 * w + 3])) for w in (0, 1)]
+    return _f32(half[0] + half[1])
+
+
 def emulate(q, k, v, causal, layout, pair=_pair):
     """(out, lse) of the fp32 forward's arithmetic on CPU tensors: out in
     the layout, lse (B, H, Tq). Every query row runs every key tile: a
     tile the kernel does not load (wholly above the causal diagonal) is
     fully masked here, which changes no bit (alpha 1, P 0)."""
     d = q.shape[-1]
-    bkv = fl.SM90_F32_FWD_TILES[d][1]
+    d256 = d == 256
+    bkv = (fl.SM90_F32_D256_FWD_TILES if d256
+           else fl.SM90_F32_FWD_TILES[d])[1]
     qh, kh, vh = (fl._heads_first(t, layout) for t in (q, k, v))
     b, h, tq, _ = qh.shape
     tk = kh.shape[2]
@@ -127,12 +156,10 @@ def emulate(q, k, v, causal, layout, pair=_pair):
     rows = torch.arange(tq)[:, None]
     for j in range(tiles):
         c = slice(j * bkv, (j + 1) * bkv)
-        s = torch.zeros((b, h, tq, bkv))
-        for kd in range(0, d, 8):
-            ks = slice(kd, kd + 8)
-            s = _mma(s, q_lo[..., ks], k_hi[..., c, ks])
-            s = _mma(s, q_hi[..., ks], k_lo[..., c, ks])
-            s = _mma(s, q_hi[..., ks], k_hi[..., c, ks])
+        if d256:
+            s = _scores_d256(q_hi, q_lo, k_hi, k_lo, c)
+        else:
+            s = _scores(q_hi, q_lo, k_hi, k_lo, c, slice(0, d))
         if ot is not None:
             o = _f32(o + ot)
         cols = torch.arange(j * bkv, (j + 1) * bkv)[None, :]
@@ -150,7 +177,8 @@ def emulate(q, k, v, causal, layout, pair=_pair):
                 part = _f32(part + quad[..., jj, :, cc])
         lq = _fma(lq, alpha[..., None], part)
         m = m_new
-        o = _f32(o * alpha[..., None])
+        if not d256:
+            o = _f32(o * alpha[..., None])
         p_hi, p_lo = pair(p)
         ot = torch.zeros((b, h, tq, d))
         for jj in range(0, bkv, 8):
@@ -160,6 +188,8 @@ def emulate(q, k, v, causal, layout, pair=_pair):
             ot = _mma(ot, p_lo[..., keys], vt_hi)
             ot = _mma(ot, p_hi[..., keys], vt_lo)
             ot = _mma(ot, p_hi[..., keys], vt_hi)
+        if d256:
+            o, ot = _fma(o, alpha[..., None], ot), None
     if ot is not None:
         o = _f32(o + ot)
     l = _f32(_f32(lq[..., 0] + lq[..., 1]) + _f32(lq[..., 2] + lq[..., 3]))
@@ -180,9 +210,9 @@ def _inputs(b, h, tq, tk, d, layout, seed):
     return q, k, v
 
 
-# (layout, causal, B, H, Tq, Tk, D): both layouts, causal and not, D 64 and
-# 128, Tq < Tk, Tq > Tk (rows that see no key), and lengths that are no
-# multiple of the kernel's tiles
+# (layout, causal, B, H, Tq, Tk, D): both layouts, causal and not, D 64,
+# 128 and 256, Tq < Tk, Tq > Tk (rows that see no key), and lengths that
+# are no multiple of the kernel's tiles
 _CASES = [
     ("BHTD", False, 1, 2, 256, 256, 64),
     ("BTHD", True, 2, 2, 256, 256, 64),
@@ -192,6 +222,13 @@ _CASES = [
     ("BTHD", True, 1, 2, 384, 128, 128),
     ("BTHD", True, 1, 3, 200, 200, 64),
     ("BHTD", False, 1, 2, 333, 300, 128),
+    ("BHTD", False, 1, 2, 128, 128, 256),
+    ("BTHD", True, 1, 2, 256, 256, 256),
+    ("BTHD", False, 1, 1, 128, 256, 256),
+    ("BHTD", True, 1, 2, 128, 384, 256),
+    ("BTHD", True, 1, 1, 384, 128, 256),
+    ("BHTD", True, 1, 1, 333, 333, 256),
+    ("BTHD", False, 1, 2, 200, 333, 256),
 ]
 
 
@@ -299,13 +336,14 @@ def test_fp64_bound_holds_at_the_training_length():
                  (chip_smoke._F32_FLASH_TRAIN_SEED, 7))
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("layout", ["BHTD", "BTHD"])
 def test_fp32_forward_clones_a_misaligned_input_and_raises(monkeypatch, d,
                                                            layout):
     """An fp32 q whose pointer is not 16-byte aligned (a view at an odd
-    offset) reaches ``flash_attn_fwd_f32_sm90`` as an aligned copy, as TMA
-    needs; an error code raises naming the entry point and is not counted
+    offset) reaches ``flash_attn_fwd_f32_sm90`` (at head_dim 256
+    ``flash_attn_fwd_f32_d256_sm90``) as an aligned copy, as TMA needs; an
+    error code raises naming the entry point and is not counted
     (``tests/test_torch_flash_attention.py`` holds the routes and the
     tensor-map geometry)."""
     from paddle_tpu_torch.ops import _build
@@ -329,22 +367,25 @@ def test_fp32_forward_clones_a_misaligned_input_and_raises(monkeypatch, d,
     q = torch.zeros(int(np.prod(shape)) + 1)[1:].view(shape)
     assert q.data_ptr() % 16
     k = torch.zeros(shape)
+    entry = "flash_attn_fwd_f32_d256_sm90" if d == 256 else \
+        "flash_attn_fwd_f32_sm90"
     fl.reset_launches()
     fl._launch_fwd(q, k, k, True, 0.125, layout)
     (name, args), = calls
-    assert name == "flash_attn_fwd_f32_sm90" and fl.fwd_launches == 1
+    assert name == entry and fl.fwd_launches == 1
     assert all(a % 16 == 0 for a in args[:3])
     lib.err = -3
-    with pytest.raises(RuntimeError, match="flash_attn_fwd_f32_sm90.*-3"):
+    with pytest.raises(RuntimeError, match=f"{entry}.*-3"):
         fl._launch_fwd(k, k, k, True, 0.125, layout)
     assert fl.fwd_launches == 1
 
 
 def test_smoke_finds_the_fp32_forward_by_name():
-    """chip_smoke.py maps each instantiation of the fp32 forward to exactly
-    one ``_SM90_KERNELS`` key in the build's SASS and ptxas report, and
-    none of the bf16 forward's or the fp32 CE forward's to it; a device
-    trace charges it to the flash forward."""
+    """chip_smoke.py maps each instantiation of the fp32 forward (at
+    head_dim 64 and 128, and its head_dim-256 kernel) to exactly one
+    ``_SM90_KERNELS`` key in the build's SASS and ptxas report, and none
+    of the bf16 forwards' or the fp32 CE forward's to it; a device trace
+    charges each to the flash forward."""
     from types import SimpleNamespace
 
     space = "_ZN58_GLOBAL__N__a6c4b388_33_{}_cu_46558d5b"
@@ -359,7 +400,13 @@ def test_smoke_finds_the_fp32_forward_by_name():
             "flash_attention_fwd_d64",
         space.format("lmhead_ce_fwd_f32_sm90")
         + "19fwd_f32_sm90_kernelEv14CUtensorMap_stS0_PKxPfS3_S3_iiii":
-            "lmhead_ce_fwd_f32"}
+            "lmhead_ce_fwd_f32",
+        space.format("flash_attention_fwd_f32_d256_sm90")
+        + "24fwd_f32_d256_sm90_kernelE14CUtensorMap_stS0_S0_NS_6ParamsE":
+            "flash_attention_fwd_f32_d256",
+        space.format("flash_attention_fwd_d256_sm90")
+        + "20fwd_d256_sm90_kernelE14CUtensorMap_stS0_S0_NS_6ParamsE":
+            "flash_attention_fwd_d256"}
     for mangled, want in names.items():
         assert chip_smoke._sm90_kernel(mangled) == want, mangled
         hits = [key for key, parts in chip_smoke._SM90_KERNELS.items()
@@ -372,8 +419,14 @@ def test_smoke_finds_the_fp32_forward_by_name():
              "(anonymous namespace)::Params)",
         device_type=torch.autograd.DeviceType.CUDA, is_user_annotation=False,
         time_range=SimpleNamespace(elapsed_us=lambda: 500.0))
-    _, device_ms, ours, families, _ = chip_smoke._kernel_tally(torch,
-                                                               [event])
-    assert ours["flash_attention_fwd"] == {"calls": 1,
-                                           "ms": pytest.approx(0.5)}
+    d256 = SimpleNamespace(
+        name="void (anonymous namespace)::fwd_f32_d256_sm90_kernel("
+             "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+             "(anonymous namespace)::Params)",
+        device_type=torch.autograd.DeviceType.CUDA, is_user_annotation=False,
+        time_range=SimpleNamespace(elapsed_us=lambda: 250.0))
+    _, device_ms, ours, families, _ = chip_smoke._kernel_tally(
+        torch, [event, d256])
+    assert ours["flash_attention_fwd"] == {"calls": 2,
+                                           "ms": pytest.approx(0.75)}
     assert ours["lmhead_ce_fwd"]["calls"] == 0 and families == {}

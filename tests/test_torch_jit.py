@@ -14,7 +14,12 @@ in ``paddle_tpu.jit.load`` and gives the port's. The masked-LM encoder
 of ``chip_smoke`` (tiny widths) reads a position table that is no
 parameter: the port saves it with the parameters, the JAX package does
 not and its own saved encoder fails to run (a difference kept on
-purpose).
+purpose). At head_dim 256 (a narrow encoder of one head of 256, flash
+forced on through ``PADDLE_TPU_FLASH_MIN_SEQ``) the port's loaded fp32
+forward runs ``flash_attention_fwd`` at (fp32, 256) once a layer, the
+route of the head_dim-256 split-TF32 kernel on the card, and gives the
+JAX package's forward of the same weights at the flash kernels' fp32
+parity tolerance (2e-5).
 
 And the port's own contract on the staged CPU route
 (``StaticFunction.staged``, ``Executor.staged``: the card's phases with
@@ -25,6 +30,7 @@ only through the warm-up's recorded constants; a compiled call inside
 another is inlined; outputs take no gradient.
 """
 import torch_threads  # noqa: F401 (one torch thread a worker)
+import importlib
 import os
 import pickle
 import subprocess
@@ -46,6 +52,10 @@ from paddle_tpu_torch.jit.dy2static import Dy2StaticError  # noqa: E402
 
 RTOL = 1e-5
 _MLM = dict(vocab=64, seq=16, d_model=32, n_head=2, n_layer=2, dropout=0.0)
+# the encoder at head_dim 256: one head of 256, flash attention from seq
+# 128 on (PADDLE_TPU_FLASH_MIN_SEQ) in both packages
+_MLM256 = dict(vocab=64, seq=128, d_model=256, n_head=1, n_layer=2,
+               dropout=0.0)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -71,9 +81,24 @@ def _x(seed, shape):
     return np.random.RandomState(seed).rand(*shape).astype("float32")
 
 
-def _ids():
+def _ids(cfg=_MLM):
     return np.random.RandomState(5).randint(
-        0, _MLM["vocab"] - 1, (1, _MLM["seq"])).astype(np.int64)
+        0, cfg["vocab"] - 1, (1, cfg["seq"])).astype(np.int64)
+
+
+class _FlashOn:
+    """``PADDLE_TPU_FLASH_MIN_SEQ`` at ``_MLM256``'s seq inside, so that
+    both packages' attention takes its flash path."""
+
+    def __enter__(self):
+        self.saved = os.environ.get("PADDLE_TPU_FLASH_MIN_SEQ")
+        os.environ["PADDLE_TPU_FLASH_MIN_SEQ"] = str(_MLM256["seq"])
+
+    def __exit__(self, *exc):
+        if self.saved is None:
+            os.environ.pop("PADDLE_TPU_FLASH_MIN_SEQ", None)
+        else:
+            os.environ["PADDLE_TPU_FLASH_MIN_SEQ"] = self.saved
 
 
 def _weights():
@@ -81,7 +106,8 @@ def _weights():
     pt.seed(11)
     out = {}
     for name, layer in (("lin", nn.Linear(3, 2)), ("model", _model(pt)),
-                        ("mlm", chip_smoke._masked_lm(pt, **_MLM))):
+                        ("mlm", chip_smoke._masked_lm(pt, **_MLM)),
+                        ("mlm256", chip_smoke._masked_lm(pt, **_MLM256))):
         for k, v in layer.state_dict().items():
             out[f"{name}/{k}"] = np.asarray(v)
     return out
@@ -124,6 +150,15 @@ def _cases(paddle, weights, root):
     res["mlm/eager"] = np.asarray(mlm(paddle.to_tensor(_ids())).numpy())
     paddle.jit.save(mlm, os.path.join(root, "mlm"), input_spec=[
         paddle.jit.InputSpec([None, _MLM["seq"]], "int64")])
+    mlm256 = _load(chip_smoke._masked_lm(paddle, **_MLM256), weights,
+                   "mlm256")
+    mlm256.eval()
+    attention = importlib.import_module(paddle.__name__ + ".ops.attention")
+    before = attention.FLASH_DISPATCH_COUNT
+    with _FlashOn():
+        res["mlm256/eager"] = np.asarray(mlm256(paddle.to_tensor(
+            _ids(_MLM256))).numpy())
+    res["mlm256/flash"] = np.asarray(attention.FLASH_DISPATCH_COUNT - before)
     return res
 
 
@@ -293,6 +328,45 @@ def test_a_model_saved_by_the_port_loads_in_jax(shared):
                                port["roundtrip/expected"], rtol=RTOL)
     np.testing.assert_allclose(ref["port/saved/mlm"], port["mlm/eager"],
                                rtol=RTOL, atol=1e-6)
+
+
+def test_export_at_head_dim_256_runs_the_fp32_flash_forward(shared,
+                                                            tmp_path,
+                                                            monkeypatch):
+    """An encoder with one head of 256 saved in fp32 and loaded: the loaded
+    forward reaches ``flash_attention_fwd`` at (fp32, 256) once a layer
+    (on the card ``flash_attn_fwd_f32_d256_sm90``; here its plain
+    version) and gives the JAX package's forward of the same weights, its
+    flash path taken too, at the flash kernels' fp32 parity tolerance
+    (2e-5)."""
+    from paddle_tpu_torch.ops import flash_attention as fl
+
+    weights, port, ref, _, _ = shared
+    assert int(ref["mlm256/flash"]) == _MLM256["n_layer"]
+    assert int(port["mlm256/flash"]) == _MLM256["n_layer"]
+    net = _load(chip_smoke._masked_lm(pt, **_MLM256), weights, "mlm256")
+    net.eval()
+    path = str(tmp_path / "mlm256")
+    jit.save(net, path, input_spec=[jit.InputSpec([None, _MLM256["seq"]],
+                                                  "int64")])
+    loaded = jit.load(path)
+    calls, fwd = [], fl.flash_attention_fwd
+
+    def recorded(q, *args, **kwargs):
+        calls.append((q.dtype, q.shape[-1]))
+        return fwd(q, *args, **kwargs)
+
+    monkeypatch.setattr(fl, "flash_attention_fwd", recorded)
+    with _FlashOn():
+        got = loaded(pt.to_tensor(_ids(_MLM256))).numpy()
+    assert calls == [(torch.float32, 256)] * _MLM256["n_layer"]
+    # the fp32 parity tolerance of the flash kernels' tests
+    # (tests/test_torch_flash_attention.py): logits near 0 differ by
+    # some 1e-6 between the two packages' sums
+    np.testing.assert_allclose(got, ref["mlm256/eager"], rtol=2e-5,
+                               atol=2e-5)
+    np.testing.assert_allclose(port["mlm256/eager"], ref["mlm256/eager"],
+                               rtol=2e-5, atol=2e-5)
 
 
 def test_a_layer_buffer_is_saved_where_the_reference_drops_it(shared):

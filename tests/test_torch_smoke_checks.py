@@ -1232,6 +1232,38 @@ def test_traced_window_keeps_what_lies_between_its_markers():
                                       + events[lost + 1:])
 
 
+def test_device_ms_takes_a_lost_trace_again(monkeypatch):
+    """``_device_ms`` traces again where a trace lost its records, up to
+    ``_TRACE_TRIES`` traces: a second trace that keeps them gives the
+    device ms of one call; two lost traces give None, each said on a
+    ``trace_lost`` line."""
+    from types import SimpleNamespace
+
+    record = SimpleNamespace(
+        name="void (anonymous namespace)::fwd_f32_d256_sm90_kernel(x)",
+        device_type=torch.autograd.DeviceType.CUDA, is_user_annotation=False,
+        time_range=SimpleNamespace(elapsed_us=lambda: 800.0))
+    outcomes, said = [], []
+
+    def profiled(torch_, fn, *args):
+        fn(*args)
+        if outcomes.pop(0):
+            return None, 0.0, [record] * 10
+        raise chip_smoke._TraceLost("lost")
+
+    calls = []
+    assert chip_smoke._TRACE_TRIES == 2
+    monkeypatch.setattr(chip_smoke, "_profiled", profiled)
+    monkeypatch.setattr(chip_smoke, "_say", lambda **kw: said.append(kw))
+    outcomes[:] = [False, True]
+    assert chip_smoke._device_ms(torch, lambda: calls.append(1)) == \
+        pytest.approx(0.8)
+    assert len(calls) == 20 and [k["attempt"] for k in said] == [1]
+    outcomes[:] = [False, False]
+    assert chip_smoke._device_ms(torch, lambda: None) is None
+    assert [k["attempt"] for k in said] == [1, 1, 2]
+
+
 def test_smoke_finds_the_d256_kernels_by_name():
     """The head_dim-256 forward, dq and dk/dv map to exactly one
     ``_SM90_KERNELS`` key each in the build's SASS and ptxas report, and
