@@ -14,9 +14,10 @@ Phases (any failure raises, and the script exits non-zero with no result):
    together, into ``build/torch_kernels/`` (ptxas's register and
    shared-memory report is printed); the tensor-core kernels' (CE
    forward, dx and dW in bf16 and in fp32; flash forward, dq and dk/dv in
-   bf16 at head_dim 64, 128 and 256, the fp32 forward at each) tensor-core
-   instructions counted in the
-   library's SASS (none fails),
+   bf16 at head_dim 64, 128 and 256, the fp32 forward at each, the fp32
+   dq and dk/dv at 256) tensor-core instructions counted in the
+   library's SASS (none fails; the fp32 dq and dk/dv at 256 must hold
+   all their sources issue, ``_SM90_HGMMA``, and no spill),
    with their registers and spills, and their grid geometry held against
    their wrappers';
 3. every kernel against its plain PyTorch version on the card: the
@@ -45,11 +46,15 @@ Phases (any failure raises, and the script exits non-zero with no result):
    -1e30 exactly) and sequence lengths that are not a multiple of the
    kernels' tiles; the fp32 forward (split TF32 on the tensor cores at D
    = 64, 128 and 256) against float64 within ``_F32_FLASH_MULTIPLE`` times
-   the plain fp32 version's own error in out and in lse; the gradient chain
+   the plain fp32 version's own error in out and in lse; the fp32 dq and
+   dk/dv at D = 256 (split TF32) against float64 within
+   ``_F32_FLASH_BWD_MULTIPLE`` times the plain fp32 version's own error
+   in dq, dk and dv; the gradient chain
    (dq and dk/dv from the kernel
    forward's own out and lse) against the plain chain in fp32, within
    twice the plain bf16 chain's own error, at the seq-2048 shape, in
-   BHTD at D = 128 and at train_d256's shape (D = 256); the flash
+   BHTD at D = 128 and at train_d256's shape (D = 256), and in fp32 at
+   train_d256's shape against the chain in float64; the flash
    kernels' peak added memory at the training
    shape (no [B, H, T, T] buffer);
 4. timing with CUDA events (median of 30 after warm-up): each kernel, its
@@ -57,9 +62,10 @@ Phases (any failure raises, and the script exits non-zero with no result):
    and the card's bound for the same work, at the serving score shapes
    and at the training shapes (the CE forward, dx and dW at N = 4096 and
    16384, and the flash forward, dq and dk/dv, with TFLOP/s and their
-   ratio to the library call); the fp32 CE kernels' and the fp32 flash
-   forward's bounds are their split-TF32 ones (three tf32 products a
-   product), the FMA units' beside;
+   ratio to the library call); the fp32 CE kernels', the fp32 flash
+   forward's and the fp32 dq's and dk/dv's at head_dim 256 bounds are
+   their split-TF32 ones (three tf32 products a product), the FMA units'
+   beside;
 5. serving at full GPT width (12 x 768, vocab 32000, random weights from
    seed 0): 8 prompts covering every prefill bucket through
    ServingEngine.warm + submit + run_until_idle, first eagerly
@@ -121,6 +127,13 @@ Phases (any failure raises, and the script exits non-zero with no result):
    dk/dv (``fwd_d256_sm90_kernel``, ``dq_d256_sm90_kernel``,
    ``dkv_d256_sm90_kernel``) with their device ms, and none of the SIMT
    dq (``dq_kernel``);
+   then ``train_f32_d256``: the same program in fp32 (``_F32_D256``), as
+   ``train_d256``, its traced replayed step showing 12 launches each of
+   the split-TF32 forward, dq and dk/dv at head_dim 256
+   (``fwd_f32_d256_sm90_kernel``, ``dq_f32_d256_sm90_kernel``,
+   ``dkv_f32_d256_sm90_kernel``) and none of the SIMT dq or dk/dv
+   (``_F32_D256_NAMES``), its step wall and device ms printed beside
+   ``train_d256``'s (``train_f32_d256_vs_d256``);
    then ``train_observed`` (``_train_observed``): the seq-2048 step
    again with every step-side observability flag on (the goodput,
    memwatch and dynamics journals and the program dumps under
@@ -233,7 +246,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
    forward, dq and dk/dv at head_dim 256) trained 2 steps on the card and
    on the CPU, each Adam moment1 of the card's run within twice the CPU bf16
    run's distance from the fp32 program's, and its losses inside the
-   loss band (``_bf16_leg_agrees``); and
+   loss band (``_bf16_leg_agrees``); the same head in fp32
+   (``flash_f32_d256``: the split-TF32 forward, dq and dk/dv at head_dim
+   256) held as the fp32 legs; and
    the eager encoder at 2 layers, d 128 and seq 1024 (flash on both
    sides), one ``Model.train_batch`` in fp32 from the same numpy weights,
    held the same way;
@@ -248,7 +263,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
    fp32 at batch 1 under ``jit_load_shape`` and at the fp32 training
    shape under ``train_f32_shape``, in bf16 at head_dim 256 under
    ``d256_shape`` with its launches and device ms in train_d256's traced
-   step, and in fp32 at head_dim 256 under ``f32_d256_shape``, the
+   step, and in fp32 at head_dim 256 under ``f32_d256_shape`` with its
+   launches and device ms in train_f32_d256's traced step, the
    forward also under ``jit_load_d256_shape`` with that leg's launches
    and traced device ms), its
    launches by path
@@ -259,7 +275,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
    ``flash_attention_fwd_d256_sm90.cu``, ``flash_attention_dq_d256_sm90.cu``
    and ``flash_attention_dkv_d256_sm90.cu``; the CE kernels' and the flash
    forward's fp32 sources are their split-TF32 kernels, at head_dim 256
-   under ``source_fp32_d256``: ``flash_attention_fwd_f32_d256_sm90.cu``;
+   under ``source_fp32_d256``: ``flash_attention_fwd_f32_d256_sm90.cu``,
+   ``flash_attention_dq_f32_d256_sm90.cu`` and
+   ``flash_attention_dkv_f32_d256_sm90.cu``;
    ``serve_shapes``
    the CE forward's times at the serving shapes);
 9. the card's name and power limit again, and the last line:
@@ -311,6 +329,13 @@ _D256_NAMES = {"::fwd_d256_sm90_kernel(": _LAYERS,
                "::dq_d256_sm90_kernel(": _LAYERS,
                "::dkv_d256_sm90_kernel(": _LAYERS,
                "::dq_kernel<": 0}
+# the same in fp32 (train_f32_d256): the split-TF32 forward, dq and dk/dv
+# at head_dim 256, and none of the SIMT dq or dk/dv
+_F32_D256 = dict(_D256, dtype="float32")
+_F32_D256_NAMES = {"::fwd_f32_d256_sm90_kernel(": _LAYERS,
+                   "::dq_f32_d256_sm90_kernel(": _LAYERS,
+                   "::dkv_f32_d256_sm90_kernel(": _LAYERS,
+                   "::dq_kernel<": 0, "::dkv_kernel<": 0}
 _WARM_STEPS, _TIMED_STEPS = 3, 10
 _LR = 1e-4  # bench.py's Adam learning rate
 # the last training step's rate: a schedule that changes after the
@@ -358,7 +383,8 @@ def _environment(torch):
 # backward's product, fwd_sm90_kernel<D>, flash_fwd_f32_kernel<D>,
 # dq_sm90_kernel<D> and dkv_sm90_kernel<D> the flash kernels' head_dim;
 # fwd_d256_sm90_kernel, dq_d256_sm90_kernel and dkv_d256_sm90_kernel are
-# head_dim 256's own in bf16, fwd_f32_d256_sm90_kernel the fp32 forward's;
+# head_dim 256's own in bf16, fwd_f32_d256_sm90_kernel the fp32 forward's,
+# dq_f32_d256_sm90_kernel and dkv_f32_d256_sm90_kernel the fp32 backward's;
 # no two entries' pieces match one kernel)
 _SM90_KERNELS = {
     "lmhead_ce_fwd": ("lmhead_ce_fwd_sm90", "fwd_sm90_kernel"),
@@ -391,7 +417,20 @@ _SM90_KERNELS = {
                                  "dkv_d256_sm90_kernel"),
     "flash_attention_fwd_f32_d256": ("flash_attention_fwd_f32_d256_sm90",
                                      "fwd_f32_d256_sm90_kernel"),
+    "flash_attention_dq_f32_d256": ("flash_attention_dq_f32_d256_sm90",
+                                    "dq_f32_d256_sm90_kernel"),
+    "flash_attention_dkv_f32_d256": ("flash_attention_dkv_f32_d256_sm90",
+                                     "dkv_f32_d256_sm90_kernel"),
 }
+
+
+# the tensor-core instructions the split-TF32 backward kernels' sources
+# issue (dq: 8 score chains of 12 wgmma and 12 accumulating ones; dk/dv:
+# the same and 24), all of which their SASS must hold, with no spill: the
+# two score products written as two calls of one function once compiled
+# to one copy of the chains (48 HGMMA) that gave wrong sums
+_SM90_HGMMA = {"flash_attention_dq_f32_d256": 108,
+               "flash_attention_dkv_f32_d256": 120}
 
 
 def _sm90_kernel(name):
@@ -477,7 +516,17 @@ def _build():
         "flash_attention_fwd_f32_d256": (
             (lib.flash_attn_fwd_f32_d256_sm90_tile_q(),
              lib.flash_attn_fwd_f32_d256_sm90_tile_kv()),
-            fl.SM90_F32_D256_FWD_TILES)}
+            fl.SM90_F32_D256_FWD_TILES),
+        "flash_attention_dq_f32_d256": (
+            (lib.flash_attn_dq_f32_d256_sm90_tile(),
+             lib.flash_attn_dq_f32_d256_sm90_stage(),
+             lib.flash_attn_dq_f32_d256_sm90_flush()),
+            fl.SM90_F32_D256_DQ_TILES + (fl.SM90_F32_D256_BWD_FLUSH,)),
+        "flash_attention_dkv_f32_d256": (
+            (lib.flash_attn_dkv_f32_d256_sm90_tile(),
+             lib.flash_attn_dkv_f32_d256_sm90_stage(),
+             lib.flash_attn_dkv_f32_d256_sm90_flush()),
+            fl.SM90_F32_D256_DKV_TILES + (fl.SM90_F32_D256_BWD_FLUSH,))}
     for name, (built, wrapper) in geometry.items():
         if built != wrapper:
             raise AssertionError(f"{name} (sm90) geometry {built} differs "
@@ -487,6 +536,12 @@ def _build():
             k.get("hgmma", 0) > 0 for k in sm90.values()):
         raise AssertionError(f"tensor-core kernels without tensor-core "
                              f"instructions in their SASS: {sm90}")
+    wrong = {k: sm90[k] for k, n in _SM90_HGMMA.items()
+             if sm90[k]["hgmma"] != n or sm90[k].get("spill_stores")}
+    if wrong:
+        raise AssertionError(f"split-TF32 backward kernels not built as "
+                             f"written (HGMMA wanted {_SM90_HGMMA}, no "
+                             f"spill): {wrong}")
     serialized = [line.strip() for line in _build.build_log().splitlines()
                   if "wgmma" in line and "serialized" in line]
     _say(phase="build", seconds=round(time.perf_counter() - t0, 3),
@@ -1250,6 +1305,7 @@ def _check_flash(torch):
         del got, ref
 
     _check_f32_flash_truth(torch)
+    _check_f32_flash_bwd_truth(torch)
     _check_chain(torch)
     b, h, t, d = _LONG_B, _LONG["n_head"], _LONG_T, _head_dim(_LONG)
     q, k, v, do = _flash_inputs(torch, b, h, t, t, d, torch.bfloat16,
@@ -1392,6 +1448,114 @@ def _check_f32_flash_truth(torch) -> None:
         del q, k, v, got, plain
 
 
+# The fp32 dq and dk/dv at head_dim 256 (split TF32 on the tensor cores,
+# csrc/flash_attention_dq_f32_d256_sm90.cu and
+# csrc/flash_attention_dkv_f32_d256_sm90.cu) against float64: fed the plain
+# fp32 forward's lse and delta, the kernels' max abs error in each of dq,
+# dk and dv against the backward computed in float64 from the same fp32
+# inputs may be at most _F32_FLASH_BWD_MULTIPLE times the plain fp32
+# version's own (full fp32 products, TF32 off, fed the same lse and
+# delta), plus _F32_FLASH_ATOL, over the head_dim-256 cases of
+# _F32_FLASH_TRUTH_CASES at _F32_FLASH_SEEDS and at
+# _F32_FLASH_TRUTH_TRAIN_D256 at _F32_FLASH_TRAIN_SEED. Why 25:
+# tests/test_torch_flash_attention_f32_bwd.py emulates the kernels'
+# arithmetic on the CPU -- the split, the per-box chains and the traded
+# partials of the scores, P and dS split, the transposed products over
+# 16-row stage tiles, one accumulator a group of 128 rows (keys for dq),
+# the groups added in fp32 -- with the tensor cores' fp32 sums modelled
+# as truncating after every 4 products, and finds at most 12.1 times the
+# plain version's error over these cases at seeds 1, 2, 7 and 8 (dv), 5.4
+# at the training length (T = 2048 in one batch and head, seeds 3 and
+# 7); the bound is about twice that. A 1xTF32 emulation (hi . hi alone, P
+# and dS too) lies 21x or more beyond it there, so the bound tells split
+# TF32 from TF32.
+_F32_FLASH_BWD_MULTIPLE = 25.0
+
+
+def _flash_bwd_fp64(torch, q, k, v, do, causal, layout) -> dict:
+    """dq, dk and dv computed in float64 from the same fp32 inputs and the
+    same fp32 scale (the float64 forward's P, out and delta), in the
+    inputs' layout."""
+    from paddle_tpu_torch.ops import flash_attention as fl
+
+    qd, kd, vd, dd = (fl._heads_first(t, layout).double()
+                      for t in (q, k, v, do))
+    scale = float(np.float32(1.0 / np.sqrt(q.shape[-1])))
+    s = fl._masked((qd @ kd.transpose(-1, -2)) * scale, causal,
+                   float("-inf"))
+    p = torch.exp(s - torch.logsumexp(s, -1)[..., None]).nan_to_num(0.0)
+    del s
+    delta = (dd * (p @ vd)).sum(-1)
+    ds = p * (dd @ vd.transpose(-1, -2) - delta[..., None])
+    grads = dict(dq=(ds @ kd) * scale, dk=(ds.transpose(-1, -2) @ qd) * scale,
+                 dv=p.transpose(-1, -2) @ dd)
+    return {n: fl._to_layout(g, layout, torch.float64)
+            for n, g in grads.items()}
+
+
+def _f32_flash_bwd_truth_agrees(torch, got, plain, truth, what) -> dict:
+    """Holds fp32 gradients ``got`` (dq, dk, dv) against float64
+    (``truth``) within _F32_FLASH_BWD_MULTIPLE times the plain fp32
+    version's (``plain``) own max abs error + _F32_FLASH_ATOL; raises
+    naming each beyond it. Returns {name: {err, plain_err, ratio,
+    bound}}."""
+    report, bad = {}, []
+    for name, want in truth.items():
+        p = float((plain[name].double() - want).abs().max())
+        err = float((got[name].double() - want).abs().max())
+        bound = _F32_FLASH_BWD_MULTIPLE * p + _F32_FLASH_ATOL
+        report[name] = dict(err=err, plain_err=p, bound=bound,
+                            ratio=err / p if p else None)
+        if not err <= bound:
+            bad.append(f"{name}: max abs error {err} against float64, bound "
+                       f"{bound} ({_F32_FLASH_BWD_MULTIPLE} x the plain fp32 "
+                       f"version's {p} + {_F32_FLASH_ATOL})")
+    if bad:
+        raise AssertionError(f"fp32 flash backward beyond its float64 bound "
+                             f"at {what}: " + "; ".join(bad))
+    return report
+
+
+def _f32_bwd_pair(torch, q, k, v, do, causal, layout) -> tuple:
+    """(the wrappers', the plain versions') dq, dk, dv, both from the plain
+    fp32 forward's lse and delta."""
+    from paddle_tpu_torch.ops import flash_attention as fl
+
+    out, lse = fl.flash_attention_fwd_plain(q, k, v, causal, None, layout)
+    args = (q, k, v, do, lse, fl.flash_attention_delta(out, do, layout),
+            causal, None, layout)
+    dk, dv = fl.flash_attention_dkv(*args)
+    pk, pv = fl.flash_attention_dkv_plain(*args)
+    return (dict(dq=fl.flash_attention_dq(*args), dk=dk, dv=dv),
+            dict(dq=fl.flash_attention_dq_plain(*args), dk=pk, dv=pv))
+
+
+def _check_f32_flash_bwd_truth(torch) -> None:
+    """The fp32 dq and dk/dv at head_dim 256 through
+    ``_f32_flash_bwd_truth_agrees`` at the head_dim-256 cases of
+    _F32_FLASH_TRUTH_CASES at _F32_FLASH_SEEDS (the inputs the CPU test's
+    emulation sets the bound on) and at _F32_FLASH_TRUTH_TRAIN_D256."""
+    runs = [(case, seed) for case in _F32_FLASH_TRUTH_CASES
+            for seed in _F32_FLASH_SEEDS if case[-1] == 256]
+    for (layout, causal, b, h, tq, tk, d), seed in runs + [
+            (_F32_FLASH_TRUTH_TRAIN_D256, _F32_FLASH_TRAIN_SEED)]:
+        q, k, v, do = _flash_inputs(torch, b, h, tq, tk, d, torch.float32,
+                                    layout, seed)
+        got, plain = _f32_bwd_pair(torch, q, k, v, do, causal, layout)
+        truth = _flash_bwd_fp64(torch, q, k, v, do, causal, layout)
+        torch.cuda.synchronize()
+        what = (f"{layout} {'causal' if causal else 'full'} B={b} H={h} "
+                f"Tq={tq} Tk={tk} D={d} seed {seed}")
+        report = _f32_flash_bwd_truth_agrees(torch, got, plain, truth, what)
+        _say(phase="kernel_check", kernel="flash_attention_dq_dkv",
+             dtype="float32", what="split TF32 against float64",
+             layout=layout, causal=causal, b=b, h=h, tq=tq, tk=tk, d=d,
+             seed=seed, multiple=_F32_FLASH_BWD_MULTIPLE,
+             atol=_F32_FLASH_ATOL, **report)
+        del q, k, v, do, got, plain, truth
+        torch.cuda.empty_cache()
+
+
 # The gradient chain (forward, delta, dq, dk/dv) against its fp32 truth:
 # the kernel chain's relative Frobenius error in each of dq, dk and dv may
 # be at most _CHAIN_MULTIPLE times the plain bf16 chain's own, plus
@@ -1414,6 +1578,11 @@ _CHAIN_ATOL = 1e-3
 _CHAIN_CASES = [(_LONG_B, _LONG["n_head"], _LONG_T, 64, "BTHD"),
                 (2, 4, 1024, 128, "BHTD"),
                 (_LONG_B, 3, _LONG_T, 256, "BTHD")]
+# the same chain in fp32 at train_d256's shape (train_f32_d256's: the
+# split-TF32 forward, dq and dk/dv at head_dim 256), held to the chain
+# computed in float64 within _CHAIN_MULTIPLE times the plain fp32 chain's
+# own relative error, plus _CHAIN_ATOL
+_F32_CHAIN_CASES = [(_LONG_B, 3, _LONG_T, 256, "BTHD")]
 
 
 def _plain_chain(q, k, v, do, causal, layout) -> dict:
@@ -1471,10 +1640,13 @@ def _chain_agrees(torch, got, plain, truth, what) -> dict:
 
 
 def _check_chain(torch) -> None:
-    """``_flash_chain`` over ``_CHAIN_CASES`` (causal, bf16)."""
-    for i, (b, h, t, d, layout) in enumerate(_CHAIN_CASES):
-        q, k, v, do = _flash_inputs(torch, b, h, t, t, d, torch.bfloat16,
-                                    layout, seed=98 + i)
+    """``_flash_chain`` over ``_CHAIN_CASES`` (causal, bf16) and
+    ``_F32_CHAIN_CASES`` (causal, fp32)."""
+    cases = [(c, torch.bfloat16) for c in _CHAIN_CASES] + [
+        (c, torch.float32) for c in _F32_CHAIN_CASES]
+    for i, ((b, h, t, d, layout), dtype) in enumerate(cases):
+        q, k, v, do = _flash_inputs(torch, b, h, t, t, d, dtype, layout,
+                                    seed=98 + i)
         _flash_chain(torch, q, k, v, do, True, layout, b=b, h=h, t=t, d=d)
         del q, k, v, do
         torch.cuda.empty_cache()
@@ -1483,17 +1655,23 @@ def _check_chain(torch) -> None:
 def _flash_chain(torch, q, k, v, do, causal, layout, **shape) -> None:
     """The kernel chain (``_kernel_chain``, as the training step runs it)
     against the truth, the plain chain run in fp32 on the same bf16
-    inputs, through ``_chain_agrees``."""
+    inputs (on fp32 inputs, the chain computed in float64), through
+    ``_chain_agrees``."""
     got = _kernel_chain(q, k, v, do, causal, layout)
     plain = _plain_chain(q, k, v, do, causal, layout)
-    truth = _plain_chain(*(t.float() for t in (q, k, v, do)), causal, layout)
+    if q.dtype == torch.float32:
+        truth = _flash_bwd_fp64(torch, q, k, v, do, causal, layout)
+    else:
+        truth = _plain_chain(*(t.float() for t in (q, k, v, do)), causal,
+                             layout)
     torch.cuda.synchronize()
     what = f"{layout} {'causal' if causal else 'full'} {shape}"
     report = _chain_agrees(torch, got, plain, truth, what)
     _say(phase="kernel_check", kernel="flash_attention_chain", **shape,
          dtype=str(q.dtype).replace("torch.", ""), layout=layout,
          causal=causal, what="dq, dk, dv from the kernel forward's out and "
-         "lse against the fp32 chain", multiple=_CHAIN_MULTIPLE,
+         "lse against the fp32 chain (float64 for fp32 inputs)",
+         multiple=_CHAIN_MULTIPLE,
          atol=_CHAIN_ATOL, **report)
 
 
@@ -1724,11 +1902,12 @@ def _time_flash(torch, card, layout="BTHD", causal=True, dtype=None,
     128 twin; in 3 heads, head_dim 256, the ``jit_load_d256`` leg's), fp32
     at batch 8, BTHD, causal the fp32 training program's, bf16 in 3 heads
     (head_dim 256) train_d256's (the head_dim-256 forward, dq and dk/dv
-    on the tensor cores). fp32 dq and dk/dv run SIMT and are bounded at
-    the FMA units' 67 TFLOP/s; the fp32 forward runs on the tensor cores
-    in split TF32 at every head_dim, bounded at three tf32 products a
-    product at 494.7 TFLOP/s (``bound_fma_ms``, its FLOPs at 67, beside
-    it). With ``device``, each row also carries its kernel's and the
+    on the tensor cores), and in fp32 train_f32_d256's. fp32 dq and dk/dv
+    at head_dim 64 and 128 run SIMT and are bounded at the FMA units' 67
+    TFLOP/s; the fp32 forward at every head_dim, and dq and dk/dv at 256,
+    run on the tensor cores in split TF32, bounded at three tf32 products
+    a product at 494.7 TFLOP/s (``bound_fma_ms``, its FLOPs at 67, beside
+    it, and ``bound_share``). With ``device``, each row also carries its kernel's and the
     library call's device ms a call in a warm trace of 10 calls
     (``kernel_device_ms``, ``library_device_ms``; ``_device_ms``: without
     the host's time to launch, which a CUDA-event time of one call holds;
@@ -1781,7 +1960,8 @@ def _time_flash(torch, card, layout="BTHD", causal=True, dtype=None,
     all_ms = _median_ms(torch, library_grad(qr, kr, vr), repeats=repeats)
     rows = {}
     for name, kern, plain, library, products, nbytes in specs:
-        split = dname == "float32" and name == "flash_attention_fwd"
+        split = dname == "float32" and (name == "flash_attention_fwd"
+                                        or d == 256)
         bound, by = _bound_ms(nbytes, products * product * (3 if split else 1),
                               "tfloat32" if split else dname)
         row = dict(phase="kernel_time", kernel=name, b=b, t=t, h=h, d=d,
@@ -2288,9 +2468,11 @@ _TRACE_NAMES = {
                              "::fwd_d256_sm90_kernel(",
                              "::fwd_f32_d256_sm90_kernel("), ()),
     "flash_attention_dq": (("::dq_sm90_kernel<", "::dq_d256_sm90_kernel(",
-                            "::dq_kernel<"), ()),
+                            "::dq_f32_d256_sm90_kernel(", "::dq_kernel<"),
+                           ()),
     "flash_attention_dkv": (("::dkv_sm90_kernel<", "::dkv_d256_sm90_kernel(",
-                             "::dkv_kernel<"), ()),
+                             "::dkv_f32_d256_sm90_kernel(", "::dkv_kernel<"),
+                            ()),
     "fused_adam": (("::adam_kernel<",), ()),
 }
 
@@ -2511,9 +2693,10 @@ def _profile_step(torch, exe, main, feed, fetch_list, scope, card, phase,
 # (measured on an H100); at 1e-5 it shrinks a thousandfold, while the
 # other parameters still move by about lr.
 # The flash_d256 leg runs one head of 256 in bf16 (the tensor-core
-# forward, dq and dk/dv at head_dim 256 take bf16 only; fp32 there is
-# SIMT), so it is held by ``_bf16_leg_agrees`` instead
-# (``_cpu_vs_card_bf16``).
+# forward, dq and dk/dv at head_dim 256 in bf16), so it is held by
+# ``_bf16_leg_agrees`` instead (``_cpu_vs_card_bf16``); the
+# flash_f32_d256 leg the same head in fp32 (the split-TF32 forward, dq
+# and dk/dv at head_dim 256), at _TINY_TOL.
 _CPU_VS_CARD = [
     ("einsum", dict(vocab_size=128, n_layer=2, n_head=2, d_model=32,
                     max_seq_len=16), 16, None, 1e-3, 1e-8),
@@ -2522,6 +2705,8 @@ _CPU_VS_CARD = [
     ("flash_d256", dict(vocab_size=256, n_layer=2, n_head=1, d_model=256,
                         max_seq_len=128, dtype="bfloat16"), 128, 128, 1e-3,
      1e-5),
+    ("flash_f32_d256", dict(vocab_size=256, n_layer=2, n_head=1, d_model=256,
+                            max_seq_len=128), 128, 128, 1e-3, 1e-5),
 ]
 # the eager encoder of train_eager at 2 layers, d 128 (head_dim 64) and
 # seq 1024, where attention takes flash on the card by default; one
@@ -6302,6 +6487,21 @@ def main() -> int:
                                      "train_d256", _LAYERS,
                                      names=_D256_NAMES)
     lap("train_d256")
+    train_f32_d256, traced_f32_d256 = _train(
+        torch, card, _F32_D256, _LONG_B, _LONG_T, "train_f32_d256", _LAYERS,
+        names=_F32_D256_NAMES)
+    _say(phase="train_f32_d256_vs_d256", card=card, **{
+        leg: {"step_ms_median": _SAID[leg]["step_ms_median"],
+              "tokens_per_s": _SAID[leg]["tokens_per_s"],
+              "traced_device_ms": _SAID[leg + "_replay_vs_eager"]["replayed"][
+                  "traced_device_ms"],
+              "flash_device_ms": {
+                  piece: traced["named_kernels"][piece]["ms"]
+                  for piece in names if names[piece]}}
+        for leg, traced, names in (
+            ("train_d256", traced_d256, _D256_NAMES),
+            ("train_f32_d256", traced_f32_d256, _F32_D256_NAMES))})
+    lap("train_f32_d256")
     observed = _train_observed(torch, card)
     lap("train_observed")
     _sentinel_seq512(torch, card)
@@ -6353,6 +6553,7 @@ def main() -> int:
     def by_path(name, **more):
         return {"train": train[name], "train_long": train_long[name],
                 "train_d256": train_d256[name],
+                "train_f32_d256": train_f32_d256[name],
                 "train_observed": observed[name],
                 "train_recipe": recipe[name],
                 "train_eager": eager.get(name, 0),
@@ -6365,7 +6566,9 @@ def main() -> int:
     def replayed(name):  # the device trace's launches per replayed step
         return {"train": traced["path_kernels"][name]["calls"],
                 "train_long": traced_long["path_kernels"][name]["calls"],
-                "train_d256": traced_d256["path_kernels"][name]["calls"]}
+                "train_d256": traced_d256["path_kernels"][name]["calls"],
+                "train_f32_d256": traced_f32_d256["path_kernels"][name][
+                    "calls"]}
 
     amp_traced = _SAID["static_amp"]["path_kernels"]
 
@@ -6397,9 +6600,9 @@ def main() -> int:
                    if k in t}, **shape}
 
     def flash_fp32_src(name, d=64):
-        if name != "flash_attention_fwd":
-            return flash_src
-        return f32_d256_fwd_src if d == 256 else f32_fwd_src
+        if d == 256:
+            return f32_d256_src[name]
+        return f32_fwd_src if name == "flash_attention_fwd" else flash_src
 
     def long_shape(name):
         t = times[(name, "long")]
@@ -6460,6 +6663,10 @@ def main() -> int:
     flash_src = csrc + "flash_attention.cu"
     f32_fwd_src = csrc + "flash_attention_fwd_f32_sm90.cu"
     f32_d256_fwd_src = csrc + "flash_attention_fwd_f32_d256_sm90.cu"
+    f32_d256_src = {
+        "flash_attention_fwd": f32_d256_fwd_src,
+        "flash_attention_dq": csrc + "flash_attention_dq_f32_d256_sm90.cu",
+        "flash_attention_dkv": csrc + "flash_attention_dkv_f32_d256_sm90.cu"}
     jit_d256 = _SAID["jit"]["jit_load_d256"]
     d256_src = {"flash_attention_fwd": csrc + "flash_attention_fwd_d256_sm90.cu",
                 "flash_attention_dq": csrc + "flash_attention_dq_d256_sm90.cu",
@@ -6467,6 +6674,9 @@ def main() -> int:
     d256_piece = {"flash_attention_fwd": "::fwd_d256_sm90_kernel(",
                   "flash_attention_dq": "::dq_d256_sm90_kernel(",
                   "flash_attention_dkv": "::dkv_d256_sm90_kernel("}
+    f32_d256_piece = {"flash_attention_fwd": "::fwd_f32_d256_sm90_kernel(",
+                      "flash_attention_dq": "::dq_f32_d256_sm90_kernel(",
+                      "flash_attention_dkv": "::dkv_f32_d256_sm90_kernel("}
     for name, bthd, bhtd in (
             ("flash_attention_fwd", 130, 68),
             ("flash_attention_dq", 354, 315),
@@ -6501,9 +6711,18 @@ def main() -> int:
             kernel_device_ms=device_ms,
             over_library_device=device_ms / library_ms if library_ms
             else None)
+        f32_named = traced_f32_d256["named_kernels"][
+            f32_d256_piece[name]]
+        f32_device_ms = f32_named["ms"] / f32_named["calls"]
+        f32_library_ms = f32_d256_times[name]["library_device_ms"]
         extra["f32_d256_shape"] = flash_at(
             f32_d256_times, name, flash_fp32_src(name, 256),
-            path="the training shape at 3 heads in fp32 (no measured path)")
+            path="train_f32_d256", launches=train_f32_d256[name],
+            calls_per_replayed_step=f32_named["calls"],
+            device_ms_per_replayed_step=f32_named["ms"],
+            kernel_device_ms_in_step=f32_device_ms,
+            over_library_device=f32_device_ms / f32_library_ms
+            if f32_library_ms else None)
         if name == "flash_attention_fwd":
             extra["jit_load_d256_shape"] = flash_at(
                 f32_d256_load_times, name, f32_d256_fwd_src,

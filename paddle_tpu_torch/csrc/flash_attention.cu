@@ -31,8 +31,10 @@
 // flash_attention_dq_d256_sm90.cu and flash_attention_dkv_d256_sm90.cu at
 // 256), and so does the fp32 forward, in split TF32
 // (flash_attention_fwd_f32_sm90.cu at head_dim 64 and 128,
-// flash_attention_fwd_f32_d256_sm90.cu at 256). This file serves the fp32
-// dq and dk/dv at every head_dim.
+// flash_attention_fwd_f32_d256_sm90.cu at 256), as do the fp32 dq and
+// dk/dv at head_dim 256 (flash_attention_dq_f32_d256_sm90.cu,
+// flash_attention_dkv_f32_d256_sm90.cu). This file serves the fp32 dq and
+// dk/dv at head_dim 64 and 128.
 //
 // Design. The TPU grid walks the kv blocks (or, for dk/dv, the q blocks)
 // of one block in order on one core and carries the accumulators in VMEM.
@@ -48,7 +50,7 @@
 // thread reads its 4 rows and 4 columns as one float4 each; the second
 // product parks the P (or dS) tile in shared memory and streams
 // the other operand's rows in 64-column slabs. Shared memory is 34,816
-// bytes a block whatever D is (64, 128 or 256). Tiles wholly above the
+// bytes a block whatever D is (64 or 128). Tiles wholly above the
 // causal diagonal are skipped; only tiles that cross it, or the ragged
 // edge of a sequence, are masked. Strides for (batch, seq, head) make one
 // kernel per role serve both layouts: BTHD = (B, T, H, D) and
@@ -360,9 +362,8 @@ int launch_d(Role role, const Params& p, int batch, int heads, int d,
       return launch<64>(role, p, batch, heads, s);
     case 128:
       return launch<128>(role, p, batch, heads, s);
-    case 256:
-      return launch<256>(role, p, batch, heads, s);
-    default:
+    default:  // head_dim 256: flash_attention_dq_f32_d256_sm90.cu and
+              // flash_attention_dkv_f32_d256_sm90.cu
       return -1;
   }
 }
@@ -395,8 +396,9 @@ extern "C" {
 // k_sb, k_st, k_sh, as are v, dk and dv. lse and delta: [B, H, Tq] fp32.
 // fp32 only (is_bf16 returns -1: flash_attn_dq_sm90 and flash_attn_dkv_sm90
 // take bf16 at 64 and 128, flash_attn_dq_d256_sm90 and
-// flash_attn_dkv_d256_sm90 at 256). d: 64, 128 or 256 (anything else
-// returns -1).
+// flash_attn_dkv_d256_sm90 at 256). d: 64 or 128 (anything else returns
+// -1: fp32 at 256 runs flash_attn_dq_f32_d256_sm90 and
+// flash_attn_dkv_f32_d256_sm90, in split TF32).
 
 int flash_attn_dq(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,

@@ -4,9 +4,11 @@
 // flash_attention_fwd_d256_sm90.cu, through flash_d256.cuh
 // flash_attention_dq_d256_sm90.cu and flash_attention_dkv_d256_sm90.cu, and
 // through flash_f32.cuh flash_attention_fwd_f32_sm90.cu and
-// flash_attention_fwd_f32_d256_sm90.cu): mbarriers,
-// TMA loads, wgmma shared-memory descriptors and instructions, and, on the
-// host, the encoding of TMA tensor maps.
+// flash_attention_fwd_f32_d256_sm90.cu, through flash_f32_bwd.cuh
+// flash_attention_dq_f32_d256_sm90.cu and
+// flash_attention_dkv_f32_d256_sm90.cu): mbarriers, TMA loads, stores and
+// reductions, wgmma shared-memory descriptors and instructions, and, on
+// the host, the encoding of TMA tensor maps.
 //
 // Every operand these kernels hand to wgmma from shared memory is a tile
 // of 128-byte rows (64 bf16 or 32 fp32 columns) written by TMA with the
@@ -103,6 +105,44 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(bar)
       : "memory");
+}
+
+// 3-D TMA store of the box at (c0, c1, c2) from src (a bulk async-group
+// of this thread; elements outside the tensor are not written).
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2, %3}], [%4];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(src)
+      : "memory");
+}
+
+// The same box added to the tensor's elements (fp32 add, performed in L2).
+__device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map,
+                                                  uint32_t src, int c0,
+                                                  int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group"
+      " [%0, {%1, %2, %3}], [%4];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(src)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk async-groups are pending:
+// done (bulk_wait), or done reading shared memory (bulk_wait_read).
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------- wgmma
@@ -261,6 +301,22 @@ __device__ __forceinline__ void wgmma_n32_tf32_rs(float (&d)[16], uint32_t a0,
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 16] (+)= A[64 x 8] . B[16 x 8]^T in tf32, A from registers (as
+// wgmma_n32_tf32_rs), B K-major in shared memory
+__device__ __forceinline__ void wgmma_n16_tf32_rs(float (&d)[8], uint32_t a0,
+                                                  uint32_t a1, uint32_t a2,
+                                                  uint32_t a3, uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
 }
 

@@ -413,15 +413,18 @@ def test_ablation_tool_anchors_match_the_d256_dq_kernel(monkeypatch):
     (torch.float32, 64, "BHTD", False), (torch.float32, 128, "BTHD", False),
     pytest.param(torch.bfloat16, 256, "BHTD", "d256",
                  id="dtype7-256-BHTD-dkv"),
-    (torch.float32, 256, "BTHD", False)])
+    # the id this had while fp32 at head_dim 256 ran SIMT
+    pytest.param(torch.float32, 256, "BTHD", "f32_d256",
+                 id="dtype8-256-BTHD-False")])
 @pytest.mark.parametrize("role", ["dq", "dkv"])
 def test_backward_routes_bf16_to_the_tensor_core_kernels(monkeypatch, dtype, d,
                                                          layout, sm90, role):
     """bf16 at head_dim 64 and 128 goes to the sm90 dq and dk/dv entry
     points, bf16 dq and dk/dv at head_dim 256 to their own (``sm90``
-    "d256"), each with the tensor-map geometry of q (which dO shares) and
-    of k; fp32 to the SIMT ones; one launch counted either way, on that
-    role's counter only."""
+    "d256"), fp32 at head_dim 256 to the split-TF32 ones (``sm90``
+    "f32_d256"), each with the tensor-map geometry of q (which dO shares)
+    and of k; fp32 at head_dim 64 and 128 to the SIMT ones; one launch
+    counted either way, on that role's counter only."""
     lib = _Recorder()
     _stub_library(monkeypatch, lib)
     q, k, v, do = (_torch(a, "f32").to(dtype)
@@ -437,6 +440,8 @@ def test_backward_routes_bf16_to_the_tensor_core_kernels(monkeypatch, dtype, d,
         entry = f"flash_attn_{role}_sm90"
     elif sm90 == "d256":
         entry = f"flash_attn_{role}_d256_sm90"
+    elif sm90 == "f32_d256":
+        entry = f"flash_attn_{role}_f32_d256_sm90"
     else:
         entry = f"flash_attn_{role}"
     assert name == entry
@@ -477,19 +482,23 @@ def test_backward_raises_on_a_refused_launch(monkeypatch, role, dtype):
 
 @pytest.mark.parametrize("role,entry", [
     ("fwd", "flash_attn_fwd_d256_sm90"), ("dkv", "flash_attn_dkv_d256_sm90"),
-    ("dq", "flash_attn_dq_d256_sm90")])
+    ("dq", "flash_attn_dq_d256_sm90"),
+    pytest.param("dkv", "flash_attn_dkv_f32_d256_sm90", id="dkv-f32"),
+    pytest.param("dq", "flash_attn_dq_f32_d256_sm90", id="dq-f32")])
 def test_d256_entries_raise_on_a_refused_launch(monkeypatch, role, entry):
-    """bf16 at head_dim 256: a refused tensor map (or any error code) from
-    the forward's, dq's or dk/dv's tensor-core entry point raises naming
-    it; no launch is counted, and neither the plain version nor the SIMT
-    kernel is taken in its place."""
+    """bf16 at head_dim 256, and fp32 dq and dk/dv there: a refused tensor
+    map (or any error code) from the forward's, dq's or dk/dv's
+    tensor-core entry point raises naming it; no launch is counted, and
+    neither the plain version nor the SIMT kernel is taken in its
+    place."""
     calls = []
     for plain in ("flash_attention_fwd_plain", "flash_attention_dq_plain",
                   "flash_attention_dkv_plain"):
         monkeypatch.setattr(fl, plain, lambda *a: calls.append(a))
     lib = _Recorder(err=-3)
     _stub_library(monkeypatch, lib)
-    q = torch.zeros((1, 128, 2, 256), dtype=torch.bfloat16)
+    dtype = torch.float32 if "_f32_" in entry else torch.bfloat16
+    q = torch.zeros((1, 128, 2, 256), dtype=dtype)
     stats = torch.zeros((1, 2, 128))
     fl.reset_launches()
     with pytest.raises(RuntimeError, match=f"{entry}.*error -3"):
@@ -518,3 +527,57 @@ def test_backward_clones_a_misaligned_input(monkeypatch):
     (name, args), = lib.calls
     assert name == "flash_attn_dkv_sm90"
     assert all(a % 16 == 0 for a in args[:4])
+
+
+@pytest.mark.parametrize("role", ["dq", "dkv"])
+@pytest.mark.parametrize("layout", ["BTHD", "BHTD"])
+def test_f32_d256_backward_clones_a_misaligned_input(monkeypatch, role,
+                                                     layout):
+    """An fp32 head_dim-256 input whose pointer is not 16-byte aligned
+    reaches the split-TF32 dq or dk/dv entry point as an aligned copy, as
+    TMA needs, with the tensor-map geometry of q (dO's too) and k; one
+    launch is counted."""
+    lib = _Recorder()
+    _stub_library(monkeypatch, lib)
+    shape = (1, 80, 2, 256) if layout == "BTHD" else (1, 2, 80, 256)
+    flat = torch.zeros(int(np.prod(shape)) + 1)
+    q = flat[1:].view(shape)
+    assert q.data_ptr() % 16
+    k = torch.zeros(shape)
+    stats = torch.zeros((1, 2, 80))
+    fl.reset_launches()
+    launch = fl._launch_dq if role == "dq" else fl._launch_dkv
+    launch(q, k, k, q, stats, stats, True, 0.0625, layout)
+    (name, args), = lib.calls
+    assert name == f"flash_attn_{role}_f32_d256_sm90"
+    assert all(a % 16 == 0 for a in args[:4])
+    n_out = 1 if role == "dq" else 2
+    assert tuple(args[6 + n_out + 5]) == fl.tma_geometry(k, layout)
+    assert (fl.dq_launches, fl.dkv_launches) == (
+        (1, 0) if role == "dq" else (0, 1))
+
+
+def test_simt_backward_no_longer_takes_head_dim_256(monkeypatch):
+    """fp32 dq and dk/dv at head_dim 256 never reach the SIMT entry points
+    (``flash_attn_dq``, ``flash_attn_dkv``) in either layout, and the SIMT
+    source instantiates its kernels at head_dim 64 and 128 only, so that
+    it returns -1 at 256; at 64 and 128 fp32 still takes it."""
+    import os
+
+    lib = _Recorder()
+    _stub_library(monkeypatch, lib)
+    for d, simt in ((64, True), (128, True), (256, False)):
+        for layout in ("BTHD", "BHTD"):
+            q = torch.zeros((1, 64, 2, d) if layout == "BTHD"
+                            else (1, 2, 64, d))
+            stats = torch.zeros((1, 2, 64))
+            lib.calls.clear()
+            fl._launch_dq(q, q, q, q, stats, stats, False, 0.125, layout)
+            fl._launch_dkv(q, q, q, q, stats, stats, False, 0.125, layout)
+            names = [name for name, _ in lib.calls]
+            assert (names == ["flash_attn_dq", "flash_attn_dkv"]) == simt, (
+                d, names)
+    src = open(os.path.join(os.path.dirname(fl.__file__), os.pardir, "csrc",
+                            "flash_attention.cu")).read()
+    assert "launch<64>" in src and "launch<128>" in src
+    assert "launch<256>" not in src and "case 256" not in src

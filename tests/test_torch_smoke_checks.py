@@ -25,7 +25,11 @@ in for the kernels.
   every 16 terms, as a bf16 accumulator would.
 - The fp32 flash forward's float64 check (``_f32_flash_truth_agrees``):
   the split-TF32 kernel's arithmetic, emulated on the CPU, passes, and a
-  1xTF32 emulation fails it in out and in lse.
+  1xTF32 emulation fails it in out and in lse; the same for the fp32 dq
+  and dk/dv at head_dim 256 (``_f32_flash_bwd_truth_agrees``), in dq, dk
+  and dv; their fp32 gradient chain passes the plain chain against
+  float64 and rejects a dropped key tile in dk; the ``flash_f32_d256``
+  CPU-against-card leg is fp32 at head_dim 256.
 - The flash backward computed the tensor-core kernels' way
   (``_keymajor_bwd``: key-major score tiles, P and dS rounded per tile)
   passes ``_flash_agrees``; a dropped query tile, P left unrounded for
@@ -44,7 +48,10 @@ in for the kernels.
 - The head_dim-256 kernels by name: their mangled names map to one
   ``_SM90_KERNELS`` key each, and a device trace charges them to the
   flash forward, dq and dk/dv (``_D256_NAMES`` tells them from the SIMT
-  dq, which it wants at no call).
+  dq, which it wants at no call); the same for the fp32 dq and dk/dv in
+  split TF32 (``_F32_D256_NAMES``, the ``train_f32_d256`` phase's, wants
+  the SIMT dq and dk/dv at no call; ``_SM90_HGMMA`` their instruction
+  counts).
 - The seq-512 loss band (``_loss_band``, C2), on a tiny bf16 GPT trained
   13 steps on the CPU from one start: K trained with the wrappers (the
   plain versions here) and with a CE forward whose logits are summed in
@@ -440,6 +447,69 @@ def test_f32_flash_truth_check_accepts_the_split_and_refuses_tf32():
         chip_smoke._f32_flash_truth_agrees(
             torch, f32.emulate(q, k, v, causal, layout, f32._only_hi), plain,
             q, k, v, causal, layout, "1xTF32 emulation")
+
+
+def test_f32_flash_bwd_truth_check_accepts_the_split_and_refuses_tf32():
+    """``chip_smoke._f32_flash_bwd_truth_agrees`` (the card's float64 check
+    of the fp32 dq and dk/dv at head_dim 256) passes the kernels'
+    arithmetic, emulated on the CPU by
+    ``tests/test_torch_flash_attention_f32_bwd.py``, and raises, naming
+    dq, dk and dv, on a 1xTF32 emulation (hi . hi alone), at the check's
+    first head_dim-256 case and seed."""
+    import test_torch_flash_attention_f32_bwd as bwd
+
+    layout, causal, b, h, tq, tk, d = next(
+        c for c in chip_smoke._F32_FLASH_TRUTH_CASES if c[-1] == 256)
+    q, k, v, do = chip_smoke._flash_inputs(
+        torch, b, h, tq, tk, d, torch.float32, layout,
+        chip_smoke._F32_FLASH_SEEDS[0], device="cpu")
+    _, plain = chip_smoke._f32_bwd_pair(torch, q, k, v, do, causal, layout)
+    truth = chip_smoke._flash_bwd_fp64(torch, q, k, v, do, causal, layout)
+    args = bwd._args(q, k, v, do, causal, layout)[:-2]
+
+    def emulated(pair):
+        return dict(zip(("dq", "dk", "dv"),
+                        bwd.emulate_bwd(*args, layout, pair)))
+
+    report = chip_smoke._f32_flash_bwd_truth_agrees(
+        torch, emulated(bwd._pair), plain, truth, "3xTF32 emulation")
+    assert set(report) == {"dq", "dk", "dv"}
+    assert all(r["err"] <= r["bound"] for r in report.values())
+    with pytest.raises(AssertionError, match="dq.*dk.*dv"):
+        chip_smoke._f32_flash_bwd_truth_agrees(
+            torch, emulated(bwd._only_hi), plain, truth, "1xTF32 emulation")
+
+
+def test_f32_chain_bound_passes_the_plain_chain_and_rejects_a_fault():
+    """The fp32 gradient chain at head_dim 256 (``_F32_CHAIN_CASES``, here
+    in one batch and head at T 256) held to float64 by ``_chain_agrees``:
+    the wrappers' chain (the plain versions here) passes; dk with its first
+    key tile's rows dropped fails."""
+    b, h, t, d, layout = chip_smoke._F32_CHAIN_CASES[0]
+    assert (t, d) == (chip_smoke._LONG_T, 256)
+    q, k, v, do = chip_smoke._flash_inputs(torch, 1, 1, 256, 256, d,
+                                           torch.float32, layout, 98,
+                                           device="cpu")
+    got = chip_smoke._kernel_chain(q, k, v, do, True, layout)
+    plain = chip_smoke._plain_chain(q, k, v, do, True, layout)
+    truth = chip_smoke._flash_bwd_fp64(torch, q, k, v, do, True, layout)
+    chip_smoke._chain_agrees(torch, got, plain, truth, "fp32 chain")
+    got["dk"] = got["dk"].clone()
+    got["dk"][:, :64] = 0
+    with pytest.raises(AssertionError, match="dk"):
+        chip_smoke._chain_agrees(torch, got, plain, truth, "dropped tile")
+
+
+def test_f32_d256_leg_is_fp32_at_head_dim_256():
+    """The flash_f32_d256 CPU-against-card leg trains one fp32 head of 256
+    at seq 128 with flash on both sides (PADDLE_TPU_FLASH_MIN_SEQ 128), so
+    the card runs the split-TF32 forward, dq and dk/dv; it takes the fp32
+    route, held at _TINY_TOL."""
+    leg = next(c for c in chip_smoke._CPU_VS_CARD if c[0] == "flash_f32_d256")
+    _, config, seq, min_seq, _, _ = leg
+    assert config.get("dtype", "float32") == "float32"
+    assert config["d_model"] // config["n_head"] == 256
+    assert seq == min_seq == 128
 
 
 def test_rows_that_see_no_key_must_give_zero_and_the_stand_in():
@@ -1510,3 +1580,70 @@ def test_running_stats_check(train):
     else:
         with pytest.raises(AssertionError, match="did not move"):
             chip_smoke._stats_moved(before, after)
+
+
+def test_smoke_finds_the_f32_d256_backward_by_name():
+    """chip_smoke.py maps each split-TF32 backward kernel to exactly one
+    ``_SM90_KERNELS`` key (none of the bf16 head_dim-256 ones or the fp32
+    forward to it), wants as many tensor-core instructions as the sources
+    issue, a device trace charges them to dq and dk/dv, and the
+    ``train_f32_d256`` phase's names (``_F32_D256_NAMES``) find each of
+    them apart from the SIMT kernels, which it wants at no call."""
+    from types import SimpleNamespace
+
+    space = "_ZN69_GLOBAL__N__d13bf6c1_36_{}_cu_331b0b93"
+    names = {
+        space.format("flash_attention_dkv_f32_d256_sm90")
+        + "24dkv_f32_d256_sm90_kernelE14CUtensorMap_stS0_S0_S0_S0_S0_"
+          "NS_6ParamsE": "flash_attention_dkv_f32_d256",
+        space.format("flash_attention_dq_f32_d256_sm90")
+        + "23dq_f32_d256_sm90_kernelE14CUtensorMap_stS0_S0_S0_S0_"
+          "NS_6ParamsE": "flash_attention_dq_f32_d256",
+        space.format("flash_attention_dkv_d256_sm90")
+        + "20dkv_d256_sm90_kernelEv14CUtensorMap_stS1_S1_S1_NS_6ParamsE":
+            "flash_attention_dkv_d256",
+        space.format("flash_attention_dq_d256_sm90")
+        + "19dq_d256_sm90_kernelEv14CUtensorMap_stS1_S1_S1_NS_6ParamsE":
+            "flash_attention_dq_d256",
+        space.format("flash_attention_fwd_f32_d256_sm90")
+        + "24fwd_f32_d256_sm90_kernelE14CUtensorMap_stS0_S0_NS_6ParamsE":
+            "flash_attention_fwd_f32_d256"}
+    for mangled, want in names.items():
+        hits = [key for key, parts in chip_smoke._SM90_KERNELS.items()
+                if all(p in mangled for p in parts)]
+        assert hits == [want], (mangled, hits)
+    assert chip_smoke._SM90_HGMMA == {"flash_attention_dq_f32_d256": 108,
+                                      "flash_attention_dkv_f32_d256": 120}
+
+    def event(name):
+        return SimpleNamespace(
+            name=name, device_type=torch.autograd.DeviceType.CUDA,
+            is_user_annotation=False,
+            time_range=SimpleNamespace(elapsed_us=lambda: 250.0))
+
+    maps = ", ".join(["CUtensorMap_st"] * 5)
+    simt = ["void (anonymous namespace)::dq_kernel<128>"
+            "((anonymous namespace)::Params)",
+            "void (anonymous namespace)::dkv_kernel<128>"
+            "((anonymous namespace)::Params)"]
+    events = [event("void (anonymous namespace)::fwd_f32_d256_sm90_kernel("
+                    "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+                    "(anonymous namespace)::Params)"),
+              event("void (anonymous namespace)::dq_f32_d256_sm90_kernel("
+                    + maps + ", (anonymous namespace)::Params)"),
+              event("void (anonymous namespace)::dkv_f32_d256_sm90_kernel("
+                    + maps + ", CUtensorMap_st, (anonymous namespace)::"
+                    "Params)")] + [event(n) for n in simt]
+    kernels, _, ours, families, _ = chip_smoke._kernel_tally(torch, events)
+    assert {k: v["calls"] for k, v in ours.items()} == {
+        "lmhead_ce_fwd": 0, "lmhead_ce_dx": 0, "lmhead_ce_dw": 0,
+        "flash_attention_fwd": 1, "flash_attention_dq": 2,
+        "flash_attention_dkv": 2, "fused_adam": 0}
+    assert families == {}
+    for piece, calls in chip_smoke._F32_D256_NAMES.items():
+        hits = [k for k in kernels if piece in k]
+        if calls:
+            assert calls == chip_smoke._LAYERS and len(hits) == 1 and \
+                hits[0] not in simt, (piece, hits)
+        else:
+            assert len(hits) == 1 and hits[0] in simt, (piece, hits)
