@@ -14,10 +14,11 @@ Phases (any failure raises, and the script exits non-zero with no result):
    together, into ``build/torch_kernels/`` (ptxas's register and
    shared-memory report is printed); the tensor-core kernels' (CE
    forward, dx and dW in bf16 and in fp32; flash forward, dq and dk/dv in
-   bf16 at head_dim 64, 128 and 256, the fp32 forward at each, the fp32
-   dq and dk/dv at 256) tensor-core instructions counted in the
-   library's SASS (none fails; the fp32 dq and dk/dv at 256 must hold
-   all their sources issue, ``_SM90_HGMMA``, and no spill),
+   bf16 at head_dim 64, 128 and 256, the fp32 forward and dk/dv at each,
+   the fp32 dq at 256) tensor-core instructions counted in the
+   library's SASS (none fails; the fp32 dq at 256 and dk/dv at 64, 128
+   and 256 must hold all their sources issue, ``_SM90_HGMMA``, and no
+   spill),
    with their registers and spills, and their grid geometry held against
    their wrappers';
 3. every kernel against its plain PyTorch version on the card: the
@@ -47,14 +48,17 @@ Phases (any failure raises, and the script exits non-zero with no result):
    kernels' tiles; the fp32 forward (split TF32 on the tensor cores at D
    = 64, 128 and 256) against float64 within ``_F32_FLASH_MULTIPLE`` times
    the plain fp32 version's own error in out and in lse; the fp32 dq and
-   dk/dv at D = 256 (split TF32) against float64 within
-   ``_F32_FLASH_BWD_MULTIPLE`` times the plain fp32 version's own error
-   in dq, dk and dv; the gradient chain
+   dk/dv (split TF32: dq at D = 256, dk/dv at 64, 128 and 256) against
+   float64 within ``_F32_FLASH_BWD_MULTIPLE`` (D = 256) or
+   ``_F32_DKV_MULTIPLE`` (64, 128) times the plain fp32 version's own
+   error in dq, dk and dv, at small shapes and at the fp32 training
+   shapes; the gradient chain
    (dq and dk/dv from the kernel
    forward's own out and lse) against the plain chain in fp32, within
    twice the plain bf16 chain's own error, at the seq-2048 shape, in
    BHTD at D = 128 and at train_d256's shape (D = 256), and in fp32 at
-   train_d256's shape against the chain in float64; the flash
+   train_d256's shape and at the fp32 training shapes at D = 64 and 128
+   against the chain in float64; the flash
    kernels' peak added memory at the training
    shape (no [B, H, T, T] buffer);
 4. timing with CUDA events (median of 30 after warm-up): each kernel, its
@@ -63,7 +67,7 @@ Phases (any failure raises, and the script exits non-zero with no result):
    and at the training shapes (the CE forward, dx and dW at N = 4096 and
    16384, and the flash forward, dq and dk/dv, with TFLOP/s and their
    ratio to the library call); the fp32 CE kernels', the fp32 flash
-   forward's and the fp32 dq's and dk/dv's at head_dim 256 bounds are
+   forward's and dk/dv's and the fp32 dq's at head_dim 256 bounds are
    their split-TF32 ones (three tf32 products a product), the FMA units'
    beside;
 5. serving at full GPT width (12 x 768, vocab 32000, random weights from
@@ -223,7 +227,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
    2e-2 of the undecorated fp32 program's, each parameter's Adam moment1
    within 0.1 of its (relative norm); the seven kernels' launches
    (CE once, flash 12, Adam 196 a step) on the host steps and in a traced
-   replayed step; one step with an inf in a weight leaves every
+   replayed step, of both programs, the fp32 one's showing the
+   split-TF32 dk/dv at head_dim 64 12 times and the SIMT dk/dv at no
+   call (``_F32_D64_NAMES``); one step with an inf in a weight leaves every
    parameter and accumulator unchanged and halves the scale, replayed;
    ``fluid_lenet`` (``_fluid_lenet``, BASELINE config 1): LeNet written
    with ``fluid.layers`` and the ``Variable`` overloads over fake MNIST
@@ -233,8 +239,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
    dx and dW at N 16,384 (the ``static_amp`` step; first each against its
    plain version, the forward at 1e-4, dx and dW with a non-uniform g at
    fp32 ``_CE_GRAD_TOL``) and the flash kernels
-   at batch 1, BHTD, non-causal (``jit.load``'s fp32 program), and in fp32
-   at head_dim 256 at the ``jit_load_d256`` leg's shape and at the
+   at batch 1, BHTD, non-causal (``jit.load``'s fp32 program; and at 6
+   heads of 128), at the fp32 training shape (and at 6 heads of 128), and
+   in fp32 at head_dim 256 at the ``jit_load_d256`` leg's shape and at the
    training shape, each with its kernel's and the library's device ms;
 7. CPU against card: tiny fp32 configs train 2 steps from the same numpy
    values on the CPU (plain versions, eager) and on the card (kernels;
@@ -260,8 +267,11 @@ Phases (any failure raises, and the script exits non-zero with no result):
    N = 16384, under ``long_shape``; the flash kernels also at the eager
    encoder's BHTD non-causal shape, under ``eager_shape``; the CE kernels
    in fp32 at N 16,384 under ``static_amp_shape``, the flash kernels in
-   fp32 at batch 1 under ``jit_load_shape`` and at the fp32 training
-   shape under ``train_f32_shape``, in bf16 at head_dim 256 under
+   fp32 at batch 1 under ``jit_load_shape`` (at 6 heads of 128 under
+   ``f32_d128_shape``) and at the fp32 training shape under
+   ``train_f32_shape``, with static_amp's fp32 step's traced calls and
+   device ms (at 6 heads of 128 under ``train_f32_d128_shape``), in bf16
+   at head_dim 256 under
    ``d256_shape`` with its launches and device ms in train_d256's traced
    step, and in fp32 at head_dim 256 under ``f32_d256_shape`` with its
    launches and device ms in train_f32_d256's traced step, the
@@ -277,7 +287,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
    forward's fp32 sources are their split-TF32 kernels, at head_dim 256
    under ``source_fp32_d256``: ``flash_attention_fwd_f32_d256_sm90.cu``,
    ``flash_attention_dq_f32_d256_sm90.cu`` and
-   ``flash_attention_dkv_f32_d256_sm90.cu``;
+   ``flash_attention_dkv_f32_d256_sm90.cu``; dk/dv's fp32 source at 64
+   and 128 is ``flash_attention_dkv_f32_sm90.cu``, dq's the SIMT
+   ``flash_attention.cu``;
    ``serve_shapes``
    the CE forward's times at the serving shapes);
 9. the card's name and power limit again, and the last line:
@@ -336,6 +348,11 @@ _F32_D256_NAMES = {"::fwd_f32_d256_sm90_kernel(": _LAYERS,
                    "::dq_f32_d256_sm90_kernel(": _LAYERS,
                    "::dkv_f32_d256_sm90_kernel(": _LAYERS,
                    "::dq_kernel<": 0, "::dkv_kernel<": 0}
+# the flash backward kernels of static_amp's undecorated fp32 program's
+# traced replayed step (head_dim 64): the split-TF32 dk/dv 12 times, the
+# SIMT dq 12 times and the SIMT dk/dv it replaced none
+_F32_D64_NAMES = {"::dkv_f32_sm90_kernel<64>": _LAYERS,
+                  "::dq_kernel<64>": _LAYERS, "::dkv_kernel<": 0}
 _WARM_STEPS, _TIMED_STEPS = 3, 10
 _LR = 1e-4  # bench.py's Adam learning rate
 # the last training step's rate: a schedule that changes after the
@@ -384,8 +401,9 @@ def _environment(torch):
 # dq_sm90_kernel<D> and dkv_sm90_kernel<D> the flash kernels' head_dim;
 # fwd_d256_sm90_kernel, dq_d256_sm90_kernel and dkv_d256_sm90_kernel are
 # head_dim 256's own in bf16, fwd_f32_d256_sm90_kernel the fp32 forward's,
-# dq_f32_d256_sm90_kernel and dkv_f32_d256_sm90_kernel the fp32 backward's;
-# no two entries' pieces match one kernel)
+# dq_f32_d256_sm90_kernel and dkv_f32_d256_sm90_kernel the fp32 backward's,
+# dkv_f32_sm90_kernel<D> the fp32 dk/dv's at head_dim 64 and 128; no two
+# entries' pieces match one kernel)
 _SM90_KERNELS = {
     "lmhead_ce_fwd": ("lmhead_ce_fwd_sm90", "fwd_sm90_kernel"),
     "lmhead_ce_fwd_f32": ("lmhead_ce_fwd_f32_sm90", "fwd_f32_sm90_kernel"),
@@ -421,16 +439,24 @@ _SM90_KERNELS = {
                                     "dq_f32_d256_sm90_kernel"),
     "flash_attention_dkv_f32_d256": ("flash_attention_dkv_f32_d256_sm90",
                                      "dkv_f32_d256_sm90_kernel"),
+    "flash_attention_dkv_f32_d64": ("flash_attention_dkv_f32_sm90",
+                                    "dkv_f32_sm90_kernelILi64E"),
+    "flash_attention_dkv_f32_d128": ("flash_attention_dkv_f32_sm90",
+                                     "dkv_f32_sm90_kernelILi128E"),
 }
 
 
 # the tensor-core instructions the split-TF32 backward kernels' sources
-# issue (dq: 8 score chains of 12 wgmma and 12 accumulating ones; dk/dv:
-# the same and 24), all of which their SASS must hold, with no spill: the
-# two score products written as two calls of one function once compiled
-# to one copy of the chains (48 HGMMA) that gave wrong sums
+# issue (dq at 256: 8 score chains of 12 wgmma and 12 accumulating ones;
+# dk/dv at 256: the same and 24; dk/dv at 128 and 64, where each warpgroup
+# runs one product's chains and one accumulating product: 4 chains and 12,
+# 2 chains and 6), all of which their SASS must hold, with no spill: the
+# two score products written as two calls of one function once compiled to
+# one copy of the chains (48 HGMMA) that gave wrong sums
 _SM90_HGMMA = {"flash_attention_dq_f32_d256": 108,
-               "flash_attention_dkv_f32_d256": 120}
+               "flash_attention_dkv_f32_d256": 120,
+               "flash_attention_dkv_f32_d64": 30,
+               "flash_attention_dkv_f32_d128": 60}
 
 
 def _sm90_kernel(name):
@@ -521,12 +547,17 @@ def _build():
             (lib.flash_attn_dq_f32_d256_sm90_tile(),
              lib.flash_attn_dq_f32_d256_sm90_stage(),
              lib.flash_attn_dq_f32_d256_sm90_flush()),
-            fl.SM90_F32_D256_DQ_TILES + (fl.SM90_F32_D256_BWD_FLUSH,)),
+            fl.SM90_F32_D256_DQ_TILES + (fl.SM90_F32_BWD_FLUSH,)),
         "flash_attention_dkv_f32_d256": (
             (lib.flash_attn_dkv_f32_d256_sm90_tile(),
              lib.flash_attn_dkv_f32_d256_sm90_stage(),
              lib.flash_attn_dkv_f32_d256_sm90_flush()),
-            fl.SM90_F32_D256_DKV_TILES + (fl.SM90_F32_D256_BWD_FLUSH,))}
+            fl.SM90_F32_D256_DKV_TILES + (fl.SM90_F32_BWD_FLUSH,)),
+        "flash_attention_dkv_f32": (
+            (lib.flash_attn_dkv_f32_sm90_tile(),
+             lib.flash_attn_dkv_f32_sm90_stage(),
+             lib.flash_attn_dkv_f32_sm90_flush()),
+            fl.SM90_F32_DKV_TILES + (fl.SM90_F32_BWD_FLUSH,))}
     for name, (built, wrapper) in geometry.items():
         if built != wrapper:
             raise AssertionError(f"{name} (sm90) geometry {built} differs "
@@ -1175,7 +1206,8 @@ _FLASH_KERNEL = dict(out="flash_attention_fwd", lse="flash_attention_fwd",
 # layouts causal and not, Tq > Tk with rows that see no key, Tq < Tk, T =
 # 300 and 333, the head_dim-256 export path's shape: B = 1, T = 2048, H =
 # 3, BHTD, non-causal, and the training shape at 3 heads: B = 8, causal,
-# BTHD), and every fp32 case the SIMT dq and dk/dv
+# BTHD), and every fp32 case at D = 64 and 128 the split-TF32 dk/dv (T =
+# 320 too, and the training shape at 6 heads of 128) and the SIMT dq
 _FLASH_CASES = [
     ("bfloat16", "BTHD", True, 8, 12, 2048, 2048, 64),
     ("bfloat16", "BHTD", False, 8, 12, 2048, 2048, 64),
@@ -1218,6 +1250,9 @@ _FLASH_CASES = [
     ("float32", "BTHD", True, 2, 2, 333, 333, 256),
     ("float32", "BHTD", False, 1, 3, 2048, 2048, 256),
     ("float32", "BTHD", True, 8, 3, 2048, 2048, 256),
+    ("float32", "BTHD", True, 1, 2, 320, 320, 64),
+    ("float32", "BHTD", False, 1, 2, 320, 320, 128),
+    ("float32", "BTHD", True, 8, 6, 2048, 2048, 128),
 ]
 
 
@@ -1375,6 +1410,7 @@ _F32_FLASH_SEEDS = (1, 2)
 # the fp32 training program's shape (any fp32 build_train_program), and
 # the same at 3 heads of 256 (the card alone: the emulation's cost)
 _F32_FLASH_TRUTH_TRAIN = ("BTHD", True, 8, 12, 2048, 2048, 64)
+_F32_FLASH_TRUTH_TRAIN_D128 = ("BTHD", True, 8, 6, 2048, 2048, 128)
 _F32_FLASH_TRUTH_TRAIN_D256 = ("BTHD", True, 8, 3, 2048, 2048, 256)
 _F32_FLASH_TRAIN_SEED = 3
 
@@ -1470,6 +1506,23 @@ def _check_f32_flash_truth(torch) -> None:
 # and dS too) lies 21x or more beyond it there, so the bound tells split
 # TF32 from TF32.
 _F32_FLASH_BWD_MULTIPLE = 25.0
+# The fp32 dk/dv at head_dim 64 and 128 (csrc/flash_attention_dkv_f32_sm90.cu;
+# the dq there is SIMT, exact fp32 products, held to the same bound) at
+# _F32_DKV_MULTIPLE, over the head_dim-64 and 128 cases of
+# _F32_FLASH_TRUTH_CASES at _F32_FLASH_SEEDS and at _F32_FLASH_TRUTH_TRAIN
+# and _F32_FLASH_TRUTH_TRAIN_D128 at _F32_FLASH_TRAIN_SEED. Why 32: the
+# same emulation, with one warpgroup's chains over all of D and no trade,
+# finds at most 15.4 times the plain version's error over these cases at
+# seeds 1, 2, 7 and 8 (dv at D = 128, Tq = 384 > Tk = 128), 7.8 at the
+# training length (T = 2048 in one batch and head, seeds 3 and 7); the
+# bound is about twice that. A 1xTF32 emulation lies 14x or more beyond
+# it there.
+_F32_DKV_MULTIPLE = 32.0
+
+
+def _f32_bwd_multiple(d) -> float:
+    """The float64 bound's multiple of the fp32 backward at head_dim d."""
+    return _F32_FLASH_BWD_MULTIPLE if d == 256 else _F32_DKV_MULTIPLE
 
 
 def _flash_bwd_fp64(torch, q, k, v, do, causal, layout) -> dict:
@@ -1493,22 +1546,24 @@ def _flash_bwd_fp64(torch, q, k, v, do, causal, layout) -> dict:
             for n, g in grads.items()}
 
 
-def _f32_flash_bwd_truth_agrees(torch, got, plain, truth, what) -> dict:
+def _f32_flash_bwd_truth_agrees(torch, got, plain, truth, what,
+                                multiple=_F32_FLASH_BWD_MULTIPLE) -> dict:
     """Holds fp32 gradients ``got`` (dq, dk, dv) against float64
-    (``truth``) within _F32_FLASH_BWD_MULTIPLE times the plain fp32
-    version's (``plain``) own max abs error + _F32_FLASH_ATOL; raises
-    naming each beyond it. Returns {name: {err, plain_err, ratio,
+    (``truth``) within ``multiple`` (_F32_FLASH_BWD_MULTIPLE at head_dim
+    256, _F32_DKV_MULTIPLE at 64 and 128: ``_f32_bwd_multiple``) times the
+    plain fp32 version's (``plain``) own max abs error + _F32_FLASH_ATOL;
+    raises naming each beyond it. Returns {name: {err, plain_err, ratio,
     bound}}."""
     report, bad = {}, []
     for name, want in truth.items():
         p = float((plain[name].double() - want).abs().max())
         err = float((got[name].double() - want).abs().max())
-        bound = _F32_FLASH_BWD_MULTIPLE * p + _F32_FLASH_ATOL
+        bound = multiple * p + _F32_FLASH_ATOL
         report[name] = dict(err=err, plain_err=p, bound=bound,
                             ratio=err / p if p else None)
         if not err <= bound:
             bad.append(f"{name}: max abs error {err} against float64, bound "
-                       f"{bound} ({_F32_FLASH_BWD_MULTIPLE} x the plain fp32 "
+                       f"{bound} ({multiple} x the plain fp32 "
                        f"version's {p} + {_F32_FLASH_ATOL})")
     if bad:
         raise AssertionError(f"fp32 flash backward beyond its float64 bound "
@@ -1530,15 +1585,20 @@ def _f32_bwd_pair(torch, q, k, v, do, causal, layout) -> tuple:
             dict(dq=fl.flash_attention_dq_plain(*args), dk=pk, dv=pv))
 
 
-def _check_f32_flash_bwd_truth(torch) -> None:
-    """The fp32 dq and dk/dv at head_dim 256 through
-    ``_f32_flash_bwd_truth_agrees`` at the head_dim-256 cases of
-    _F32_FLASH_TRUTH_CASES at _F32_FLASH_SEEDS (the inputs the CPU test's
-    emulation sets the bound on) and at _F32_FLASH_TRUTH_TRAIN_D256."""
+def _check_f32_flash_bwd_truth(torch, head_dims=(64, 128, 256)) -> None:
+    """The fp32 dq and dk/dv through ``_f32_flash_bwd_truth_agrees`` at
+    the cases of _F32_FLASH_TRUTH_CASES at _F32_FLASH_SEEDS (the inputs the
+    CPU test's emulation sets the bound on) and at the fp32 training
+    shapes at head_dim 64, 128 and 256 (_F32_FLASH_TRUTH_TRAIN,
+    _F32_FLASH_TRUTH_TRAIN_D128, _F32_FLASH_TRUTH_TRAIN_D256), at the
+    head_dims in ``head_dims``."""
     runs = [(case, seed) for case in _F32_FLASH_TRUTH_CASES
-            for seed in _F32_FLASH_SEEDS if case[-1] == 256]
-    for (layout, causal, b, h, tq, tk, d), seed in runs + [
-            (_F32_FLASH_TRUTH_TRAIN_D256, _F32_FLASH_TRAIN_SEED)]:
+            for seed in _F32_FLASH_SEEDS] + [
+        (train, _F32_FLASH_TRAIN_SEED) for train in (
+            _F32_FLASH_TRUTH_TRAIN, _F32_FLASH_TRUTH_TRAIN_D128,
+            _F32_FLASH_TRUTH_TRAIN_D256)]
+    for (layout, causal, b, h, tq, tk, d), seed in (
+            run for run in runs if run[0][-1] in head_dims):
         q, k, v, do = _flash_inputs(torch, b, h, tq, tk, d, torch.float32,
                                     layout, seed)
         got, plain = _f32_bwd_pair(torch, q, k, v, do, causal, layout)
@@ -1546,11 +1606,13 @@ def _check_f32_flash_bwd_truth(torch) -> None:
         torch.cuda.synchronize()
         what = (f"{layout} {'causal' if causal else 'full'} B={b} H={h} "
                 f"Tq={tq} Tk={tk} D={d} seed {seed}")
-        report = _f32_flash_bwd_truth_agrees(torch, got, plain, truth, what)
+        report = _f32_flash_bwd_truth_agrees(torch, got, plain, truth, what,
+                                             _f32_bwd_multiple(d))
         _say(phase="kernel_check", kernel="flash_attention_dq_dkv",
-             dtype="float32", what="split TF32 against float64",
+             dtype="float32", what="split TF32 against float64 (dq SIMT "
+             "below head_dim 256)",
              layout=layout, causal=causal, b=b, h=h, tq=tq, tk=tk, d=d,
-             seed=seed, multiple=_F32_FLASH_BWD_MULTIPLE,
+             seed=seed, multiple=_f32_bwd_multiple(d),
              atol=_F32_FLASH_ATOL, **report)
         del q, k, v, do, got, plain, truth
         torch.cuda.empty_cache()
@@ -1579,10 +1641,14 @@ _CHAIN_CASES = [(_LONG_B, _LONG["n_head"], _LONG_T, 64, "BTHD"),
                 (2, 4, 1024, 128, "BHTD"),
                 (_LONG_B, 3, _LONG_T, 256, "BTHD")]
 # the same chain in fp32 at train_d256's shape (train_f32_d256's: the
-# split-TF32 forward, dq and dk/dv at head_dim 256), held to the chain
+# split-TF32 forward, dq and dk/dv at head_dim 256) and at the fp32
+# training shape at head_dim 64 (static_amp's undecorated program: the
+# split-TF32 forward and dk/dv, the SIMT dq) and 128, held to the chain
 # computed in float64 within _CHAIN_MULTIPLE times the plain fp32 chain's
 # own relative error, plus _CHAIN_ATOL
-_F32_CHAIN_CASES = [(_LONG_B, 3, _LONG_T, 256, "BTHD")]
+_F32_CHAIN_CASES = [(_LONG_B, 3, _LONG_T, 256, "BTHD"),
+                    (_LONG_B, _LONG["n_head"], _LONG_T, 64, "BTHD"),
+                    (_LONG_B, 6, _LONG_T, 128, "BTHD")]
 
 
 def _plain_chain(q, k, v, do, causal, layout) -> dict:
@@ -1902,9 +1968,9 @@ def _time_flash(torch, card, layout="BTHD", causal=True, dtype=None,
     128 twin; in 3 heads, head_dim 256, the ``jit_load_d256`` leg's), fp32
     at batch 8, BTHD, causal the fp32 training program's, bf16 in 3 heads
     (head_dim 256) train_d256's (the head_dim-256 forward, dq and dk/dv
-    on the tensor cores), and in fp32 train_f32_d256's. fp32 dq and dk/dv
-    at head_dim 64 and 128 run SIMT and are bounded at the FMA units' 67
-    TFLOP/s; the fp32 forward at every head_dim, and dq and dk/dv at 256,
+    on the tensor cores), and in fp32 train_f32_d256's. The fp32 dq at
+    head_dim 64 and 128 runs SIMT and is bounded at the FMA units' 67
+    TFLOP/s; the fp32 forward and dk/dv at every head_dim, and dq at 256,
     run on the tensor cores in split TF32, bounded at three tf32 products
     a product at 494.7 TFLOP/s (``bound_fma_ms``, its FLOPs at 67, beside
     it, and ``bound_share``). With ``device``, each row also carries its kernel's and the
@@ -1960,7 +2026,7 @@ def _time_flash(torch, card, layout="BTHD", causal=True, dtype=None,
     all_ms = _median_ms(torch, library_grad(qr, kr, vr), repeats=repeats)
     rows = {}
     for name, kern, plain, library, products, nbytes in specs:
-        split = dname == "float32" and (name == "flash_attention_fwd"
+        split = dname == "float32" and (name != "flash_attention_dq"
                                         or d == 256)
         bound, by = _bound_ms(nbytes, products * product * (3 if split else 1),
                               "tfloat32" if split else dname)
@@ -2471,8 +2537,8 @@ _TRACE_NAMES = {
                             "::dq_f32_d256_sm90_kernel(", "::dq_kernel<"),
                            ()),
     "flash_attention_dkv": (("::dkv_sm90_kernel<", "::dkv_d256_sm90_kernel(",
-                             "::dkv_f32_d256_sm90_kernel(", "::dkv_kernel<"),
-                            ()),
+                             "::dkv_f32_d256_sm90_kernel(",
+                             "::dkv_f32_sm90_kernel<", "::dkv_kernel<"), ()),
     "fused_adam": (("::adam_kernel<",), ()),
 }
 
@@ -2615,6 +2681,22 @@ def _kernel_tally(torch, events):
     return kernels, device_ms, ours, families, other
 
 
+def _named_kernels(kernels, names, phase) -> dict:
+    """{piece: {calls, ms}}: the calls and device ms of the kernels of a
+    trace (``_kernel_tally``'s {name: (calls, ms)}) whose names hold each
+    piece of ``names`` ({piece: calls}); raises unless each piece's calls
+    are those ``names`` wants."""
+    named = {piece: {"calls": sum(n for k, (n, _) in kernels.items()
+                                  if piece in k),
+                     "ms": sum(t for k, (_, t) in kernels.items()
+                               if piece in k)}
+             for piece in names}
+    if {p: v["calls"] for p, v in named.items()} != names:
+        raise AssertionError(f"{phase}: kernels by name {named} in the "
+                             f"traced step, not {names}")
+    return named
+
+
 def _profile_step(torch, exe, main, feed, fetch_list, scope, card, phase,
                   per_step=None, return_numpy=True, names=None) -> dict:
     """One traced training step: host wall, device kernel time, launches,
@@ -2649,14 +2731,7 @@ def _profile_step(torch, exe, main, feed, fetch_list, scope, card, phase,
         if seen != per_step:
             raise AssertionError(f"{phase}: path kernels launched {seen} "
                                  f"times in the traced step, not {per_step}")
-    named = {piece: {"calls": sum(n for k, (n, _) in kernels.items()
-                                  if piece in k),
-                     "ms": sum(t for k, (_, t) in kernels.items()
-                               if piece in k)}
-             for piece in names or {}}
-    if names and {p: v["calls"] for p, v in named.items()} != names:
-        raise AssertionError(f"{phase}: kernels by name {named} in the "
-                             f"traced step, not {names}")
+    named = _named_kernels(kernels, names or {}, phase)
     by_op = _by_op(torch, events)
     by_family = {}
     for op, ms in by_op.items():
@@ -6184,8 +6259,10 @@ def _static_amp(torch, card) -> dict:
     (``_leaves_agree``); the launches over
     R's host steps (the warm-up and the capture): the CE forward, dx and
     dW once a step, flash forward, dq and dk/dv 12, Adam 196, and a
-    traced replayed step shows as many; an overflow step
-    (``_amp_overflow``). Reports the walls, the traced step's device ms
+    traced replayed step shows as many; F's the same, and a traced
+    replayed step of F shows as many, the split-TF32 dk/dv at head_dim 64
+    among them and the SIMT dk/dv at no call (``_F32_D64_NAMES``); an
+    overflow step (``_amp_overflow``). Reports the walls, the traced step's device ms
     by family and the CE kernels' device ms (their fp32 routes at N
     16,384)."""
     from paddle_tpu_torch.framework import Scope
@@ -6254,10 +6331,15 @@ def _static_amp(torch, card) -> dict:
     _free(torch)
 
     f_program = _amp_program(batch, seq, decorate=False)
-    f_start = {n: t for n, t in start.items() if not n.startswith("@AMP")}
+    f_io = f_program[2]
+    f_scope = Scope()
+    for name, t in start.items():
+        if not name.startswith("@AMP"):
+            f_scope.set(name, t.clone())
+    f_exe = _executor("cuda")
     _reset_launches()
-    f = _leg((f_program[2]["compiled"],) + f_program[1:], f_start, feed,
-             "cuda", lrs)
+    f = _trajectory(f_exe, f_scope, (f_io["compiled"],) + f_program[1:],
+                    feed, lrs)
     f_launches = _all_launches()
     if f_launches != want:  # fp32 flash: the split-TF32 forward
         raise AssertionError(f"static_amp: the fp32 program launched "
@@ -6271,7 +6353,13 @@ def _static_amp(torch, card) -> dict:
                             _AMP_MOMENT_RTOL, "static_amp: Adam's moment1")
     f_walls = [s * 1e3 for s in f["step_s"]]
     f_losses = f["losses"]
-    del f, f_program, r_moments
+    # a replayed step of the fp32 program, traced: the split-TF32 dk/dv at
+    # head_dim 64 12 times and the SIMT dk/dv none (_F32_D64_NAMES)
+    f_traced = _profile_step(
+        torch, f_exe, f_io["compiled"], feed,
+        [f_io["loss"], f_io["optimizer"]._lr_var], f_scope, card,
+        "static_amp_fp32_profile", per_step=per_step, names=_F32_D64_NAMES)
+    del f, f_program, f_io, f_exe, f_scope, r_moments
     _free(torch)
     overflow = _amp_overflow(torch, batch, seq, start, feed)
     _say(phase="static_amp", config=dict(_LONG, dtype="float32"),
@@ -6283,7 +6371,12 @@ def _static_amp(torch, card) -> dict:
          step_ms_all=r_walls, step_ms_median=statistics.median(r_walls[2:]),
          eager_step_ms_all=e_walls,
          fp32_step_ms_median=statistics.median(f_walls[2:]),
-         fp32_launches=f_launches,
+         fp32_step_ms_all=f_walls, fp32_launches=f_launches,
+         fp32_device_ms=f_traced["device_ms"],
+         fp32_busy_share=f_traced["device_ms"] / statistics.median(
+             f_walls[2:]),
+         fp32_path_kernels=f_traced["path_kernels"],
+         fp32_named_kernels=f_traced["named_kernels"],
          tokens_per_s=batch * seq / statistics.median(r_walls[2:]) * 1e3,
          device_ms=traced["device_ms"],
          busy_share=traced["device_ms"] / statistics.median(r_walls[2:]),
@@ -6524,11 +6617,14 @@ def main() -> int:
     lap("fluid_lenet")
     f32_times = _time_ce_f32(torch, card)
     load_times = _time_flash(torch, card, "BHTD", False, torch.float32,
-                             batch=1, repeats=10)
+                             batch=1, repeats=10, device=True)
     train_f32_times = _time_flash(torch, card, "BTHD", True, torch.float32,
-                                  repeats=10)
+                                  repeats=10, device=True)
     d128_f32_times = _time_flash(torch, card, "BHTD", False, torch.float32,
-                                 batch=1, repeats=10, heads=6)
+                                 batch=1, repeats=10, heads=6, device=True)
+    train_f32_d128_times = _time_flash(torch, card, "BTHD", True,
+                                       torch.float32, repeats=10, heads=6,
+                                       device=True)
     lap("f32_kernel_times")
     d256_times = _time_flash(torch, card, "BTHD", True, torch.bfloat16,
                              repeats=10, heads=3, device=True)
@@ -6602,7 +6698,8 @@ def main() -> int:
     def flash_fp32_src(name, d=64):
         if d == 256:
             return f32_d256_src[name]
-        return f32_fwd_src if name == "flash_attention_fwd" else flash_src
+        return {"flash_attention_fwd": f32_fwd_src,
+                "flash_attention_dkv": f32_dkv_src}.get(name, flash_src)
 
     def long_shape(name):
         t = times[(name, "long")]
@@ -6662,6 +6759,7 @@ def main() -> int:
                    "layout": "BTHD", "causal": True}
     flash_src = csrc + "flash_attention.cu"
     f32_fwd_src = csrc + "flash_attention_fwd_f32_sm90.cu"
+    f32_dkv_src = csrc + "flash_attention_dkv_f32_sm90.cu"
     f32_d256_fwd_src = csrc + "flash_attention_fwd_f32_d256_sm90.cu"
     f32_d256_src = {
         "flash_attention_fwd": f32_d256_fwd_src,
@@ -6693,13 +6791,18 @@ def main() -> int:
             source = csrc + "flash_attention_bwd_sm90.cu"
         extra["jit_load_shape"] = flash_at(load_times, name,
                                             flash_fp32_src(name))
+        amp_named = _SAID["static_amp"]["fp32_path_kernels"][name]
         extra["train_f32_shape"] = flash_at(
             train_f32_times, name, flash_fp32_src(name),
             launches_per_step=_LAYERS,
             path="the fp32 GPT training program (static_amp's undecorated "
-                 "program)")
+                 "program)", calls_per_replayed_step=amp_named["calls"],
+            device_ms_per_replayed_step=amp_named["ms"])
         extra["f32_d128_shape"] = flash_at(d128_f32_times, name,
                                            flash_fp32_src(name))
+        extra["train_f32_d128_shape"] = flash_at(
+            train_f32_d128_times, name, flash_fp32_src(name),
+            path="no path: the fp32 training shape at 6 heads of 128")
         traced_named = traced_d256["named_kernels"][d256_piece[name]]
         device_ms = traced_named["ms"] / traced_named["calls"]
         library_ms = d256_times[name]["library_device_ms"]

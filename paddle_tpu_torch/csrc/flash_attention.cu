@@ -1,63 +1,61 @@
-// Flash attention backward in fp32 for Hopper (sm_90a), on the FMA units.
+// Flash attention dq in fp32 for Hopper (sm_90a), on the FMA units.
 //
-// Replaces, for fp32 inputs, the two backward TPU kernels of
-// paddle_tpu/ops/pallas/flash_attention.py (each run through
-// pl.pallas_call), in both of their layouts, from the forward's saved lse
-// (s[r, c] = (q[r] . k[c]) * scale) and delta[r] = rowsum(dO[r] * out[r]):
-//   _bwd_dq_kernel / _bwd_dq_kernel_bthd, by _bwd (dq pass):
+// Replaces, for fp32 inputs at head_dim 64 and 128, the dq TPU kernels of
+// paddle_tpu/ops/pallas/flash_attention.py (run through pl.pallas_call by
+// _bwd), in both of their layouts, from the forward's saved lse (s[r, c] =
+// (q[r] . k[c]) * scale) and delta[r] = rowsum(dO[r] * out[r]):
+//   _bwd_dq_kernel / _bwd_dq_kernel_bthd:
 //         P = exp(s - lse), dP = dO . V^T, dS = P * (dP - delta)
 //         dq = scale * dS . K
-//   _bwd_dkv_kernel / _bwd_dkv_kernel_bthd (dk/dv pass):
-//         dv = P^T . dO          dk = scale * dS^T . Q
 // Causal masks are aligned bottom-right (column c is visible from row r iff
 // c <= r + Tk - Tq), as the TPU kernels and the einsum path align them.
-// These kernels take fp32 inputs only, multiplied in full fp32 (no TF32),
-// so the TPU's rounding of P and dS to the inputs' dtype rounds nothing.
-// Every accumulator is fp32. The scale multiplies the fp32 scores (the
-// BHTD rule; the TPU's BTHD kernel rounds q * scale to the inputs' dtype
-// first, which agrees at D = 64, where the scale is 0.125) and the dq and
-// dk sums once at the end.
+// This kernel takes fp32 inputs only, multiplied in full fp32 (no TF32),
+// so the TPU's rounding of dS to the inputs' dtype rounds nothing. Every
+// accumulator is fp32. The scale multiplies the fp32 scores (the BHTD
+// rule; the TPU's BTHD kernel rounds q * scale to the inputs' dtype first,
+// which agrees at D = 64, where the scale is 0.125) and the dq sum once at
+// the end.
 // Masked scores take no part: a masked entry's P is exactly 0.
 //
 // Bound on this card (H100 SXM): operations. At the training shape
 // (B = 8, T = 2048, H = 12, D = 64, fp32, causal) the visible score
 // entries number B*H*T*(T+1)/2, and each product over them costs 2*D FLOPs
-// an entry: 77.3 GFLOP for dq (3 products) and 103.1 for dk/dv (4): 1.15
-// and 1.54 ms at the 67 TFLOP/s of the fp32 FMA units these kernels run
-// on, against under 0.08 ms to move q, k, v, dO and the outputs once at
-// 3.35 TB/s. bf16 runs on the tensor cores in every role at every
+// an entry: 77.3 GFLOP for dq (3 products), 1.15 ms at the 67 TFLOP/s of
+// the fp32 FMA units it runs on, against under 0.08 ms to move q, k, v, dO
+// and dq once at 3.35 TB/s. bf16 runs on the tensor cores in every role at every
 // head_dim (flash_attention_fwd_sm90.cu and flash_attention_bwd_sm90.cu at
 // head_dim 64 and 128; flash_attention_fwd_d256_sm90.cu,
 // flash_attention_dq_d256_sm90.cu and flash_attention_dkv_d256_sm90.cu at
 // 256), and so does the fp32 forward, in split TF32
 // (flash_attention_fwd_f32_sm90.cu at head_dim 64 and 128,
-// flash_attention_fwd_f32_d256_sm90.cu at 256), as do the fp32 dq and
-// dk/dv at head_dim 256 (flash_attention_dq_f32_d256_sm90.cu,
-// flash_attention_dkv_f32_d256_sm90.cu). This file serves the fp32 dq and
-// dk/dv at head_dim 64 and 128.
+// flash_attention_fwd_f32_d256_sm90.cu at 256), as does the fp32 dk/dv at
+// every head_dim (flash_attention_dkv_f32_sm90.cu at 64 and 128,
+// flash_attention_dkv_f32_d256_sm90.cu at 256) and the fp32 dq at 256
+// (flash_attention_dq_f32_d256_sm90.cu). This file serves the fp32 dq at
+// head_dim 64 and 128.
 //
-// Design. The TPU grid walks the kv blocks (or, for dk/dv, the q blocks)
-// of one block in order on one core and carries the accumulators in VMEM.
-// Here that sequential axis is a loop inside one block, and the parallel
-// axes are the grid: one block of 256 threads per (64-row tile, head,
-// batch), the 64-row tile being a query tile for dq and a key/value tile
-// for dk/dv, so neither pass needs atomics. At the training shape that
-// is 32 x 12 x 8 = 3,072 blocks a launch. Query tiles run in reverse
-// order, so that the long causal rows start first. Each thread owns a 4 x
-// 4 patch of the 64 x 64 score tile and 4 rows x D/16 columns of the
-// output accumulator, in registers. Score products stage both
-// operands 32 deep at a time in shared memory, transposed, so that each
-// thread reads its 4 rows and 4 columns as one float4 each; the second
-// product parks the P (or dS) tile in shared memory and streams
-// the other operand's rows in 64-column slabs. Shared memory is 34,816
-// bytes a block whatever D is (64 or 128). Tiles wholly above the
+// Design. The TPU grid walks the kv blocks of one query block in order on
+// one core and carries the accumulator in VMEM. Here that sequential axis
+// is a loop inside one block, and the parallel axes are the grid: one
+// block of 256 threads per (64-row query tile, head, batch), so no
+// atomics are needed. At the training shape that is 32 x 12 x 8 = 3,072
+// blocks a launch. Query tiles run in reverse order, so that the long
+// causal rows start first. Each thread owns a 4 x 4 patch of the 64 x 64
+// score tile and 4 rows x D/16 columns of the output accumulator, in
+// registers. Score products stage both operands 32 deep at a time in
+// shared memory, transposed, so that each thread reads its 4 rows and 4
+// columns as one float4 each; the second product parks the dS tile in
+// shared memory and streams K's rows in 64-column slabs. Shared memory is
+// 34,816 bytes a block whatever D is (64 or 128). Tiles wholly above the
 // causal diagonal are skipped; only tiles that cross it, or the ragged
-// edge of a sequence, are masked. Strides for (batch, seq, head) make one
-// kernel per role serve both layouts: BTHD = (B, T, H, D) and
-// BHTD = (B, H, T, D), with D contiguous.
+// edge of a sequence, are masked. Strides for (batch, seq, head) let one
+// kernel serve both layouts: BTHD = (B, T, H, D) and BHTD = (B, H, T, D),
+// with D contiguous.
 //
-// Plain C interface, loaded with ctypes: each entry point launches one
-// kernel on the given stream and returns cudaGetLastError().
+// Plain C interface, loaded with ctypes: flash_attn_dq launches one
+// kernel on the given stream and returns cudaGetLastError();
+// flash_attn_dkv launches nothing and returns -1 (fp32 dk/dv runs on the
+// tensor cores at every head_dim).
 
 #include <cuda_runtime.h>
 
@@ -78,8 +76,7 @@ struct Params {
   const void* dout;    // dO
   const float* lse;    // [B, H, Tq]
   const float* delta;  // [B, H, Tq]
-  void* out;           // dq (dq pass) or dk (dk/dv pass)
-  void* out2;          // dv (dk/dv pass)
+  void* out;           // dq
   int tq, tk;
   long long q_sb, q_st, q_sh;  // element strides of batch, seq and head
   long long k_sb, k_st, k_sh;
@@ -156,8 +153,8 @@ __device__ __forceinline__ void scores(float (&s)[TM][TN],
 }
 
 // acc[i][4 * sl + j] += sum over c < 64 of w[c][4ty + i] * src[r0 + c][64 sl
-// + 4tx + j], for every 64-column slab sl of D: the second product of each
-// pass, with w the P or dS tile (the summed index first). The
+// + 4tx + j], for every 64-column slab sl of D: the second product, with w
+// the dS tile (the summed index first). The
 // slabs of src are staged through stg, which must be free; ends
 // synchronised, so w and stg may be overwritten after it.
 template <int D>
@@ -274,117 +271,11 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(const Params p) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS) dkv_kernel(const Params p) {
-  __shared__ __align__(16) float stg[2 * BK][ROW];
-  __shared__ __align__(16) float wt[BQ][ROW];  // P or dS: [row][col]
-
-  // this block's 64 key/value rows are the rows of its score tiles here
-  // (st = K Q^T), its query tiles the columns
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int c0 = blockIdx.x * BKV;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* dout = static_cast<const float*>(p.dout) + b * p.q_sb + h * p.q_sh;
-  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const float* v = static_cast<const float*>(p.v) + b * p.k_sb + h * p.k_sh;
-  const long long stats = ((long long)b * gridDim.y + h) * p.tq;
-
-  float acc_k[TM][D / 16], acc_v[TM][D / 16];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-
-  // causal: query rows r see this tile from r = c0 - (Tk - Tq) on
-  const int first = c0 - (p.tk - p.tq);
-  const int begin = p.causal && first > 0 ? first / BQ * BQ : 0;
-  for (int q0 = begin; q0 < p.tq; q0 += BQ) {
-    float st[TM][TN], dpt[TM][TN];
-    scores<D>(st, k, p.k_st, c0, p.tk, q, p.q_st, q0, p.tq, stg, tid, ty,
-                 tx);
-    scores<D>(dpt, v, p.k_st, c0, p.tk, dout, p.q_st, q0, p.tq, stg, tid,
-                 ty, tx);
-    const bool masked = needs_mask(p, q0, c0);
-    float col_lse[TN], col_delta[TN];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int r = q0 + 4 * tx + j;
-      col_lse[j] = r < p.tq ? p.lse[stats + r] : 0.f;
-      col_delta[j] = r < p.tq ? p.delta[stats + r] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int c = c0 + 4 * ty + i;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const bool keep = !masked || visible(p, q0 + 4 * tx + j, c);
-        const float pr = keep ? expf(st[i][j] * p.scale - col_lse[j]) : 0.f;
-        wt[4 * tx + j][4 * ty + i] = pr;
-        dpt[i][j] = pr * (dpt[i][j] - col_delta[j]);  // now dS^T
-      }
-    }
-    __syncthreads();
-    accumulate<D>(acc_v, wt, dout, p.q_st, q0, p.tq, stg, tid, ty, tx);
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j)
-        wt[4 * tx + j][4 * ty + i] = dpt[i][j];
-    __syncthreads();
-    accumulate<D>(acc_k, wt, q, p.q_st, q0, p.tq, stg, tid, ty, tx);
-  }
-  const long long kbase = b * p.k_sb + h * p.k_sh;
-  write_rows<D>(static_cast<float*>(p.out) + kbase, p.k_st, c0, p.tk, acc_k,
-                   p.scale, ty, tx);
-  write_rows<D>(static_cast<float*>(p.out2) + kbase, p.k_st, c0, p.tk, acc_v,
-                   1.f, ty, tx);
-}
-
-enum Role { DQ, DKV };
-
-template <int D>
-int launch(Role role, const Params& p, int batch, int heads, cudaStream_t s) {
-  const int rows = role == DKV ? p.tk : p.tq;
-  const dim3 grid((rows + 63) / 64, heads, batch);
+int launch(const Params& p, int batch, int heads, cudaStream_t s) {
+  const dim3 grid((p.tq + 63) / 64, heads, batch);
   if (grid.x == 0 || grid.y == 0 || grid.z == 0) return 0;
-  if (role == DQ) {
-    dq_kernel<D><<<grid, THREADS, 0, s>>>(p);
-  } else {
-    dkv_kernel<D><<<grid, THREADS, 0, s>>>(p);
-  }
+  dq_kernel<D><<<grid, THREADS, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
-}
-
-int launch_d(Role role, const Params& p, int batch, int heads, int d,
-             cudaStream_t s) {
-  switch (d) {
-    case 64:
-      return launch<64>(role, p, batch, heads, s);
-    case 128:
-      return launch<128>(role, p, batch, heads, s);
-    default:  // head_dim 256: flash_attention_dq_f32_d256_sm90.cu and
-              // flash_attention_dkv_f32_d256_sm90.cu
-      return -1;
-  }
-}
-
-int run(Role role, Params& p, int batch, int heads, int tq, int tk, int d,
-        long long q_sb, long long q_st, long long q_sh, long long k_sb,
-        long long k_st, long long k_sh, float scale, int causal, int is_bf16,
-        void* stream) {
-  p.tq = tq;
-  p.tk = tk;
-  p.q_sb = q_sb;
-  p.q_st = q_st;
-  p.q_sh = q_sh;
-  p.k_sb = k_sb;
-  p.k_st = k_st;
-  p.k_sh = k_sh;
-  p.scale = scale;
-  p.causal = causal;
-  if (is_bf16) return -1;  // bf16 runs on the tensor cores, every role
-  return launch_d(role, p, batch, heads, d,
-                  static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -392,13 +283,11 @@ int run(Role role, Params& p, int batch, int heads, int tq, int tk, int d,
 extern "C" {
 
 // q: [B, Tq, H, D] (BTHD) or [B, H, Tq, D] (BHTD) at strides q_sb, q_st,
-// q_sh (elements; D contiguous), as are out, dout and dq; k: likewise at
-// k_sb, k_st, k_sh, as are v, dk and dv. lse and delta: [B, H, Tq] fp32.
-// fp32 only (is_bf16 returns -1: flash_attn_dq_sm90 and flash_attn_dkv_sm90
-// take bf16 at 64 and 128, flash_attn_dq_d256_sm90 and
-// flash_attn_dkv_d256_sm90 at 256). d: 64 or 128 (anything else returns
-// -1: fp32 at 256 runs flash_attn_dq_f32_d256_sm90 and
-// flash_attn_dkv_f32_d256_sm90, in split TF32).
+// q_sh (elements; D contiguous), as are dout and dq; k: likewise at k_sb,
+// k_st, k_sh, as is v. lse and delta: [B, H, Tq] fp32. fp32 only (is_bf16
+// returns -1: flash_attn_dq_sm90 takes bf16 at 64 and 128,
+// flash_attn_dq_d256_sm90 at 256). d: 64 or 128 (anything else returns -1:
+// fp32 at 256 runs flash_attn_dq_f32_d256_sm90, in split TF32).
 
 int flash_attn_dq(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
@@ -414,27 +303,38 @@ int flash_attn_dq(const void* q, const void* k, const void* v,
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
   p.out = dq;
-  return run(DQ, p, batch, heads, tq, tk, d, q_sb, q_st, q_sh, k_sb, k_st,
-             k_sh, scale, causal, is_bf16, stream);
+  p.tq = tq;
+  p.tk = tk;
+  p.q_sb = q_sb;
+  p.q_st = q_st;
+  p.q_sh = q_sh;
+  p.k_sb = k_sb;
+  p.k_st = k_st;
+  p.k_sh = k_sh;
+  p.scale = scale;
+  p.causal = causal;
+  if (is_bf16) return -1;  // bf16 runs on the tensor cores
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64:
+      return launch<64>(p, batch, heads, s);
+    case 128:
+      return launch<128>(p, batch, heads, s);
+    default:  // head_dim 256: flash_attention_dq_f32_d256_sm90.cu
+      return -1;
+  }
 }
 
-int flash_attn_dkv(const void* q, const void* k, const void* v,
-                   const void* dout, const void* lse, const void* delta,
-                   void* dk, void* dv, int batch, int heads, int tq, int tk,
-                   int d, long long q_sb, long long q_st, long long q_sh,
-                   long long k_sb, long long k_st, long long k_sh,
-                   float scale, int causal, int is_bf16, void* stream) {
-  Params p{};
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.dout = dout;
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
-  p.out = dk;
-  p.out2 = dv;
-  return run(DKV, p, batch, heads, tq, tk, d, q_sb, q_st, q_sh, k_sb, k_st,
-             k_sh, scale, causal, is_bf16, stream);
+// The dk/dv entry point of the SIMT kernel this file held: it launches
+// nothing and returns -1 at every head_dim and dtype (fp32 dk and dv run
+// flash_attn_dkv_f32_sm90 at 64 and 128 and flash_attn_dkv_f32_d256_sm90
+// at 256, in split TF32; bf16 flash_attn_dkv_sm90 and
+// flash_attn_dkv_d256_sm90).
+int flash_attn_dkv(const void*, const void*, const void*, const void*,
+                   const void*, const void*, void*, void*, int, int, int, int,
+                   int, long long, long long, long long, long long, long long,
+                   long long, float, int, int, void*) {
+  return -1;
 }
 
 }  // extern "C"

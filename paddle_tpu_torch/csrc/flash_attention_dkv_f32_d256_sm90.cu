@@ -135,48 +135,6 @@ struct Params {
   int causal;
 };
 
-// lse and delta of the thread's query rows q0 + 8 jj + c_in + c at [2 jj +
-// c]; a row past Tq or with lse -1e30 takes no part (+1e30, so P = 0), and
-// a row past Tq has delta 0
-__device__ __forceinline__ void row_stats(const Params& p, long long row0,
-                                          int q0, int c_in, float (&lse)[4],
-                                          float (&dl)[4]) {
-#pragma unroll
-  for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int r = q0 + 8 * jj + c_in + c;
-      const float l = r < p.tq ? p.lse[row0 + r] : NEG;
-      lse[2 * jj + c] = l > 0.5f * NEG ? l : FAR;
-      dl[2 * jj + c] = r < p.tq ? p.delta[row0 + r] : 0.f;
-    }
-}
-
-// One 64-key x 16-query tile, in place: s (S^T) becomes P = exp(s * scale
-// - lse), dp (dP^T) becomes dS = P * (dP - delta), both fp32. The thread's
-// keys are kr and kr + 8, its queries q0 + 8 jj + c_in + {0, 1}; masked:
-// the tile crosses the causal diagonal.
-__device__ __forceinline__ void dkv_tile(float (&s)[8], float (&dp)[8],
-                                         const float (&lse)[4],
-                                         const float (&dl)[4], bool masked,
-                                         int q0, int kr, int c_in, int off,
-                                         float scale) {
-#pragma unroll
-  for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int e = 4 * jj + 2 * i + c;
-        float x = fmaf(s[e], scale, -lse[2 * jj + c]);
-        if (masked && kr + 8 * i > q0 + 8 * jj + c_in + c + off)
-          x = -INFINITY;  // expf gives exactly 0
-        const float pr = expf(x);
-        s[e] = pr;
-        dp[e] = pr * (dp[e] - dl[2 * jj + c]);
-      }
-}
-
 __global__ void __launch_bounds__(THREADS, 1)
     dkv_f32_d256_sm90_kernel(__grid_constant__ const CUtensorMap map_q,
                              __grid_constant__ const CUtensorMap map_k,

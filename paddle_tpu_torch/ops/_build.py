@@ -5,8 +5,8 @@ interface; the ``*.cuh`` headers beside them (``sm90.cuh``: the helpers
 of the tensor-core kernels; ``flash_d256.cuh``: those the flash kernels
 that split head_dim 256 between two warpgroups share; ``flash_f32.cuh``:
 those of the split-TF32 flash forwards; ``flash_f32_bwd.cuh``: those of
-the split-TF32 flash dq and dk/dv at head_dim 256) are included, not
-compiled. At
+the split-TF32 flash dk/dv at every head_dim and dq at 256) are included,
+not compiled. At
 first use each source is compiled for Hopper (``sm_90a``) by its own
 ``nvcc``, all of them started together, and the objects are linked into
 one shared library::
@@ -126,6 +126,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                  lib.flash_attn_dkv_f32_d256_sm90_tile,
                  lib.flash_attn_dkv_f32_d256_sm90_stage,
                  lib.flash_attn_dkv_f32_d256_sm90_flush,
+                 lib.flash_attn_dkv_f32_sm90_tile,
+                 lib.flash_attn_dkv_f32_sm90_stage,
+                 lib.flash_attn_dkv_f32_sm90_flush,
                  lib.flash_attn_dq_f32_d256_sm90_tile,
                  lib.flash_attn_dq_f32_d256_sm90_stage,
                  lib.flash_attn_dq_f32_d256_sm90_flush):
@@ -152,7 +155,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         dq.argtypes = [p] * 7 + [i] * 5 + [geo, geo, f, i, p]
         dq.restype = i
     for dkv in (lib.flash_attn_dkv_sm90, lib.flash_attn_dkv_d256_sm90,
-                lib.flash_attn_dkv_f32_d256_sm90):
+                lib.flash_attn_dkv_f32_sm90, lib.flash_attn_dkv_f32_d256_sm90):
         dkv.argtypes = [p] * 8 + [i] * 5 + [geo, geo, f, i, p]
         dkv.restype = i
     for tile in (lib.flash_attn_bwd_sm90_tile, lib.flash_attn_dq_sm90_stage,

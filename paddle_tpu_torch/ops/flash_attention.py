@@ -14,15 +14,17 @@ forward, dq and dk/dv at head_dim 256, on the tensor cores),
 ``paddle_tpu_torch/csrc/flash_attention_fwd_f32_sm90.cu`` and
 ``paddle_tpu_torch/csrc/flash_attention_fwd_f32_d256_sm90.cu`` (the fp32
 forward at head_dim 64 and 128, and at 256, on the tensor cores through
-split TF32), ``paddle_tpu_torch/csrc/flash_attention_dq_f32_d256_sm90.cu``
-and ``paddle_tpu_torch/csrc/flash_attention_dkv_f32_d256_sm90.cu`` (the
-fp32 dq and dk/dv at head_dim 256, on the tensor cores through split
-TF32) and ``paddle_tpu_torch/csrc/flash_attention.cu`` (fp32 only: the dq
-and dk/dv at head_dim 64 and 128, on the FMA units), whose headers state
-what bounds them on the card and how the design answers that. One kernel
-per role, dtype and head_dim serves both layouts (``_SM90_ENTRIES`` names
-the tensor-core ones; the forward takes one in both dtypes at every
-head_dim, bf16 in every role, fp32 at head_dim 256 in every role):
+split TF32), ``paddle_tpu_torch/csrc/flash_attention_dkv_f32_sm90.cu``
+(the fp32 dk/dv at head_dim 64 and 128, on the tensor cores through split
+TF32), ``paddle_tpu_torch/csrc/flash_attention_dq_f32_d256_sm90.cu`` and
+``paddle_tpu_torch/csrc/flash_attention_dkv_f32_d256_sm90.cu`` (the fp32
+dq and dk/dv at head_dim 256, on the tensor cores through split TF32) and
+``paddle_tpu_torch/csrc/flash_attention.cu`` (fp32 only: the dq at
+head_dim 64 and 128, on the FMA units), whose headers state what bounds
+them on the card and how the design answers that. One kernel per role,
+dtype and head_dim serves both layouts (``_SM90_ENTRIES`` names the
+tensor-core ones; every role and dtype takes one at every head_dim but
+the fp32 dq at 64 and 128):
 
 - forward: out and the per-row logsumexp (``fwd_launches``), a wgmma
   kernel at every dtype and head_dim: bf16 ``flash_attn_fwd_sm90`` at 64
@@ -36,10 +38,11 @@ head_dim, bf16 in every role, fp32 at head_dim 256 in every role):
   TF32 (``flash_attn_dq_f32_d256_sm90``, ``SM90_F32_D256_DQ_TILES``),
   fp32 at 64 and 128 SIMT, which reads q, k, v and dO through (batch,
   seq, head) strides;
-- dk and dv, one kernel (``dkv_launches``): bf16 on the tensor cores at
-  every head_dim (``flash_attn_dkv_d256_sm90`` at 256), fp32 at head_dim
-  256 in split TF32 (``flash_attn_dkv_f32_d256_sm90``,
-  ``SM90_F32_D256_DKV_TILES``), fp32 at 64 and 128 SIMT.
+- dk and dv, one kernel (``dkv_launches``), on the tensor cores at every
+  dtype and head_dim: bf16 ``flash_attn_dkv_sm90`` at 64 and 128,
+  ``flash_attn_dkv_d256_sm90`` at 256; fp32 in split TF32
+  ``flash_attn_dkv_f32_sm90`` at 64 and 128 (``SM90_F32_DKV_TILES``),
+  ``flash_attn_dkv_f32_d256_sm90`` at 256 (``SM90_F32_D256_DKV_TILES``).
 
 Entry points:
 
@@ -71,9 +74,10 @@ Rounding rule (one for both layouts): the scores are fp32 products of
 the inputs times ``scale``; P is rounded to the inputs' dtype before
 ``P v`` and ``P^T dO``, dS = P (dP - delta) before ``dS k`` and
 ``dS^T q``; dq and dk are scaled once, in fp32, at the end (the fp32
-dq and dk/dv at head_dim 256 scale each group of ``SM90_F32_D256_BWD_FLUSH``
-stage tiles' sum before adding it to the others': at that head_dim's
-default scale, 1/16, the same bits); every sum is fp32. The TPU's BHTD kernels round the same way; its BTHD kernels round
+dk/dv at every head_dim and the fp32 dq at 256 scale each group of
+``SM90_F32_BWD_FLUSH`` stage tiles' sum before adding it to the others':
+at the default scale of head_dim 64 and 256, 1/8 and 1/16, the same
+bits); every sum is fp32. The TPU's BHTD kernels round the same way; its BTHD kernels round
 ``q * scale`` to the inputs' dtype before the scores, which agrees where
 the scale is a power of two (D = 64) and differs by one bf16 rounding of
 q otherwise (D = 128, 256). The kernels' online softmax rounds P against
@@ -134,8 +138,7 @@ _NEG = -1e30  # the TPU kernel's finite stand-in for -inf
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128, 256)
 # the tensor-core entry point of each role by (dtype, head_dim); the fp32
-# dq and dk/dv at head_dim 64 and 128 run the SIMT kernels of
-# csrc/flash_attention.cu
+# dq at head_dim 64 and 128 runs the SIMT kernel of csrc/flash_attention.cu
 _SM90_ENTRIES = {
     "fwd": {(torch.bfloat16, 64): "flash_attn_fwd_sm90",
             (torch.bfloat16, 128): "flash_attn_fwd_sm90",
@@ -150,6 +153,8 @@ _SM90_ENTRIES = {
     "dkv": {(torch.bfloat16, 64): "flash_attn_dkv_sm90",
             (torch.bfloat16, 128): "flash_attn_dkv_sm90",
             (torch.bfloat16, 256): "flash_attn_dkv_d256_sm90",
+            (torch.float32, 64): "flash_attn_dkv_f32_sm90",
+            (torch.float32, 128): "flash_attn_dkv_f32_sm90",
             (torch.float32, 256): "flash_attn_dkv_f32_d256_sm90"},
 }
 # the bf16 forward's query rows per block and key/value rows per ring
@@ -169,15 +174,17 @@ SM90_F32_FWD_TILES = {64: (128, 32), 128: (64, 32)}
 # and at head_dim 256 (csrc/flash_attention_fwd_f32_d256_sm90.cu): 64
 # query rows a block, D split between its two warpgroups; 32 keys a tile
 SM90_F32_D256_FWD_TILES = (64, 32)
-# the fp32 backward's at head_dim 256 in split TF32: rows of a block's own
-# tile (keys for dk/dv, csrc/flash_attention_dkv_f32_d256_sm90.cu; query
-# rows for dq, csrc/flash_attention_dq_f32_d256_sm90.cu) and of a stage
+# the fp32 backward's in split TF32: rows of a block's own tile (keys for
+# dk/dv, csrc/flash_attention_dkv_f32_d256_sm90.cu at head_dim 256 and
+# csrc/flash_attention_dkv_f32_sm90.cu at 64 and 128; query rows for dq,
+# csrc/flash_attention_dq_f32_d256_sm90.cu) and of a stage
 # tile of the other side, and the stage tiles whose products one
 # accumulator of the tensor cores sums before the sum is added, in fp32,
 # into the output (counted from row 0)
 SM90_F32_D256_DKV_TILES = (64, 16)
 SM90_F32_D256_DQ_TILES = (64, 16)
-SM90_F32_D256_BWD_FLUSH = 8
+SM90_F32_DKV_TILES = (64, 16)
+SM90_F32_BWD_FLUSH = 8
 # the bf16 backward's, by head_dim (csrc/flash_attention_bwd_sm90.cu):
 # rows of a block's own tile (query rows for dq, keys for dk/dv), key
 # rows of a dq ring stage, query rows of a dk/dv ring stage
@@ -396,9 +403,9 @@ def tma_geometry(t: torch.Tensor, layout: str) -> Tuple[int, ...]:
 def _tensor_cores(q: torch.Tensor, role: str) -> Optional[str]:
     """The tensor-core entry point that takes ``role`` ("fwd", "dq" or
     "dkv") of q's dtype and head_dim, or None where that role runs SIMT
-    (the fp32 dq and dk/dv at head_dim 64 and 128): bf16 in every role at
-    head_dim 64, 128 and 256, the fp32 forward at each of them, fp32 in
-    every role at 256."""
+    (the fp32 dq at head_dim 64 and 128): bf16 in every role at head_dim
+    64, 128 and 256, the fp32 forward and dk/dv at each of them, the fp32
+    dq at 256."""
     return _SM90_ENTRIES[role].get((q.dtype, q.shape[-1]))
 
 

@@ -410,7 +410,12 @@ def test_ablation_tool_anchors_match_the_d256_dq_kernel(monkeypatch):
     # then in dq alone
     pytest.param(torch.bfloat16, 256, "BTHD", "d256",
                  id="dtype4-256-BTHD-False"),
-    (torch.float32, 64, "BHTD", False), (torch.float32, 128, "BTHD", False),
+    # the ids these had while fp32 at head_dim 64 and 128 ran SIMT in both
+    # roles; dk/dv now runs split TF32, dq SIMT
+    pytest.param(torch.float32, 64, "BHTD", "f32_dkv",
+                 id="dtype5-64-BHTD-False"),
+    pytest.param(torch.float32, 128, "BTHD", "f32_dkv",
+                 id="dtype6-128-BTHD-False"),
     pytest.param(torch.bfloat16, 256, "BHTD", "d256",
                  id="dtype7-256-BHTD-dkv"),
     # the id this had while fp32 at head_dim 256 ran SIMT
@@ -422,9 +427,10 @@ def test_backward_routes_bf16_to_the_tensor_core_kernels(monkeypatch, dtype, d,
     """bf16 at head_dim 64 and 128 goes to the sm90 dq and dk/dv entry
     points, bf16 dq and dk/dv at head_dim 256 to their own (``sm90``
     "d256"), fp32 at head_dim 256 to the split-TF32 ones (``sm90``
-    "f32_d256"), each with the tensor-map geometry of q (which dO shares)
-    and of k; fp32 at head_dim 64 and 128 to the SIMT ones; one launch
-    counted either way, on that role's counter only."""
+    "f32_d256"), fp32 dk/dv at head_dim 64 and 128 to its split-TF32 one
+    (``sm90`` "f32_dkv"), each with the tensor-map geometry of q (which dO
+    shares) and of k; the fp32 dq at head_dim 64 and 128 to the SIMT one;
+    one launch counted either way, on that role's counter only."""
     lib = _Recorder()
     _stub_library(monkeypatch, lib)
     q, k, v, do = (_torch(a, "f32").to(dtype)
@@ -442,6 +448,8 @@ def test_backward_routes_bf16_to_the_tensor_core_kernels(monkeypatch, dtype, d,
         entry = f"flash_attn_{role}_d256_sm90"
     elif sm90 == "f32_d256":
         entry = f"flash_attn_{role}_f32_d256_sm90"
+    elif sm90 == "f32_dkv" and role == "dkv":
+        entry = "flash_attn_dkv_f32_sm90"
     else:
         entry = f"flash_attn_{role}"
     assert name == entry
@@ -558,15 +566,21 @@ def test_f32_d256_backward_clones_a_misaligned_input(monkeypatch, role,
 
 
 def test_simt_backward_no_longer_takes_head_dim_256(monkeypatch):
-    """fp32 dq and dk/dv at head_dim 256 never reach the SIMT entry points
-    (``flash_attn_dq``, ``flash_attn_dkv``) in either layout, and the SIMT
-    source instantiates its kernels at head_dim 64 and 128 only, so that
-    it returns -1 at 256; at 64 and 128 fp32 still takes it."""
+    """fp32 dq at head_dim 256 and fp32 dk/dv at every head_dim never reach
+    the SIMT entry points (``flash_attn_dq``, ``flash_attn_dkv``) in either
+    layout: dk/dv takes ``flash_attn_dkv_f32_sm90`` at 64 and 128 and
+    ``flash_attn_dkv_f32_d256_sm90`` at 256. The SIMT source instantiates
+    its dq kernel at head_dim 64 and 128 only, so that it returns -1 at
+    256, and no dk/dv kernel, so that ``flash_attn_dkv`` returns -1 at
+    every head_dim; at 64 and 128 the fp32 dq still takes it."""
     import os
 
     lib = _Recorder()
     _stub_library(monkeypatch, lib)
-    for d, simt in ((64, True), (128, True), (256, False)):
+    for d, want in ((64, ["flash_attn_dq", "flash_attn_dkv_f32_sm90"]),
+                    (128, ["flash_attn_dq", "flash_attn_dkv_f32_sm90"]),
+                    (256, ["flash_attn_dq_f32_d256_sm90",
+                           "flash_attn_dkv_f32_d256_sm90"])):
         for layout in ("BTHD", "BHTD"):
             q = torch.zeros((1, 64, 2, d) if layout == "BTHD"
                             else (1, 2, 64, d))
@@ -575,9 +589,11 @@ def test_simt_backward_no_longer_takes_head_dim_256(monkeypatch):
             fl._launch_dq(q, q, q, q, stats, stats, False, 0.125, layout)
             fl._launch_dkv(q, q, q, q, stats, stats, False, 0.125, layout)
             names = [name for name, _ in lib.calls]
-            assert (names == ["flash_attn_dq", "flash_attn_dkv"]) == simt, (
-                d, names)
+            assert names == want, (d, layout, names)
     src = open(os.path.join(os.path.dirname(fl.__file__), os.pardir, "csrc",
                             "flash_attention.cu")).read()
     assert "launch<64>" in src and "launch<128>" in src
     assert "launch<256>" not in src and "case 256" not in src
+    assert "dkv_kernel" not in src
+    body = src[src.index("int flash_attn_dkv("):]
+    assert "return -1;" in body and "<<<" not in body

@@ -1,9 +1,10 @@
-"""The fp32 flash attention dq and dk/dv at head_dim 256 in split TF32,
-emulated on the CPU, against the port's plain versions, the JAX package's
-kernels and float64.
+"""The fp32 flash attention dq and dk/dv at head_dim 256, and dk/dv at
+head_dim 64 and 128, in split TF32, emulated on the CPU, against the
+port's plain versions, the JAX package's kernels and float64.
 
 The kernels (``paddle_tpu_torch/csrc/flash_attention_dq_f32_d256_sm90.cu``
-and ``flash_attention_dkv_f32_d256_sm90.cu``, their helpers in
+and ``flash_attention_dkv_f32_d256_sm90.cu`` at 256,
+``flash_attention_dkv_f32_sm90.cu`` at 64 and 128, their helpers in
 ``flash_f32_bwd.cuh``) cannot run here, so :func:`emulate_bwd` repeats
 their arithmetic in torch:
 
@@ -15,7 +16,8 @@ their arithmetic in torch:
   8-deep slice ``lo_a . hi_b``, ``hi_a . lo_b``, ``hi_a . hi_b``, one
   accumulator a 32-column box of D, the boxes added in fp32 as ``((c0 +
   c1) + (c2 + c3))`` over each half of D (a warpgroup's) and the two
-  halves added last;
+  halves added last at D 256; at 64 and 128 a warpgroup owns all of D:
+  ``c0 + c1`` and ``((c0 + c1) + (c2 + c3))``;
 - ``P = exp(s * scale - lse)`` (one fused multiply-add, natural exp) with
   the causal mask before the exponential and +1e30 for a row whose lse is
   -1e30; ``dS = P * (dP - delta)`` in fp32;
@@ -23,26 +25,32 @@ their arithmetic in torch:
   ``dV^T = dO^T P`` and ``dK^T = Q^T dS`` over stage tiles of 16 rows
   (keys for dq, query rows for dk/dv) in order, per 8-row slice ``lo_a .
   hi_b``, ``hi_a . lo_b``, ``hi_a . hi_b`` with A the transposed tile;
-- one accumulator a group of ``SM90_F32_D256_BWD_FLUSH`` stage tiles
+- one accumulator a group of ``SM90_F32_BWD_FLUSH`` stage tiles
   (counted from row 0), each group's sum times the scale (1 for dv) added
   to the earlier groups' in fp32, in order.
+
+At head_dim 64 and 128 the fp32 dq runs the SIMT kernel (exact fp32
+products), so only dk and dv are emulated there.
 
 The tensor cores' fp32 accumulation is modelled pessimistically, as
 ``tests/test_torch_flash_attention_f32.py`` models it: exact products,
 the sum rounded toward zero after every 4.
 
-What is held, at D 256, both layouts, causal and not, Tq != Tk, rows that
-see no key, and T up to 384:
+What is held, at D 256 (dq, dk, dv) and at D 64 and 128 (dk, dv), both
+layouts, causal and not, Tq != Tk, rows that see no key, and T up to 384:
 
 - the emulation against ``flash_attention_dq_plain`` and
   ``flash_attention_dkv_plain`` at ``chip_smoke._FLASH_TOL["float32"]``,
   and against the JAX package's ``_bwd`` in interpret mode at the fp32
   parity tolerance of ``tests/test_torch_flash_attention.py``;
 - its max error in dq, dk and dv against float64 over the plain fp32
-  version's own: ``chip_smoke._F32_FLASH_BWD_MULTIPLE`` is at least twice
-  the worst ratio over the truth cases and seeds, and at the training
-  length (T = 2048 in one batch and head), and a 1xTF32 emulation (hi . hi
-  alone) lies 10x or more beyond that bound, so the bound can fail;
+  version's own: ``chip_smoke._f32_bwd_multiple(d)``
+  (``_F32_FLASH_BWD_MULTIPLE`` at D 256, ``_F32_DKV_MULTIPLE`` at 64 and
+  128) is at least twice the worst ratio over the truth cases and seeds,
+  and at the training
+  length (T = 2048 in one batch and head, at D 256 and at 64 and 128), and
+  a 1xTF32 emulation (hi . hi alone) lies 10x or more beyond that bound,
+  so the bound can fail;
 - one accumulator over every stage tile (no groups) would leave the bound
   at the training length, which is why the kernels add groups in fp32.
 """
@@ -128,13 +136,17 @@ def _box(a_hi, a_lo, b_hi, b_lo, x):
 
 def _scores(a, b, pair):
     """The kernels' score tile sums, A (.., M, D) . B (.., N, D)^T: a chain
-    a 32-column box, ((c0 + c1) + (c2 + c3)) over each warpgroup's half of
-    D, the halves added."""
+    a 32-column box, ((c0 + c1) + (c2 + c3)) over each warpgroup's 128
+    columns of D; at D 256 the two warpgroups' halves added, at D 128 the
+    one warpgroup's sum, at D 64 its c0 + c1."""
     (a_hi, a_lo), (b_hi, b_lo) = pair(a), pair(b)
-    box = [_box(a_hi, a_lo, b_hi, b_lo, x) for x in range(8)]
+    box = [_box(a_hi, a_lo, b_hi, b_lo, x) for x in range(a.shape[-1] // 32)]
+    if len(box) == 2:
+        return _f32(box[0] + box[1])
     half = [_f32(_f32(box[4 * w] + box[4 * w + 1])
-                 + _f32(box[4 * w + 2] + box[4 * w + 3])) for w in (0, 1)]
-    return _f32(half[0] + half[1])
+                 + _f32(box[4 * w + 2] + box[4 * w + 3]))
+            for w in range(len(box) // 4)]
+    return half[0] if len(half) == 1 else _f32(half[0] + half[1])
 
 
 def _pad_rows(x, rows):
@@ -150,7 +162,7 @@ def _products(a, b, scale, pair):
     group of FLUSH stage tiles; each group's sum times ``scale`` added to
     the earlier ones in fp32."""
     (a_hi, a_lo), (b_hi, b_lo) = pair(a), pair(b)
-    group = _STAGE * fl.SM90_F32_D256_BWD_FLUSH
+    group = _STAGE * fl.SM90_F32_BWD_FLUSH
     total = None
     for g0 in range(0, a.shape[-2], group):
         acc = torch.zeros(a.shape[:-2] + (a.shape[-1], b.shape[-1]))
@@ -170,10 +182,11 @@ def _products(a, b, scale, pair):
 
 def emulate_bwd(q, k, v, do, lse, delta, causal, layout, pair=_pair,
                 want=("dq", "dk", "dv")):
-    """(dq, dk, dv) of the fp32 head_dim-256 kernels' arithmetic on CPU
-    tensors, in the layout (those not in ``want`` None). Every row runs
-    every stage tile: a tile the kernel does not load (wholly above the
-    causal diagonal) adds exact zeros here, which changes no bit."""
+    """(dq, dk, dv) of the fp32 split-TF32 kernels' arithmetic on CPU
+    tensors, in the layout (those not in ``want`` None; dq only at head_dim
+    256, where it has such a kernel). Every row runs every stage tile: a
+    tile the kernel does not load (wholly above the causal diagonal) adds
+    exact zeros here, which changes no bit."""
     qh, kh, vh, dh = (fl._heads_first(t, layout) for t in (q, k, v, do))
     tq, tk, d = qh.shape[2], kh.shape[2], qh.shape[3]
     scale = torch.tensor(np.float32(1 / math.sqrt(d)))
@@ -213,14 +226,19 @@ def emulate_bwd(q, k, v, do, lse, delta, causal, layout, pair=_pair,
                  for g in got.values())
 
 
-def _inputs(b, h, tq, tk, layout, seed):
+def _inputs(b, h, tq, tk, layout, seed, d=256):
     """q, k, v, dO as chip_smoke's fp32 checks make them (N(0, 1), seeded),
     and the plain forward's lse and delta, which the card check feeds both
     the kernels and the plain versions."""
-    q, k, v, do = chip_smoke._flash_inputs(torch, b, h, tq, tk, 256,
+    q, k, v, do = chip_smoke._flash_inputs(torch, b, h, tq, tk, d,
                                            torch.float32, layout, seed,
                                            device="cpu")
     return q, k, v, do
+
+
+def _want(d):
+    """The gradients a split-TF32 kernel computes at head_dim d."""
+    return ("dq", "dk", "dv") if d == 256 else ("dk", "dv")
 
 
 def _args(q, k, v, do, causal, layout):
@@ -229,24 +247,33 @@ def _args(q, k, v, do, causal, layout):
             causal, None, layout)
 
 
-# (layout, causal, B, H, Tq, Tk): both layouts, causal and not, Tq < Tk,
-# Tq > Tk (rows that see no key), and lengths that are no multiple of the
-# kernels' tiles, all at D 256
+# (layout, causal, B, H, Tq, Tk, D): both layouts, causal and not, Tq <
+# Tk, Tq > Tk (rows that see no key), and lengths that are no multiple of
+# the kernels' tiles (or of 128 rows, 320), at D 256, 64 and 128
 _CASES = [
-    ("BHTD", False, 1, 2, 256, 256),
-    ("BTHD", True, 2, 1, 256, 256),
-    ("BTHD", False, 1, 1, 128, 384),
-    ("BHTD", True, 1, 2, 128, 384),
-    ("BTHD", True, 1, 1, 384, 128),
-    ("BHTD", True, 1, 1, 333, 333),
-    ("BTHD", False, 1, 2, 200, 333),
+    ("BHTD", False, 1, 2, 256, 256, 256),
+    ("BTHD", True, 2, 1, 256, 256, 256),
+    ("BTHD", False, 1, 1, 128, 384, 256),
+    ("BHTD", True, 1, 2, 128, 384, 256),
+    ("BTHD", True, 1, 1, 384, 128, 256),
+    ("BHTD", True, 1, 1, 333, 333, 256),
+    ("BTHD", False, 1, 2, 200, 333, 256),
+    ("BHTD", False, 1, 2, 256, 256, 64),
+    ("BTHD", True, 2, 1, 256, 256, 128),
+    ("BHTD", True, 1, 2, 128, 384, 64),
+    ("BTHD", True, 1, 1, 384, 128, 128),
+    ("BTHD", True, 1, 2, 320, 320, 64),
+    ("BHTD", True, 1, 1, 333, 333, 128),
+    ("BTHD", False, 1, 2, 200, 333, 64),
 ]
 
 
 def _case_id(case):
-    layout, causal, b, h, tq, tk = case
+    """The case's id; at head_dim 256 the one it had when every case was
+    at 256, elsewhere with the head_dim."""
+    layout, causal, b, h, tq, tk, d = case
     return (f"{layout}-{'causal' if causal else 'full'}-b{b}h{h}-"
-            f"tq{tq}-tk{tk}")
+            f"tq{tq}-tk{tk}" + ("" if d == 256 else f"-d{d}"))
 
 
 @pytest.fixture(scope="module")
@@ -255,21 +282,24 @@ def emulated():
     index."""
     got = {}
     for i, case in enumerate(_CASES):
-        layout, causal, b, h, tq, tk = case
-        args = _args(*_inputs(b, h, tq, tk, layout, 60 + i), causal, layout)
-        got[case] = (args, emulate_bwd(*args[:-2], layout))
+        layout, causal, b, h, tq, tk, d = case
+        args = _args(*_inputs(b, h, tq, tk, layout, 60 + i, d), causal,
+                     layout)
+        got[case] = (args, emulate_bwd(*args[:-2], layout, want=_want(d)))
     return got
 
 
 @pytest.mark.parametrize("case", _CASES, ids=_case_id)
 def test_emulation_matches_the_plain_version(emulated, case):
-    """dq, dk and dv within chip_smoke's fp32 tolerance of the plain
-    versions fed the same lse and delta."""
-    args, (dq, dk, dv) = emulated[case]
+    """dq (at D 256), dk and dv within chip_smoke's fp32 tolerance of the
+    plain versions fed the same lse and delta."""
+    args, emulation = emulated[case]
     pdk, pdv = fl.flash_attention_dkv_plain(*args)
+    want = _want(case[-1])
+    plain = dict(dq=fl.flash_attention_dq_plain(*args), dk=pdk, dv=pdv)
+    got = dict(zip(("dq", "dk", "dv"), emulation))
     chip_smoke._flash_agrees(
-        torch, dict(dq=dq, dk=dk, dv=dv),
-        dict(dq=fl.flash_attention_dq_plain(*args), dk=pdk, dv=pdv),
+        torch, {n: got[n] for n in want}, {n: plain[n] for n in want},
         "float32", f"3xTF32 emulation, {_case_id(case)}")
 
 
@@ -277,15 +307,15 @@ def test_emulation_matches_the_plain_version(emulated, case):
                                   if c[4] % 128 == 0 and c[5] % 128 == 0],
                          ids=_case_id)
 def test_emulation_matches_jax(emulated, case):
-    """dq, dk and dv against the JAX package's backward kernels in
-    interpret mode (``_bwd`` at blocks of 128, which need lengths that are
-    a multiple of them), fed the JAX forward's out and lse, at the fp32
+    """dq (at D 256), dk and dv against the JAX package's backward kernels
+    in interpret mode (``_bwd`` at blocks of 128, which need lengths that
+    are a multiple of them), fed the JAX forward's out and lse, at the fp32
     gradient tolerance of ``tests/test_torch_flash_attention.py`` (2e-4)."""
-    layout, causal, b, h, tq, tk = case
+    layout, causal, b, h, tq, tk, d = case
     (q, k, v, do, *_), _ = emulated[case]
     jq, jk, jv, jdo = (jnp.asarray(t.numpy()) for t in (q, k, v, do))
     bthd = layout == "BTHD"
-    scale = 1.0 / np.sqrt(256)
+    scale = 1.0 / np.sqrt(d)
     jout, jlse = jfa._fwd(jq, jk, jv, causal=causal, scale=scale,
                           block_q=128, block_k=128, interpret=True,
                           bthd=bthd)
@@ -294,18 +324,21 @@ def test_emulation_matches_jax(emulated, case):
     lse = torch.from_numpy(np.reshape(np.asarray(jlse), (b, h, tq)).copy())
     delta = fl.flash_attention_delta(torch.from_numpy(np.array(jout)), do,
                                      layout)
-    got = emulate_bwd(q, k, v, do, lse, delta, causal, layout)
+    got = emulate_bwd(q, k, v, do, lse, delta, causal, layout,
+                      want=_want(d))
     for name, g, want in zip(("dq", "dk", "dv"), got, jgrads):
-        np.testing.assert_allclose(g.numpy(), np.asarray(want), rtol=2e-4,
-                                   atol=2e-4, err_msg=name)
+        if name in _want(d):
+            np.testing.assert_allclose(g.numpy(), np.asarray(want),
+                                       rtol=2e-4, atol=2e-4, err_msg=name)
 
 
-def _ratios(case, seed, pair=_pair, want=("dq", "dk", "dv")):
+def _ratios(case, seed, pair=_pair, want=None):
     """{name: (the plain version's error, the emulation's)} against
-    float64 (``chip_smoke._flash_bwd_fp64``) for dq, dk and dv (those in
-    ``want``)."""
-    layout, causal, b, h, tq, tk = case
-    q, k, v, do = _inputs(b, h, tq, tk, layout, seed)
+    float64 (``chip_smoke._flash_bwd_fp64``) for the gradients in ``want``
+    (by default those the head_dim's split-TF32 kernels compute)."""
+    layout, causal, b, h, tq, tk, d = case
+    want = want or _want(d)
+    q, k, v, do = _inputs(b, h, tq, tk, layout, seed, d)
     args = _args(q, k, v, do, causal, layout)
     truth = chip_smoke._flash_bwd_fp64(torch, q, k, v, do, causal, layout)
     pdk, pdv = fl.flash_attention_dkv_plain(*args)
@@ -317,31 +350,30 @@ def _ratios(case, seed, pair=_pair, want=("dq", "dk", "dv")):
             for n in want}
 
 
-def _bound(plain_err):
-    return (chip_smoke._F32_FLASH_BWD_MULTIPLE * plain_err
+def _bound(plain_err, d=256):
+    return (chip_smoke._f32_bwd_multiple(d) * plain_err
             + chip_smoke._F32_FLASH_ATOL)
 
 
-_TRUTH = [(layout, causal, b, h, tq, tk)
-          for layout, causal, b, h, tq, tk, d
-          in chip_smoke._F32_FLASH_TRUTH_CASES if d == 256]
+_TRUTH = chip_smoke._F32_FLASH_TRUTH_CASES
 
 
 @pytest.mark.parametrize("case", _TRUTH, ids=_case_id)
 def test_fp64_bound_holds_the_split_and_refuses_tf32(case):
-    """The card's float64 bound, _F32_FLASH_BWD_MULTIPLE x the plain fp32
-    version's own error + _F32_FLASH_ATOL, in dq, dk and dv: the emulation
-    lies within half of it at the seeds the card check runs and two more,
-    and a 1xTF32 emulation 10x or more beyond it."""
+    """The card's float64 bound, ``_f32_bwd_multiple(d)`` x the plain fp32
+    version's own error + _F32_FLASH_ATOL, in dq (at D 256), dk and dv: the
+    emulation lies within half of it at the seeds the card check runs and
+    two more, and a 1xTF32 emulation 10x or more beyond it."""
     assert _TRUTH
+    d = case[-1]
     for seed in chip_smoke._F32_FLASH_SEEDS + (7, 8):
         split = _ratios(case, seed)
         single = _ratios(case, seed, _only_hi)
         for name, (p, e) in split.items():
-            assert math.isfinite(e) and e <= _bound(p)
-            assert chip_smoke._F32_FLASH_BWD_MULTIPLE >= 2 * e / p, (
+            assert math.isfinite(e) and e <= _bound(p, d)
+            assert chip_smoke._f32_bwd_multiple(d) >= 2 * e / p, (
                 name, seed, e, p)
-            assert single[name][1] > 10 * _bound(p), (name, seed,
+            assert single[name][1] > 10 * _bound(p, d), (name, seed,
                                                       single[name], p)
 
 
@@ -353,10 +385,28 @@ def test_fp64_bound_holds_at_the_training_length():
     rows a key's dk and dv."""
     layout, causal, _, _, tq, tk, d = chip_smoke._F32_FLASH_TRUTH_TRAIN_D256
     assert d == 256
-    ratios = _ratios((layout, causal, 1, 1, tq, tk),
+    ratios = _ratios((layout, causal, 1, 1, tq, tk, d),
                      chip_smoke._F32_FLASH_TRAIN_SEED)
     for name, (p, e) in ratios.items():
         assert chip_smoke._F32_FLASH_BWD_MULTIPLE >= 2 * e / p, (name, e, p)
+
+
+@pytest.mark.parametrize("train", [chip_smoke._F32_FLASH_TRUTH_TRAIN,
+                                   chip_smoke._F32_FLASH_TRUTH_TRAIN_D128],
+                         ids=["d64", "d128"])
+def test_fp64_bound_holds_dk_dv_at_the_training_length(train):
+    """The same bound for the head_dim-64 and 128 dk/dv at the fp32
+    training shapes' length, layout and mask (T = 2048, causal, BTHD), at
+    the seed the card check runs there, in one batch and one head: within
+    half of it, and a 1xTF32 emulation beyond it."""
+    layout, causal, _, _, tq, tk, d = train
+    assert d in (64, 128)
+    case = (layout, causal, 1, 1, tq, tk, d)
+    ratios = _ratios(case, chip_smoke._F32_FLASH_TRAIN_SEED)
+    single = _ratios(case, chip_smoke._F32_FLASH_TRAIN_SEED, _only_hi)
+    for name, (p, e) in ratios.items():
+        assert chip_smoke._F32_DKV_MULTIPLE >= 2 * e / p, (name, e, p)
+        assert single[name][1] > 10 * _bound(p, d), (name, single[name], p)
 
 
 def test_one_accumulator_over_every_tile_would_leave_the_bound(monkeypatch):
@@ -364,19 +414,14 @@ def test_one_accumulator_over_every_tile_would_leave_the_bound(monkeypatch):
     training length's causal rows), the truncating sums put dv beyond the
     float64 bound: the groups are what keep the kernels inside it."""
     layout, causal, _, _, tq, tk, _ = chip_smoke._F32_FLASH_TRUTH_TRAIN_D256
-    monkeypatch.setattr(fl, "SM90_F32_D256_BWD_FLUSH", tq // _STAGE)
-    p, e = _ratios((layout, causal, 1, 1, tq, tk),
+    monkeypatch.setattr(fl, "SM90_F32_BWD_FLUSH", tq // _STAGE)
+    p, e = _ratios((layout, causal, 1, 1, tq, tk, 256),
                    chip_smoke._F32_FLASH_TRAIN_SEED, want=("dv",))["dv"]
     assert e > _bound(p), (e, p)
 
 
-def test_ablation_tool_anchors_match_the_kernels(monkeypatch):
-    """tools/torch_flash_f32_d256_bwd_ablation.py edits the shared header
-    and the two kernels' sources by text: each anchor (the fragments'
-    load and split, the score and accumulating wgmma, the flush's staging
-    and TMA, each kernel's reload) is there exactly once, each variant
-    differs from the sources and from every other, and an edited anchor
-    raises."""
+def _ablation_tool(monkeypatch):
+    """tools/torch_flash_f32_d256_bwd_ablation.py as a module."""
     import importlib.util
 
     tools = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -387,12 +432,29 @@ def test_ablation_tool_anchors_match_the_kernels(monkeypatch):
         os.path.join(tools, "torch_flash_f32_d256_bwd_ablation.py"))
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
+    return tool
+
+
+def _ablation_texts(tool, kernels):
+    """(the shared header, {kernel: its source}) as the tool reads them."""
     with open(os.path.join(tool.CSRC, tool.HEADER)) as f:
         header = f.read()
     sources = {}
-    for kernel, (source, _, _) in tool.KERNELS.items():
+    for kernel, (source, _, _) in kernels.items():
         with open(os.path.join(tool.CSRC, source)) as f:
             sources[kernel] = f.read()
+    return header, sources
+
+
+def test_ablation_tool_anchors_match_the_kernels(monkeypatch):
+    """tools/torch_flash_f32_d256_bwd_ablation.py edits the shared header
+    and the two kernels' sources by text: each anchor (the fragments'
+    load and split, the score and accumulating wgmma, the flush's staging
+    and TMA, each kernel's reload) is there exactly once, each variant
+    differs from the sources and from every other, and an edited anchor
+    raises."""
+    tool = _ablation_tool(monkeypatch)
+    header, sources = _ablation_texts(tool, tool.KERNELS)
     variants = tool.variants(header, sources)
     assert variants["kernel"] == (header, sources)
     texts = {(h, tuple(s.values())) for h, s in variants.values()}
@@ -400,6 +462,27 @@ def test_ablation_tool_anchors_match_the_kernels(monkeypatch):
     with pytest.raises(RuntimeError, match="changed"):
         tool.variants(header.replace("tma_reduce_add_3d(map",
                                      "tma_reduce_add_3d( map"), sources)
+    with pytest.raises(RuntimeError, match="changed"):
+        tool.variants(header, {k: s.replace("load(j + 1);", "load(j+1);")
+                               for k, s in sources.items()})
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_ablation_tool_anchors_match_the_head_dim_64_128_kernel(monkeypatch,
+                                                                d):
+    """With ``--head-dim 64`` or ``128`` the tool ablates the split-TF32
+    dk/dv of those head_dims (``flash_attention_dkv_f32_sm90.cu``) through
+    the same header anchors and its own reload: each variant differs from
+    the source and from every other, and an edited anchor raises."""
+    tool = _ablation_tool(monkeypatch)
+    kernels = tool.KERNELS_BY_HEAD_DIM[d]
+    assert [s for s, _, _ in kernels.values()] == [
+        "flash_attention_dkv_f32_sm90.cu"]
+    header, sources = _ablation_texts(tool, kernels)
+    variants = tool.variants(header, sources)
+    assert variants["kernel"] == (header, sources)
+    texts = {(h, tuple(s.values())) for h, s in variants.values()}
+    assert len(texts) == len(variants)
     with pytest.raises(RuntimeError, match="changed"):
         tool.variants(header, {k: s.replace("load(j + 1);", "load(j+1);")
                                for k, s in sources.items()})

@@ -1583,12 +1583,13 @@ def test_running_stats_check(train):
 
 
 def test_smoke_finds_the_f32_d256_backward_by_name():
-    """chip_smoke.py maps each split-TF32 backward kernel to exactly one
-    ``_SM90_KERNELS`` key (none of the bf16 head_dim-256 ones or the fp32
-    forward to it), wants as many tensor-core instructions as the sources
-    issue, a device trace charges them to dq and dk/dv, and the
-    ``train_f32_d256`` phase's names (``_F32_D256_NAMES``) find each of
-    them apart from the SIMT kernels, which it wants at no call."""
+    """chip_smoke.py maps each split-TF32 backward kernel (dq and dk/dv at
+    head_dim 256, dk/dv at 64 and 128) to exactly one ``_SM90_KERNELS``
+    key (none of the bf16 head_dim-256 ones or the fp32 forward to it),
+    wants as many tensor-core instructions as the sources issue, a device
+    trace charges them to dq and dk/dv, and the ``train_f32_d256`` phase's
+    names (``_F32_D256_NAMES``) find each of the head_dim-256 ones apart
+    from the SIMT kernels, which it wants at no call."""
     from types import SimpleNamespace
 
     space = "_ZN69_GLOBAL__N__d13bf6c1_36_{}_cu_331b0b93"
@@ -1608,12 +1609,18 @@ def test_smoke_finds_the_f32_d256_backward_by_name():
         space.format("flash_attention_fwd_f32_d256_sm90")
         + "24fwd_f32_d256_sm90_kernelE14CUtensorMap_stS0_S0_NS_6ParamsE":
             "flash_attention_fwd_f32_d256"}
+    for d in (64, 128):
+        names[space.format("flash_attention_dkv_f32_sm90")
+              + f"19dkv_f32_sm90_kernelILi{d}EEEv14CUtensorMap_stS1_S1_S1_"
+                "S1_S1_NS_6ParamsE"] = f"flash_attention_dkv_f32_d{d}"
     for mangled, want in names.items():
         hits = [key for key, parts in chip_smoke._SM90_KERNELS.items()
                 if all(p in mangled for p in parts)]
         assert hits == [want], (mangled, hits)
     assert chip_smoke._SM90_HGMMA == {"flash_attention_dq_f32_d256": 108,
-                                      "flash_attention_dkv_f32_d256": 120}
+                                      "flash_attention_dkv_f32_d256": 120,
+                                      "flash_attention_dkv_f32_d64": 30,
+                                      "flash_attention_dkv_f32_d128": 60}
 
     def event(name):
         return SimpleNamespace(
@@ -1647,3 +1654,63 @@ def test_smoke_finds_the_f32_d256_backward_by_name():
                 hits[0] not in simt, (piece, hits)
         else:
             assert len(hits) == 1 and hits[0] in simt, (piece, hits)
+
+
+def _trace_event(name, us=250.0):
+    from types import SimpleNamespace
+
+    return SimpleNamespace(
+        name=name, device_type=torch.autograd.DeviceType.CUDA,
+        is_user_annotation=False,
+        time_range=SimpleNamespace(elapsed_us=lambda: us))
+
+
+_DKV_F32 = ("void (anonymous namespace)::dkv_f32_sm90_kernel<{}>("
+            + ", ".join(["CUtensorMap_st"] * 6)
+            + ", (anonymous namespace)::Params)")
+_SIMT = "void (anonymous namespace)::{}_kernel<{}>((anonymous namespace)::Params)"
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_smoke_charges_the_f32_dkv_to_dk_dv(d):
+    """A device trace charges the split-TF32 dk/dv at head_dim 64 and 128
+    (``dkv_f32_sm90_kernel<D>``) to flash_attention_dkv and nothing else,
+    the SIMT dq beside it to flash_attention_dq."""
+    events = [_trace_event(_DKV_F32.format(d)),
+              _trace_event(_SIMT.format("dq", d))]
+    kernels, device_ms, ours, families, _ = chip_smoke._kernel_tally(
+        torch, events)
+    assert {k: v["calls"] for k, v in ours.items()} == {
+        "lmhead_ce_fwd": 0, "lmhead_ce_dx": 0, "lmhead_ce_dw": 0,
+        "flash_attention_fwd": 0, "flash_attention_dq": 1,
+        "flash_attention_dkv": 1, "fused_adam": 0}
+    assert families == {} and device_ms == pytest.approx(0.5)
+
+
+@pytest.mark.parametrize("step,ok", [
+    ("split_tf32", True), ("simt_dkv", False), ("d128_dkv", False),
+    ("missing_one", False)])
+def test_static_amp_fp32_trace_wants_the_split_tf32_dkv(step, ok):
+    """The names static_amp's traced fp32 step is held to
+    (``_F32_D64_NAMES`` through ``_named_kernels``): 12 calls of the
+    split-TF32 dk/dv at head_dim 64 and of the SIMT dq pass; a step that
+    ran the SIMT dk/dv, the head_dim-128 kernel, or one call short fails,
+    naming the phase."""
+    layers = chip_smoke._LAYERS
+    dkv = {"split_tf32": _DKV_F32.format(64), "simt_dkv":
+           _SIMT.format("dkv", 64), "d128_dkv": _DKV_F32.format(128),
+           "missing_one": _DKV_F32.format(64)}[step]
+    n = layers - 1 if step == "missing_one" else layers
+    events = [_trace_event(dkv)] * n + [
+        _trace_event(_SIMT.format("dq", 64))] * layers
+    kernels = chip_smoke._kernel_tally(torch, events)[0]
+    if ok:
+        named = chip_smoke._named_kernels(kernels, chip_smoke._F32_D64_NAMES,
+                                          "static_amp_fp32_profile")
+        assert named["::dkv_f32_sm90_kernel<64>"] == {
+            "calls": layers, "ms": pytest.approx(0.25 * layers)}
+        assert named["::dkv_kernel<"]["calls"] == 0
+    else:
+        with pytest.raises(AssertionError, match="static_amp_fp32_profile"):
+            chip_smoke._named_kernels(kernels, chip_smoke._F32_D64_NAMES,
+                                      "static_amp_fp32_profile")

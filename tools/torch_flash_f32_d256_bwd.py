@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
-"""The fp32 flash dq and dk/dv at head_dim 256 (split TF32 on the tensor
-cores) on their own, on one CUDA card: build, check, time.
+"""The fp32 flash backward of one head_dim on its own, on one CUDA card:
+build, check, time. At head_dim 256 (the default) the dq and dk/dv in
+split TF32 on the tensor cores; at 64 and 128 the dk/dv in split TF32
+and the SIMT dq.
 
-    python3 tools/torch_flash_f32_d256_bwd.py [--port DIR] [--no-check]
+    python3 tools/torch_flash_f32_d256_bwd.py [--head-dim {64,128,256}]
+        [--port DIR] [--no-check]
 
 1. ``chip_smoke._build`` (this tree only): every kernel built, ptxas's
    registers and spills and the tensor-core instructions of each
    tensor-core kernel's SASS, and ptxas's serialized-wgmma warnings;
-2. unless ``--no-check``: the fp32 head_dim-256 cases of
-   ``chip_smoke._FLASH_CASES`` against the plain versions at
+2. unless ``--no-check``: the fp32 cases of ``chip_smoke._FLASH_CASES``
+   at the head_dim against the plain versions at
    ``_FLASH_TOL["float32"]``, the float64 bound of
-   ``chip_smoke._check_f32_flash_bwd_truth`` and the fp32 gradient chain
-   (``_F32_CHAIN_CASES``);
-3. ``chip_smoke._time_flash`` at the training shape in fp32 at 3 heads
-   of 256 (B 8, T 2048, causal, BTHD): CUDA events (median of 5), device
-   ms from a traced window, the plain version, SDPA's fp32 backward and
-   the split-TF32 bounds, twice.
+   ``chip_smoke._check_f32_flash_bwd_truth`` at the head_dim and the fp32
+   gradient chain (``_F32_CHAIN_CASES``) at it;
+3. ``chip_smoke._time_flash`` at the training shape in fp32 in heads of
+   the head_dim (B 8, T 2048, H 768 / D, causal, BTHD) and, at 64 and
+   128, at jit.load's shape (B 1, BHTD, non-causal): CUDA events (median
+   of 5), device ms from a traced window, the plain version, SDPA's fp32
+   backward and the bounds (split TF32 for the tensor-core kernels),
+   twice.
 
 ``--port DIR`` takes ``paddle_tpu_torch`` (and its kernels, built under
 DIR) from the checkout at DIR, for example an archive of an older tree,
@@ -35,7 +40,10 @@ def main() -> int:
                     help="checkout whose paddle_tpu_torch is timed")
     ap.add_argument("--no-check", action="store_true",
                     help="time only (after the build)")
+    ap.add_argument("--head-dim", type=int, choices=(64, 128, 256),
+                    default=256, help="the head_dim checked and timed")
     args = ap.parse_args()
+    hd = args.head_dim
     sys.path.insert(0, ROOT)
     import chip_smoke as cs  # this tree's checks, whatever --port says
 
@@ -58,7 +66,7 @@ def main() -> int:
     if not args.port and not args.no_check:
         for i, (dtype, layout, causal, b, h, tq, tk, d) in enumerate(
                 cs._FLASH_CASES):
-            if dtype != "float32" or d != 256:
+            if dtype != "float32" or d != hd:
                 continue
             q, k, v, do = cs._flash_inputs(torch, b, h, tq, tk, d,
                                            torch.float32, layout,
@@ -74,16 +82,24 @@ def main() -> int:
                     tq=tq, tk=tk, d=d, max_abs_err={
                         n: cs._err(got[n], ref[n]) for n in ref})
             del q, k, v, do, got, ref
-        cs._check_f32_flash_bwd_truth(torch)
+        cs._check_f32_flash_bwd_truth(torch, head_dims=(hd,))
         for i, (b, h, t, d, layout) in enumerate(cs._F32_CHAIN_CASES):
+            if d != hd:
+                continue
             q, k, v, do = cs._flash_inputs(torch, b, h, t, t, d,
                                            torch.float32, layout, seed=98)
             cs._flash_chain(torch, q, k, v, do, True, layout, b=b, h=h,
                             t=t, d=d)
+            del q, k, v, do
+            torch.cuda.empty_cache()
     fl.reset_launches()
+    heads = cs._LONG["d_model"] // hd
     for _ in range(2):
         cs._time_flash(torch, card, "BTHD", True, torch.float32, repeats=5,
-                       heads=3, device=True)
+                       heads=heads, device=True)
+        if hd != 256:
+            cs._time_flash(torch, card, "BHTD", False, torch.float32,
+                           batch=1, repeats=5, heads=heads, device=True)
     return 0
 
 

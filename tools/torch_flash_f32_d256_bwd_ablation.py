@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Where the fp32 flash dq and dk/dv at head_dim 256 (split TF32) spend
-their time, on one CUDA card: ablations of
+"""Where the fp32 flash dq and dk/dv in split TF32 spend their time, on
+one CUDA card: ablations of
 ``paddle_tpu_torch/csrc/flash_attention_dq_f32_d256_sm90.cu`` and
-``flash_attention_dkv_f32_d256_sm90.cu`` and of the helpers they share,
+``flash_attention_dkv_f32_d256_sm90.cu`` (``--head-dim 256``, the
+default), or of ``flash_attention_dkv_f32_sm90.cu`` (``--head-dim 64`` or
+``128``: the fp32 dq there is SIMT), and of the helpers they share,
 ``flash_f32_bwd.cuh``.
 
 Each variant is the sources with one part of the work removed, built by
 its own nvcc (all started together; a variant's header is written beside
 its source, where ``#include "..."`` finds it first) into its own
-library and timed at the fp32 training shape at 3 heads of 256 (B = 8,
-T = 2048, H = 3, D = 256, causal, BTHD), in the order kernel, variants,
-variants reversed, kernel:
+library and timed at the fp32 training shape in heads of the head_dim (B
+= 8, T = 2048, H = 768 / D, causal, BTHD), in the order kernel,
+variants, variants reversed, kernel:
 
 - ``kernel``: the sources as they are (checked against the plain
   version: largest error of each output);
@@ -26,19 +28,20 @@ variants reversed, kernel:
 - ``no_reload``: no stage tile loaded inside a group after its first
   (the stage's barrier still turns over);
 - ``skeleton``: ``no_frags``, ``no_scores`` and ``no_products`` together:
-  the loads, the splits of the stage, the trade, the exponentials and the
-  barriers.
+  the loads, the splits of the stage, the trade (at head_dim 256), the
+  exponentials and the barriers.
 
 Each row carries ``ms`` (CUDA events, median of 20 after 3 warm-up
 calls) and ``device_ms`` (the kernel's duration in a ``torch.profiler``
 trace of 10 calls). The variants' outputs are wrong by construction;
 only their times mean anything. Run from the root of a checkout:
 
-    python3 tools/torch_flash_f32_d256_bwd_ablation.py
+    python3 tools/torch_flash_f32_d256_bwd_ablation.py [--head-dim {64,128,256}]
 
 It prints one JSON line per timing, the card's name and power limit
 beside each.
 """
+import argparse
 import ctypes
 import json
 import os
@@ -60,10 +63,15 @@ from torch_flash_fwd_ablation import device_ms  # noqa: E402
 
 CSRC = os.path.join(ROOT, "paddle_tpu_torch", "csrc")
 HEADER = "flash_f32_bwd.cuh"
+# {kernel: (source, entry point, its pointer arguments)} at head_dim 256,
+# and the kernels of each head_dim
 KERNELS = {"flash_attention_dq": ("flash_attention_dq_f32_d256_sm90.cu",
                                   "flash_attn_dq_f32_d256_sm90", 7),
            "flash_attention_dkv": ("flash_attention_dkv_f32_d256_sm90.cu",
                                    "flash_attn_dkv_f32_d256_sm90", 8)}
+_DKV_F32 = {"flash_attention_dkv": ("flash_attention_dkv_f32_sm90.cu",
+                                    "flash_attn_dkv_f32_sm90", 8)}
+KERNELS_BY_HEAD_DIM = {64: _DKV_F32, 128: _DKV_F32, 256: KERNELS}
 # the text each variant edits in the header
 _SPLIT = ("      const float h = tf32_rna(a);\n"
           "      f.hi[k][x] = __float_as_uint(h);\n"
@@ -80,11 +88,9 @@ _STAGE_OUT = ("      *reinterpret_cast<float*>(tile + (col >> 5) * RES_BOX +\n"
               "                                swz(row, col & 31)) = "
               "acc[mb][e] * mul;\n")
 _FLUSH = ("    if (first)\n"
-          "      tma_store_3d(map, src + cb * RES_BOX, c0 + 32 * cb, r0, "
-          "c2);\n"
+          "      tma_store_3d(map, src + cb * RES_BOX, x, y, c2);\n"
           "    else\n"
-          "      tma_reduce_add_3d(map, src + cb * RES_BOX, c0 + 32 * cb, "
-          "r0, c2);\n")
+          "      tma_reduce_add_3d(map, src + cb * RES_BOX, x, y, c2);\n")
 # and in each kernel's source
 _RELOAD = "if (tid == 0 && j + 1 < group_end) load(j + 1);"
 
@@ -123,9 +129,10 @@ def variants(header, sources):
             "skeleton": (skeleton, sources)}
 
 
-def build(all_variants, out_dir):
-    """One nvcc per variant and kernel, started together; {(variant,
-    kernel): ctypes library} with the kernel's entry declared."""
+def build(all_variants, out_dir, kernels=KERNELS):
+    """One nvcc per variant and kernel (of ``kernels``), started together;
+    {(variant, kernel): ctypes library} with the kernel's entry
+    declared."""
     nvcc = _build._nvcc()
     procs = {}
     for name, (header, sources) in all_variants.items():
@@ -134,7 +141,7 @@ def build(all_variants, out_dir):
         with open(os.path.join(vdir, HEADER), "w") as f:
             f.write(header)
         for kernel, src in sources.items():
-            cu = os.path.join(vdir, KERNELS[kernel][0])
+            cu = os.path.join(vdir, kernels[kernel][0])
             with open(cu, "w") as f:
                 f.write(src)
             procs[name, kernel] = subprocess.Popen(
@@ -146,7 +153,7 @@ def build(all_variants, out_dir):
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name} {kernel}:\n{log}")
-        source, entry, pointers = KERNELS[kernel]
+        source, entry, pointers = kernels[kernel]
         lib = ctypes.CDLL(os.path.join(out_dir, name, source[:-3] + ".so"))
         p, i = ctypes.c_void_p, ctypes.c_int
         geo = ctypes.POINTER(ctypes.c_longlong)
@@ -159,6 +166,12 @@ def build(all_variants, out_dir):
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--head-dim", type=int, choices=sorted(
+        KERNELS_BY_HEAD_DIM), default=256,
+        help="the head_dim whose split-TF32 kernels are ablated")
+    d = ap.parse_args().head_dim
+    kernels = KERNELS_BY_HEAD_DIM[d]
     if not torch.cuda.is_available():
         raise SystemExit("torch_flash_f32_d256_bwd_ablation: no CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -169,11 +182,11 @@ def main():
     with open(os.path.join(CSRC, HEADER)) as f:
         header = f.read()
     sources = {}
-    for kernel, (source, _, _) in KERNELS.items():
+    for kernel, (source, _, _) in kernels.items():
         with open(os.path.join(CSRC, source)) as f:
             sources[kernel] = f.read()
     all_variants = variants(header, sources)
-    b, t, h, d = 8, 2048, 3, 256
+    b, t, h = 8, 2048, 768 // d
     r = np.random.RandomState(0)
     q, k, v, do = (torch.from_numpy(r.randn(b, t, h, d).astype(np.float32))
                    .cuda() for _ in range(4))
@@ -185,9 +198,9 @@ def main():
     geo = [(ctypes.c_longlong * 7)(*fl.tma_geometry(x, "BTHD"))
            for x in (q, k)]
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(all_variants, tmp)
+        libs = build(all_variants, tmp, kernels)
         names = list(all_variants)
-        for kernel, (_, entry, _) in KERNELS.items():
+        for kernel, (_, entry, _) in kernels.items():
             for name in names + names[::-1]:
                 def run(lib=libs[name, kernel], kernel=kernel, entry=entry):
                     outs = [torch.empty_like(q)] if kernel.endswith("dq") \
