@@ -14,11 +14,10 @@ Phases (any failure raises, and the script exits non-zero with no result):
    together, into ``build/torch_kernels/`` (ptxas's register and
    shared-memory report is printed); the tensor-core kernels' (CE
    forward, dx and dW in bf16 and in fp32; flash forward, dq and dk/dv in
-   bf16 at head_dim 64, 128 and 256, the fp32 forward and dk/dv at each,
-   the fp32 dq at 256) tensor-core instructions counted in the
-   library's SASS (none fails; the fp32 dq at 256 and dk/dv at 64, 128
-   and 256 must hold all their sources issue, ``_SM90_HGMMA``, and no
-   spill),
+   bf16 and in fp32 at head_dim 64, 128 and 256) tensor-core
+   instructions counted in the library's SASS (none fails; the fp32 dq
+   and dk/dv at 64, 128 and 256 must hold all their sources issue,
+   ``_SM90_HGMMA``, and no spill),
    with their registers and spills, and their grid geometry held against
    their wrappers';
 3. every kernel against its plain PyTorch version on the card: the
@@ -48,7 +47,7 @@ Phases (any failure raises, and the script exits non-zero with no result):
    kernels' tiles; the fp32 forward (split TF32 on the tensor cores at D
    = 64, 128 and 256) against float64 within ``_F32_FLASH_MULTIPLE`` times
    the plain fp32 version's own error in out and in lse; the fp32 dq and
-   dk/dv (split TF32: dq at D = 256, dk/dv at 64, 128 and 256) against
+   dk/dv (split TF32 at D = 64, 128 and 256) against
    float64 within ``_F32_FLASH_BWD_MULTIPLE`` (D = 256) or
    ``_F32_DKV_MULTIPLE`` (64, 128) times the plain fp32 version's own
    error in dq, dk and dv, at small shapes and at the fp32 training
@@ -66,10 +65,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
    and the card's bound for the same work, at the serving score shapes
    and at the training shapes (the CE forward, dx and dW at N = 4096 and
    16384, and the flash forward, dq and dk/dv, with TFLOP/s and their
-   ratio to the library call); the fp32 CE kernels', the fp32 flash
-   forward's and dk/dv's and the fp32 dq's at head_dim 256 bounds are
-   their split-TF32 ones (three tf32 products a product), the FMA units'
-   beside;
+   ratio to the library call); the fp32 CE kernels' and the fp32 flash
+   kernels' bounds are their split-TF32 ones (three tf32 products a
+   product), the FMA units' beside;
 5. serving at full GPT width (12 x 768, vocab 32000, random weights from
    seed 0): 8 prompts covering every prefill bucket through
    ServingEngine.warm + submit + run_until_idle, first eagerly
@@ -129,13 +127,13 @@ Phases (any failure raises, and the script exits non-zero with no result):
    (``_D256``, gpt2s's width), as ``train_long``, its traced replayed
    step showing 12 launches each of the head_dim-256 forward, dq and
    dk/dv (``fwd_d256_sm90_kernel``, ``dq_d256_sm90_kernel``,
-   ``dkv_d256_sm90_kernel``) with their device ms, and none of the SIMT
-   dq (``dq_kernel``);
+   ``dkv_d256_sm90_kernel``) with their device ms, and none of the
+   retired SIMT dq (``dq_kernel``);
    then ``train_f32_d256``: the same program in fp32 (``_F32_D256``), as
    ``train_d256``, its traced replayed step showing 12 launches each of
    the split-TF32 forward, dq and dk/dv at head_dim 256
    (``fwd_f32_d256_sm90_kernel``, ``dq_f32_d256_sm90_kernel``,
-   ``dkv_f32_d256_sm90_kernel``) and none of the SIMT dq or dk/dv
+   ``dkv_f32_d256_sm90_kernel``) and none of the retired SIMT dq or dk/dv
    (``_F32_D256_NAMES``), its step wall and device ms printed beside
    ``train_d256``'s (``train_f32_d256_vs_d256``);
    then ``train_observed`` (``_train_observed``): the seq-2048 step
@@ -228,8 +226,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
    within 0.1 of its (relative norm); the seven kernels' launches
    (CE once, flash 12, Adam 196 a step) on the host steps and in a traced
    replayed step, of both programs, the fp32 one's showing the
-   split-TF32 dk/dv at head_dim 64 12 times and the SIMT dk/dv at no
-   call (``_F32_D64_NAMES``); one step with an inf in a weight leaves every
+   split-TF32 dq and dk/dv at head_dim 64 12 times each and the retired
+   SIMT dq and dk/dv at no call (``_F32_D64_NAMES``); one step with an inf in a weight leaves every
    parameter and accumulator unchanged and halves the scale, replayed;
    ``fluid_lenet`` (``_fluid_lenet``, BASELINE config 1): LeNet written
    with ``fluid.layers`` and the ``Variable`` overloads over fake MNIST
@@ -287,9 +285,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
    forward's fp32 sources are their split-TF32 kernels, at head_dim 256
    under ``source_fp32_d256``: ``flash_attention_fwd_f32_d256_sm90.cu``,
    ``flash_attention_dq_f32_d256_sm90.cu`` and
-   ``flash_attention_dkv_f32_d256_sm90.cu``; dk/dv's fp32 source at 64
-   and 128 is ``flash_attention_dkv_f32_sm90.cu``, dq's the SIMT
-   ``flash_attention.cu``;
+   ``flash_attention_dkv_f32_d256_sm90.cu``; dq's and dk/dv's fp32 sources
+   at 64 and 128 are ``flash_attention_dq_f32_sm90.cu`` and
+   ``flash_attention_dkv_f32_sm90.cu``;
    ``serve_shapes``
    the CE forward's times at the serving shapes);
 9. the card's name and power limit again, and the last line:
@@ -336,23 +334,25 @@ _LAYERS = _LONG["n_layer"]
 _D256 = dict(_LONG, n_head=3)
 # the kernels of train_d256's traced replayed step, by pieces of their
 # names, and their calls a step: the head_dim-256 forward, dq and dk/dv on
-# the tensor cores, and none of the SIMT dq
+# the tensor cores, and none of the retired SIMT dq (a guard: no source
+# holds it)
 _D256_NAMES = {"::fwd_d256_sm90_kernel(": _LAYERS,
                "::dq_d256_sm90_kernel(": _LAYERS,
                "::dkv_d256_sm90_kernel(": _LAYERS,
                "::dq_kernel<": 0}
 # the same in fp32 (train_f32_d256): the split-TF32 forward, dq and dk/dv
-# at head_dim 256, and none of the SIMT dq or dk/dv
+# at head_dim 256, and none of the retired SIMT dq or dk/dv
 _F32_D256 = dict(_D256, dtype="float32")
 _F32_D256_NAMES = {"::fwd_f32_d256_sm90_kernel(": _LAYERS,
                    "::dq_f32_d256_sm90_kernel(": _LAYERS,
                    "::dkv_f32_d256_sm90_kernel(": _LAYERS,
                    "::dq_kernel<": 0, "::dkv_kernel<": 0}
 # the flash backward kernels of static_amp's undecorated fp32 program's
-# traced replayed step (head_dim 64): the split-TF32 dk/dv 12 times, the
-# SIMT dq 12 times and the SIMT dk/dv it replaced none
+# traced replayed step (head_dim 64): the split-TF32 dq and dk/dv 12 times
+# each, and none of the retired SIMT dq and dk/dv they replaced
 _F32_D64_NAMES = {"::dkv_f32_sm90_kernel<64>": _LAYERS,
-                  "::dq_kernel<64>": _LAYERS, "::dkv_kernel<": 0}
+                  "::dq_f32_sm90_kernel<64>": _LAYERS,
+                  "::dq_kernel<": 0, "::dkv_kernel<": 0}
 _WARM_STEPS, _TIMED_STEPS = 3, 10
 _LR = 1e-4  # bench.py's Adam learning rate
 # the last training step's rate: a schedule that changes after the
@@ -402,8 +402,8 @@ def _environment(torch):
 # fwd_d256_sm90_kernel, dq_d256_sm90_kernel and dkv_d256_sm90_kernel are
 # head_dim 256's own in bf16, fwd_f32_d256_sm90_kernel the fp32 forward's,
 # dq_f32_d256_sm90_kernel and dkv_f32_d256_sm90_kernel the fp32 backward's,
-# dkv_f32_sm90_kernel<D> the fp32 dk/dv's at head_dim 64 and 128; no two
-# entries' pieces match one kernel)
+# dq_f32_sm90_kernel<D> and dkv_f32_sm90_kernel<D> the fp32 dq's and
+# dk/dv's at head_dim 64 and 128; no two entries' pieces match one kernel)
 _SM90_KERNELS = {
     "lmhead_ce_fwd": ("lmhead_ce_fwd_sm90", "fwd_sm90_kernel"),
     "lmhead_ce_fwd_f32": ("lmhead_ce_fwd_f32_sm90", "fwd_f32_sm90_kernel"),
@@ -443,6 +443,10 @@ _SM90_KERNELS = {
                                     "dkv_f32_sm90_kernelILi64E"),
     "flash_attention_dkv_f32_d128": ("flash_attention_dkv_f32_sm90",
                                      "dkv_f32_sm90_kernelILi128E"),
+    "flash_attention_dq_f32_d64": ("flash_attention_dq_f32_sm90",
+                                   "dq_f32_sm90_kernelILi64E"),
+    "flash_attention_dq_f32_d128": ("flash_attention_dq_f32_sm90",
+                                    "dq_f32_sm90_kernelILi128E"),
 }
 
 
@@ -450,13 +454,17 @@ _SM90_KERNELS = {
 # issue (dq at 256: 8 score chains of 12 wgmma and 12 accumulating ones;
 # dk/dv at 256: the same and 24; dk/dv at 128 and 64, where each warpgroup
 # runs one product's chains and one accumulating product: 4 chains and 12,
-# 2 chains and 6), all of which their SASS must hold, with no spill: the
-# two score products written as two calls of one function once compiled to
-# one copy of the chains (48 HGMMA) that gave wrong sums
+# 2 chains and 6; dq at 128 and 64, where each warpgroup runs both score
+# products over all of D for its own rows: 8 chains and 12, 4 chains and
+# 6), all of which their SASS must hold, with no spill: the two score
+# products written as two calls of one function once compiled to one copy
+# of the chains (48 HGMMA) that gave wrong sums
 _SM90_HGMMA = {"flash_attention_dq_f32_d256": 108,
                "flash_attention_dkv_f32_d256": 120,
                "flash_attention_dkv_f32_d64": 30,
-               "flash_attention_dkv_f32_d128": 60}
+               "flash_attention_dkv_f32_d128": 60,
+               "flash_attention_dq_f32_d64": 54,
+               "flash_attention_dq_f32_d128": 108}
 
 
 def _sm90_kernel(name):
@@ -557,7 +565,12 @@ def _build():
             (lib.flash_attn_dkv_f32_sm90_tile(),
              lib.flash_attn_dkv_f32_sm90_stage(),
              lib.flash_attn_dkv_f32_sm90_flush()),
-            fl.SM90_F32_DKV_TILES + (fl.SM90_F32_BWD_FLUSH,))}
+            fl.SM90_F32_DKV_TILES + (fl.SM90_F32_BWD_FLUSH,)),
+        "flash_attention_dq_f32": (
+            (lib.flash_attn_dq_f32_sm90_tile(),
+             lib.flash_attn_dq_f32_sm90_stage(),
+             lib.flash_attn_dq_f32_sm90_flush()),
+            fl.SM90_F32_DQ_TILES + (fl.SM90_F32_BWD_FLUSH,))}
     for name, (built, wrapper) in geometry.items():
         if built != wrapper:
             raise AssertionError(f"{name} (sm90) geometry {built} differs "
@@ -1206,8 +1219,9 @@ _FLASH_KERNEL = dict(out="flash_attention_fwd", lse="flash_attention_fwd",
 # layouts causal and not, Tq > Tk with rows that see no key, Tq < Tk, T =
 # 300 and 333, the head_dim-256 export path's shape: B = 1, T = 2048, H =
 # 3, BHTD, non-causal, and the training shape at 3 heads: B = 8, causal,
-# BTHD), and every fp32 case at D = 64 and 128 the split-TF32 dk/dv (T =
-# 320 too, and the training shape at 6 heads of 128) and the SIMT dq
+# BTHD), and every fp32 case at D = 64 and 128 the split-TF32 dq and dk/dv
+# (T = 320 too, whose last 64-row query tile holds no row, and the
+# training shape at 6 heads of 128)
 _FLASH_CASES = [
     ("bfloat16", "BTHD", True, 8, 12, 2048, 2048, 64),
     ("bfloat16", "BHTD", False, 8, 12, 2048, 2048, 64),
@@ -1506,9 +1520,9 @@ def _check_f32_flash_truth(torch) -> None:
 # and dS too) lies 21x or more beyond it there, so the bound tells split
 # TF32 from TF32.
 _F32_FLASH_BWD_MULTIPLE = 25.0
-# The fp32 dk/dv at head_dim 64 and 128 (csrc/flash_attention_dkv_f32_sm90.cu;
-# the dq there is SIMT, exact fp32 products, held to the same bound) at
-# _F32_DKV_MULTIPLE, over the head_dim-64 and 128 cases of
+# The fp32 dq and dk/dv at head_dim 64 and 128
+# (csrc/flash_attention_dq_f32_sm90.cu, csrc/flash_attention_dkv_f32_sm90.cu)
+# at _F32_DKV_MULTIPLE, over the head_dim-64 and 128 cases of
 # _F32_FLASH_TRUTH_CASES at _F32_FLASH_SEEDS and at _F32_FLASH_TRUTH_TRAIN
 # and _F32_FLASH_TRUTH_TRAIN_D128 at _F32_FLASH_TRAIN_SEED. Why 32: the
 # same emulation, with one warpgroup's chains over all of D and no trade,
@@ -1516,7 +1530,10 @@ _F32_FLASH_BWD_MULTIPLE = 25.0
 # seeds 1, 2, 7 and 8 (dv at D = 128, Tq = 384 > Tk = 128), 7.8 at the
 # training length (T = 2048 in one batch and head, seeds 3 and 7); the
 # bound is about twice that. A 1xTF32 emulation lies 14x or more beyond
-# it there.
+# it there. The dq's emulation (each warpgroup's chains over all of D for
+# its own rows) finds at most 9.0 (D = 64, seed 1) and 6.9 at the training
+# length, and 1xTF32 22x or more beyond the bound: the same multiple holds
+# it.
 _F32_DKV_MULTIPLE = 32.0
 
 
@@ -1609,8 +1626,7 @@ def _check_f32_flash_bwd_truth(torch, head_dims=(64, 128, 256)) -> None:
         report = _f32_flash_bwd_truth_agrees(torch, got, plain, truth, what,
                                              _f32_bwd_multiple(d))
         _say(phase="kernel_check", kernel="flash_attention_dq_dkv",
-             dtype="float32", what="split TF32 against float64 (dq SIMT "
-             "below head_dim 256)",
+             dtype="float32", what="split TF32 against float64",
              layout=layout, causal=causal, b=b, h=h, tq=tq, tk=tk, d=d,
              seed=seed, multiple=_f32_bwd_multiple(d),
              atol=_F32_FLASH_ATOL, **report)
@@ -1643,7 +1659,7 @@ _CHAIN_CASES = [(_LONG_B, _LONG["n_head"], _LONG_T, 64, "BTHD"),
 # the same chain in fp32 at train_d256's shape (train_f32_d256's: the
 # split-TF32 forward, dq and dk/dv at head_dim 256) and at the fp32
 # training shape at head_dim 64 (static_amp's undecorated program: the
-# split-TF32 forward and dk/dv, the SIMT dq) and 128, held to the chain
+# split-TF32 forward, dq and dk/dv) and 128, held to the chain
 # computed in float64 within _CHAIN_MULTIPLE times the plain fp32 chain's
 # own relative error, plus _CHAIN_ATOL
 _F32_CHAIN_CASES = [(_LONG_B, 3, _LONG_T, 256, "BTHD"),
@@ -1968,12 +1984,10 @@ def _time_flash(torch, card, layout="BTHD", causal=True, dtype=None,
     128 twin; in 3 heads, head_dim 256, the ``jit_load_d256`` leg's), fp32
     at batch 8, BTHD, causal the fp32 training program's, bf16 in 3 heads
     (head_dim 256) train_d256's (the head_dim-256 forward, dq and dk/dv
-    on the tensor cores), and in fp32 train_f32_d256's. The fp32 dq at
-    head_dim 64 and 128 runs SIMT and is bounded at the FMA units' 67
-    TFLOP/s; the fp32 forward and dk/dv at every head_dim, and dq at 256,
-    run on the tensor cores in split TF32, bounded at three tf32 products
-    a product at 494.7 TFLOP/s (``bound_fma_ms``, its FLOPs at 67, beside
-    it, and ``bound_share``). With ``device``, each row also carries its kernel's and the
+    on the tensor cores), and in fp32 train_f32_d256's. The fp32 kernels
+    run on the tensor cores in split TF32 in every role and at every
+    head_dim, bounded at three tf32 products a product at 494.7 TFLOP/s
+    (``bound_fma_ms``, its FLOPs at 67, beside it, and ``bound_share``). With ``device``, each row also carries its kernel's and the
     library call's device ms a call in a warm trace of 10 calls
     (``kernel_device_ms``, ``library_device_ms``; ``_device_ms``: without
     the host's time to launch, which a CUDA-event time of one call holds;
@@ -2026,8 +2040,7 @@ def _time_flash(torch, card, layout="BTHD", causal=True, dtype=None,
     all_ms = _median_ms(torch, library_grad(qr, kr, vr), repeats=repeats)
     rows = {}
     for name, kern, plain, library, products, nbytes in specs:
-        split = dname == "float32" and (name != "flash_attention_dq"
-                                        or d == 256)
+        split = dname == "float32"
         bound, by = _bound_ms(nbytes, products * product * (3 if split else 1),
                               "tfloat32" if split else dname)
         row = dict(phase="kernel_time", kernel=name, b=b, t=t, h=h, d=d,
@@ -2534,8 +2547,8 @@ _TRACE_NAMES = {
                              "::fwd_d256_sm90_kernel(",
                              "::fwd_f32_d256_sm90_kernel("), ()),
     "flash_attention_dq": (("::dq_sm90_kernel<", "::dq_d256_sm90_kernel(",
-                            "::dq_f32_d256_sm90_kernel(", "::dq_kernel<"),
-                           ()),
+                            "::dq_f32_d256_sm90_kernel(",
+                            "::dq_f32_sm90_kernel<", "::dq_kernel<"), ()),
     "flash_attention_dkv": (("::dkv_sm90_kernel<", "::dkv_d256_sm90_kernel(",
                              "::dkv_f32_d256_sm90_kernel(",
                              "::dkv_f32_sm90_kernel<", "::dkv_kernel<"), ()),
@@ -6260,8 +6273,9 @@ def _static_amp(torch, card) -> dict:
     R's host steps (the warm-up and the capture): the CE forward, dx and
     dW once a step, flash forward, dq and dk/dv 12, Adam 196, and a
     traced replayed step shows as many; F's the same, and a traced
-    replayed step of F shows as many, the split-TF32 dk/dv at head_dim 64
-    among them and the SIMT dk/dv at no call (``_F32_D64_NAMES``); an
+    replayed step of F shows as many, the split-TF32 dq and dk/dv at
+    head_dim 64 among them and the retired SIMT dq and dk/dv at no call
+    (``_F32_D64_NAMES``); an
     overflow step (``_amp_overflow``). Reports the walls, the traced step's device ms
     by family and the CE kernels' device ms (their fp32 routes at N
     16,384)."""
@@ -6353,8 +6367,9 @@ def _static_amp(torch, card) -> dict:
                             _AMP_MOMENT_RTOL, "static_amp: Adam's moment1")
     f_walls = [s * 1e3 for s in f["step_s"]]
     f_losses = f["losses"]
-    # a replayed step of the fp32 program, traced: the split-TF32 dk/dv at
-    # head_dim 64 12 times and the SIMT dk/dv none (_F32_D64_NAMES)
+    # a replayed step of the fp32 program, traced: the split-TF32 dq and
+    # dk/dv at head_dim 64 12 times each and the SIMT ones none
+    # (_F32_D64_NAMES)
     f_traced = _profile_step(
         torch, f_exe, f_io["compiled"], feed,
         [f_io["loss"], f_io["optimizer"]._lr_var], f_scope, card,
@@ -6699,7 +6714,8 @@ def main() -> int:
         if d == 256:
             return f32_d256_src[name]
         return {"flash_attention_fwd": f32_fwd_src,
-                "flash_attention_dkv": f32_dkv_src}.get(name, flash_src)
+                "flash_attention_dq": f32_dq_src,
+                "flash_attention_dkv": f32_dkv_src}[name]
 
     def long_shape(name):
         t = times[(name, "long")]
@@ -6757,7 +6773,7 @@ def main() -> int:
     flash_shape = {"b": _LONG_B, "t": _LONG_T, "h": _LONG["n_head"],
                    "d": _head_dim(_LONG), "dtype": "bfloat16",
                    "layout": "BTHD", "causal": True}
-    flash_src = csrc + "flash_attention.cu"
+    f32_dq_src = csrc + "flash_attention_dq_f32_sm90.cu"
     f32_fwd_src = csrc + "flash_attention_fwd_f32_sm90.cu"
     f32_dkv_src = csrc + "flash_attention_dkv_f32_sm90.cu"
     f32_d256_fwd_src = csrc + "flash_attention_fwd_f32_d256_sm90.cu"

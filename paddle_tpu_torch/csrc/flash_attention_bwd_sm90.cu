@@ -9,8 +9,8 @@
 // to device memory:
 //     P  = exp(s * scale - lse)    dP = dO . V^T    dS = P * (dP - delta)
 //     dq = scale * dS . K    dk = scale * dS^T . Q    dv = P^T . dO
-// under the contract of flash_attention.cu, which keeps fp32 inputs and
-// bf16 at head_dim 256: the causal mask is aligned bottom-right (key c
+// under the contract every flash kernel keeps (ops/flash_attention.py's
+// rounding rule): the causal mask is aligned bottom-right (key c
 // visible from row r iff c <= r + Tk - Tq) and applied before the
 // exponential; P is rounded to bf16 before P^T . dO, dS before dS . K and
 // dS^T . Q; every sum is fp32 and dq and dk are scaled once, in fp32, at

@@ -8,14 +8,15 @@
 // [Tq, Tk] tile to device memory:
 //     P  = exp(s * scale - lse)    dP = dO . V^T    dS = P * (dP - delta)
 //     dk = scale * dS^T . Q        dv = P^T . dO
-// under the contract of flash_attention.cu, as flash_attention_bwd_sm90.cu
-// meets it at D = 64 and 128: the causal mask is aligned bottom-right (key
-// c visible from row r iff c <= r + Tk - Tq) and applied before the
-// exponential; P is rounded to bf16 before P^T . dO and dS before dS^T .
-// Q; every sum is fp32 and dk is scaled once, in fp32, at the end. A query
-// row that takes no part (past Tq, or with lse -1e30: it sees no key) gets
-// P = 0: its lse is replaced by +1e30 before the exponential. The dq of
-// the same inputs stays on flash_attention.cu's SIMT kernel.
+// under the contract of ops/flash_attention.py's rounding rule, as
+// flash_attention_bwd_sm90.cu meets it at D = 64 and 128: the causal mask
+// is aligned bottom-right (key c visible from row r iff c <= r + Tk - Tq)
+// and applied before the exponential; P is rounded to bf16 before P^T .
+// dO and dS before dS^T . Q; every sum is fp32 and dk is scaled once, in
+// fp32, at the end. A query row that takes no part (past Tq, or with lse
+// -1e30: it sees no key) gets P = 0: its lse is replaced by +1e30 before
+// the exponential. The dq of the same inputs is
+// flash_attention_dq_d256_sm90.cu's.
 //
 // Bound on this card (H100 SXM, bf16 at 989 TFLOP/s, 3.35 TB/s):
 // operations. At B = 8, T = 2048, H = 3, D = 256, causal, the visible

@@ -8,8 +8,8 @@
 // a [Tq, Tk] tile to device memory:
 //     P  = exp(s * scale - lse)    dP = dO . V^T    dS = P * (dP - delta)
 //     dk = scale * dS^T . Q        dv = P^T . dO
-// under the contract of flash_attention.cu, whose SIMT kernel took these
-// head_dims before, and of flash_attention_dkv_f32_d256_sm90.cu: the causal
+// under the contract of ops/flash_attention.py's rounding rule, as
+// flash_attention_dkv_f32_d256_sm90.cu meets it: the causal
 // mask is aligned bottom-right (key c visible from row r iff c <= r + Tk -
 // Tq) and applied before the exponential; P and dS are not rounded (the
 // plain fp32 version rounds nothing); every sum is fp32 and dk is scaled

@@ -91,31 +91,6 @@ struct Params {
   int causal;
 };
 
-// One 64-row x 16-key tile, in place: dp (dP) becomes dS = P * (dP -
-// delta), fp32, with P = exp(s * scale - lse). The thread's rows are r and
-// r + 8 (their lse in lse, their delta in dl), its keys k0 + 8 jj + c_in +
-// {0, 1}; masked: the tile crosses the causal diagonal or the end of the
-// keys.
-__device__ __forceinline__ void dq_tile(const float (&s)[8], float (&dp)[8],
-                                        const float (&lse)[2],
-                                        const float (&dl)[2], bool masked,
-                                        int k0, int r, int c_in,
-                                        const Params& p, int off) {
-#pragma unroll
-  for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int e = 4 * jj + 2 * i + c;
-        const int col = k0 + 8 * jj + c_in + c;
-        float x = fmaf(s[e], p.scale, -lse[i]);
-        if (masked && (col >= p.tk || (p.causal && col > r + 8 * i + off)))
-          x = -INFINITY;  // expf gives exactly 0
-        dp[e] = expf(x) * (dp[e] - dl[i]);
-      }
-}
-
 __global__ void __launch_bounds__(THREADS, 1)
     dq_f32_d256_sm90_kernel(__grid_constant__ const CUtensorMap map_q,
                             __grid_constant__ const CUtensorMap map_k,

@@ -8,13 +8,14 @@
 //     s[r, c] = (q[r] . k[c]) * scale          (fp32 products and sums)
 //     lse[r]  = logsumexp over the visible c of s[r, c]
 //     out[r]  = sum_c softmax(s[r])[c] * v[c]
-// under the contract of flash_attention.cu: the causal mask is aligned
-// bottom-right (key c visible from row r iff c <= r + Tk - Tq); the online
-// softmax starts from -1e30; P is rounded to bf16 against the running row
-// max before P . V, and the row sum takes the unrounded P; a row that sees
-// no key gives out 0 and lse -1e30. lse (B, H, Tq) fp32 is what the dq and
-// dk/dv kernels rebuild P from. Any GPTConfig whose d_model / n_head is
-// 256 reaches it (gpt2s's 768 in 3 heads, as Gemma's head_dim).
+// under the contract of ops/flash_attention.py's rounding rule: the causal
+// mask is aligned bottom-right (key c visible from row r iff c <= r + Tk -
+// Tq); the online softmax starts from -1e30; P is rounded to bf16 against
+// the running row max before P . V, and the row sum takes the unrounded P;
+// a row that sees no key gives out 0 and lse -1e30. lse (B, H, Tq) fp32
+// is what the dq and dk/dv kernels rebuild P from. Any GPTConfig whose
+// d_model / n_head is 256 reaches it (gpt2s's 768 in 3 heads, as Gemma's
+// head_dim).
 //
 // Bound on this card (H100 SXM, bf16 at 989 TFLOP/s, 3.35 TB/s):
 // operations. At B = 8, T = 2048, H = 3, D = 256, causal, the visible

@@ -9,8 +9,8 @@
 //     s[r, c] = (q[r] . k[c]) * scale          (fp32 products and sums)
 //     lse[r]  = logsumexp over the visible c of s[r, c]
 //     out[r]  = sum_c softmax(s[r])[c] * v[c]
-// under the contract of flash_attention.cu, which keeps fp32 inputs and
-// bf16 at head_dim 256: the causal mask is aligned bottom-right (key c
+// under the contract every flash kernel keeps (ops/flash_attention.py's
+// rounding rule): the causal mask is aligned bottom-right (key c
 // visible from row r iff c <= r + Tk - Tq); P is rounded to bf16 against
 // the running row max before P . V, and the row sum takes the unrounded
 // P; a row that sees no key gives out 0 and lse -1e30. lse (B, H, Tq) fp32

@@ -1,18 +1,20 @@
 // What the fp32 flash backward kernels in split TF32 share
 // (flash_attention_dkv_f32_d256_sm90.cu, flash_attention_dq_f32_d256_sm90.cu
-// at head_dim 256; flash_attention_dkv_f32_sm90.cu at 64 and 128): resident
+// at head_dim 256; flash_attention_dkv_f32_sm90.cu and
+// flash_attention_dq_f32_sm90.cu at 64 and 128): resident
 // 64-row tiles (keys for dk/dv, query rows for dq) kept raw in shared
 // memory and split into registers a box at a time; 16-row stage tiles of
 // the other side (query rows for dk/dv, keys for dq) split in place into
 // tf32 hi and lo; the score chains over 32-column boxes of D; the split P
 // or dS tile the accumulating products take as B; the transposed A
 // fragments gathered from a split stage tile; the exponentials of a dk/dv
-// tile; and the flush of a group's fp32 accumulators into the output
+// tile and of a dq tile; and the flush of a group's fp32 accumulators into the output
 // through TMA. A block's two warpgroups share one resident tile. The
 // defaults of the templates are head_dim 256's, where warpgroup w owns
 // the 32-column boxes [4 w, 4 w + 4) of D and the two trade their partial
 // 64 x 16 score tiles; at 64 and 128 each runs its own products over all
-// of D (S^T, P and dV^T; dP^T, dS and dK^T).
+// of D (dk/dv: S^T, P and dV^T; dP^T, dS and dK^T. dq: S, dP, dS and dQ^T
+// for 64 query rows of its own).
 
 #pragma once
 
@@ -252,6 +254,32 @@ __device__ __forceinline__ void dkv_tile(float (&s)[8], float (&dp)[8],
                                          float scale) {
   probs_tile(s, lse, masked, q0, kr, c_in, off, scale);
   ds_tile(dp, s, dl);
+}
+
+// dq: one 64-row x 16-key tile, in place: dp (dP) becomes dS = P * (dP -
+// delta), fp32, with P = exp(s * scale - lse). The thread's rows are r and
+// r + 8 (their lse in lse, their delta in dl), its keys k0 + 8 jj + c_in +
+// {0, 1}; masked: the tile crosses the causal diagonal or the end of the
+// keys. p holds scale, tk and causal.
+template <typename Params>
+__device__ __forceinline__ void dq_tile(const float (&s)[8], float (&dp)[8],
+                                        const float (&lse)[2],
+                                        const float (&dl)[2], bool masked,
+                                        int k0, int r, int c_in,
+                                        const Params& p, int off) {
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 4 * jj + 2 * i + c;
+        const int col = k0 + 8 * jj + c_in + c;
+        float x = fmaf(s[e], p.scale, -lse[i]);
+        if (masked && (col >= p.tk || (p.causal && col > r + 8 * i + off)))
+          x = -INFINITY;  // expf gives exactly 0
+        dp[e] = expf(x) * (dp[e] - dl[i]);
+      }
 }
 
 // A 64 x 16 accumulator fragment x (row 16 warp + lane / 4 + 8 i, column

@@ -5,8 +5,8 @@ interface; the ``*.cuh`` headers beside them (``sm90.cuh``: the helpers
 of the tensor-core kernels; ``flash_d256.cuh``: those the flash kernels
 that split head_dim 256 between two warpgroups share; ``flash_f32.cuh``:
 those of the split-TF32 flash forwards; ``flash_f32_bwd.cuh``: those of
-the split-TF32 flash dk/dv at every head_dim and dq at 256) are included,
-not compiled. At
+the split-TF32 flash dq and dk/dv at every head_dim) are included, not
+compiled. At
 first use each source is compiled for Hopper (``sm_90a``) by its own
 ``nvcc``, all of them started together, and the objects are linked into
 one shared library::
@@ -131,27 +131,24 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                  lib.flash_attn_dkv_f32_sm90_flush,
                  lib.flash_attn_dq_f32_d256_sm90_tile,
                  lib.flash_attn_dq_f32_d256_sm90_stage,
-                 lib.flash_attn_dq_f32_d256_sm90_flush):
+                 lib.flash_attn_dq_f32_d256_sm90_flush,
+                 lib.flash_attn_dq_f32_sm90_tile,
+                 lib.flash_attn_dq_f32_sm90_stage,
+                 lib.flash_attn_dq_f32_sm90_flush):
         tile.argtypes = []
         tile.restype = i
     f = ctypes.c_float
     lib.fused_adam_step.argtypes = [p, p, p, p, p, p, p, ctypes.c_longlong,
                                     f, f, f, f, f, f, i, i, p]
     lib.fused_adam_step.restype = i
-    ll = ctypes.c_longlong
-    dims = [i, i, i, i, i, ll, ll, ll, ll, ll, ll, f, i, i, p]
-    lib.flash_attn_dq.argtypes = [p] * 7 + dims
-    lib.flash_attn_dkv.argtypes = [p] * 8 + dims
-    for fn in (lib.flash_attn_dq, lib.flash_attn_dkv):
-        fn.restype = i
-    geo = ctypes.POINTER(ll)
+    geo = ctypes.POINTER(ctypes.c_longlong)
     for fwd in (lib.flash_attn_fwd_sm90, lib.flash_attn_fwd_f32_sm90,
                 lib.flash_attn_fwd_d256_sm90,
                 lib.flash_attn_fwd_f32_d256_sm90):
         fwd.argtypes = [p] * 5 + [i] * 5 + [geo, geo, f, i, p]
         fwd.restype = i
     for dq in (lib.flash_attn_dq_sm90, lib.flash_attn_dq_d256_sm90,
-               lib.flash_attn_dq_f32_d256_sm90):
+               lib.flash_attn_dq_f32_sm90, lib.flash_attn_dq_f32_d256_sm90):
         dq.argtypes = [p] * 7 + [i] * 5 + [geo, geo, f, i, p]
         dq.restype = i
     for dkv in (lib.flash_attn_dkv_sm90, lib.flash_attn_dkv_d256_sm90,

@@ -3,44 +3,33 @@
 Port of ``paddle_tpu/ops/pallas/flash_attention.py`` (``flash_attention``
 and its custom VJP: ``_fwd_kernel``/``_fwd_kernel_bthd`` forward,
 ``_bwd_dq_kernel``/``_bwd_dq_kernel_bthd`` and
-``_bwd_dkv_kernel``/``_bwd_dkv_kernel_bthd`` backward). The kernels are
-in ``paddle_tpu_torch/csrc/flash_attention_fwd_sm90.cu`` and
-``paddle_tpu_torch/csrc/flash_attention_bwd_sm90.cu`` (bf16 at head_dim
-64 and 128, on the tensor cores),
-``paddle_tpu_torch/csrc/flash_attention_fwd_d256_sm90.cu``,
-``paddle_tpu_torch/csrc/flash_attention_dq_d256_sm90.cu`` and
-``paddle_tpu_torch/csrc/flash_attention_dkv_d256_sm90.cu`` (the bf16
-forward, dq and dk/dv at head_dim 256, on the tensor cores),
-``paddle_tpu_torch/csrc/flash_attention_fwd_f32_sm90.cu`` and
-``paddle_tpu_torch/csrc/flash_attention_fwd_f32_d256_sm90.cu`` (the fp32
-forward at head_dim 64 and 128, and at 256, on the tensor cores through
-split TF32), ``paddle_tpu_torch/csrc/flash_attention_dkv_f32_sm90.cu``
-(the fp32 dk/dv at head_dim 64 and 128, on the tensor cores through split
-TF32), ``paddle_tpu_torch/csrc/flash_attention_dq_f32_d256_sm90.cu`` and
-``paddle_tpu_torch/csrc/flash_attention_dkv_f32_d256_sm90.cu`` (the fp32
-dq and dk/dv at head_dim 256, on the tensor cores through split TF32) and
-``paddle_tpu_torch/csrc/flash_attention.cu`` (fp32 only: the dq at
-head_dim 64 and 128, on the FMA units), whose headers state what bounds
-them on the card and how the design answers that. One kernel per role,
-dtype and head_dim serves both layouts (``_SM90_ENTRIES`` names the
-tensor-core ones; every role and dtype takes one at every head_dim but
-the fp32 dq at 64 and 128):
+``_bwd_dkv_kernel``/``_bwd_dkv_kernel_bthd`` backward). Every role, dtype
+and head_dim runs a kernel on the tensor cores (``_SM90_ENTRIES``), in
+``paddle_tpu_torch/csrc/``: ``flash_attention_fwd_sm90.cu`` and
+``flash_attention_bwd_sm90.cu`` (bf16 at head_dim 64 and 128),
+``flash_attention_fwd_d256_sm90.cu``, ``flash_attention_dq_d256_sm90.cu``
+and ``flash_attention_dkv_d256_sm90.cu`` (bf16 at 256),
+``flash_attention_fwd_f32_sm90.cu``, ``flash_attention_dq_f32_sm90.cu``
+and ``flash_attention_dkv_f32_sm90.cu`` (fp32 at 64 and 128, split TF32),
+``flash_attention_fwd_f32_d256_sm90.cu``,
+``flash_attention_dq_f32_d256_sm90.cu`` and
+``flash_attention_dkv_f32_d256_sm90.cu`` (fp32 at 256, split TF32),
+whose headers state what bounds them on the card and how the design
+answers that. One kernel per role, dtype and head_dim serves both
+layouts, reading q, k, v and dO through rank-3 TMA tensor maps
+(:func:`tma_geometry`; dO through q's):
 
-- forward: out and the per-row logsumexp (``fwd_launches``), a wgmma
-  kernel at every dtype and head_dim: bf16 ``flash_attn_fwd_sm90`` at 64
-  and 128, ``flash_attn_fwd_d256_sm90`` at 256; fp32 in split TF32
-  ``flash_attn_fwd_f32_sm90`` at 64 and 128 (``SM90_F32_FWD_TILES``),
-  ``flash_attn_fwd_f32_d256_sm90`` at 256 (``SM90_F32_D256_FWD_TILES``).
-  Each reads q, k and v through rank-3 TMA tensor maps
-  (:func:`tma_geometry`);
-- dq (``dq_launches``): bf16 on the tensor cores at every head_dim
-  (``flash_attn_dq_d256_sm90`` at 256), fp32 at head_dim 256 in split
-  TF32 (``flash_attn_dq_f32_d256_sm90``, ``SM90_F32_D256_DQ_TILES``),
-  fp32 at 64 and 128 SIMT, which reads q, k, v and dO through (batch,
-  seq, head) strides;
-- dk and dv, one kernel (``dkv_launches``), on the tensor cores at every
-  dtype and head_dim: bf16 ``flash_attn_dkv_sm90`` at 64 and 128,
-  ``flash_attn_dkv_d256_sm90`` at 256; fp32 in split TF32
+- forward: out and the per-row logsumexp (``fwd_launches``): bf16
+  ``flash_attn_fwd_sm90`` at 64 and 128, ``flash_attn_fwd_d256_sm90`` at
+  256; fp32 ``flash_attn_fwd_f32_sm90`` at 64 and 128
+  (``SM90_F32_FWD_TILES``), ``flash_attn_fwd_f32_d256_sm90`` at 256
+  (``SM90_F32_D256_FWD_TILES``);
+- dq (``dq_launches``): bf16 ``flash_attn_dq_sm90`` at 64 and 128,
+  ``flash_attn_dq_d256_sm90`` at 256; fp32 ``flash_attn_dq_f32_sm90`` at
+  64 and 128 (``SM90_F32_DQ_TILES``), ``flash_attn_dq_f32_d256_sm90`` at
+  256 (``SM90_F32_D256_DQ_TILES``);
+- dk and dv, one kernel (``dkv_launches``): bf16 ``flash_attn_dkv_sm90``
+  at 64 and 128, ``flash_attn_dkv_d256_sm90`` at 256; fp32
   ``flash_attn_dkv_f32_sm90`` at 64 and 128 (``SM90_F32_DKV_TILES``),
   ``flash_attn_dkv_f32_d256_sm90`` at 256 (``SM90_F32_D256_DKV_TILES``).
 
@@ -74,7 +63,7 @@ Rounding rule (one for both layouts): the scores are fp32 products of
 the inputs times ``scale``; P is rounded to the inputs' dtype before
 ``P v`` and ``P^T dO``, dS = P (dP - delta) before ``dS k`` and
 ``dS^T q``; dq and dk are scaled once, in fp32, at the end (the fp32
-dk/dv at every head_dim and the fp32 dq at 256 scale each group of
+dq and dk/dv scale each group of
 ``SM90_F32_BWD_FLUSH`` stage tiles' sum before adding it to the others':
 at the default scale of head_dim 64 and 256, 1/8 and 1/16, the same
 bits); every sum is fp32. The TPU's BHTD kernels round the same way; its BTHD kernels round
@@ -137,8 +126,7 @@ dkv_launches = 0
 _NEG = -1e30  # the TPU kernel's finite stand-in for -inf
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128, 256)
-# the tensor-core entry point of each role by (dtype, head_dim); the fp32
-# dq at head_dim 64 and 128 runs the SIMT kernel of csrc/flash_attention.cu
+# the tensor-core entry point of each role by (dtype, head_dim)
 _SM90_ENTRIES = {
     "fwd": {(torch.bfloat16, 64): "flash_attn_fwd_sm90",
             (torch.bfloat16, 128): "flash_attn_fwd_sm90",
@@ -149,6 +137,8 @@ _SM90_ENTRIES = {
     "dq": {(torch.bfloat16, 64): "flash_attn_dq_sm90",
            (torch.bfloat16, 128): "flash_attn_dq_sm90",
            (torch.bfloat16, 256): "flash_attn_dq_d256_sm90",
+           (torch.float32, 64): "flash_attn_dq_f32_sm90",
+           (torch.float32, 128): "flash_attn_dq_f32_sm90",
            (torch.float32, 256): "flash_attn_dq_f32_d256_sm90"},
     "dkv": {(torch.bfloat16, 64): "flash_attn_dkv_sm90",
             (torch.bfloat16, 128): "flash_attn_dkv_sm90",
@@ -177,13 +167,15 @@ SM90_F32_D256_FWD_TILES = (64, 32)
 # the fp32 backward's in split TF32: rows of a block's own tile (keys for
 # dk/dv, csrc/flash_attention_dkv_f32_d256_sm90.cu at head_dim 256 and
 # csrc/flash_attention_dkv_f32_sm90.cu at 64 and 128; query rows for dq,
-# csrc/flash_attention_dq_f32_d256_sm90.cu) and of a stage
-# tile of the other side, and the stage tiles whose products one
-# accumulator of the tensor cores sums before the sum is added, in fp32,
-# into the output (counted from row 0)
+# csrc/flash_attention_dq_f32_d256_sm90.cu at 256 and
+# csrc/flash_attention_dq_f32_sm90.cu at 64 and 128, 64 a warpgroup) and
+# of a stage tile of the other side, and the stage tiles whose products
+# one accumulator of the tensor cores sums before the sum is added, in
+# fp32, into the output (counted from row 0)
 SM90_F32_D256_DKV_TILES = (64, 16)
 SM90_F32_D256_DQ_TILES = (64, 16)
 SM90_F32_DKV_TILES = (64, 16)
+SM90_F32_DQ_TILES = (128, 16)
 SM90_F32_BWD_FLUSH = 8
 # the bf16 backward's, by head_dim (csrc/flash_attention_bwd_sm90.cu):
 # rows of a block's own tile (query rows for dq, keys for dk/dv), key
@@ -368,21 +360,6 @@ def flash_attention_dkv_plain(q, k, v, dout, lse, delta, causal=False,
 # ---------------------------------------------------------------- kernels
 
 
-def _strides(t: torch.Tensor, layout: str) -> Tuple[int, int, int]:
-    """Element strides of (batch, seq, head)."""
-    s = t.stride()
-    return (s[0], s[1], s[2]) if layout == "BTHD" else (s[0], s[2], s[1])
-
-
-def _geometry(q, k, scale, causal, layout) -> tuple:
-    """The dims, strides and flags every entry point takes after its
-    tensors."""
-    b, h, tq, tk, d = _dims(q, k, layout)
-    return (b, h, tq, tk, d, *_strides(q, layout), *_strides(k, layout),
-            scale, int(causal), int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream)
-
-
 def tma_geometry(t: torch.Tensor, layout: str) -> Tuple[int, ...]:
     """How the tensor-core kernels address a contiguous q, k or v through
     a rank-3 TMA tensor map: ``(inner, outer, st_seq, st_outer, head_col,
@@ -400,13 +377,11 @@ def tma_geometry(t: torch.Tensor, layout: str) -> Tuple[int, ...]:
     return (d, b * h, s[2], s[1], 0, h, 1)
 
 
-def _tensor_cores(q: torch.Tensor, role: str) -> Optional[str]:
+def _tensor_cores(q: torch.Tensor, role: str) -> str:
     """The tensor-core entry point that takes ``role`` ("fwd", "dq" or
-    "dkv") of q's dtype and head_dim, or None where that role runs SIMT
-    (the fp32 dq at head_dim 64 and 128): bf16 in every role at head_dim
-    64, 128 and 256, the fp32 forward and dk/dv at each of them, the fp32
-    dq at 256."""
-    return _SM90_ENTRIES[role].get((q.dtype, q.shape[-1]))
+    "dkv") of q's dtype and head_dim: every role has one at every dtype
+    and head_dim that ``_check`` lets through."""
+    return _SM90_ENTRIES[role][(q.dtype, q.shape[-1])]
 
 
 def _launch_fwd_sm90(lib, entry, q, k, v, causal, scale, layout):
@@ -445,25 +420,18 @@ def _launch_fwd(q, k, v, causal, scale, layout):
 
 def _launch_bwd(role, what, outs, q, k, v, dout, lse, delta, causal, scale,
                 layout):
-    """The dq or dk/dv kernel (``role`` "dq" or "dkv") writes ``outs``.
-    Where the role has a tensor-core version (``_tensor_cores``), that
-    one reads q, k, v and dO through rank-3 tensor maps (dO through q's
-    geometry); the rest takes the SIMT ``flash_attn_<role>``, through
-    strides."""
+    """The dq or dk/dv kernel (``role`` "dq" or "dkv", its tensor-core
+    entry point ``_tensor_cores``) writes ``outs``, reading q, k, v and dO
+    through rank-3 tensor maps (dO through q's geometry)."""
     from . import _build
 
     entry = _tensor_cores(q, role)
-    if entry:
-        b, h, tq, tk, d = _dims(q, k, layout)
-        q, k, v, dout = (t if t.data_ptr() % 16 == 0 else t.clone()
-                         for t in (q, k, v, dout))
-        geo = [(ctypes.c_longlong * 7)(*tma_geometry(t, layout))
-               for t in (q, k)]
-        dims = (b, h, tq, tk, d, *geo, scale, int(causal),
-                torch.cuda.current_stream(q.device).cuda_stream)
-    else:
-        entry = f"flash_attn_{role}"
-        dims = _geometry(q, k, scale, causal, layout)
+    b, h, tq, tk, d = _dims(q, k, layout)
+    q, k, v, dout = (t if t.data_ptr() % 16 == 0 else t.clone()
+                     for t in (q, k, v, dout))
+    geo = [(ctypes.c_longlong * 7)(*tma_geometry(t, layout)) for t in (q, k)]
+    dims = (b, h, tq, tk, d, *geo, scale, int(causal),
+            torch.cuda.current_stream(q.device).cuda_stream)
     err = getattr(_build.load(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),

@@ -411,10 +411,10 @@ def test_ablation_tool_anchors_match_the_d256_dq_kernel(monkeypatch):
     pytest.param(torch.bfloat16, 256, "BTHD", "d256",
                  id="dtype4-256-BTHD-False"),
     # the ids these had while fp32 at head_dim 64 and 128 ran SIMT in both
-    # roles; dk/dv now runs split TF32, dq SIMT
-    pytest.param(torch.float32, 64, "BHTD", "f32_dkv",
+    # roles; both now run split TF32
+    pytest.param(torch.float32, 64, "BHTD", "f32",
                  id="dtype5-64-BHTD-False"),
-    pytest.param(torch.float32, 128, "BTHD", "f32_dkv",
+    pytest.param(torch.float32, 128, "BTHD", "f32",
                  id="dtype6-128-BTHD-False"),
     pytest.param(torch.bfloat16, 256, "BHTD", "d256",
                  id="dtype7-256-BHTD-dkv"),
@@ -427,10 +427,9 @@ def test_backward_routes_bf16_to_the_tensor_core_kernels(monkeypatch, dtype, d,
     """bf16 at head_dim 64 and 128 goes to the sm90 dq and dk/dv entry
     points, bf16 dq and dk/dv at head_dim 256 to their own (``sm90``
     "d256"), fp32 at head_dim 256 to the split-TF32 ones (``sm90``
-    "f32_d256"), fp32 dk/dv at head_dim 64 and 128 to its split-TF32 one
-    (``sm90`` "f32_dkv"), each with the tensor-map geometry of q (which dO
-    shares) and of k; the fp32 dq at head_dim 64 and 128 to the SIMT one;
-    one launch counted either way, on that role's counter only."""
+    "f32_d256"), fp32 dq and dk/dv at head_dim 64 and 128 to theirs
+    (``sm90`` "f32"), each with the tensor-map geometry of q (which dO
+    shares) and of k; one launch counted, on that role's counter only."""
     lib = _Recorder()
     _stub_library(monkeypatch, lib)
     q, k, v, do = (_torch(a, "f32").to(dtype)
@@ -448,12 +447,9 @@ def test_backward_routes_bf16_to_the_tensor_core_kernels(monkeypatch, dtype, d,
         entry = f"flash_attn_{role}_d256_sm90"
     elif sm90 == "f32_d256":
         entry = f"flash_attn_{role}_f32_d256_sm90"
-    elif sm90 == "f32_dkv" and role == "dkv":
-        entry = "flash_attn_dkv_f32_sm90"
     else:
-        entry = f"flash_attn_{role}"
+        entry = f"flash_attn_{role}_f32_sm90"
     assert name == entry
-    sm90 = entry.endswith("_sm90")
     n_out = 1 if role == "dq" else 2
     if role == "dq":
         assert outs.shape == q.shape
@@ -461,12 +457,11 @@ def test_backward_routes_bf16_to_the_tensor_core_kernels(monkeypatch, dtype, d,
         assert outs[0].shape == outs[1].shape == k.shape
     ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
     assert list(args[:6]) == ptrs
-    if sm90:
-        dims = args[6 + n_out:]
-        assert dims[:5] == (2, 3, 96, 160, d)
-        assert tuple(dims[5]) == fl.tma_geometry(q, layout)
-        assert tuple(dims[6]) == fl.tma_geometry(k, layout)
-        assert dims[7:9] == (0.125, 1)
+    dims = args[6 + n_out:]
+    assert dims[:5] == (2, 3, 96, 160, d)
+    assert tuple(dims[5]) == fl.tma_geometry(q, layout)
+    assert tuple(dims[6]) == fl.tma_geometry(k, layout)
+    assert dims[7:9] == (0.125, 1)
 
 
 @pytest.mark.parametrize("role", ["dq", "dkv"])
@@ -492,13 +487,14 @@ def test_backward_raises_on_a_refused_launch(monkeypatch, role, dtype):
     ("fwd", "flash_attn_fwd_d256_sm90"), ("dkv", "flash_attn_dkv_d256_sm90"),
     ("dq", "flash_attn_dq_d256_sm90"),
     pytest.param("dkv", "flash_attn_dkv_f32_d256_sm90", id="dkv-f32"),
-    pytest.param("dq", "flash_attn_dq_f32_d256_sm90", id="dq-f32")])
+    pytest.param("dq", "flash_attn_dq_f32_d256_sm90", id="dq-f32"),
+    pytest.param("dq", "flash_attn_dq_f32_sm90", id="dq-f32-d64")])
 def test_d256_entries_raise_on_a_refused_launch(monkeypatch, role, entry):
-    """bf16 at head_dim 256, and fp32 dq and dk/dv there: a refused tensor
-    map (or any error code) from the forward's, dq's or dk/dv's
-    tensor-core entry point raises naming it; no launch is counted, and
-    neither the plain version nor the SIMT kernel is taken in its
-    place."""
+    """bf16 at head_dim 256, and fp32 dq and dk/dv there, and the fp32 dq
+    at head_dim 64: a refused tensor map (or any error code) from the
+    forward's, dq's or dk/dv's tensor-core entry point raises naming it;
+    no launch is counted, and no plain version or other kernel is taken
+    in its place."""
     calls = []
     for plain in ("flash_attention_fwd_plain", "flash_attention_dq_plain",
                   "flash_attention_dkv_plain"):
@@ -506,7 +502,8 @@ def test_d256_entries_raise_on_a_refused_launch(monkeypatch, role, entry):
     lib = _Recorder(err=-3)
     _stub_library(monkeypatch, lib)
     dtype = torch.float32 if "_f32_" in entry else torch.bfloat16
-    q = torch.zeros((1, 128, 2, 256), dtype=dtype)
+    q = torch.zeros((1, 128, 2, 256 if "d256" in entry else 64),
+                    dtype=dtype)
     stats = torch.zeros((1, 2, 128))
     fl.reset_launches()
     with pytest.raises(RuntimeError, match=f"{entry}.*error -3"):
@@ -566,19 +563,22 @@ def test_f32_d256_backward_clones_a_misaligned_input(monkeypatch, role,
 
 
 def test_simt_backward_no_longer_takes_head_dim_256(monkeypatch):
-    """fp32 dq at head_dim 256 and fp32 dk/dv at every head_dim never reach
-    the SIMT entry points (``flash_attn_dq``, ``flash_attn_dkv``) in either
-    layout: dk/dv takes ``flash_attn_dkv_f32_sm90`` at 64 and 128 and
-    ``flash_attn_dkv_f32_d256_sm90`` at 256. The SIMT source instantiates
-    its dq kernel at head_dim 64 and 128 only, so that it returns -1 at
-    256, and no dk/dv kernel, so that ``flash_attn_dkv`` returns -1 at
-    every head_dim; at 64 and 128 the fp32 dq still takes it."""
+    """No fp32 role at any head_dim reaches a SIMT entry point
+    (``flash_attn_dq``, ``flash_attn_dkv``) in either layout: dq takes
+    ``flash_attn_dq_f32_sm90`` at 64 and 128 and
+    ``flash_attn_dq_f32_d256_sm90`` at 256, dk/dv
+    ``flash_attn_dkv_f32_sm90`` and ``flash_attn_dkv_f32_d256_sm90``, all
+    on the tensor cores; and ``_build`` binds no SIMT flash entry point
+    (the library holds none)."""
     import os
+
+    from paddle_tpu_torch.ops import _build
 
     lib = _Recorder()
     _stub_library(monkeypatch, lib)
-    for d, want in ((64, ["flash_attn_dq", "flash_attn_dkv_f32_sm90"]),
-                    (128, ["flash_attn_dq", "flash_attn_dkv_f32_sm90"]),
+    for d, want in ((64, ["flash_attn_dq_f32_sm90", "flash_attn_dkv_f32_sm90"]),
+                    (128, ["flash_attn_dq_f32_sm90",
+                           "flash_attn_dkv_f32_sm90"]),
                     (256, ["flash_attn_dq_f32_d256_sm90",
                            "flash_attn_dkv_f32_d256_sm90"])):
         for layout in ("BTHD", "BHTD"):
@@ -590,10 +590,23 @@ def test_simt_backward_no_longer_takes_head_dim_256(monkeypatch):
             fl._launch_dkv(q, q, q, q, stats, stats, False, 0.125, layout)
             names = [name for name, _ in lib.calls]
             assert names == want, (d, layout, names)
-    src = open(os.path.join(os.path.dirname(fl.__file__), os.pardir, "csrc",
-                            "flash_attention.cu")).read()
-    assert "launch<64>" in src and "launch<128>" in src
-    assert "launch<256>" not in src and "case 256" not in src
-    assert "dkv_kernel" not in src
-    body = src[src.index("int flash_attn_dkv("):]
-    assert "return -1;" in body and "<<<" not in body
+    assert all(entry.endswith("_sm90") for role in fl._SM90_ENTRIES.values()
+               for entry in role.values())
+
+    class Bound:
+        """Takes argtypes and restype, records each entry point asked
+        for."""
+
+        def __init__(self):
+            self.names = []
+
+        def __getattr__(self, name):
+            self.names.append(name)
+            return type("Fn", (), {})()
+
+    bound = Bound()
+    _build._declare(bound)
+    assert "flash_attn_dq_f32_sm90" in bound.names
+    assert not {"flash_attn_dq", "flash_attn_dkv"} & set(bound.names)
+    assert "flash_attention.cu" not in [os.path.basename(s)
+                                        for s in _build.sources()]

@@ -1,12 +1,12 @@
-"""The fp32 flash attention dq and dk/dv at head_dim 256, and dk/dv at
-head_dim 64 and 128, in split TF32, emulated on the CPU, against the
-port's plain versions, the JAX package's kernels and float64.
+"""The fp32 flash attention dq and dk/dv at head_dim 64, 128 and 256 in
+split TF32, emulated on the CPU, against the port's plain versions, the
+JAX package's kernels and float64.
 
 The kernels (``paddle_tpu_torch/csrc/flash_attention_dq_f32_d256_sm90.cu``
 and ``flash_attention_dkv_f32_d256_sm90.cu`` at 256,
-``flash_attention_dkv_f32_sm90.cu`` at 64 and 128, their helpers in
-``flash_f32_bwd.cuh``) cannot run here, so :func:`emulate_bwd` repeats
-their arithmetic in torch:
+``flash_attention_dq_f32_sm90.cu`` and ``flash_attention_dkv_f32_sm90.cu``
+at 64 and 128, their helpers in ``flash_f32_bwd.cuh``) cannot run here,
+so :func:`emulate_bwd` repeats their arithmetic in torch:
 
 - each operand split as ``a = hi + lo`` with ``hi = tf32_rna(a)`` and
   ``lo = tf32_rna(a - hi)`` (``tests/test_torch_lmhead_ce_f32.py``'s
@@ -29,14 +29,16 @@ their arithmetic in torch:
   (counted from row 0), each group's sum times the scale (1 for dv) added
   to the earlier groups' in fp32, in order.
 
-At head_dim 64 and 128 the fp32 dq runs the SIMT kernel (exact fp32
-products), so only dk and dv are emulated there.
+At head_dim 64 and 128 each of the dq kernel's two warpgroups runs both
+score products over all of D for 64 query rows of its own, so its score
+sums are those of dk/dv's chains with A and B swapped.
 
 The tensor cores' fp32 accumulation is modelled pessimistically, as
 ``tests/test_torch_flash_attention_f32.py`` models it: exact products,
 the sum rounded toward zero after every 4.
 
-What is held, at D 256 (dq, dk, dv) and at D 64 and 128 (dk, dv), both
+What is held, at D 64, 128 and 256 (dq, dk, dv; the dq at 64 and 128 by
+tests of its own, ``test_dq_*`` and ``test_fp64_bound_holds_dq_*``), both
 layouts, causal and not, Tq != Tk, rows that see no key, and T up to 384:
 
 - the emulation against ``flash_attention_dq_plain`` and
@@ -183,10 +185,10 @@ def _products(a, b, scale, pair):
 def emulate_bwd(q, k, v, do, lse, delta, causal, layout, pair=_pair,
                 want=("dq", "dk", "dv")):
     """(dq, dk, dv) of the fp32 split-TF32 kernels' arithmetic on CPU
-    tensors, in the layout (those not in ``want`` None; dq only at head_dim
-    256, where it has such a kernel). Every row runs every stage tile: a
-    tile the kernel does not load (wholly above the causal diagonal) adds
-    exact zeros here, which changes no bit."""
+    tensors, in the layout (those not in ``want`` None), at head_dim 64,
+    128 or 256. Every row runs every stage tile: a tile the kernel does
+    not load (wholly above the causal diagonal) adds exact zeros here,
+    which changes no bit."""
     qh, kh, vh, dh = (fl._heads_first(t, layout) for t in (q, k, v, do))
     tq, tk, d = qh.shape[2], kh.shape[2], qh.shape[3]
     scale = torch.tensor(np.float32(1 / math.sqrt(d)))
@@ -237,8 +239,13 @@ def _inputs(b, h, tq, tk, layout, seed, d=256):
 
 
 def _want(d):
-    """The gradients a split-TF32 kernel computes at head_dim d."""
+    """The gradients the case-wise tests without ``dq`` in their name hold
+    at head_dim d: all three at 256, dk and dv at 64 and 128 (whose dq the
+    ``test_dq_*`` and ``test_fp64_bound_holds_dq_*`` tests hold)."""
     return ("dq", "dk", "dv") if d == 256 else ("dk", "dv")
+
+
+_ALL = ("dq", "dk", "dv")
 
 
 def _args(q, k, v, do, causal, layout):
@@ -285,51 +292,96 @@ def emulated():
         layout, causal, b, h, tq, tk, d = case
         args = _args(*_inputs(b, h, tq, tk, layout, 60 + i, d), causal,
                      layout)
-        got[case] = (args, emulate_bwd(*args[:-2], layout, want=_want(d)))
+        got[case] = (args, emulate_bwd(*args[:-2], layout, want=_ALL))
     return got
+
+
+def _agrees_with_plain(emulated, case, want):
+    args, emulation = emulated[case]
+    pdk, pdv = fl.flash_attention_dkv_plain(*args)
+    plain = dict(dq=fl.flash_attention_dq_plain(*args), dk=pdk, dv=pdv)
+    got = dict(zip(_ALL, emulation))
+    chip_smoke._flash_agrees(
+        torch, {n: got[n] for n in want}, {n: plain[n] for n in want},
+        "float32", f"3xTF32 emulation, {_case_id(case)}")
 
 
 @pytest.mark.parametrize("case", _CASES, ids=_case_id)
 def test_emulation_matches_the_plain_version(emulated, case):
     """dq (at D 256), dk and dv within chip_smoke's fp32 tolerance of the
     plain versions fed the same lse and delta."""
-    args, emulation = emulated[case]
-    pdk, pdv = fl.flash_attention_dkv_plain(*args)
-    want = _want(case[-1])
-    plain = dict(dq=fl.flash_attention_dq_plain(*args), dk=pdk, dv=pdv)
-    got = dict(zip(("dq", "dk", "dv"), emulation))
-    chip_smoke._flash_agrees(
-        torch, {n: got[n] for n in want}, {n: plain[n] for n in want},
-        "float32", f"3xTF32 emulation, {_case_id(case)}")
+    _agrees_with_plain(emulated, case, _want(case[-1]))
 
 
-@pytest.mark.parametrize("case", [c for c in _CASES
-                                  if c[4] % 128 == 0 and c[5] % 128 == 0],
-                         ids=_case_id)
-def test_emulation_matches_jax(emulated, case):
+_DQ_CASES = [c for c in _CASES if c[-1] != 256]
+
+
+@pytest.mark.parametrize("case", _DQ_CASES, ids=_case_id)
+def test_dq_emulation_matches_the_plain_version(emulated, case):
+    """dq at head_dim 64 and 128 within chip_smoke's fp32 tolerance of the
+    plain version fed the same lse and delta."""
+    _agrees_with_plain(emulated, case, ("dq",))
+
+
+@pytest.fixture(scope="module")
+def against_jax(emulated):
+    """(case) -> (the emulated (dq, dk, dv), the JAX package's), each case
+    computed once, when a test first asks for it: the JAX package's
+    backward kernels in interpret mode (``_bwd`` at blocks of 128), the
+    emulation fed the JAX forward's out and lse."""
+    got = {}
+
+    def of(case):
+        if case not in got:
+            layout, causal, b, h, tq, tk, d = case
+            (q, k, v, do, *_), _ = emulated[case]
+            jq, jk, jv, jdo = (jnp.asarray(t.numpy()) for t in (q, k, v, do))
+            bthd = layout == "BTHD"
+            scale = 1.0 / np.sqrt(d)
+            jout, jlse = jfa._fwd(jq, jk, jv, causal=causal, scale=scale,
+                                  block_q=128, block_k=128, interpret=True,
+                                  bthd=bthd)
+            jgrads = jfa._bwd(causal, scale, 128, 128, True, bthd, None,
+                              (jq, jk, jv, jout, jlse), jdo)
+            lse = torch.from_numpy(
+                np.reshape(np.asarray(jlse), (b, h, tq)).copy())
+            delta = fl.flash_attention_delta(
+                torch.from_numpy(np.array(jout)), do, layout)
+            got[case] = (emulate_bwd(q, k, v, do, lse, delta, causal, layout,
+                                     want=_ALL), jgrads)
+        return got[case]
+
+    return of
+
+
+def _agrees_with_jax(against_jax, case, want):
+    emulation, jgrads = against_jax(case)
+    for name, g, j in zip(_ALL, emulation, jgrads):
+        if name in want:
+            np.testing.assert_allclose(g.numpy(), np.asarray(j),
+                                       rtol=2e-4, atol=2e-4, err_msg=name)
+
+
+def _jax_lengths(cases):
+    """The cases whose lengths are a multiple of the JAX kernels' blocks
+    of 128."""
+    return [c for c in cases if c[4] % 128 == 0 and c[5] % 128 == 0]
+
+
+@pytest.mark.parametrize("case", _jax_lengths(_CASES), ids=_case_id)
+def test_emulation_matches_jax(against_jax, case):
     """dq (at D 256), dk and dv against the JAX package's backward kernels
     in interpret mode (``_bwd`` at blocks of 128, which need lengths that
     are a multiple of them), fed the JAX forward's out and lse, at the fp32
     gradient tolerance of ``tests/test_torch_flash_attention.py`` (2e-4)."""
-    layout, causal, b, h, tq, tk, d = case
-    (q, k, v, do, *_), _ = emulated[case]
-    jq, jk, jv, jdo = (jnp.asarray(t.numpy()) for t in (q, k, v, do))
-    bthd = layout == "BTHD"
-    scale = 1.0 / np.sqrt(d)
-    jout, jlse = jfa._fwd(jq, jk, jv, causal=causal, scale=scale,
-                          block_q=128, block_k=128, interpret=True,
-                          bthd=bthd)
-    jgrads = jfa._bwd(causal, scale, 128, 128, True, bthd, None,
-                      (jq, jk, jv, jout, jlse), jdo)
-    lse = torch.from_numpy(np.reshape(np.asarray(jlse), (b, h, tq)).copy())
-    delta = fl.flash_attention_delta(torch.from_numpy(np.array(jout)), do,
-                                     layout)
-    got = emulate_bwd(q, k, v, do, lse, delta, causal, layout,
-                      want=_want(d))
-    for name, g, want in zip(("dq", "dk", "dv"), got, jgrads):
-        if name in _want(d):
-            np.testing.assert_allclose(g.numpy(), np.asarray(want),
-                                       rtol=2e-4, atol=2e-4, err_msg=name)
+    _agrees_with_jax(against_jax, case, _want(case[-1]))
+
+
+@pytest.mark.parametrize("case", _jax_lengths(_DQ_CASES), ids=_case_id)
+def test_dq_emulation_matches_jax(against_jax, case):
+    """dq at head_dim 64 and 128 against the JAX package's ``_bwd`` in
+    interpret mode, as above, at 2e-4."""
+    _agrees_with_jax(against_jax, case, ("dq",))
 
 
 def _ratios(case, seed, pair=_pair, want=None):
@@ -407,6 +459,42 @@ def test_fp64_bound_holds_dk_dv_at_the_training_length(train):
     for name, (p, e) in ratios.items():
         assert chip_smoke._F32_DKV_MULTIPLE >= 2 * e / p, (name, e, p)
         assert single[name][1] > 10 * _bound(p, d), (name, single[name], p)
+
+
+@pytest.mark.parametrize("case", [c for c in _TRUTH if c[-1] != 256],
+                         ids=_case_id)
+def test_dq_fp64_bound_holds_the_split_and_refuses_tf32(case):
+    """The card's float64 bound for the dq at head_dim 64 and 128,
+    ``_F32_DKV_MULTIPLE`` x the plain fp32 version's own error +
+    _F32_FLASH_ATOL: the emulation lies within half of it at the seeds the
+    card check runs and two more (its worst ratio 9.0, at D 64, seed 1),
+    and a 1xTF32 emulation 10x or more beyond it (22x at the least)."""
+    d = case[-1]
+    assert chip_smoke._f32_bwd_multiple(d) == chip_smoke._F32_DKV_MULTIPLE
+    for seed in chip_smoke._F32_FLASH_SEEDS + (7, 8):
+        (p, e), = _ratios(case, seed, want=("dq",)).values()
+        (_, e1), = _ratios(case, seed, _only_hi, want=("dq",)).values()
+        assert math.isfinite(e) and e <= _bound(p, d)
+        assert chip_smoke._F32_DKV_MULTIPLE >= 2 * e / p, (seed, e, p)
+        assert e1 > 10 * _bound(p, d), (seed, e1, p)
+
+
+@pytest.mark.parametrize("train", [chip_smoke._F32_FLASH_TRUTH_TRAIN,
+                                   chip_smoke._F32_FLASH_TRUTH_TRAIN_D128],
+                         ids=["d64", "d128"])
+def test_fp64_bound_holds_dq_at_the_training_length(train):
+    """The same bound for the head_dim-64 and 128 dq at the fp32 training
+    shapes' length, layout and mask (T = 2048, causal, BTHD: 16 groups of
+    128 keys in the last query rows), at the seed the card check runs
+    there, in one batch and one head: within half of it (ratio 6.9 at D
+    64, 3.1 at 128), and a 1xTF32 emulation beyond it."""
+    layout, causal, _, _, tq, tk, d = train
+    case = (layout, causal, 1, 1, tq, tk, d)
+    seed = chip_smoke._F32_FLASH_TRAIN_SEED
+    (p, e), = _ratios(case, seed, want=("dq",)).values()
+    (_, e1), = _ratios(case, seed, _only_hi, want=("dq",)).values()
+    assert chip_smoke._F32_DKV_MULTIPLE >= 2 * e / p, (e, p)
+    assert e1 > 10 * _bound(p, d), (e1, p)
 
 
 def test_one_accumulator_over_every_tile_would_leave_the_bound(monkeypatch):

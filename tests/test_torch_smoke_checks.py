@@ -51,7 +51,9 @@ in for the kernels.
   dq, which it wants at no call); the same for the fp32 dq and dk/dv in
   split TF32 (``_F32_D256_NAMES``, the ``train_f32_d256`` phase's, wants
   the SIMT dq and dk/dv at no call; ``_SM90_HGMMA`` their instruction
-  counts).
+  counts), and at head_dim 64 and 128 (``_F32_D64_NAMES``, static_amp's
+  fp32 step's, wants the split-TF32 dq and dk/dv 12 times each and the
+  retired SIMT ones at no call).
 - The seq-512 loss band (``_loss_band``, C2), on a tiny bf16 GPT trained
   13 steps on the CPU from one start: K trained with the wrappers (the
   plain versions here) and with a CE forward whose logits are summed in
@@ -1584,7 +1586,7 @@ def test_running_stats_check(train):
 
 def test_smoke_finds_the_f32_d256_backward_by_name():
     """chip_smoke.py maps each split-TF32 backward kernel (dq and dk/dv at
-    head_dim 256, dk/dv at 64 and 128) to exactly one ``_SM90_KERNELS``
+    head_dim 256, 64 and 128) to exactly one ``_SM90_KERNELS``
     key (none of the bf16 head_dim-256 ones or the fp32 forward to it),
     wants as many tensor-core instructions as the sources issue, a device
     trace charges them to dq and dk/dv, and the ``train_f32_d256`` phase's
@@ -1613,6 +1615,9 @@ def test_smoke_finds_the_f32_d256_backward_by_name():
         names[space.format("flash_attention_dkv_f32_sm90")
               + f"19dkv_f32_sm90_kernelILi{d}EEEv14CUtensorMap_stS1_S1_S1_"
                 "S1_S1_NS_6ParamsE"] = f"flash_attention_dkv_f32_d{d}"
+        names[space.format("flash_attention_dq_f32_sm90")
+              + f"18dq_f32_sm90_kernelILi{d}EEEv14CUtensorMap_stS1_S1_S1_"
+                "S1_NS_6ParamsE"] = f"flash_attention_dq_f32_d{d}"
     for mangled, want in names.items():
         hits = [key for key, parts in chip_smoke._SM90_KERNELS.items()
                 if all(p in mangled for p in parts)]
@@ -1620,7 +1625,9 @@ def test_smoke_finds_the_f32_d256_backward_by_name():
     assert chip_smoke._SM90_HGMMA == {"flash_attention_dq_f32_d256": 108,
                                       "flash_attention_dkv_f32_d256": 120,
                                       "flash_attention_dkv_f32_d64": 30,
-                                      "flash_attention_dkv_f32_d128": 60}
+                                      "flash_attention_dkv_f32_d128": 60,
+                                      "flash_attention_dq_f32_d64": 54,
+                                      "flash_attention_dq_f32_d128": 108}
 
     def event(name):
         return SimpleNamespace(
@@ -1669,6 +1676,9 @@ _DKV_F32 = ("void (anonymous namespace)::dkv_f32_sm90_kernel<{}>("
             + ", ".join(["CUtensorMap_st"] * 6)
             + ", (anonymous namespace)::Params)")
 _SIMT = "void (anonymous namespace)::{}_kernel<{}>((anonymous namespace)::Params)"
+_DQ_F32 = ("void (anonymous namespace)::dq_f32_sm90_kernel<{}>("
+           + ", ".join(["CUtensorMap_st"] * 5)
+           + ", (anonymous namespace)::Params)")
 
 
 @pytest.mark.parametrize("d", [64, 128])
@@ -1687,29 +1697,48 @@ def test_smoke_charges_the_f32_dkv_to_dk_dv(d):
     assert families == {} and device_ms == pytest.approx(0.5)
 
 
+@pytest.mark.parametrize("d", [64, 128])
+def test_smoke_charges_the_f32_dq_to_dq(d):
+    """A device trace charges the split-TF32 dq at head_dim 64 and 128
+    (``dq_f32_sm90_kernel<D>``) to flash_attention_dq and nothing else,
+    the split-TF32 dk/dv beside it to flash_attention_dkv."""
+    events = [_trace_event(_DQ_F32.format(d)),
+              _trace_event(_DKV_F32.format(d))]
+    kernels, device_ms, ours, families, _ = chip_smoke._kernel_tally(
+        torch, events)
+    assert {k: v["calls"] for k, v in ours.items()} == {
+        "lmhead_ce_fwd": 0, "lmhead_ce_dx": 0, "lmhead_ce_dw": 0,
+        "flash_attention_fwd": 0, "flash_attention_dq": 1,
+        "flash_attention_dkv": 1, "fused_adam": 0}
+    assert families == {} and device_ms == pytest.approx(0.5)
+
+
 @pytest.mark.parametrize("step,ok", [
     ("split_tf32", True), ("simt_dkv", False), ("d128_dkv", False),
-    ("missing_one", False)])
+    ("missing_one", False), ("simt_dq", False)])
 def test_static_amp_fp32_trace_wants_the_split_tf32_dkv(step, ok):
     """The names static_amp's traced fp32 step is held to
-    (``_F32_D64_NAMES`` through ``_named_kernels``): 12 calls of the
-    split-TF32 dk/dv at head_dim 64 and of the SIMT dq pass; a step that
-    ran the SIMT dk/dv, the head_dim-128 kernel, or one call short fails,
-    naming the phase."""
+    (``_F32_D64_NAMES`` through ``_named_kernels``): 12 calls each of the
+    split-TF32 dk/dv and dq at head_dim 64 pass; a step that ran the SIMT
+    dk/dv, the head_dim-128 kernel, one call short, or the SIMT dq in
+    place of the split-TF32 one fails, naming the phase."""
     layers = chip_smoke._LAYERS
     dkv = {"split_tf32": _DKV_F32.format(64), "simt_dkv":
            _SIMT.format("dkv", 64), "d128_dkv": _DKV_F32.format(128),
-           "missing_one": _DKV_F32.format(64)}[step]
+           "missing_one": _DKV_F32.format(64),
+           "simt_dq": _DKV_F32.format(64)}[step]
+    dq = _SIMT.format("dq", 64) if step == "simt_dq" else _DQ_F32.format(64)
     n = layers - 1 if step == "missing_one" else layers
-    events = [_trace_event(dkv)] * n + [
-        _trace_event(_SIMT.format("dq", 64))] * layers
+    events = [_trace_event(dkv)] * n + [_trace_event(dq)] * layers
     kernels = chip_smoke._kernel_tally(torch, events)[0]
     if ok:
         named = chip_smoke._named_kernels(kernels, chip_smoke._F32_D64_NAMES,
                                           "static_amp_fp32_profile")
-        assert named["::dkv_f32_sm90_kernel<64>"] == {
-            "calls": layers, "ms": pytest.approx(0.25 * layers)}
+        for piece in ("::dkv_f32_sm90_kernel<64>", "::dq_f32_sm90_kernel<64>"):
+            assert named[piece] == {
+                "calls": layers, "ms": pytest.approx(0.25 * layers)}
         assert named["::dkv_kernel<"]["calls"] == 0
+        assert named["::dq_kernel<"]["calls"] == 0
     else:
         with pytest.raises(AssertionError, match="static_amp_fp32_profile"):
             chip_smoke._named_kernels(kernels, chip_smoke._F32_D64_NAMES,

@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """The fp32 flash backward of one head_dim on its own, on one CUDA card:
-build, check, time. At head_dim 256 (the default) the dq and dk/dv in
-split TF32 on the tensor cores; at 64 and 128 the dk/dv in split TF32
-and the SIMT dq.
+build, check, time: the dq and dk/dv in split TF32 on the tensor cores,
+at head_dim 256 (the default), 64 or 128.
 
     python3 tools/torch_flash_f32_d256_bwd.py [--head-dim {64,128,256}]
         [--port DIR] [--no-check]

@@ -4,8 +4,8 @@ one CUDA card: ablations of
 ``paddle_tpu_torch/csrc/flash_attention_dq_f32_d256_sm90.cu`` and
 ``flash_attention_dkv_f32_d256_sm90.cu`` (``--head-dim 256``, the
 default), or of ``flash_attention_dkv_f32_sm90.cu`` (``--head-dim 64`` or
-``128``: the fp32 dq there is SIMT), and of the helpers they share,
-``flash_f32_bwd.cuh``.
+``128``; the fp32 dq there, ``flash_attention_dq_f32_sm90.cu``, is not
+ablated), and of the helpers they share, ``flash_f32_bwd.cuh``.
 
 Each variant is the sources with one part of the work removed, built by
 its own nvcc (all started together; a variant's header is written beside
